@@ -6,19 +6,28 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py [--report PATH]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
-   for sm_90a; Triton compiles at its first launch);
+   for sm_90a, one process per source, all at once; Triton compiles at its
+   first launch);
 2. holds every kernel against its plain PyTorch version on the card at
    every shape the 256x256, batch-16 DDPM UNet gives it, with the tolerance
    stated below, and times kernel, plain version, and the one PyTorch call
    that computes the same function (timed here only, never called by the
-   port);
-3. serves DDPM at full width (256x256, batch 16, base_ch 64, T=1000, bf16
-   convs) from a seeded random init through the port's entry points: a
-   checkpoint is written, ``sample_from_dir`` answers a 16-image DDIM-50
-   request, and ``evaluate_diffusion`` restores one batch of synthetic faces
-   from a seeded start step through the ancestral chain. Launch counts must
-   be exactly 3 (flash attention) and 14 (GroupNorm+SiLU) per UNet forward;
-4. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+   port): K2 (training attention: forward with logsumexp, dq, dk/dv), K3
+   (serving attention), K4 (GroupNorm+SiLU);
+3. holds the fused UNet forward and one training-form train step (loss and
+   every gradient) against the same weights run with no kernel at all
+   (``kernels.plain_reference``), and profiles both by kernel group;
+4. trains DDPM at full width (256x256, batch 16, base_ch 64, T=1000, bf16
+   convs) through ``run_diffusion`` on synthetic faces: 2 epochs of 8 steps,
+   a checkpoint per epoch, a resume that must restore exactly what was
+   saved, and a third epoch. Every train step must launch K2 exactly 3
+   times each (forward, dq, dk/dv), every validation forward 3 K2
+   forwards, and K3/K4 never;
+5. serves that trained checkpoint: ``sample_from_dir`` answers a 16-image
+   DDIM-50 request and ``evaluate_diffusion`` restores one batch through the
+   ancestral chain, with exactly 3 (K3) and 14 (K4) launches per UNet
+   forward and no K2 launch;
+6. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -43,11 +52,12 @@ OUT_DIR = ROOT / "build" / "chip_smoke"
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
-# K3 at 256x256, B=16: (name, B, N, M, D), once per UNet forward
+# K2 and K3 at 256x256, B=16: (name, B, N, M, D), once per UNet forward
+# (K3, serving) or train step (K2)
 ATTN_SHAPES = [("cross_attn2", 16, 16384, 64, 256),
                ("cross_attn3", 16, 4096, 64, 256),
                ("attn_bottleneck", 16, 1024, 1024, 256)]
-# ragged shapes the kernel masks (checked, not timed)
+# ragged shapes the kernels mask (checked, not timed)
 ATTN_RAGGED = [("ragged", 3, 1000, 70, 256), ("ragged", 2, 129, 33, 128)]
 # K4 at 256x256, B=16: (B, H, W, C, calls per UNet forward)
 GN_SHAPES = [(16, 256, 256, 64, 4), (16, 128, 128, 128, 2),
@@ -57,9 +67,23 @@ GN_SHAPES = [(16, 256, 256, 64, 4), (16, 128, 128, 128, 2),
 # chunked group statistics), so they agree to a few f32 ulps of O(1) values
 ATTN_ATOL = 1e-4
 GN_ATOL = 1e-4
+# K2 in f32: o and lse as K3; dq, dk and dv relative to max |.| of the
+# plain result, since dk/dv sum over up to 16384 q rows
+K2_GRAD_REL = 1e-4
 # fused vs plain UNet at full width in bf16: a bf16 rounding that flips on a
 # 1-ulp f32 difference propagates, so the bound is relative to the output
 UNET_REL_TOL = 2e-2
+# one train step, K2 vs no kernel, same weights / batch / t / noise: the
+# convs run in bf16 on both sides, and an f32-ulp difference of the
+# attention output can flip the bf16 rounding of its projection input (one
+# bf16 ulp is 2^-8 = 3.9e-3 relative), which the backward carries through
+# ~20 layers; so each gradient is held to 5e-2 of its tensor's max |g|,
+# plus 1e-4 of the model's largest |g| for tensors whose gradient is ~0
+# (the key biases, which softmax ignores), and the loss to 1e-3 relative
+STEP_GRAD_REL, STEP_GRAD_FLOOR, STEP_LOSS_REL = 5e-2, 1e-4, 1e-3
+# training run: 200 synthetic faces -> 180 train / 20 val, so the second
+# val batch holds 4 true rows and 12 padded repeats
+TRAIN_DATASET, TRAIN_STEPS, TRAIN_EPOCHS = 200, 8, 2
 
 
 def card_line() -> str:
@@ -123,6 +147,116 @@ def check_attention(K, gen, dev, failures):
     return rows
 
 
+def sdpa_backend(fn):
+    """Name of the longest device kernel of one call of ``fn``: which of
+    PyTorch's attention backends the SDPA yardstick ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(device_us(e), e.key) for e in prof.key_averages()
+            if "CUDA" in str(e.device_type)]
+    return max(rows)[1][:100] if rows else "unknown"
+
+
+def check_k2(K, gen, dev, failures):
+    """K2 forward (o and lse), dq and dk/dv against their plain versions at
+    the three training shapes and two ragged ones; per kernel a row list
+    for ``kernel_entry``, timed at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+    rows = {"attention_fwd": [], "attention_dq": [], "attention_dkv": []}
+    backend = None
+    for name, b, n, m, d in ATTN_SHAPES + ATTN_RAGGED:
+        q, k, v, do = (torch.randn(b, s, d, device=dev, generator=gen)
+                       for s in (n, m, m, n))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = K.attention_fwd_lse(q, k, v, scale)
+        delta = (do * o).sum(-1)
+        dq = K.attention_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = K.attention_dkv(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        ro, rlse = K.attention_fwd_lse_plain(q, k, v, scale)
+        rdelta = (do * ro).sum(-1)
+        rdq = K.attention_dq_plain(q, k, v, do, rlse, rdelta, scale)
+        rdk, rdv = K.attention_dkv_plain(q, k, v, do, rlse, rdelta, scale)
+        errs = {}
+        for what, got, ref, rel in (("o", o, ro, False), ("lse", lse, rlse, False),
+                                    ("dq", dq, rdq, True), ("dk", dk, rdk, True),
+                                    ("dv", dv, rdv, True)):
+            err = float((got - ref).abs().max())
+            top = float(ref.abs().max())
+            tol = K2_GRAD_REL * top if rel else ATTN_ATOL
+            errs[what] = (err, err / top, tol)
+            if not err <= tol:
+                failures.append(f"K2 {what} {name} {[b, n, m, d]}: max abs "
+                                f"err {err} > {tol}")
+        shape = [b, n, m, d]
+        per = {"attention_fwd": ("o", "lse"), "attention_dq": ("dq",),
+               "attention_dkv": ("dk", "dv")}
+        for kname, keys in per.items():
+            rows[kname].append({
+                "shape": shape, "site": name,
+                "max_abs_err": max(errs[x][0] for x in keys),
+                "max_rel_err": max(errs[x][1] for x in keys),
+                "tol": max(errs[x][2] for x in keys)})
+        line = " ".join(f"{x}_err={errs[x][0]:.3g}(tol {errs[x][2]:.3g})"
+                        for x in errs)
+        if name != "ragged":
+            bnmd, bnd, bmd, bn = b * n * m * d, b * n * d, b * m * d, b * n
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+            def library_fwd():
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+            def library_fwd_bwd():
+                F.scaled_dot_product_attention(qg, kg, vg, scale=scale
+                                               ).backward(do)
+            if backend is None:
+                backend = sdpa_backend(library_fwd_bwd)
+            sdpa_ms = cuda_ms(library_fwd_bwd)
+            timed = {
+                "attention_fwd": dict(
+                    ms=cuda_ms(lambda: K.attention_fwd_lse(q, k, v, scale)),
+                    plain_ms=cuda_ms(lambda: K.attention_fwd_lse_plain(
+                        q, k, v, scale)),
+                    library_ms=cuda_ms(library_fwd),
+                    flop_ms=4.0 * bnmd / F32_FLOPS * 1e3,
+                    byte_ms=4.0 * (2 * bnd + 2 * bmd + bn)
+                    / HBM_BYTES_PER_S * 1e3),
+                "attention_dq": dict(
+                    ms=cuda_ms(lambda: K.attention_dq(q, k, v, do, lse, delta,
+                                                      scale)),
+                    plain_ms=cuda_ms(lambda: K.attention_dq_plain(
+                        q, k, v, do, lse, delta, scale)),
+                    library_ms=None,
+                    flop_ms=6.0 * bnmd / F32_FLOPS * 1e3,
+                    byte_ms=4.0 * (3 * bnd + 2 * bmd + 2 * bn)
+                    / HBM_BYTES_PER_S * 1e3),
+                "attention_dkv": dict(
+                    ms=cuda_ms(lambda: K.attention_dkv(q, k, v, do, lse,
+                                                       delta, scale)),
+                    plain_ms=cuda_ms(lambda: K.attention_dkv_plain(
+                        q, k, v, do, lse, delta, scale)),
+                    library_ms=None,
+                    flop_ms=8.0 * bnmd / F32_FLOPS * 1e3,
+                    byte_ms=4.0 * (2 * bnd + 4 * bmd + 2 * bn)
+                    / HBM_BYTES_PER_S * 1e3)}
+            for kname, extra in timed.items():
+                rows[kname][-1].update(extra, calls=1,
+                                       library_fwd_bwd_ms=sdpa_ms)
+            line += " " + " ".join(
+                f"{kname[10:]}: ms={t['ms']:.4f} plain={t['plain_ms']:.4f} "
+                f"bound={max(t['flop_ms'], t['byte_ms']):.4f};"
+                for kname, t in timed.items())
+            line += f" library(SDPA fwd+bwd)={sdpa_ms:.4f}"
+        print(f"[kernel] K2 {name} {shape} {line}", flush=True)
+    print(f"[kernel] K2 yardstick: SDPA f32 forward+backward ran "
+          f"{backend}", flush=True)
+    return rows, backend
+
+
 def check_groupnorm(K, gen, dev, failures):
     import torch
     import torch.nn.functional as F
@@ -164,80 +298,176 @@ def check_groupnorm(K, gen, dev, failures):
     return rows
 
 
-def kernel_entry(name, source, replaces, rows, launches):
+def kernel_entry(name, source, replaces, rows, launches, per):
     """One kernel's line entry: times summed over the shapes of one UNet
-    forward (each shape weighted by its calls per forward)."""
+    forward or train step (each shape weighted by its calls there)."""
     timed = [r for r in rows if "ms" in r]
 
-    def per_forward(key):
-        return sum(r[key] * r["calls"] for r in timed)
-    flop_ms, byte_ms = per_forward("flop_ms"), per_forward("byte_ms")
-    return {"name": name, "route": "cuda" if source.endswith(".cu")
-            else "triton", "source": source, "replaces": replaces,
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "max_rel_err": max(r["max_rel_err"] for r in rows),
-            "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-            "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-            "library_ms": per_forward("library_ms"),
-            "per": "one 256x256 batch-16 UNet forward",
-            "shapes": rows}
+    def total(key):
+        vals = [r[key] for r in timed]
+        if any(v is None for v in vals):
+            return None
+        return sum(v * r["calls"] for v, r in zip(vals, timed))
+    flop_ms, byte_ms = total("flop_ms"), total("byte_ms")
+    entry = {"name": name, "route": "cuda" if source.endswith(".cu")
+             else "triton", "source": source, "replaces": replaces,
+             "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "max_rel_err": max(r["max_rel_err"] for r in rows),
+             "ms": total("ms"), "plain_ms": total("plain_ms"),
+             "bound_ms": max(flop_ms, byte_ms),
+             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+             "library_ms": total("library_ms"), "per": per, "shapes": rows}
+    if "library_fwd_bwd_ms" in timed[0]:
+        entry["library_fwd_bwd_ms"] = total("library_fwd_bwd_ms")
+    return entry
 
 
-def check_unet(trainer, gen, failures):
-    """Fused UNet (kernels) against the same weights on the plain path at
-    B=2; then both timed at B=16, and one fused forward profiled by op.
-    Runs before the main path, so its launches are not counted there."""
+def check_unet(K, trainer, gen, failures):
+    """Fused UNet (kernels) against the same weights with no kernel
+    (``plain_reference``) at B=2; then both timed at B=16, and one fused
+    forward profiled by kernel group."""
     import torch
-    from vgd_tpu_torch.models.unet import UNet
-    cfg = trainer.cfg
+    model = trainer.model_fused
     dev = trainer.device
-    with torch.device(dev):
-        plain = UNet(in_ch=3, out_ch=3, base_ch=cfg.base_ch,
-                     time_emb_dim=cfg.time_emb_dim, attention=cfg.attention,
-                     dtype=trainer.model.dtype, fused=False)
-    plain.load_state_dict(trainer.model.state_dict())
-    x = torch.randn(2, 256, 256, 3, device=dev, generator=gen)
-    t = torch.tensor([999, 17], dtype=torch.int32, device=dev)
+    (h, w), b = trainer.cfg.data.image_size, trainer.cfg.data.batch_size
+    x = torch.randn(2, h, w, 3, device=dev, generator=gen)
+    t = torch.tensor([trainer.cfg.timesteps - 1, 17], dtype=torch.int32,
+                     device=dev)
     with torch.inference_mode():
-        fused_out = trainer.model(x, t)
-        ref = plain(x, t)
+        fused_out = model(x, t)
+        with K.plain_reference():
+            ref = model(x, t)
     err = float((fused_out - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"[unet] fused vs plain, B=2 full width: max abs err {err:.4g}, "
-          f"max |plain| {scale:.4g}, tol {UNET_REL_TOL} x max |plain|",
-          flush=True)
+    print(f"[unet] fused vs no-kernel reference, B=2 {h}x{w}: max abs err "
+          f"{err:.4g}, max |reference| {scale:.4g}, tol {UNET_REL_TOL} x "
+          f"max |reference|", flush=True)
     if not (torch.isfinite(fused_out).all() and err <= UNET_REL_TOL * scale):
-        failures.append(f"fused UNet disagrees with plain: {err} > "
-                        f"{UNET_REL_TOL} x {scale}")
-    x = torch.randn(16, 256, 256, 3, device=dev, generator=gen)
-    t = torch.full((16,), 500, dtype=torch.int32, device=dev)
+        failures.append(f"fused UNet disagrees with its no-kernel reference:"
+                        f" {err} > {UNET_REL_TOL} x {scale}")
+    x = torch.randn(b, h, w, 3, device=dev, generator=gen)
+    t = torch.full((b,), 500, dtype=torch.int32, device=dev)
+
+    def plain():
+        with K.plain_reference():
+            model(x, t)
     with torch.inference_mode():
-        stats = {"unet_fused_ms": cuda_ms(lambda: trainer.model(x, t), 2, 10),
-                 "unet_plain_ms": cuda_ms(lambda: plain(x, t), 2, 10)}
-        stats.update(profile_forward(lambda: trainer.model(x, t),
-                                     stats["unet_fused_ms"]))
-    print(f"[unet] forward B=16 256x256: fused {stats['unet_fused_ms']:.3f} "
-          f"ms, plain {stats['unet_plain_ms']:.3f} ms", flush=True)
+        stats = {"unet_fused_ms": cuda_ms(lambda: model(x, t), 2, 10),
+                 "unet_plain_ms": cuda_ms(plain, 2, 10)}
+        stats["forward_profile"] = profile_fn(
+            lambda: model(x, t), stats["unet_fused_ms"], FORWARD_GROUPS,
+            "profile")
+    print(f"[unet] forward B={b} {h}x{w}: fused {stats['unet_fused_ms']:.3f} "
+          f"ms, no-kernel reference {stats['unet_plain_ms']:.3f} ms",
+          flush=True)
     return stats
 
 
-# device kernels of one forward, grouped by name (first match wins)
-KERNEL_GROUPS = [("flash_attention (K3)", ("flash_fwd_kernel",)),
-                 ("groupnorm_silu (K4)", ("_gn_",)),
-                 ("upsample", ("upsample",)),
-                 ("max pool", ("pool",)),
-                 ("layer/group norm (stock)", ("norm",)),
-                 ("dtype casts and copies", ("copy",)),
-                 ("convolution (cuDNN)", ("xmma", "conv", "gemm", "cutlass",
-                                          "nchw", "nhwc"))]
+def check_train_step(K, trainer, gen, failures):
+    """One train step of the training-form UNet with K2 against the same
+    weights, batch, t and noise with no kernel: the loss and every
+    parameter's gradient. Then forward+backward timed both ways, and one
+    whole train step (Adam included) profiled by kernel group."""
+    import torch
+    from vgd_tpu_torch.train.common import mse
+    dev = trainer.device
+    model = trainer.model
+    (h, w), b = trainer.cfg.data.image_size, trainer.cfg.data.batch_size
+    batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    t = torch.randint(0, trainer.cfg.timesteps, (b,), device=dev,
+                      generator=gen)
+    noise = torch.randn(b, h, w, 3, device=dev, generator=gen)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        xt, tt, nz = trainer._inputs(batch, None, t, noise)
+        loss = mse(model(xt, tt), nz)
+        loss.backward()
+        return loss.detach()
+
+    def plain_fwd_bwd():
+        with K.plain_reference():
+            return fwd_bwd()
+    K.LAUNCHES.clear()
+    loss_k = float(fwd_bwd())
+    launches = {k: K.LAUNCHES[k] for k in K2_NAMES}
+    grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+    K.LAUNCHES.clear()
+    loss_r = float(plain_fwd_bwd())
+    if sum(K.LAUNCHES.values()):
+        failures.append(f"train step: the no-kernel reference launched "
+                        f"{dict(K.LAUNCHES)}")
+    grads_r = {n: p.grad for n, p in model.named_parameters()}
+    gmax = max(float(g.abs().max()) for g in grads_r.values())
+    worst = (0.0, "")
+    for name, ref in grads_r.items():
+        err = float((grads_k[name] - ref).abs().max())
+        bound = STEP_GRAD_REL * float(ref.abs().max()) + STEP_GRAD_FLOOR * gmax
+        worst = max(worst, (err / bound, name))
+        if not err <= bound:
+            failures.append(f"train step gradient {name}: {err} > {bound}")
+    loss_ok = abs(loss_k - loss_r) <= STEP_LOSS_REL * abs(loss_r)
+    if not (loss_ok and math.isfinite(loss_k)):
+        failures.append(f"train step loss {loss_k} vs reference {loss_r}")
+    if launches != {k: 3 for k in K2_NAMES}:
+        failures.append(f"train step launched {launches}, want 3 of each")
+    print(f"[train-step] K2 vs no-kernel reference, B={b} {h}x{w}: loss "
+          f"{loss_k:.6f} vs {loss_r:.6f}; {len(grads_r)} gradients, worst "
+          f"err/bound {worst[0]:.3f} ({worst[1]}), bound {STEP_GRAD_REL} x "
+          f"max|g| + {STEP_GRAD_FLOOR} x {gmax:.4g}; launches {launches}",
+          flush=True)
+    del grads_k, grads_r
+    stats = {"step_loss": loss_k, "step_loss_ref": loss_r,
+             "step_worst_err_over_bound": worst[0],
+             "fwd_bwd_ms": cuda_ms(fwd_bwd, 1, 5),
+             "fwd_bwd_plain_ms": cuda_ms(plain_fwd_bwd, 1, 5)}
+
+    def step():
+        trainer.train_step(batch, t=t, noise=noise)
+    stats["train_step_ms"] = cuda_ms(step, 1, 5)
+    stats["train_step_profile"] = profile_fn(step, stats["train_step_ms"],
+                                             TRAIN_GROUPS, "profile-train")
+    print(f"[train-step] forward+backward B={b} {h}x{w}: K2 "
+          f"{stats['fwd_bwd_ms']:.3f} ms, no-kernel reference "
+          f"{stats['fwd_bwd_plain_ms']:.3f} ms; whole train step "
+          f"{stats['train_step_ms']:.3f} ms", flush=True)
+    return stats
 
 
-def profile_forward(fn, forward_ms):
-    """Device kernel time of one forward by kernel and by group
+K2_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
+# device kernels grouped by name (first match wins)
+FORWARD_GROUPS = [("flash_attention (K3)", ("flash_fwd_kernel",)),
+                  ("groupnorm_silu (K4)", ("_gn_",)),
+                  ("upsample", ("upsample",)),
+                  ("max pool", ("pool",)),
+                  ("layer/group norm (stock)", ("norm",)),
+                  ("dtype casts and copies", ("copy",)),
+                  ("convolution (cuDNN)", ("xmma", "conv", "gemm", "cutlass",
+                                           "nchw", "nhwc"))]
+TRAIN_GROUPS = [("attention (K2: fwd, dq, dk/dv, split sum)",
+                 ("flash_fwd_kernel", "flash_bwd", "sum_splits")),
+                ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
+                ("upsample and its backward", ("upsample",)),
+                ("max pool and its backward", ("pool",)),
+                ("layer/group norm and backward (stock)", ("norm",)),
+                ("reductions (incl. bias and K2 delta)", ("reduce",)),
+                ("dtype casts and copies", ("copy",)),
+                ("convolutions and their backward (cuDNN)",
+                 ("xmma", "conv", "gemm", "cutlass", "nchw", "nhwc",
+                  "dgrad", "wgrad"))]
+
+
+def device_us(evt):
+    us = getattr(evt, "self_device_time_total", None)
+    return evt.self_cuda_time_total if us is None else us
+
+
+def profile_fn(fn, wall_ms, groups, tag):
+    """Device kernel time of one call of ``fn`` by kernel and by group
     (torch.profiler), and the device's busy share: summed kernel time over
-    the CUDA-event time of a forward."""
+    the CUDA-event time of a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -250,43 +480,44 @@ def profile_forward(fn, forward_ms):
     for evt in prof.key_averages():
         if "CUDA" not in str(evt.device_type):
             continue                       # host ops; their kernels are rows
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
+        us = device_us(evt)
         if us > 0:
             rows.append((evt.key, us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    groups = {}
+    by_group = {}
     for name, ms, _ in rows:
         low = name.lower()
-        group = next((g for g, keys in KERNEL_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in low for k in keys)), "other elementwise")
-        groups[group] = groups.get(group, 0.0) + ms
-    for group, ms in sorted(groups.items(), key=lambda g: -g[1]):
-        print(f"[profile] {ms:8.3f} ms {100 * ms / total:5.1f}%  {group}",
+        by_group[group] = by_group.get(group, 0.0) + ms
+    for group, ms in sorted(by_group.items(), key=lambda g: -g[1]):
+        print(f"[{tag}] {ms:8.3f} ms {100 * ms / total:5.1f}%  {group}",
               flush=True)
     for name, ms, count in rows[:10]:
-        print(f"[profile]   {ms:8.3f} ms x{count:<4d} {name[:80]}", flush=True)
-    print(f"[profile] kernel time {total:.3f} ms of a {forward_ms:.3f} ms "
-          f"forward: device busy share {total / forward_ms:.3f}", flush=True)
-    return {"profile_kernel_ms": total, "profile_groups": groups,
-            "profile_top": [list(r) for r in rows[:10]]}
+        print(f"[{tag}]   {ms:8.3f} ms x{count:<4d} {name[:80]}", flush=True)
+    print(f"[{tag}] kernel time {total:.3f} ms of a {wall_ms:.3f} ms call: "
+          f"device busy share {total / wall_ms:.3f}", flush=True)
+    return {"kernel_ms": total, "groups": by_group,
+            "top": [list(r) for r in rows[:10]]}
 
 
-def check_launches(K, forwards, what, failures):
-    want = {"flash_attention": 3 * forwards, "groupnorm_silu": 14 * forwards}
+def check_launches(K, want, what, failures):
     got = {k: K.LAUNCHES[k] for k in want}
-    print(f"[{what}] UNet forwards {forwards}, launches {got}", flush=True)
-    if forwards < 1 or got != want:
-        failures.append(f"{what}: launches {got} != {want} for {forwards} "
-                        f"UNet forwards")
+    print(f"[{what}] launches {got}", flush=True)
+    if got != want:
+        failures.append(f"{what}: launches {got} != {want}")
     return got
 
 
-def check_images(arr, what, failures):
+def serving_launches(forwards):
+    return {"flash_attention": 3 * forwards, "groupnorm_silu": 14 * forwards,
+            **{k: 0 for k in K2_NAMES}}
+
+
+def check_images(arr, shape, what, failures):
     import numpy as np
-    ok = (arr.shape == (16, 256, 256, 3) and np.isfinite(arr).all()
+    ok = (arr.shape == shape and np.isfinite(arr).all()
           and float(np.abs(arr).max()) <= 1.0)
     print(f"[{what}] shape {arr.shape} finite {bool(np.isfinite(arr).all())}"
           f" range [{float(arr.min()):.4f}, {float(arr.max()):.4f}]",
@@ -295,72 +526,229 @@ def check_images(arr, what, failures):
         failures.append(f"{what}: bad output {arr.shape}")
 
 
-def main_path(K, gen, failures):
+def train_path(K, cfg, init_params, failures):
+    """``run_diffusion`` for TRAIN_EPOCHS epochs of TRAIN_STEPS steps, a
+    resume that runs no epoch (it must restore exactly what was saved),
+    and a resume that trains one more epoch. Launch counts of each run are
+    read from zero."""
+    import torch
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    step_events = []
+    train_step = DiffusionTrainer.train_step
+
+    def timed_step(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(self, *args, **kwargs)
+        end.record()
+        step_events.append((start, end))
+        return out
+
+    DiffusionTrainer.train_step = timed_step
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS,
+                              max_steps_per_epoch=TRAIN_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        trainer = res["trainer"]
+        steps = len(step_events)
+        evals = trainer.model.forwards - steps
+        launches = check_launches(K, {
+            "attention_fwd": 3 * (steps + evals), "attention_dq": 3 * steps,
+            "attention_dkv": 3 * steps, "flash_attention": 0,
+            "groupnorm_silu": 0}, "train", failures)
+        step_ms = sorted(s.elapsed_time(e) for s, e in step_events[1:])
+        stats = {"train_steps": steps, "eval_forwards": evals,
+                 "train_run_s": train_s,
+                 "step_ms_median": step_ms[len(step_ms) // 2],
+                 "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+                 "images_per_sec_median_step":
+                     cfg.data.batch_size / step_ms[len(step_ms) // 2] * 1e3,
+                 "log": res["log"], "val_rows": res["val_rows"],
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if steps != TRAIN_EPOCHS * TRAIN_STEPS or evals != TRAIN_EPOCHS * 2:
+            failures.append(f"train: {steps} steps and {evals} eval "
+                            f"forwards, want {TRAIN_EPOCHS * TRAIN_STEPS} "
+                            f"and {TRAIN_EPOCHS * 2}")
+        if not all(math.isfinite(r["train_loss"]) and
+                   math.isfinite(r["val_loss"]) for r in res["log"]):
+            failures.append(f"train: non-finite loss {res['log']}")
+        n_val = res["val"].num_examples
+        if res["val_rows"] != n_val or n_val % cfg.data.batch_size == 0:
+            failures.append(f"train: val rows scored {res['val_rows']}, "
+                            f"want the {n_val} true rows of a padded split")
+        final = trainer.model.state_dict()
+        moved = sum(not torch.equal(init_params[k], v.cpu())
+                    for k, v in final.items())
+        if moved < len(final) // 2:
+            failures.append(f"train: only {moved} of {len(final)} "
+                            f"parameter tensors moved")
+        for r in res["log"]:
+            print(f"[train] epoch {int(r['epoch']) + 1}: train_loss "
+                  f"{r['train_loss']:.6f} val_loss {r['val_loss']:.6f} "
+                  f"images/s {r['images_per_sec']:.2f}", flush=True)
+        print(f"[train] {steps} steps, {evals} eval forwards, val rows "
+              f"{res['val_rows']} of {n_val} (padded batch of "
+              f"{cfg.data.batch_size}); {moved}/{len(final)} parameter "
+              f"tensors moved; step ms median {stats['step_ms_median']:.3f} "
+              f"(min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}) after the "
+              f"first = {stats['images_per_sec_median_step']:.1f} images/s; "
+              f"peak memory {stats['peak_mem_gb']:.3f} GB", flush=True)
+
+        # a resume with no epoch left restores, and must equal what was saved
+        payload = Checkpointer(f"{cfg.run.out_dir}/ckpt").load()
+        K.LAUNCHES.clear()
+        back = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS, resume=True,
+                               device="cuda")["trainer"]
+        same_params = all(torch.equal(final[k], v) and
+                          torch.equal(payload["params"][k], v.cpu())
+                          for k, v in back.model.state_dict().items())
+        sa = trainer.opt.state_dict()["state"]
+        sb = back.opt.state_dict()["state"]
+        same_opt = sa.keys() == sb.keys() and all(
+            torch.equal(sa[i][x].cpu(), sb[i][x].cpu())
+            for i in sa for x in ("step", "exp_avg", "exp_avg_sq"))
+        ok = (same_params and same_opt and payload["step"] == TRAIN_EPOCHS
+              and back.step == steps == payload["opt_step"]
+              and sum(K.LAUNCHES.values()) == 0)
+        print(f"[resume] checkpoint epoch {payload['step']}, optimizer "
+              f"steps {back.step}: params equal {same_params}, Adam state "
+              f"equal {same_opt}", flush=True)
+        if not ok:
+            failures.append("resume did not restore what was saved")
+        del back, trainer, res, final
+        torch.cuda.empty_cache()
+
+        step_events.clear()
+        K.LAUNCHES.clear()
+        res = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS + 1,
+                              max_steps_per_epoch=TRAIN_STEPS, resume=True,
+                              device="cuda")
+        steps3 = len(step_events)
+        evals3 = res["trainer"].model.forwards - steps3
+        got = check_launches(K, {
+            "attention_fwd": 3 * (steps3 + evals3), "attention_dq": 3 * steps3,
+            "attention_dkv": 3 * steps3, "flash_attention": 0,
+            "groupnorm_silu": 0}, "train-resumed", failures)
+        launches = {k: launches[k] + got[k] for k in launches}
+        row = res["log"][-1]
+        stats["resumed_log"] = res["log"]
+        print(f"[train] resumed epoch {int(row['epoch']) + 1}: train_loss "
+              f"{row['train_loss']:.6f} val_loss {row['val_loss']:.6f}",
+              flush=True)
+        if not (res["trainer"].step == steps + steps3 and
+                math.isfinite(row["train_loss"]) and
+                int(row["epoch"]) == TRAIN_EPOCHS):
+            failures.append(f"resumed epoch: {res['log']}, optimizer step "
+                            f"{res['trainer'].step}")
+        stats["launches_per_step"] = {
+            k: launches[k] / (steps + steps3) for k in K2_NAMES}
+    finally:
+        DiffusionTrainer.train_step = train_step
+    return launches, stats
+
+
+def serve_path(K, cfg, failures):
+    """The serving requests on the trained checkpoint: a batch-size DDIM-50
+    sample grid, then restoration of one val batch."""
     import numpy as np
     import torch
-    from vgd_tpu_torch.core.config import DataConfig, DiffusionConfig, RunConfig
-    from vgd_tpu_torch.core.rng import seed_all
     from vgd_tpu_torch.data.celeba import make_image_datasets
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
     from vgd_tpu_torch.train import loop as L
-    from vgd_tpu_torch.train.diffusion import DiffusionTrainer, ddim_timesteps
-
-    shutil.rmtree(OUT_DIR, ignore_errors=True)
-    cfg = DiffusionConfig(
-        data=DataConfig(batch_size=16, image_size=(256, 256),
-                        dataset_size=160),
-        run=RunConfig(out_dir=str(OUT_DIR), seed=42))
-    trainer = DiffusionTrainer(cfg, (256, 256, 3), device="cuda")
-    trainer.init(seed_all(cfg.run.seed, "cuda"))
-    n_params = sum(p.numel() for p in trainer.model.parameters())
-    print(f"[init] UNet base_ch {cfg.base_ch}, {n_params} parameters, "
-          f"compute {cfg.run.compute_dtype}", flush=True)
-    unet_stats = check_unet(trainer, gen, failures)
-    L.save_checkpoint(cfg, trainer, step=0)
-    del trainer
+    from vgd_tpu_torch.train.diffusion import ddim_timesteps
+    latest = Checkpointer(f"{cfg.run.out_dir}/ckpt").latest_step()
+    if latest != TRAIN_EPOCHS + 1:
+        failures.append(f"serve: latest checkpoint {latest}, want the "
+                        f"trained epoch {TRAIN_EPOCHS + 1}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    stats = dict(unet_stats)
+    stats = {"served_checkpoint": latest}
 
     # request 1: a 16-image DDIM-50 sample grid from the checkpoint
     K.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    path = L.sample_from_dir("diffusion", cfg, n=16, ddim_steps=50,
+    n = cfg.data.batch_size
+    path = L.sample_from_dir("diffusion", cfg, n=n, ddim_steps=50,
                              device="cuda")
     torch.cuda.synchronize()
     stats["sample_s"] = time.perf_counter() - t0
     forwards = len(ddim_timesteps(cfg.timesteps, 50))
-    launches = check_launches(K, forwards, "sample", failures)
-    check_images(np.load(path), "sample", failures)
+    launches = check_launches(K, serving_launches(forwards), "sample",
+                              failures)
+    shape = (n,) + tuple(cfg.data.image_size) + (3,)
+    check_images(np.load(path), shape, "sample", failures)
 
     # request 2: restoration of one val batch through the ancestral chain
     _, val, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
     trainer = L.restore_trainer(cfg, device="cuda")
     K.LAUNCHES.clear()
-    f0 = trainer.model.forwards
+    f0 = trainer.model_fused.forwards
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = L.evaluate_diffusion(cfg, trainer, val, max_batches=1)
     torch.cuda.synchronize()
     stats["restore_s"] = time.perf_counter() - t0
-    forwards_r = trainer.model.forwards - f0
-    got = check_launches(K, forwards_r, "restore", failures)
+    forwards_r = trainer.model_fused.forwards - f0
+    got = check_launches(K, serving_launches(forwards_r), "restore",
+                         failures)
     launches = {k: launches[k] + got[k] for k in launches}
     panel = np.load(OUT_DIR / "diffusion_restore_panel.npy")
     print(f"[restore] psnr {res['psnr']:.4f} dB mse {res['mse']:.6f} "
           f"panel {panel.shape}", flush=True)
-    if not (math.isfinite(res["psnr"]) and panel.shape == (4, 4, 256, 256, 3)
+    if not (math.isfinite(res["psnr"]) and panel.shape == (4, 4) + shape[1:]
             and float(np.abs(panel[2:]).max()) <= 1.0):
         failures.append(f"restore: bad result {res} / panel {panel.shape}")
     stats.update(
         sample_forwards=forwards, restore_forwards=forwards_r,
         psnr=res["psnr"], mse=res["mse"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[latency] sample request (16 images, DDIM 50, checkpoint "
+    print(f"[latency] sample request ({n} images, DDIM 50, checkpoint "
           f"restore included) {stats['sample_s']:.3f} s; restoration request "
-          f"(16 images, {forwards_r} forwards) {stats['restore_s']:.3f} s; "
+          f"({n} images, {forwards_r} forwards) {stats['restore_s']:.3f} s; "
           f"peak memory {stats['peak_mem_gb']:.3f} GB", flush=True)
     return launches, stats
+
+
+def smoke_config():
+    """The default DiffusionConfig (256x256, batch 16, base_ch 64, T=1000,
+    bf16 convs) on TRAIN_DATASET synthetic faces, writing under OUT_DIR."""
+    from vgd_tpu_torch.core.config import DataConfig, DiffusionConfig, RunConfig
+    return DiffusionConfig(
+        data=DataConfig(batch_size=16, image_size=(256, 256),
+                        dataset_size=TRAIN_DATASET),
+        run=RunConfig(out_dir=str(OUT_DIR), seed=42))
+
+
+def main_path(K, gen, failures):
+    from vgd_tpu_torch.core.rng import seed_all
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    cfg = smoke_config()
+    h, w = cfg.data.image_size
+    # the same seeded init as run_diffusion's, kept to show the params move
+    trainer = DiffusionTrainer(cfg, (h, w, 3), device="cuda")
+    trainer.init(seed_all(cfg.run.seed, "cuda"))
+    init_params = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[init] UNet base_ch {cfg.base_ch}, {n_params} parameters, "
+          f"compute {cfg.run.compute_dtype}", flush=True)
+    stats = check_unet(K, trainer, gen, failures)
+    stats.update(check_train_step(K, trainer, gen, failures))
+    del trainer
+    train_launches, stats["train"] = train_path(K, cfg, init_params,
+                                                failures)
+    serve_launches, stats["serve"] = serve_path(K, cfg, failures)
+    return train_launches, serve_launches, stats
 
 
 def main(argv=None) -> int:
@@ -388,32 +776,52 @@ def main(argv=None) -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
     failures = []
     report = {}
+    t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
         _build.build_all()
         report["build_s"] = time.perf_counter() - t0
         for src, log in _build.BUILD_LOGS.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {src}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    print(f"[build] {src}: {line.split(chr(39))[1]}")
+                elif "registers" in line or "spill" in line:
+                    print(f"[build] {src}:   {line.strip()}")
         print(f"[build] nvcc {report['build_s']:.1f} s", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
+        k2_rows, report["sdpa_backend"] = check_k2(K, gen, dev, failures)
         attn_rows = check_attention(K, gen, dev, failures)
         gn_rows = check_groupnorm(K, gen, dev, failures)
-        launches, report["main_path"] = main_path(K, gen, failures)
+        train_l, serve_l, report["main_path"] = main_path(K, gen, failures)
+        per_step = "one 256x256 batch-16 train step"
+        per_fwd = "one 256x256 batch-16 UNet forward"
+        fwd_src = "vgd_tpu_torch/csrc/flash_attention.cu"
+        bwd_src = "vgd_tpu_torch/csrc/flash_attention_bwd.cu"
         report["kernels"] = [
-            kernel_entry("flash_attention",
-                         "vgd_tpu_torch/csrc/flash_attention.cu",
+            kernel_entry("attention_fwd", fwd_src,
+                         "vgd_tpu/ops/pallas_kernels.py:218",
+                         k2_rows["attention_fwd"], train_l["attention_fwd"],
+                         per_step),
+            kernel_entry("attention_dq", bwd_src,
+                         "vgd_tpu/ops/pallas_kernels.py:251",
+                         k2_rows["attention_dq"], train_l["attention_dq"],
+                         per_step),
+            kernel_entry("attention_dkv", bwd_src,
+                         "vgd_tpu/ops/pallas_kernels.py:280",
+                         k2_rows["attention_dkv"], train_l["attention_dkv"],
+                         per_step),
+            kernel_entry("flash_attention", fwd_src,
                          "vgd_tpu/ops/pallas_kernels.py:63", attn_rows,
-                         launches["flash_attention"]),
+                         serve_l["flash_attention"], per_fwd),
             kernel_entry("groupnorm_silu",
                          "vgd_tpu_torch/ops/groupnorm_silu_triton.py",
                          "vgd_tpu/ops/pallas_kernels.py:149", gn_rows,
-                         launches["groupnorm_silu"])]
+                         serve_l["groupnorm_silu"], per_fwd)]
     except Exception:                      # noqa: BLE001 - report and fail
         traceback.print_exc()
         failures.append("exception (traceback above)")
-    report.update(card=card, failures=failures)
+    report.update(card=card, failures=failures,
+                  total_s=time.perf_counter() - t_start)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1))
@@ -421,13 +829,15 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
+    print(f"[done] {report['total_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "shapes"}
                                   for e in report["kernels"]]}))
     print(card)
+    # the run drives one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,14 +1,17 @@
-"""Port kernels, CPU side: the plain PyTorch versions of K3 (flash
-attention) and K4 (GroupNorm+SiLU) against the JAX package's Pallas
-kernels run in interpret mode, and the wrappers' CPU dispatch.
+"""Port kernels, CPU side: the plain PyTorch versions of K2 (differentiable
+flash attention: forward with logsumexp, backward), K3 (flash attention)
+and K4 (GroupNorm+SiLU) against the JAX package's Pallas kernels run in
+interpret mode, and the wrappers' CPU dispatch.
 
 Tolerances are those of tests/test_kernels.py (rtol 1e-4, atol 1e-5): both
 sides compute in f32 and differ only in summation order."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vgd_tpu.ops import pallas_kernels as JK
 from vgd_tpu.ops.pallas_kernels import (attention_xla, flash_attention,
                                         groupnorm_silu, groupnorm_silu_xla)
 from vgd_tpu_torch.ops import kernels as K
@@ -106,3 +109,117 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
     x = torch.empty(1, 4, 4, 16, device="meta")
     with pytest.raises(ValueError):
         K.groupnorm_silu(x, torch.ones(16), torch.zeros(16))
+
+
+# K2 at the tolerances of tests/test_kernels.py's VJP test: outputs rtol /
+# atol 1e-5, gradients rtol 1e-4 / atol 1e-5 (f32, summation order only)
+K2_SHAPES = [(2, 256, 256, 32, 128, 128),     # self-attention layout
+             (2, 256, 64, 32, 128, 64)]       # cross-attention: 64 keys
+
+
+def _k2_inputs(b, n, m, d, seed=4):
+    q, k, v = _qkv(b, n, m, d, seed)
+    do = np.random.default_rng(seed + 1).standard_normal((b, n, d)).astype(
+        np.float32)
+    return q, k, v, do, 1.0 / np.sqrt(d)
+
+
+@pytest.mark.parametrize("b,n,m,d,bq,bkv", K2_SHAPES)
+def test_attention_fwd_lse_plain_matches_pallas_interpret(b, n, m, d, bq, bkv):
+    q, k, v, _, scale = _k2_inputs(b, n, m, d)
+    o_ref, lse_ref = JK._flash_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), scale, bq, bkv, True)
+    o, lse = K.attention_fwd_lse_plain(torch.from_numpy(q),
+                                       torch.from_numpy(k),
+                                       torch.from_numpy(v), scale)
+    assert lse.shape == (b, n)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,m,d,bq,bkv", K2_SHAPES)
+def test_attention_bwd_plain_matches_pallas_interpret(b, n, m, d, bq, bkv):
+    """The FlashAttention-2 formulas on the saved (q, k, v, o, lse)."""
+    q, k, v, do, scale = _k2_inputs(b, n, m, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    o, lse = JK._flash_fwd_lse(jq, jk, jv, scale, bq, bkv, True)
+    ref = JK._flash_diff_bwd(scale, bq, bkv, True, (jq, jk, jv, o, lse),
+                             jnp.asarray(do))
+    out = K.attention_bwd_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(np.array(o)),
+        torch.from_numpy(np.array(lse)[..., 0]), torch.from_numpy(do),
+        scale)
+    for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("b,n,m,d,bq,bkv", K2_SHAPES)
+def test_attention_grads_match_jax_pallas_interpret(b, n, m, d, bq, bkv):
+    """The port's autograd.Function (plain versions on the CPU) against
+    jax.grad through the custom-VJP Pallas kernels, loss sum(sin(o))."""
+    q, k, v, _, _ = _k2_inputs(b, n, m, d)
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.sin(JK.attention(q, k, v, block_q=bq,
+                                            block_kv=bkv, force="pallas",
+                                            interpret=True)))
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    torch.sin(K.attention(tq, tk, tv)).sum().backward()
+    for name, a, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_attention_grad_reaches_expanded_keys():
+    """k/v expanded over the batch (the cross-attention's global tokens):
+    autograd sums dk/dv over the batch, equal to differentiating the plain
+    full-matrix attention."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((3, 40, 16)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 8, 32)).astype(np.float32))
+    grads = []
+    for fn in (K.attention, K.attention_plain):
+        src = kv.clone().requires_grad_()
+        k, v = src.split(16, dim=-1)
+        k = k.expand(3, -1, -1).contiguous()
+        v = v.expand(3, -1, -1).contiguous()
+        torch.cos(fn(q, k, v, 0.25)).sum().backward()
+        grads.append(src.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-5)
+
+
+def test_k2_cpu_dispatch_and_plain_reference():
+    """On the CPU the autograd.Function runs the plain versions and counts
+    no launch; inside plain_reference() ``attention`` is the plain
+    full-matrix form, and the context restores itself."""
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(1, 64, 32, 32))
+    K.LAUNCHES.clear()
+    out = K.attention(q, k, v)
+    assert out.grad_fn is not None and "Attention" in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert sum(K.LAUNCHES.values()) == 0
+    with K.plain_reference():
+        ref = K.attention(q, k, v)
+        assert "Attention" not in type(ref.grad_fn).__name__
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    assert not K._PLAIN_REFERENCE
+    x = torch.empty(1, 8, 32, device="meta")
+    with pytest.raises(ValueError):
+        K.attention_fwd_lse(x, x, x, 1.0)
+
+
+@pytest.mark.parametrize("b,n,m,want", [
+    (16, 16384, 64, (16, 1024)),     # cross_attn2 at 256x256: 32 blocks
+    (16, 4096, 64, (16, 256)),       # cross_attn3
+    (16, 1024, 1024, (1, 1024)),     # bottleneck: 512 blocks, no split
+    (3, 1000, 70, (16, 64))])        # ragged
+def test_dkv_splits_cover_the_rows(b, n, m, want):
+    splits, rows = K.dkv_splits(b, n, m, 132)
+    assert (splits, rows) == want
+    assert rows % 64 == 0 and splits * rows >= n > (splits - 1) * rows

@@ -30,12 +30,16 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Run knobs the ported serving paths read."""
+    """Run knobs the ported serving and training paths read."""
     seed: int = 42
     out_dir: str = "runs/default"
+    checkpoint_every_epochs: int = 1
     keep_checkpoints: int = 3
     compute_dtype: str = "bfloat16"      # conv/matmul compute dtype
     param_dtype: str = "float32"
+    # torch.profiler trace of train steps [start, stop) into this directory
+    profile_dir: Optional[str] = None
+    profile_steps: Tuple[int, int] = (10, 20)
 
 
 @dataclass(frozen=True)

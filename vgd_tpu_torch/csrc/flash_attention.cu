@@ -1,11 +1,16 @@
 // Single-head flash attention forward, f32, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel vgd_tpu/ops/pallas_kernels.py : _flash_kernel
-// (called through flash_attention), which serves the DDPM UNet on its
-// inference paths: cross-attention from pixels to 64 global tokens and the
-// bottleneck self-attention. q (B, N, D), k/v (B, M, D), all f32 and
-// contiguous; o = softmax(q k^T * scale) v, never materialising the N x M
-// matrix in device memory.
+// Replaces two TPU kernels of vgd_tpu/ops/pallas_kernels.py:
+// * _flash_kernel (called through flash_attention), which serves the DDPM
+//   UNet on its inference paths: cross-attention from pixels to 64 global
+//   tokens and the bottleneck self-attention (vgd_flash_attention_fwd);
+// * _flash_fwd_lse_kernel (called through attention / _flash_fwd_lse), the
+//   forward of the training path, which also writes the row logsumexp that
+//   the backward kernels in flash_attention_bwd.cu read
+//   (vgd_flash_attention_fwd_lse). Same loop; the logsumexp is one store
+//   per row at the end.
+// q (B, N, D), k/v (B, M, D), all f32 and contiguous; o = softmax(q k^T *
+// scale) v, never materialising the N x M matrix in device memory.
 //
 // What bounds it on the H100. The model casts q/k/v to f32 (unet.py:123,155)
 // and the reference semantics are f32, so the products run on the CUDA
@@ -63,7 +68,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int n, int m, float scale_log2) {
+                 float* __restrict__ lse, int n, int m, float scale_log2) {
   constexpr int KS = k_stride<D>();
   constexpr int D4 = D / 4;
   constexpr int CPL = D / 32;                 // output columns per lane
@@ -179,13 +184,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* orow = o + (size_t(b) * n + row) * D;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) orow[lane + 32 * c] = acc[i][c] * inv;
+      // natural-log logsumexp of the scaled logits: the running max and sum
+      // are in base 2 (exp2 with log2(e) folded into the scale)
+      if (lse != nullptr && lane == 0)
+        lse[size_t(b) * n + row] = (row_max[i] + log2f(row_sum[i])) * 0.6931471805599453f;
     }
   }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int b, int n, int m, float scale, cudaStream_t stream) {
+                   float* lse, int b, int n, int m, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -193,8 +202,20 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kBQ - 1) / kBQ, b);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, n, m, scale * 1.4426950408889634f);
+      q, k, v, o, lse, n, m, scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const float* q, const float* k, const float* v, float* o, float* lse,
+                     int b, int n, int m, int d, float scale, void* stream) {
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch<64>(q, k, v, o, lse, b, n, m, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, b, n, m, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, b, n, m, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -202,14 +223,15 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 extern "C" int vgd_flash_attention_fwd(const float* q, const float* k, const float* v,
                                        float* o, int b, int n, int m, int d,
                                        float scale, void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || m <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return launch<64>(q, k, v, o, b, n, m, scale, s);
-    case 128: return launch<128>(q, k, v, o, b, n, m, scale, s);
-    case 256: return launch<256>(q, k, v, o, b, n, m, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, o, nullptr, b, n, m, d, scale, stream);
+}
+
+// The same forward, also writing lse (B, N) f32 = log sum_j exp(s_ij).
+extern "C" int vgd_flash_attention_fwd_lse(const float* q, const float* k, const float* v,
+                                           float* o, float* lse, int b, int n, int m,
+                                           int d, float scale, void* stream) {
+  if (lse == nullptr) return cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, lse, b, n, m, d, scale, stream);
 }
 
 extern "C" const char* vgd_cuda_error_string(int err) {

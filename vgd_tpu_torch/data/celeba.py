@@ -91,6 +91,11 @@ class Loader:
     def num_examples(self) -> int:
         return len(self.indices)
 
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next ``epoch()`` pass the ``epoch``-th one (its shuffle
+        order), so a resumed run sees the batches a straight run would."""
+        self._epoch = int(epoch)
+
     def epoch(self) -> Iterator[Tuple[np.ndarray, int]]:
         idx = self.indices
         if self.shuffle:

@@ -1,0 +1,47 @@
+"""Run artifacts (``vgd_tpu/io/artifacts.py``): the metric log.
+
+Loss-curve plots and image grids need matplotlib and PIL, which the port
+does not depend on; they wait for the IO slice.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List
+
+import numpy as np
+
+
+class MetricLog:
+    """Append-only metric history: one JSON line per row in
+    ``<out_dir>/<name>.jsonl`` as rows arrive, and the whole table as
+    ``<name>.npz`` (``values`` rows x ``columns``) on ``save``."""
+
+    def __init__(self, out_dir: str, name: str = "loss"):
+        self.out_dir = out_dir
+        self.name = name
+        self.history: List[Dict[str, float]] = []
+        os.makedirs(out_dir, exist_ok=True)
+
+    def append(self, **metrics: float) -> None:
+        row = {k: float(v) for k, v in metrics.items()}
+        self.history.append(row)
+        with open(os.path.join(self.out_dir, f"{self.name}.jsonl"), "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+    def save(self) -> None:
+        if not self.history:
+            return
+        keys = sorted({k for row in self.history for k in row})
+        arr = np.full((len(self.history), len(keys)), np.nan)
+        for i, row in enumerate(self.history):
+            for j, k in enumerate(keys):
+                if k in row:
+                    arr[i, j] = row[k]
+        np.savez(os.path.join(self.out_dir, f"{self.name}.npz"),
+                 values=arr, columns=np.array(keys))
+
+    def curves(self) -> Dict[str, List[float]]:
+        keys = sorted({k for row in self.history for k in row})
+        return {k: [row.get(k, float("nan")) for row in self.history]
+                for k in keys}

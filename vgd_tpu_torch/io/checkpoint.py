@@ -1,10 +1,14 @@
-"""Checkpoints of the port: ``torch.save`` of params, step and config.
+"""Checkpoints of the port: ``torch.save`` of params, step and config, and
+for training the optimizer state and the random-generator state.
 
 Counterpart of ``vgd_tpu/io/checkpoint.py`` (orbax there). One file per
 step, ``<dir>/<step:08d>.pt``, holding ``{"params": state_dict on the CPU,
-"step": int, "config": plain dict}``; the newest ``keep`` files are kept.
-Files are read with ``weights_only=True``: tensors and plain containers
-only. The serving slice saves no optimizer state.
+"step": int, "config": plain dict}`` and, when given, ``"opt_state"`` (an
+optimizer ``state_dict``), ``"opt_step"`` (optimizer steps taken) and
+``"rng_state"`` (``torch.Generator.get_state``, the counterpart of the JAX
+checkpoint's ``rng_key``); the newest ``keep``
+files are kept. Files are read with ``weights_only=True``: tensors and
+plain containers only.
 """
 from __future__ import annotations
 
@@ -37,9 +41,18 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, params: Dict[str, torch.Tensor],
-             config: Optional[Dict[str, Any]] = None) -> str:
+             config: Optional[Dict[str, Any]] = None,
+             opt_state: Optional[Dict[str, Any]] = None,
+             rng_state: Optional[torch.Tensor] = None,
+             opt_step: Optional[int] = None) -> str:
         payload = {"params": {k: v.detach().cpu() for k, v in params.items()},
                    "step": int(step), "config": config or {}}
+        if opt_state is not None:
+            payload["opt_state"] = opt_state
+        if rng_state is not None:
+            payload["rng_state"] = rng_state
+        if opt_step is not None:
+            payload["opt_step"] = int(opt_step)
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -48,12 +61,25 @@ class Checkpointer:
             os.remove(self._path(old))
         return path
 
-    def restore(self, step: Optional[int] = None, map_location="cpu"
-                ) -> Tuple[Dict[str, torch.Tensor], int, Dict[str, Any]]:
-        """(params, step, config) of ``step`` (default: the latest)."""
+    def load(self, step: Optional[int] = None, map_location="cpu"
+             ) -> Dict[str, Any]:
+        """The whole payload of ``step`` (default: the latest), params on
+        ``map_location``. ``opt_state`` comes back on the CPU, as
+        ``Optimizer.load_state_dict`` wants it (it moves the moments to
+        their parameters and keeps Adam's step counts on the host), and so
+        does ``rng_state``, as ``Generator.set_state`` wants it."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        payload = torch.load(self._path(step), map_location=map_location,
+        payload = torch.load(self._path(step), map_location="cpu",
                              weights_only=True)
+        payload["params"] = {k: v.to(map_location)
+                             for k, v in payload["params"].items()}
+        return payload
+
+    def restore(self, step: Optional[int] = None, map_location="cpu"
+                ) -> Tuple[Dict[str, torch.Tensor], int, Dict[str, Any]]:
+        """(params, step, config) of ``step`` (default: the latest)."""
+        payload = self.load(step, map_location)
         return payload["params"], payload["step"], payload["config"]
+

@@ -1,5 +1,6 @@
 """Weight bridge: a JAX ``DiffusionState.params`` tree (as numpy arrays) to
-the port's ``UNet`` state_dict.
+the port's ``UNet`` state_dict, and its Adam state (``opt_state``) to a
+``torch.optim.Adam`` state, so a JAX run can continue in the port.
 
 Leaf conversions:
 
@@ -18,7 +19,7 @@ parameter must be filled.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -75,3 +76,44 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Strictly load a JAX params tree into ``model`` (in place)."""
     model.load_state_dict(from_jax_params(params, model), strict=True)
     return model
+
+
+def _adam_leaves(opt_state) -> Any:
+    """The ``ScaleByAdamState`` of an ``optax.adam`` state: the state itself
+    or the first entry of the chain's tuple, or a mapping with the same
+    ``count`` / ``mu`` / ``nu`` fields."""
+    node = opt_state
+    if isinstance(node, (tuple, list)) and not hasattr(node, "mu"):
+        node = node[0]
+    if isinstance(node, Mapping):
+        return node["count"], node["mu"], node["nu"]
+    return node.count, node.mu, node.nu
+
+
+def from_jax_adam_state(opt_state, model: nn.Module) -> Dict[str, Any]:
+    """``optax.adam``'s (count, mu, nu) as the ``state`` of a
+    ``torch.optim.Adam`` built over ``model.parameters()``: ``mu`` ->
+    ``exp_avg``, ``nu`` -> ``exp_avg_sq`` (with the params' layout
+    conversions), ``count`` -> ``step``. Strict like ``from_jax_params``:
+    both moment trees must be exactly the model's parameter set."""
+    count, mu, nu = _adam_leaves(opt_state)
+    exp_avg = from_jax_params(mu, model)
+    exp_avg_sq = from_jax_params(nu, model)
+    step = float(np.asarray(count))
+    return {i: {"step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": exp_avg[name], "exp_avg_sq": exp_avg_sq[name]}
+            for i, (name, _) in enumerate(model.named_parameters())}
+
+
+def load_jax_adam_state(optimizer: torch.optim.Optimizer, model: nn.Module,
+                        opt_state) -> torch.optim.Optimizer:
+    """Load an ``optax.adam`` state into ``optimizer`` (an Adam over
+    ``model.parameters()`` in that order), in place."""
+    sd = optimizer.state_dict()
+    n = sum(len(g["params"]) for g in sd["param_groups"])
+    if n != len(list(model.parameters())):
+        raise ValueError(f"optimizer holds {n} parameters, the model "
+                         f"{len(list(model.parameters()))}")
+    sd["state"] = from_jax_adam_state(opt_state, model)
+    optimizer.load_state_dict(sd)
+    return optimizer

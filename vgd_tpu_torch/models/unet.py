@@ -9,8 +9,11 @@ convs and Dense layers compute in ``dtype`` (bf16 by default) from f32
 parameters; GroupNorm, LayerNorm, attention, the time MLP and the output
 conv run in f32, at the same places where ``unet.py`` casts to ``F32``.
 
-``fused=True`` routes attention and every GroupNorm+SiLU through the port's
-kernels (``ops.kernels``), as the JAX package does on its inference paths.
+``fused=True`` routes attention (K3) and every GroupNorm+SiLU (K4) through
+the port's kernels (``ops.kernels``), as the JAX package does on its
+inference paths. ``fused=False`` is the training form: attention runs the
+differentiable K2 kernels (``kernels.attention``), as the JAX train step's
+``attention`` does, and GroupNorm+SiLU stays stock PyTorch.
 
 Parameter names mirror the Flax tree (``down1.conv1.weight`` for
 ``params['down1']['conv1']['kernel']``) so ``io.jax_params`` maps them one
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vgd_tpu_torch.ops.kernels import (attention_plain, flash_attention,
+from vgd_tpu_torch.ops.kernels import (attention, flash_attention,
                                        groupnorm_silu, groupnorm_silu_plain)
 
 F32 = torch.float32
@@ -89,7 +92,10 @@ class Dense(nn.Module):
 
 
 class GroupNormSiLU(nn.Module):
-    """GroupNorm(8) + SiLU in f32, NHWC. ``fused=True`` runs the K4 kernel."""
+    """GroupNorm(8) + SiLU in f32, NHWC. ``fused=True`` runs the K4 kernel.
+    The training form (``fused=False``) runs stock PyTorch ops under
+    autograd and no kernel: the JAX train step keeps the XLA form there
+    (``vgd_tpu/models/unet.py`` GroupNormSiLU) and K4 has no backward."""
 
     def __init__(self, channels: int, groups: int = 8, fused: bool = False):
         super().__init__()
@@ -159,7 +165,7 @@ class AttentionBlock(nn.Module):
         h = _nhwc(self.norm(_nchw(x.float())))
         qkv = self.qkv(h.to(self.dtype)).reshape(b, hh * ww, 3 * c)
         q, k, v = (t.float().contiguous() for t in qkv.split(c, dim=-1))
-        attend = flash_attention if self.fused else attention_plain
+        attend = flash_attention if self.fused else attention
         out = attend(q, k, v, scale=1.0 / math.sqrt(c)).reshape(b, hh, ww, c)
         return self.proj(out.to(self.dtype)).float() + x.float()
 
@@ -185,12 +191,13 @@ class CrossAttentionToGlobalTokens(nn.Module):
         x_ = x.reshape(b, hh * ww, c)
         q = self.to_q(self.norm(x_.float()).to(self.dtype))
         # The Flax module projects the tokens broadcast to the batch; every
-        # row is the same, so they are projected once and expanded.
+        # row is the same, so they are projected once and expanded (autograd
+        # sums dk/dv over the batch back into the one projection).
         k, v = self.to_kv(self.global_tokens.to(self.dtype)).split(
             self.token_dim, dim=-1)
         k = k.float().expand(b, -1, -1).contiguous()
         v = v.float().expand(b, -1, -1).contiguous()
-        attend = flash_attention if self.fused else attention_plain
+        attend = flash_attention if self.fused else attention
         h = attend(q.float().contiguous(), k, v,
                    scale=1.0 / math.sqrt(self.token_dim))
         h = self.proj(h.to(self.dtype))

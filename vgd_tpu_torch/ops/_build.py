@@ -81,15 +81,33 @@ def build_all() -> List[Path]:
     return build(sorted(CSRC_DIR.glob("*.cu")))
 
 
-@functools.cache
-def flash_attention_lib() -> ctypes.CDLL:
-    """The flash-attention library with its C signatures declared."""
-    (path,) = build([CSRC_DIR / "flash_attention.cu"])
+def _load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it with each C function's
+    argument types declared (every function returns a CUDA error code)."""
+    (path,) = build([CSRC_DIR / f"{name}.cu"])
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vgd_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i,
-                                            ctypes.c_float, p]
-    lib.vgd_flash_attention_fwd.restype = i
-    lib.vgd_cuda_error_string.argtypes = [i]
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.vgd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vgd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def flash_attention_lib() -> ctypes.CDLL:
+    """The flash-attention forward library (K3, and K2's forward)."""
+    return _load("flash_attention", {
+        "vgd_flash_attention_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
+        "vgd_flash_attention_fwd_lse": [_P] * 5 + [_I] * 4 + [_F, _P]})
+
+
+@functools.cache
+def flash_attention_bwd_lib() -> ctypes.CDLL:
+    """The flash-attention backward library (K2's dq and dk/dv)."""
+    return _load("flash_attention_bwd", {
+        "vgd_flash_attention_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
+        "vgd_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _P]})

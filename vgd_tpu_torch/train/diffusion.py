@@ -1,8 +1,16 @@
-"""DDPM schedule, forward process and samplers (``vgd_tpu/train/diffusion.py``).
+"""DDPM schedule, forward process, trainer and samplers
+(``vgd_tpu/train/diffusion.py``).
 
-Serving slice: ``DiffusionTrainer`` holds the fused UNet (kernels on CUDA)
-and its sampling methods. Training (the train step, epochs, eval loss) is
-not ported yet.
+``DiffusionTrainer`` holds two UNets over ONE set of parameters, as the JAX
+trainer holds two modules over one param tree: ``model``, the training
+form (attention through the differentiable K2 kernels, stock GroupNorm), and
+``model_fused`` (K3 and K4), which the samplers run. An optimizer step on
+``model`` is what the samplers see next; nothing is copied.
+
+The train step draws its timesteps and noise from an explicit
+``torch.Generator`` or takes them as arguments, so a test can hand both
+packages the same draws. Losses stay on the device; the caller decides
+when to read them.
 
 The samplers run eagerly under ``torch.inference_mode()``, one UNet
 forward per step. Scalar schedule entries stay 0-d f32 tensors on the
@@ -14,14 +22,17 @@ executed step, so a test can hand both packages the same draws.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from vgd_tpu_torch.core.config import DiffusionConfig
 from vgd_tpu_torch.core.rng import resolve_device
 from vgd_tpu_torch.models.unet import UNet
+from vgd_tpu_torch.ops.image import to_signed
+from vgd_tpu_torch.train.common import adam, mse
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -75,15 +86,59 @@ def ddim_timesteps(timesteps: int, num_steps: int) -> np.ndarray:
     return np.array([timesteps - 1], np.int32)
 
 
+def sample_timestep_uniform(generator: Optional[torch.Generator],
+                            batch_size: int, t_max: int,
+                            device="cpu") -> torch.Tensor:
+    """t ~ U{0..t_max-1}, int64 (the JAX package draws int32; an index
+    either way)."""
+    return torch.randint(0, t_max, (batch_size,), generator=generator,
+                         device=device)
+
+
+def sample_timestep_sinusoidal(batch_size: int, t_max: int, epoch: float,
+                               total_epochs: float) -> torch.Tensor:
+    """Phase-shifting sine schedule over the batch, int32 (unused by the
+    training loop, kept for parity)."""
+    phase = (epoch / total_epochs) * 3.1416
+    grid = torch.linspace(0.0, 3.1416, batch_size, dtype=torch.float32)
+    sampled = (torch.sin(grid + phase) + 1.0) / 2.0
+    return (sampled * (t_max - 1) + 1).to(torch.int32)
+
+
+def sample_timestep_beta(generator: Optional[torch.Generator],
+                         batch_size: int, t_max: int, alpha: float = 2.0,
+                         beta_param: float = 2.0,
+                         device="cpu") -> torch.Tensor:
+    """Beta(alpha, beta_param)-distributed timesteps in [0, t_max-1],
+    int32. Drawn as X / (X + Y) with X, Y Gamma variates from the
+    generator (``torch.distributions`` reads the global RNG)."""
+    a = torch.full((batch_size,), float(alpha), device=device)
+    b = torch.full((batch_size,), float(beta_param), device=device)
+    x = torch._standard_gamma(a, generator=generator)
+    y = torch._standard_gamma(b, generator=generator)
+    return (x / (x + y) * (t_max - 1)).to(torch.int32)
+
+
 @dataclass
 class DiffusionState:
-    """Serving state: UNet parameters (a state_dict) and the step count."""
+    """UNet parameters (a state_dict), the optimizer's ``state_dict`` (None
+    for a serving-only state) and the step count."""
     params: Dict[str, torch.Tensor]
+    opt_state: Optional[Dict[str, Any]] = None
     step: int = 0
 
 
+def _share_parameters(dst: nn.Module, src: nn.Module) -> None:
+    """Make every parameter of ``dst`` the very tensor of ``src`` with the
+    same name (the two modules then hold one set of parameters)."""
+    for name, p in src.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        setattr(dst.get_submodule(owner), leaf, p)
+
+
 class DiffusionTrainer:
-    """DDPM sampling around a fused UNet on ``device``."""
+    """DDPM training and sampling around one set of UNet parameters on
+    ``device``."""
 
     def __init__(self, cfg: DiffusionConfig, img_shape: Tuple[int, int, int],
                  device="cuda"):
@@ -91,25 +146,98 @@ class DiffusionTrainer:
         self.device = resolve_device(device)
         self.img_shape = tuple(img_shape)
         c = img_shape[-1]
+        kw = dict(in_ch=c, out_ch=c, base_ch=cfg.base_ch,
+                  time_emb_dim=cfg.time_emb_dim, attention=cfg.attention,
+                  dtype=DTYPES[cfg.run.compute_dtype])
         with torch.device(self.device):
-            self.model = UNet(in_ch=c, out_ch=c, base_ch=cfg.base_ch,
-                              time_emb_dim=cfg.time_emb_dim,
-                              attention=cfg.attention,
-                              dtype=DTYPES[cfg.run.compute_dtype],
-                              fused=True)
-        self.model.eval()
+            self.model = UNet(fused=False, **kw)
+            self.model_fused = UNet(fused=True, **kw)
+        _share_parameters(self.model_fused, self.model)
+        self.model_fused.eval()
+        self.opt: Optional[torch.optim.Optimizer] = None
+        self.step = 0
         self.sched = make_schedule(cfg.timesteps, cfg.beta_start,
                                    cfg.beta_end, device=self.device)
 
+    def _optimizer(self) -> torch.optim.Optimizer:
+        if self.opt is None:
+            self.opt = adam(self.model.parameters(), self.cfg.lr)
+        return self.opt
+
     def init(self, generator: Optional[torch.Generator] = None
              ) -> DiffusionState:
-        """Seeded Flax-default init of the UNet; returns its state."""
+        """Seeded Flax-default init of the UNet and a fresh Adam; returns
+        the state."""
         self.model.init_parameters(generator)
-        return DiffusionState(params=self.model.state_dict(), step=0)
+        self.opt = None
+        self.step = 0
+        return DiffusionState(params=self.model.state_dict(),
+                              opt_state=self._optimizer().state_dict())
 
     def load(self, state: DiffusionState) -> None:
-        """Load a state's parameters into the UNet (strict)."""
+        """Load a state's parameters into the UNet (strict), and its
+        optimizer state when it has one."""
         self.model.load_state_dict(state.params, strict=True)
+        if state.opt_state is not None:
+            self._optimizer().load_state_dict(state.opt_state)
+        self.step = int(state.step)
+
+    # ------------------------------------------------------------------ train
+    def _inputs(self, batch_uint8, generator, t, noise):
+        x0 = to_signed(batch_uint8.to(self.device))
+        if t is None:
+            t = sample_timestep_uniform(generator, x0.shape[0],
+                                        self.cfg.timesteps, self.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator,
+                                device=self.device)
+        t = t.to(self.device)
+        noise = noise.to(self.device, torch.float32)
+        return q_sample(self.sched, x0, t, noise), t, noise
+
+    def train_step(self, batch_uint8: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One epsilon-prediction step: t ~ U{0..T-1} and Gaussian noise
+        (drawn in that order from ``generator`` unless given), MSE of the
+        UNet's prediction, backward, one Adam update. Returns the loss as a
+        0-d device tensor (no host read)."""
+        self.model.train()
+        xt, t, noise = self._inputs(batch_uint8, generator, t, noise)
+        loss = mse(self.model(xt, t), noise)
+        opt = self._optimizer()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        self.step += 1
+        return loss.detach()
+
+    def train_epoch(self, batches: Iterable[torch.Tensor],
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """``train_step`` over every batch; the mean loss as a 0-d device
+        tensor."""
+        total, count = None, 0
+        for batch in batches:
+            loss = self.train_step(batch, generator)
+            total = loss if total is None else total + loss
+            count += 1
+        if total is None:
+            raise ValueError("train_epoch got no batch")
+        return total / count
+
+    @torch.no_grad()
+    def eval_loss(self, batch_uint8: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  t: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Per-sample validation epsilon-MSE (B,), through the training
+        form of the UNet, so the caller can drop a final batch's padded
+        rows (each row is independent: GroupNorm is per sample)."""
+        xt, t, noise = self._inputs(batch_uint8, generator, t, noise)
+        pred = self.model(xt, t)
+        return torch.square(pred.float() - noise).mean(dim=(1, 2, 3))
 
     def _noise(self, noise, i, like, generator):
         if noise is not None:
@@ -117,10 +245,11 @@ class DiffusionTrainer:
         return torch.randn(like.shape, generator=generator,
                            device=like.device, dtype=like.dtype)
 
+    # ---------------------------------------------------------------- sample
     def _eps(self, x, t: int):
         t_vec = torch.full((x.shape[0],), t, dtype=torch.int32,
                            device=x.device)
-        return self.model(x, t_vec)
+        return self.model_fused(x, t_vec)
 
     @torch.inference_mode()
     def ancestral_sample(self, xt: torch.Tensor, t_start: int,
@@ -195,7 +324,7 @@ class DiffusionTrainer:
         s = self.sched
         xt = xt.to(self.device, torch.float32)
         t = t.to(self.device)
-        pred = self.model(xt, t)
+        pred = self.model_fused(xt, t)
         t = t.long()
         a = s.sqrt_alphas_cumprod[t][:, None, None, None]
         b = s.sqrt_one_minus_alphas_cumprod[t][:, None, None, None]

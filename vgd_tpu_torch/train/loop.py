@@ -1,9 +1,12 @@
-"""Serving entry points of the port (``vgd_tpu/train/loop.py``): DDPM
-sample grids from a checkpoint and partial-noise restoration evaluation.
+"""Entry points of the port (``vgd_tpu/train/loop.py``): DDPM training
+(``run_diffusion``), sample grids from a checkpoint and partial-noise
+restoration evaluation.
 
 Grids and panels are written as ``.npy`` arrays in [-1, 1] (the JAX
 package's image writer needs matplotlib/PIL, which the port does not
-depend on).
+depend on). The JAX loop's mesh, sequence-parallel and epoch-scan options
+have no counterpart here: the port runs one device and loops over steps
+in Python.
 """
 from __future__ import annotations
 
@@ -18,10 +21,52 @@ from vgd_tpu_torch.core.config import DiffusionConfig, to_dict
 from vgd_tpu_torch.core.rng import resolve_device, seed_all
 from vgd_tpu_torch.data.celeba import make_image_datasets
 from vgd_tpu_torch.eval.metrics import mse_metric, psnr
+from vgd_tpu_torch.io.artifacts import MetricLog
 from vgd_tpu_torch.io.checkpoint import Checkpointer
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
+from vgd_tpu_torch.utils.prefetch import device_prefetch
+
+# offset of the validation generator's seed from the run seed: every epoch
+# scores the same t and noise draws, as the JAX loop folds a fixed
+# 30_000 + j into its key for val batch j
+VAL_SEED_OFFSET = 30_000
+
+
+class _Profiler:
+    """``torch.profiler`` trace of global train steps [start, stop) written
+    as a Chrome trace into ``RunConfig.profile_dir`` (no-op when unset)."""
+
+    def __init__(self, run_cfg, device: torch.device):
+        self.dir = run_cfg.profile_dir
+        self.start_step, self.stop_step = run_cfg.profile_steps
+        self.device = device
+        self.prof = None
+
+    def step(self, i: int) -> None:
+        if not self.dir:
+            return
+        if i == self.start_step and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        elif i == self.stop_step:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(
+            self.dir, f"trace_steps_{self.start_step}_{self.stop_step}.json"))
+        self.prof = None
 
 
 def _image_shape(cfg: DiffusionConfig):
@@ -35,7 +80,7 @@ def restore_trainer(cfg: DiffusionConfig, step: Optional[int] = None,
     trainer = DiffusionTrainer(cfg, _image_shape(cfg), device=device)
     params, s, _ = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt")).restore(
         step, map_location=trainer.device)
-    trainer.load(DiffusionState(params=params, step=s))
+    trainer.load(DiffusionState(params=params))
     print(f"[checkpoint] restored step {s}")
     return trainer
 
@@ -46,6 +91,78 @@ def save_checkpoint(cfg: DiffusionConfig, trainer: DiffusionTrainer,
     ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
                         keep=cfg.run.keep_checkpoints)
     return ckpt.save(step, trainer.model.state_dict(), to_dict(cfg))
+
+
+def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
+                  max_steps_per_epoch: Optional[int] = None,
+                  resume: bool = False, device="cuda") -> Dict:
+    """Train DDPM: per epoch, train steps over ``device_prefetch``ed
+    batches (the loss summed on the device and read once), the validation
+    epsilon-MSE over the true rows of every val batch, a ``MetricLog`` row
+    (train_loss, val_loss, images_per_sec) and, every
+    ``checkpoint_every_epochs``, a checkpoint of params, Adam state and the
+    generator state at step = epochs done. ``resume`` continues from the
+    latest checkpoint exactly: same parameters, moments, draws and batch
+    order as a run that never stopped."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = DiffusionTrainer(cfg, img_shape, device=device)
+    trainer.init(gen)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
+                        keep=cfg.run.keep_checkpoints)
+    start_epoch = 0
+    if resume and ckpt.latest_step() is not None:
+        payload = ckpt.load(map_location=device)
+        trainer.load(DiffusionState(params=payload["params"],
+                                    opt_state=payload["opt_state"],
+                                    step=payload["opt_step"]))
+        gen.set_state(payload["rng_state"])
+        start_epoch = payload["step"]
+        train.set_epoch(start_epoch)
+        print(f"[checkpoint] resumed at epoch {start_epoch}")
+    log = MetricLog(cfg.run.out_dir, "diffusion_loss")
+    prof = _Profiler(cfg.run, device)
+    epochs = cfg.epochs if epochs is None else epochs
+    gstep, n_val = trainer.step, 0
+    for epoch in range(start_epoch, epochs):
+        t0 = time.perf_counter()
+        total_dev, count = None, 0
+        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
+                                  device=device)
+        for i, batch in enumerate(batches):
+            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                break
+            prof.step(gstep)
+            loss = trainer.train_step(batch, gen)
+            gstep += 1
+            count += 1
+            total_dev = loss if total_dev is None else total_dev + loss
+        total = float(total_dev) if count else 0.0
+        ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
+                                                1e-9)
+        vgen = torch.Generator(device=device).manual_seed(
+            cfg.run.seed + VAL_SEED_OFFSET)
+        val_dev, n_val = torch.zeros((), device=device), 0
+        for vbatch, n_valid in val.epoch():
+            vl = trainer.eval_loss(torch.from_numpy(vbatch), vgen)
+            # the padded repeats of a final batch must not count
+            val_dev = val_dev + vl[:n_valid].sum()
+            n_val += n_valid
+        train_loss = total / max(count, 1)
+        val_loss = float(val_dev) / max(n_val, 1)
+        log.append(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
+                   images_per_sec=ips)
+        print(f"[diffusion] epoch {epoch + 1}/{epochs} train={train_loss:.4f}"
+              f" val={val_loss:.4f} {ips:.0f} img/s")
+        if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
+            ckpt.save(epoch + 1, trainer.model.state_dict(), to_dict(cfg),
+                      opt_state=trainer.opt.state_dict(),
+                      rng_state=gen.get_state(), opt_step=trainer.step)
+    prof.close()
+    log.save()
+    return {"trainer": trainer, "log": log.history, "val": val,
+            "val_rows": n_val}
 
 
 def evaluate_diffusion(cfg: DiffusionConfig, trainer: DiffusionTrainer, val,
