@@ -9,25 +9,39 @@ Run from the root of a checkout on a machine with one CUDA card:
    for sm_90a, one process per source, all at once; Triton compiles at its
    first launch);
 2. holds every kernel against its plain PyTorch version on the card at
-   every shape the 256x256, batch-16 DDPM UNet gives it, with the tolerance
-   stated below, and times kernel, plain version, and the one PyTorch call
-   that computes the same function (timed here only, never called by the
-   port): K2 (training attention: forward with logsumexp, dq, dk/dv), K3
-   (serving attention), K4 (GroupNorm+SiLU);
-3. holds the fused UNet forward and one training-form train step (loss and
-   every gradient) against the same weights run with no kernel at all
-   (``kernels.plain_reference``), and profiles both by kernel group;
-4. trains DDPM at full width (256x256, batch 16, base_ch 64, T=1000, bf16
+   every shape its main path gives it, with the tolerance stated below, and
+   times kernel, plain version, and the one PyTorch call that computes the
+   same function (timed here only, never called by the port): K2 (training
+   attention: forward with logsumexp, dq, dk/dv), K3 (serving attention),
+   K4 (GroupNorm+SiLU) at the 256x256, batch-16 DDPM UNet's shapes; K1
+   (Conv4x4 stride 2 + batch statistics) at the 256x256, batch-64 VAE-GAN's
+   nine shapes in bf16, one f32 shape and two ragged ones;
+3. DDPM: holds the fused UNet forward and one training-form train step
+   (loss and every gradient) against the same weights run with no kernel at
+   all (``kernels.plain_reference``), and profiles both by kernel group;
+4. DDPM: trains at full width (256x256, batch 16, base_ch 64, T=1000, bf16
    convs) through ``run_diffusion`` on synthetic faces: 2 epochs of 8 steps,
    a checkpoint per epoch, a resume that must restore exactly what was
    saved, and a third epoch. Every train step must launch K2 exactly 3
    times each (forward, dq, dk/dv), every validation forward 3 K2
    forwards, and K3/K4 never;
-5. serves that trained checkpoint: ``sample_from_dir`` answers a 16-image
-   DDIM-50 request and ``evaluate_diffusion`` restores one batch through the
-   ancestral chain, with exactly 3 (K3) and 14 (K4) launches per UNet
-   forward and no K2 launch;
-6. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+5. DDPM: serves that trained checkpoint: ``sample_from_dir`` answers a
+   16-image DDIM-50 request and ``evaluate_diffusion`` restores one batch
+   through the ancestral chain, with exactly 3 (K3) and 14 (K4) launches
+   per UNet forward and no K2 launch;
+6. VAE-GAN (256x256, batch 64, latent 100, ngf = ndf = 64, bf16 convs,
+   ``fused_conv=True``): the first D step's and the G step's losses and
+   gradients with K1 against the same state and draws with no kernel (in
+   f32 at the DDPM step's bounds; in bf16 against the measured noise floor
+   of the no-kernel step itself), the shapes K1 sees against its table,
+   one train step profiled; then
+   ``run_vaegan`` on 640 synthetic faces (576 train / 64 val), 2 epochs of
+   9 steps, a resume that must restore params, BN buffers, the three Adam
+   states and the generator exactly, and a third epoch, with exactly 33 K1
+   launches per train step and none in validation or ``generate``; then
+   ``sample_from_dir("vaegan", n=64)`` serves that checkpoint with no K1
+   launch;
+7. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -48,8 +62,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
+# dense on the tensor cores, HBM3
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 # K2 and K3 at 256x256, B=16: (name, B, N, M, D), once per UNet forward
@@ -84,6 +100,35 @@ STEP_GRAD_REL, STEP_GRAD_FLOOR, STEP_LOSS_REL = 5e-2, 1e-4, 1e-3
 # training run: 200 synthetic faces -> 180 train / 20 val, so the second
 # val batch holds 4 true rows and 12 padded repeats
 TRAIN_DATASET, TRAIN_STEPS, TRAIN_EPOCHS = 200, 8, 2
+
+# K1 at 256x256, B=64, ngf = ndf = 64: (site, B, H, W, Cin, K, padding,
+# launches per train step): each encoder layer runs in the recon0 and the G
+# step forwards, each fused discriminator layer in 2 x 2 D-step forwards and
+# the G step's
+K1_SHAPES = [("enc0", 64, 256, 256, 3, 32, 0, 2),
+             ("enc1", 64, 127, 127, 32, 64, 0, 2),
+             ("enc2", 64, 62, 62, 64, 128, 0, 2),
+             ("enc3", 64, 30, 30, 128, 256, 0, 2),
+             ("dis1", 64, 128, 128, 16, 32, 1, 5),
+             ("dis2", 64, 64, 64, 32, 64, 1, 5),
+             ("dis3", 64, 32, 32, 64, 128, 1, 5),
+             ("dis4", 64, 16, 16, 128, 256, 1, 5),
+             ("dis5", 64, 8, 8, 256, 512, 1, 5)]
+K1_PER_STEP = sum(s[-1] for s in K1_SHAPES)          # 33
+# checked, not timed: one f32 shape and two ragged ones (odd sizes, Cin and K
+# that no 16-byte vector divides)
+K1_EXTRA = [("f32", 8, 64, 64, 32, 64, 1, "float32"),
+            ("ragged", 3, 31, 29, 5, 7, 0, "bfloat16"),
+            ("ragged", 2, 9, 13, 12, 20, 1, "bfloat16")]
+# K1 against its plain version (bf16 operands upcast, f32 conv, TF32 off),
+# the tolerances of tests/test_fused_conv.py: c within 1e-4 of max |c| (sums
+# in another order), mean / var rtol 1e-4 atol 1e-5, y = bn_lrelu(c) within
+# 1e-4 of max |y| + 1e-5
+K1_C_REL, K1_STAT_RTOL, K1_STAT_ATOL, K1_Y_REL, K1_Y_ATOL = \
+    1e-4, 1e-4, 1e-5, 1e-4, 1e-5
+# VAE-GAN training run: 640 synthetic faces -> 576 train (9 batches of 64)
+# and 64 val; 2 epochs, a resume, a third epoch
+VAEGAN_DATASET, VAEGAN_STEPS, VAEGAN_EPOCHS = 640, 9, 2
 
 
 def card_line() -> str:
@@ -298,6 +343,85 @@ def check_groupnorm(K, gen, dev, failures):
     return rows
 
 
+def check_k1(K, gen, dev, failures):
+    """K1 against its plain version at the nine main-path shapes (bf16) and
+    at K1_EXTRA: c, mean, var, and y = bn_lrelu of each; the main-path
+    shapes timed as kernel, plain version and the library yardstick (cuDNN
+    conv2d in bf16 on channels_last input, then torch.var_mean)."""
+    import torch
+    import torch.nn.functional as F
+    from vgd_tpu_torch.ops.fused_conv import bn_lrelu
+    rows = []
+    extra = [(n, b, h, w, ci, k, p, 0, dt) for n, b, h, w, ci, k, p, dt
+             in K1_EXTRA]
+    for site, b, h, w, cin, k, pad, calls, *dt in \
+            [s_ + ("bfloat16",) for s_ in K1_SHAPES] + extra:
+        dtype = getattr(torch, dt[0])
+        x = torch.randn(b, h, w, cin, device=dev, generator=gen).to(dtype)
+        wt = (torch.randn(k, cin, 4, 4, device=dev, generator=gen)
+              * (2.0 / (16 * cin)) ** 0.5).to(dtype)
+        gamma = 1.0 + 0.02 * torch.randn(k, device=dev, generator=gen)
+        beta = 0.02 * torch.randn(k, device=dev, generator=gen)
+        c, mean, var = K.conv_stats(x, wt, pad)
+        torch.cuda.synchronize()
+        rc, rm, rv = K.conv_stats_plain(x, wt, pad)
+        slope = 0.2 if pad else 0.01
+        y = bn_lrelu(c, gamma, beta, mean, var, slope, 1e-5)
+        ry = bn_lrelu(rc, gamma, beta, rm, rv, slope, 1e-5)
+        errs = {"c": float((c - rc).abs().max()),
+                "mean": float((mean - rm).abs().max()),
+                "var": float((var - rv).abs().max()),
+                "y": float((y - ry).abs().max())}
+        ok = (errs["c"] <= K1_C_REL * float(rc.abs().max())
+              and bool(((mean - rm).abs() <= K1_STAT_ATOL
+                        + K1_STAT_RTOL * rm.abs()).all())
+              and bool(((var - rv).abs() <= K1_STAT_ATOL
+                        + K1_STAT_RTOL * rv.abs()).all())
+              and errs["y"] <= K1_Y_REL * float(ry.abs().max()) + K1_Y_ATOL)
+        shape = [b, h, w, cin, k, pad]
+        if not ok:
+            failures.append(f"K1 {site} {shape} {dt[0]}: errors {errs}")
+        row = {"shape": shape, "site": site, "dtype": dt[0],
+               "max_abs_err": max(errs.values()),
+               "max_rel_err": errs["c"] / float(rc.abs().max()),
+               "errors": errs, "tol": f"c {K1_C_REL} x max|c|, mean/var "
+               f"rtol {K1_STAT_RTOL} atol {K1_STAT_ATOL}, y {K1_Y_REL} x "
+               f"max|y| + {K1_Y_ATOL}"}
+        if calls:
+            ho, wo = c.shape[1], c.shape[2]
+            m = b * ho * wo
+            flops = 2.0 * m * k * 16 * cin
+            nbytes = 2.0 * (b * h * w * cin + 16 * cin * k) + 4.0 * m * k \
+                + 8.0 * k
+            xc = x.permute(0, 3, 1, 2)            # channels_last view
+
+            def library():
+                o = F.conv2d(xc, wt, stride=2, padding=pad)
+                return torch.var_mean(o, dim=(0, 2, 3), correction=0)
+            row.update(
+                ms=cuda_ms(lambda: K.conv_stats(x, wt, pad)),
+                plain_ms=cuda_ms(lambda: K.conv_stats_plain(x, wt, pad)),
+                library_ms=cuda_ms(library),
+                flop_ms=flops / BF16_FLOPS * 1e3,
+                byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=calls)
+        rows.append(row)
+        print(f"[kernel] K1 {site} {shape} {dt[0]} " + " ".join(
+            f"{n}_err={e:.3g}" for n, e in errs.items()) + " " + " ".join(
+            f"{key}={row[key]:.4f}" for key in
+            ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms")
+            if key in row) + ("" if ok else " FAIL"), flush=True)
+    timed = [r for r in rows if "ms" in r]
+    print(f"[kernel] K1 per train step ({K1_PER_STEP} launches): kernel "
+          f"{sum(r['ms'] * r['calls'] for r in timed):.3f} ms, plain "
+          f"{sum(r['plain_ms'] * r['calls'] for r in timed):.3f} ms, library "
+          f"(cuDNN conv2d bf16 channels_last + torch.var_mean) "
+          f"{sum(r['library_ms'] * r['calls'] for r in timed):.3f} ms, bound "
+          f"{sum(max(r['flop_ms'], r['byte_ms']) * r['calls'] for r in timed):.3f}"
+          f" ms (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+    return rows
+
+
 def kernel_entry(name, source, replaces, rows, launches, per):
     """One kernel's line entry: times summed over the shapes of one UNet
     forward or train step (each shape weighted by its calls there)."""
@@ -308,15 +432,20 @@ def kernel_entry(name, source, replaces, rows, launches, per):
         if any(v is None for v in vals):
             return None
         return sum(v * r["calls"] for v, r in zip(vals, timed))
-    flop_ms, byte_ms = total("flop_ms"), total("byte_ms")
+    # each launch is bound by the larger of its operations and its bytes;
+    # the launches of a step run one after another
+    by_ops = sum(r["flop_ms"] * r["calls"] for r in timed
+                 if r["flop_ms"] >= r["byte_ms"])
+    by_bytes = sum(r["byte_ms"] * r["calls"] for r in timed
+                   if r["flop_ms"] < r["byte_ms"])
     entry = {"name": name, "route": "cuda" if source.endswith(".cu")
              else "triton", "source": source, "replaces": replaces,
              "launches": launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "max_rel_err": max(r["max_rel_err"] for r in rows),
              "ms": total("ms"), "plain_ms": total("plain_ms"),
-             "bound_ms": max(flop_ms, byte_ms),
-             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+             "bound_ms": by_ops + by_bytes,
+             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
              "library_ms": total("library_ms"), "per": per, "shapes": rows}
     if "library_fwd_bwd_ms" in timed[0]:
         entry["library_fwd_bwd_ms"] = total("library_fwd_bwd_ms")
@@ -751,6 +880,406 @@ def main_path(K, gen, failures):
     return train_launches, serve_launches, stats
 
 
+# ---------------------------------------------------------------------------
+# VAE-GAN: K1 on the flagship train step
+# ---------------------------------------------------------------------------
+
+# one step's first D step and G step, K1 against no kernel, same state and
+# draws. In f32 (the same full-width model with compute_dtype float32) the
+# DDPM step's bounds hold: each gradient within 5e-2 of its tensor's max |g|
+# plus 1e-4 of its network's largest |g|, losses within 1e-3 relative. In
+# bf16 (the main path) the step is chaotic at init: a one-ulp f32
+# perturbation of the no-kernel reference's own conv outputs flips bf16
+# roundings that the discriminator's real-minus-fake gradient and six
+# BatchNorm backwards amplify past those bounds. So the bf16 comparison is
+# held to VAEGAN_FLOOR_X times that noise floor, measured in the same run
+# (the reference against itself with c * (1 + 2^-23 N(0, 1))).
+VAEGAN_GRAD_REL, VAEGAN_GRAD_FLOOR, VAEGAN_LOSS_REL = 5e-2, 1e-4, 1e-3
+VAEGAN_FLOOR_X = 3.0
+VAEGAN_GROUPS = [("K1 conv + batch statistics", ("conv_stats_kernel",
+                                                  "combine_stats")),
+                 ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
+                 ("reductions (BN statistics and backward, bias grads)",
+                  ("reduce",)),
+                 ("dtype casts and copies", ("copy",)),
+                 ("convolutions and their backward (cuDNN)",
+                  ("xmma", "conv", "gemm", "cutlass", "nchw", "nhwc",
+                   "dgrad", "wgrad"))]
+
+
+def vaegan_config():
+    """The flagship VAE-GAN at the reference's training scale: 256x256,
+    batch 64, latent 100, ngf = ndf = 64, three Adams at lr 2e-4, bf16
+    convs, ``fused_conv=True`` (K1), on VAEGAN_DATASET synthetic faces."""
+    from vgd_tpu_torch.core.config import DataConfig, RunConfig, VAEGANConfig
+    return VAEGANConfig(
+        data=DataConfig(batch_size=64, image_size=(256, 256),
+                        dataset_size=VAEGAN_DATASET),
+        run=RunConfig(out_dir=str(OUT_DIR / "vaegan"), seed=42,
+                      fused_conv=True))
+
+
+def vaegan_step_grads(trainer, x, eps, nr, nf):
+    """Losses and gradients of the first D step and of the G step of one
+    train step (as ``train_step`` computes them, without the Adam
+    updates)."""
+    import torch
+    from vgd_tpu_torch.models.blocks import frozen_running_stats
+    cfg = trainer.cfg
+    noise_real, noise_fake = cfg.instance_noise * nr, cfg.instance_noise * nf
+    with torch.no_grad(), frozen_running_stats(trainer.encoder,
+                                               trainer.decoder):
+        _, _, recon0 = trainer.encode_decode(x, eps)
+    real_noisy = x + noise_real
+    trainer.disc.zero_grad(set_to_none=True)
+    d_loss = trainer.d_loss(real_noisy, recon0 + noise_fake)
+    d_loss.backward()
+    d_grads = {f"disc.{n}": p.grad.clone()
+               for n, p in trainer.disc.named_parameters()}
+    trainer.disc.zero_grad(set_to_none=True)
+    total, parts = trainer.g_loss(x, eps, real_noisy, noise_fake, 1.0)
+    names = [(f"{net}.{n}", p) for net in ("encoder", "decoder")
+             for n, p in getattr(trainer, net).named_parameters()]
+    g_grads = dict(zip([n for n, _ in names], torch.autograd.grad(
+        total, [p for _, p in names])))
+    losses = {"d_loss": d_loss.item(), "g_total": total.item(),
+              **{k: v.item() for k, v in parts.items()}}
+    return losses, d_grads, g_grads
+
+
+def compare_step(got, ref):
+    """(worst gradient error over its bound, that gradient's name, largest
+    relative loss difference) of two ``vaegan_step_grads`` results."""
+    (lk, dk, gk), (lr, dr, gr) = got, ref
+    worst = (0.0, "")
+    for g_all, r_all in ((dk, dr), (gk, gr)):
+        top = max(float(g.abs().max()) for g in r_all.values())
+        for name, r in r_all.items():
+            err = float((g_all[name] - r).abs().max())
+            bound = VAEGAN_GRAD_REL * float(r.abs().max()) + \
+                VAEGAN_GRAD_FLOOR * top
+            worst = max(worst, (err / bound, name))
+    loss_rel = max(abs(lk[k] - lr[k]) / abs(lr[k]) for k in lr)
+    return worst[0], worst[1], loss_rel
+
+
+def check_vaegan_step(K, cfg, gen, failures):
+    """The first D step's and the G step's losses and gradients with K1
+    against the same state and draws with no kernel
+    (``kernels.plain_reference``): in f32 at the DDPM step's bounds, in
+    bf16 against the measured noise floor; the shapes K1 sees in one bf16
+    step against K1_SHAPES; then one whole bf16 train step timed and
+    profiled."""
+    import dataclasses
+    import torch
+    from vgd_tpu_torch.ops.image import to_signed
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    (h, w), b = cfg.data.image_size, cfg.data.batch_size
+    stats = {}
+    plain = K.conv_stats_plain
+
+    def perturbed(xx, ww, pad):
+        c, m, v = plain(xx, ww, pad)
+        g = torch.Generator(device=c.device).manual_seed(123)
+        return c * (1 + 2.0 ** -23 * torch.randn(
+            c.shape, device=c.device, generator=g)), m, v
+
+    for dtype in ("float32", "bfloat16"):
+        dcfg = dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, compute_dtype=dtype))
+        trainer = VAEGANTrainer(dcfg, (h, w, 3), device="cuda")
+        dev = trainer.device
+        trainer.init(torch.Generator(device=dev).manual_seed(cfg.run.seed))
+        if dtype == "float32":
+            n_params = {n: sum(p.numel() for p in net.parameters())
+                        for n, net in trainer.nets().items()}
+            print(f"[vaegan-init] {h}x{w} B={b} latent {cfg.latent_dim} ngf "
+                  f"{cfg.ngf} ndf {cfg.ndf} fused_conv {cfg.run.fused_conv};"
+                  f" parameters {n_params}", flush=True)
+        batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                              device=dev, generator=gen)
+        x = to_signed(batch)
+        eps = torch.randn(b, cfg.latent_dim, device=dev, generator=gen)
+        nr = torch.randn(b, h, w, 3, device=dev, generator=gen)
+        nf = torch.randn(b, h, w, 3, device=dev, generator=gen)
+        state = {k: v.clone() for k, v in trainer.state_dict().items()}
+        seen = []
+        conv_stats = K.conv_stats
+
+        def recording(xx, ww, pad):
+            seen.append((tuple(xx.shape), tuple(ww.shape[:2]), pad))
+            return conv_stats(xx, ww, pad)
+        K.conv_stats = recording
+        try:
+            K.LAUNCHES.clear()
+            kern = vaegan_step_grads(trainer, x, eps, nr, nf)
+            launches = K.LAUNCHES["conv_bn_stats"]
+        finally:
+            K.conv_stats = conv_stats
+        runs = {}
+        for name, fn in (("plain", plain), ("plain_perturbed", perturbed)):
+            if dtype == "float32" and name == "plain_perturbed":
+                continue
+            trainer.load(state)
+            K.LAUNCHES.clear()
+            K.conv_stats_plain = fn
+            try:
+                with K.plain_reference():
+                    runs[name] = vaegan_step_grads(trainer, x, eps, nr, nf)
+            finally:
+                K.conv_stats_plain = plain
+            if sum(K.LAUNCHES.values()):
+                failures.append(f"vaegan step: the no-kernel reference "
+                                f"launched {dict(K.LAUNCHES)}")
+        want = {((bb, hh, ww, ci), (kk, ci), p) for _, bb, hh, ww, ci, kk,
+                p, _ in K1_SHAPES}
+        if set(seen) != want or launches != 23:
+            failures.append(f"vaegan step {dtype}: K1 saw "
+                            f"{sorted(set(seen))} in {launches} launches, want"
+                            f" the K1_SHAPES in 23 (first D step 10, recon0 "
+                            f"4, G step 9)")
+        worst, wname, loss_rel = compare_step(kern, runs["plain"])
+        row = {"worst_err_over_bound": worst, "worst_tensor": wname,
+               "loss_rel": loss_rel, "k1_launches": launches,
+               "losses": kern[0], "losses_ref": runs["plain"][0]}
+        line = (f"[vaegan-step] {dtype} K1 vs no-kernel reference, B={b} "
+                f"{h}x{w}: losses " + " ".join(
+                    f"{k} {kern[0][k]:.6f}/{runs['plain'][0][k]:.6f}"
+                    for k in kern[0]) + f"; worst gradient err/bound "
+                f"{worst:.3f} ({wname}), largest loss difference "
+                f"{loss_rel:.3g} relative; K1 launches {launches} at "
+                f"{len(set(seen))} shapes")
+        if dtype == "float32":
+            if not (worst <= 1.0 and loss_rel <= VAEGAN_LOSS_REL):
+                failures.append(f"vaegan step f32: K1 vs reference {row}")
+        else:
+            fworst, fname, floss = compare_step(runs["plain_perturbed"],
+                                                runs["plain"])
+            row.update(floor_worst_err_over_bound=fworst,
+                       floor_worst_tensor=fname, floor_loss_rel=floss)
+            line += (f"; noise floor (reference vs itself, c perturbed by "
+                     f"one f32 ulp): worst {fworst:.3f} ({fname}), loss "
+                     f"{floss:.3g}; held at the f32 bounds or {VAEGAN_FLOOR_X} x the "
+                     f"floor, whichever is larger")
+            # the f32 bounds, widened to VAEGAN_FLOOR_X x the floor where
+            # the floor itself exceeds them
+            if not (worst <= max(1.0, VAEGAN_FLOOR_X * fworst)
+                    and loss_rel <= max(VAEGAN_LOSS_REL,
+                                        VAEGAN_FLOOR_X * floss)):
+                failures.append(f"vaegan step bf16: K1 vs reference {row}")
+        print(line, flush=True)
+        stats[f"step_{dtype}"] = row
+        del kern, runs
+        if dtype == "float32":
+            del trainer
+            torch.cuda.empty_cache()
+    trainer.load(state)
+
+    def step():
+        trainer.train_step(batch, 1.0, eps=eps, noise_real=nr, noise_fake=nf)
+
+    def plain_step():
+        with K.plain_reference():
+            step()
+    stats.update(train_step_ms=cuda_ms(step, 2, 5),
+                 train_step_plain_ms=cuda_ms(plain_step, 2, 5))
+    stats["train_step_profile"] = profile_fn(
+        step, stats["train_step_ms"], VAEGAN_GROUPS, "profile-vaegan")
+    print(f"[vaegan-step] whole bf16 train step B={b} {h}x{w}: K1 "
+          f"{stats['train_step_ms']:.3f} ms, no-kernel reference "
+          f"{stats['train_step_plain_ms']:.3f} ms", flush=True)
+    return stats
+
+
+def vaegan_train_path(K, cfg, failures):
+    """``run_vaegan`` for VAEGAN_EPOCHS epochs of VAEGAN_STEPS steps, a
+    resume that runs no epoch (it must restore exactly what was saved), and
+    a resume that trains one more epoch. Launch counts are read from zero
+    around each run and per train step, validation pass and generate."""
+    import torch
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    calls = {"train_step": [], "eval_step": [], "generate": []}
+    originals = {n: getattr(VAEGANTrainer, n) for n in calls}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def counted(self, *args, **kwargs):
+            before = K.LAUNCHES["conv_bn_stats"]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(self, *args, **kwargs)
+            end.record()
+            calls[name].append((K.LAUNCHES["conv_bn_stats"] - before,
+                                start, end, out))
+            return out
+        return counted
+
+    for n in calls:
+        setattr(VAEGANTrainer, n, wrap(n))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = L.run_vaegan(cfg, epochs=VAEGAN_EPOCHS,
+                           max_steps_per_epoch=VAEGAN_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        total = K.LAUNCHES["conv_bn_stats"]
+        trainer = res["trainer"]
+        per = {n: [c[0] for c in v] for n, v in calls.items()}
+        steps = len(per["train_step"])
+        step_ms = sorted(s.elapsed_time(e) for _, s, e, _ in
+                         calls["train_step"][1:])
+        bad = [i for i, (*_, m) in enumerate(calls["train_step"])
+               if not all(math.isfinite(float(v)) for v in m.values())]
+        if bad:
+            failures.append(f"vaegan-train: non-finite losses from step "
+                            f"{bad[0]}: {calls['train_step'][bad[0]][3]}")
+        stats = {"train_steps": steps, "train_run_s": train_s,
+                 "k1_launches": total,
+                 "k1_per_step": sorted(set(per["train_step"])),
+                 "k1_in_eval": sum(per["eval_step"]),
+                 "k1_in_generate": sum(per["generate"]),
+                 "step_ms_median": step_ms[len(step_ms) // 2],
+                 "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+                 "images_per_sec_median_step":
+                     cfg.data.batch_size / step_ms[len(step_ms) // 2] * 1e3,
+                 "log": res["log"], "val_rows": res["val_rows"],
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[vaegan-train] launches: K1 {total} in {steps} train steps "
+              f"(per step {stats['k1_per_step']}), {len(per['eval_step'])} "
+              f"validation batches {stats['k1_in_eval']}, "
+              f"{len(per['generate'])} generate calls "
+              f"{stats['k1_in_generate']}; all launches "
+              f"{dict(K.LAUNCHES)}", flush=True)
+        if (steps != VAEGAN_EPOCHS * VAEGAN_STEPS
+                or stats["k1_per_step"] != [K1_PER_STEP]
+                or stats["k1_in_eval"] or stats["k1_in_generate"]
+                or total != K1_PER_STEP * steps
+                or set(K.LAUNCHES) - {"conv_bn_stats"}):
+            failures.append(f"vaegan-train: {steps} steps, K1 per step "
+                            f"{stats['k1_per_step']}, eval "
+                            f"{stats['k1_in_eval']}, generate "
+                            f"{stats['k1_in_generate']}, all "
+                            f"{dict(K.LAUNCHES)}")
+        keys = ("train_recon", "train_kl", "train_adv", "train_d_loss",
+                "val_loss", "ssim", "psnr")
+        if not all(math.isfinite(r[k]) for r in res["log"] for k in keys):
+            failures.append(f"vaegan-train: non-finite metrics {res['log']}")
+        if res["val_rows"] != res["val"].num_examples:
+            failures.append(f"vaegan-train: val rows {res['val_rows']} of "
+                            f"{res['val'].num_examples}")
+        for r in res["log"]:
+            print(f"[vaegan-train] epoch {int(r['epoch']) + 1}: " + " ".join(
+                f"{k} {r[k]:.5f}" for k in keys) +
+                f" images/s {r['images_per_sec']:.1f}", flush=True)
+        print(f"[vaegan-train] {steps} steps; step ms median "
+              f"{stats['step_ms_median']:.3f} (min {step_ms[0]:.3f}, max "
+              f"{step_ms[-1]:.3f}) after the first = "
+              f"{stats['images_per_sec_median_step']:.1f} images/s; peak "
+              f"memory {stats['peak_mem_gb']:.3f} GB", flush=True)
+
+        # a resume with no epoch left restores, and must equal what was saved
+        final = {k: v.clone() for k, v in trainer.state_dict().items()}
+        payload = Checkpointer(f"{cfg.run.out_dir}/ckpt").load()
+        K.LAUNCHES.clear()
+        back = L.run_vaegan(cfg, epochs=VAEGAN_EPOCHS, resume=True,
+                            device="cuda")["trainer"]
+        same_params = all(torch.equal(final[k], v) and
+                          torch.equal(payload["params"][k], v.cpu())
+                          for k, v in back.state_dict().items())
+        same_opt = True
+        for name in ("encoder", "decoder", "disc"):
+            sa = trainer.opts[name].state_dict()["state"]
+            sb = back.opts[name].state_dict()["state"]
+            same_opt &= sa.keys() == sb.keys() and all(
+                torch.equal(sa[i][x].cpu(), sb[i][x].cpu())
+                for i in sa for x in ("step", "exp_avg", "exp_avg_sq"))
+        ok = (same_params and same_opt and payload["step"] == VAEGAN_EPOCHS
+              and back.step == steps == payload["opt_step"]
+              and sum(K.LAUNCHES.values()) == 0)
+        print(f"[vaegan-resume] checkpoint epoch {payload['step']}, optimizer"
+              f" steps {back.step}: params and BN buffers equal "
+              f"{same_params}, three Adam states equal {same_opt}",
+              flush=True)
+        if not ok:
+            failures.append("vaegan resume did not restore what was saved")
+        del back, trainer, res, final
+        torch.cuda.empty_cache()
+
+        for v in calls.values():
+            v.clear()
+        K.LAUNCHES.clear()
+        res = L.run_vaegan(cfg, epochs=VAEGAN_EPOCHS + 1,
+                           max_steps_per_epoch=VAEGAN_STEPS, resume=True,
+                           device="cuda")
+        steps3 = len(calls["train_step"])
+        got = K.LAUNCHES["conv_bn_stats"]
+        row = res["log"][-1]
+        print(f"[vaegan-train] resumed epoch {int(row['epoch']) + 1}: " +
+              " ".join(f"{k} {row[k]:.5f}" for k in keys) +
+              f"; K1 launches {got} in {steps3} steps", flush=True)
+        if not (res["trainer"].step == steps + steps3 == 3 * VAEGAN_STEPS
+                and got == K1_PER_STEP * steps3
+                and int(row["epoch"]) == VAEGAN_EPOCHS
+                and all(math.isfinite(row[k]) for k in keys)):
+            failures.append(f"vaegan resumed epoch: {res['log']}, step "
+                            f"{res['trainer'].step}, K1 launches {got}")
+        stats["resumed_log"] = res["log"]
+        stats["k1_launches"] = total + got
+    finally:
+        for n, fn in originals.items():
+            setattr(VAEGANTrainer, n, fn)
+    return stats
+
+
+def vaegan_serve_path(K, cfg, failures):
+    """``sample_from_dir("vaegan", n=64)`` on the trained checkpoint: a
+    64-image grid, finite and in [-1, 1], with no K1 launch."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    latest = Checkpointer(f"{cfg.run.out_dir}/ckpt").latest_step()
+    if latest != VAEGAN_EPOCHS + 1:
+        failures.append(f"vaegan-serve: latest checkpoint {latest}, want "
+                        f"{VAEGAN_EPOCHS + 1}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = L.sample_from_dir("vaegan", cfg, n=64, device="cuda")
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if sum(launches.values()):
+        failures.append(f"vaegan-serve launched {launches}")
+    check_images(np.load(path), (64,) + tuple(cfg.data.image_size) + (3,),
+                 "vaegan-serve", failures)
+    stats = {"served_checkpoint": latest, "sample_s": sample_s,
+             "launches": launches,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[vaegan-serve] sample request (64 images, checkpoint restore "
+          f"included) {sample_s:.3f} s; launches {launches}; peak memory "
+          f"{stats['peak_mem_gb']:.3f} GB", flush=True)
+    return stats
+
+
+def vaegan_path(K, gen, failures):
+    cfg = vaegan_config()
+    shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+    stats = check_vaegan_step(K, cfg, gen, failures)
+    stats["train"] = vaegan_train_path(K, cfg, failures)
+    stats["serve"] = vaegan_serve_path(K, cfg, failures)
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=str, default=None,
@@ -792,7 +1321,9 @@ def main(argv=None) -> int:
         k2_rows, report["sdpa_backend"] = check_k2(K, gen, dev, failures)
         attn_rows = check_attention(K, gen, dev, failures)
         gn_rows = check_groupnorm(K, gen, dev, failures)
+        k1_rows = check_k1(K, gen, dev, failures)
         train_l, serve_l, report["main_path"] = main_path(K, gen, failures)
+        report["vaegan"] = vaegan_path(K, gen, failures)
         per_step = "one 256x256 batch-16 train step"
         per_fwd = "one 256x256 batch-16 UNet forward"
         fwd_src = "vgd_tpu_torch/csrc/flash_attention.cu"
@@ -816,7 +1347,12 @@ def main(argv=None) -> int:
             kernel_entry("groupnorm_silu",
                          "vgd_tpu_torch/ops/groupnorm_silu_triton.py",
                          "vgd_tpu/ops/pallas_kernels.py:149", gn_rows,
-                         serve_l["groupnorm_silu"], per_fwd)]
+                         serve_l["groupnorm_silu"], per_fwd),
+            kernel_entry("conv_bn_stats",
+                         "vgd_tpu_torch/csrc/conv_bn_stats.cu",
+                         "vgd_tpu/ops/fused_conv.py:125", k1_rows,
+                         report["vaegan"]["train"]["k1_launches"],
+                         "one 256x256 batch-64 VAE-GAN train step")]
     except Exception:                      # noqa: BLE001 - report and fail
         traceback.print_exc()
         failures.append("exception (traceback above)")
@@ -834,10 +1370,9 @@ def main(argv=None) -> int:
                                    if k != "shapes"}
                                   for e in report["kernels"]]}))
     print(card)
-    # the run drives one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -26,7 +26,7 @@ def test_synthetic_faces_byte_equal():
 
 
 @pytest.mark.parametrize("name", ["DataConfig", "RunConfig",
-                                  "DiffusionConfig"])
+                                  "DiffusionConfig", "VAEGANConfig"])
 def test_config_defaults_equal_jax(name):
     """Every field the port keeps has the JAX package's default."""
     port, ref = getattr(PC, name)(), getattr(JC, name)()
@@ -69,6 +69,9 @@ def test_image_ops_and_metrics_match_jax():
     u8 = rng.integers(0, 256, (3, 4, 4, 3), dtype=np.uint8)
     np.testing.assert_allclose(PI.to_signed(torch.from_numpy(u8)).numpy(),
                                np.asarray(JI.to_signed(jnp.asarray(u8))),
+                               rtol=0, atol=1e-7)
+    np.testing.assert_allclose(PI.to_unit(torch.from_numpy(u8)).numpy(),
+                               np.asarray(JI.to_unit(jnp.asarray(u8))),
                                rtol=0, atol=1e-7)
     x = rng.uniform(-1.2, 1.2, (3, 4, 4, 3)).astype(np.float32)
     unit = PI.signed_to_unit(torch.from_numpy(x))

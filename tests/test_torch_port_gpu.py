@@ -193,3 +193,115 @@ def test_training_unet_matches_kernel_free_reference(cuda):
     for name, ref in out[1][1].items():
         err = float((out[0][1][name] - ref).abs().max())
         assert err <= 1e-3 * float(ref.abs().max()) + 1e-6 * gmax, name
+
+
+K1_SHAPES = [(2, 16, 16, 8, 32, 0), (2, 16, 16, 8, 32, 1),
+             (3, 31, 29, 5, 7, 0), (2, 9, 13, 12, 20, 1),
+             (4, 127, 127, 32, 64, 0), (4, 8, 8, 256, 512, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,w,cin,k,pad", K1_SHAPES)
+def test_k1_matches_plain(cuda, b, h, w, cin, k, pad, dtype):
+    """K1 (conv + batch statistics) against its plain version on the same
+    operands (the plain one upcasts bf16 to f32; TF32 is off): c within
+    1e-4 of max |c| (the sums run in other orders), mean / var rtol 1e-4
+    atol 1e-5. Odd, ragged and unvectorisable (Cin 5, K 7) shapes included."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(b, h, w, cin, device=cuda, generator=g).to(dtype)
+    wt = (0.1 * torch.randn(k, cin, 4, 4, device=cuda, generator=g)).to(dtype)
+    before = K.LAUNCHES["conv_bn_stats"]
+    c, mean, var = K.conv_stats(x, wt, pad)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["conv_bn_stats"] == before + 1
+    rc, rm, rv = K.conv_stats_plain(x, wt, pad)
+    assert c.shape == rc.shape and c.dtype == torch.float32
+    assert float((c - rc).abs().max()) <= 1e-4 * float(rc.abs().max())
+    torch.testing.assert_close(mean, rm, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(var, rv, rtol=1e-4, atol=1e-5)
+
+
+def test_k1_autograd_matches_plain_autograd(cuda):
+    """The fused op with K1 and its custom backward against the unfused plain
+    chain under autograd (``conv_bn_lrelu_plain``), f32: y, mean, var and
+    the gradients of x, w, gamma and beta; the conv bias gets an exact zero.
+    Inside ``plain_reference`` the fused op launches nothing."""
+    from vgd_tpu_torch.ops.fused_conv import conv_bn_lrelu, conv_bn_lrelu_plain
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x0 = torch.randn(4, 31, 31, 16, device=cuda, generator=g)
+    w0 = 0.1 * torch.randn(32, 16, 4, 4, device=cuda, generator=g)
+    gamma0 = 1 + 0.1 * torch.randn(32, device=cuda, generator=g)
+    beta0 = 0.1 * torch.randn(32, device=cuda, generator=g)
+    bias0 = torch.linspace(-1, 1, 32, device=cuda)
+    cot = torch.randn(4, 14, 14, 32, device=cuda, generator=g)
+    out = []
+    for fn in (conv_bn_lrelu, conv_bn_lrelu_plain):
+        args = [t.clone().requires_grad_() for t in (x0, w0, gamma0, beta0,
+                                                     bias0)]
+        K.LAUNCHES.clear()
+        y, m, v = fn(*args[:4], bias=args[4], slope=0.01)
+        assert K.LAUNCHES["conv_bn_stats"] == (fn is conv_bn_lrelu)
+        y.backward(cot)
+        out.append(((y, m, v), [a.grad for a in args]))
+    for a, r in zip(out[0][0], out[1][0]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+    for a, r in zip(out[0][1][:4], out[1][1][:4]):
+        assert float((a - r).abs().max()) <= 2e-4 * float(r.abs().max())
+    assert torch.equal(out[0][1][4], torch.zeros_like(bias0))
+    K.LAUNCHES.clear()
+    with K.plain_reference():
+        conv_bn_lrelu(x0, w0, gamma0, beta0, bias=bias0)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+def test_k1_refuses_what_it_cannot_take(cuda):
+    x = torch.randn(2, 16, 16, 8, device=cuda)
+    w = torch.randn(16, 8, 4, 4, device=cuda)
+    strided = torch.randn(2, 8, 16, 16, device=cuda).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.conv_stats(strided, w, 1)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        K.conv_stats(x.half(), w.half(), 1)
+    with pytest.raises(ValueError, match="w is"):
+        K.conv_stats(x, w.bfloat16(), 1)
+    with pytest.raises(ValueError, match="padding"):
+        K.conv_stats(x, w, 2)
+    with pytest.raises(ValueError, match="shape"):
+        K.conv_stats(x, torch.randn(16, 8, 3, 3, device=cuda), 1)
+    with pytest.raises(ValueError):
+        K.conv_stats(x, w.cpu(), 1)
+
+
+def test_vaegan_step_fused_matches_stock_on_the_card(cuda):
+    """A small f32 VAE-GAN train step with K1 (fused_conv) and the same
+    weights and draws through the stock layers: the five losses agree and
+    every step launches K1 exactly 4 + 2 * 2 * 3 + 4 + 3 = 23 times at
+    64x64 (4 fused encoder layers, 3 fused discriminator layers)."""
+    import dataclasses
+    from vgd_tpu_torch.core import config as C
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    cfg = C.VAEGANConfig(
+        data=C.DataConfig(image_size=(64, 64), batch_size=4),
+        run=C.RunConfig(compute_dtype="float32", fused_conv=True),
+        latent_dim=16, ngf=8, ndf=8)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    batch = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                          device=cuda, generator=g)
+    draws = dict(eps=torch.randn(4, 16, device=cuda, generator=g),
+                 noise_real=torch.randn(4, 64, 64, 3, device=cuda,
+                                        generator=g),
+                 noise_fake=torch.randn(4, 64, 64, 3, device=cuda,
+                                        generator=g))
+    fused = VAEGANTrainer(cfg, (64, 64, 3), device="cuda")
+    fused.init(torch.Generator(device=cuda).manual_seed(0))
+    stock = VAEGANTrainer(dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, fused_conv=False)), (64, 64, 3), device="cuda")
+    stock.load(fused.state_dict())
+    K.LAUNCHES.clear()
+    mf = fused.train_step(batch, 0.5, **draws)
+    assert K.LAUNCHES["conv_bn_stats"] == 23
+    ms = stock.train_step(batch, 0.5, **draws)
+    assert K.LAUNCHES["conv_bn_stats"] == 23
+    for k in mf:
+        assert abs(float(mf[k]) - float(ms[k])) <= 1e-4 * abs(float(ms[k])), k

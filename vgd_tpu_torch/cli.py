@@ -1,14 +1,20 @@
-"""Command line of the port (``vgd_tpu/cli.py``), DDPM:
+"""Command line of the port (``vgd_tpu/cli.py``), DDPM and VAE-GAN:
 
   python -m vgd_tpu_torch.cli diffusion --epochs 100 --out-dir runs/diffusion \\
       [--steps-per-epoch 8] [--resume] [--profile-dir runs/diffusion/trace]
   python -m vgd_tpu_torch.cli sample --family diffusion --out-dir runs/diffusion \\
       [-n 16] [--ddim-steps 50 --ddim-eta 0.0]
   python -m vgd_tpu_torch.cli eval-diffusion --out-dir runs/diffusion [--max-batches 1]
+  python -m vgd_tpu_torch.cli vaegan --image-size 256 --batch-size 64 \\
+      --out-dir runs/vaegan [--epochs 150] [--steps-per-epoch 9] \\
+      [--fused-conv] [--resume] [--profile-dir runs/vaegan/trace]
+  python -m vgd_tpu_torch.cli sample --family vaegan --out-dir runs/vaegan \\
+      --image-size 256 [-n 64]
 
-``diffusion`` trains (``train.loop.run_diffusion``) and writes
-``<out-dir>/ckpt``; ``sample`` and ``eval-diffusion`` restore it. All run on
-``--device cuda`` unless ``--device cpu`` is given.
+``diffusion`` and ``vaegan`` train (``train.loop.run_diffusion`` /
+``run_vaegan``) and write ``<out-dir>/ckpt``; ``sample`` and
+``eval-diffusion`` restore it. All run on ``--device cuda`` unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from vgd_tpu_torch.core import config as C
 
 
 def _add_common(p, serving=True):
-    p.add_argument("--out-dir", type=str, default="runs/diffusion")
+    p.add_argument("--out-dir", type=str, default=None,
+                   help="default: the family's config (runs/<family>)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--dataset-size", type=int, default=None)
@@ -29,37 +36,51 @@ def _add_common(p, serving=True):
     if serving:
         p.add_argument("--step", type=int, default=None,
                        help="checkpoint step (default: latest)")
-    p.add_argument("--timesteps", type=int, default=1000)
-    p.add_argument("--no-attn", action="store_true")
     p.add_argument("--compute-dtype", type=str, default=None,
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
 
 
-def _diffusion_cfg(a) -> C.DiffusionConfig:
-    cfg = C.DiffusionConfig(timesteps=a.timesteps, attention=not a.no_attn)
-    top = {}
-    if getattr(a, "epochs", None) is not None:
-        top["epochs"] = a.epochs
-    if getattr(a, "lr", None) is not None:
-        top["lr"] = a.lr
-    data = {}
-    if a.batch_size is not None:
-        data["batch_size"] = a.batch_size
+def _add_diffusion(p):
+    p.add_argument("--timesteps", type=int, default=1000)
+    p.add_argument("--no-attn", action="store_true")
+
+
+def _add_training(p):
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="truncate epochs (smoke runs)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="torch.profiler trace of train steps 10-20 here")
+
+
+def _with_args(cfg, a, **run):
+    """``cfg`` with the values given on the command line."""
+    data = {k: getattr(a, k) for k in ("batch_size", "dataset_size")
+            if getattr(a, k) is not None}
     if a.image_size is not None:
         data["image_size"] = (a.image_size, a.image_size)
-    if a.dataset_size is not None:
-        data["dataset_size"] = a.dataset_size
-    run = {"seed": a.seed, "out_dir": a.out_dir}
-    if a.compute_dtype is not None:
-        run["compute_dtype"] = a.compute_dtype
-    if getattr(a, "profile_dir", None) is not None:
-        run["profile_dir"] = a.profile_dir
-    if getattr(a, "keep_checkpoints", None) is not None:
-        run["keep_checkpoints"] = a.keep_checkpoints
+    run["seed"] = a.seed
+    for k in ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints"):
+        if getattr(a, k, None) is not None:
+            run[k] = getattr(a, k)
+    top = {k: getattr(a, k) for k in ("epochs", "lr")
+           if getattr(a, k, None) is not None}
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data),
                                run=dataclasses.replace(cfg.run, **run), **top)
+
+
+def _diffusion_cfg(a) -> C.DiffusionConfig:
+    return _with_args(C.DiffusionConfig(timesteps=a.timesteps,
+                                        attention=not a.no_attn), a)
+
+
+def _vaegan_cfg(a) -> C.VAEGANConfig:
+    return _with_args(C.VAEGANConfig(), a,
+                      fused_conv=bool(getattr(a, "fused_conv", False)))
 
 
 def main(argv=None):
@@ -69,19 +90,23 @@ def main(argv=None):
     p = sub.add_parser("diffusion", help="train DDPM (checkpoints under "
                        "<out-dir>/ckpt, loss log diffusion_loss.jsonl)")
     _add_common(p, serving=False)
-    p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--steps-per-epoch", type=int, default=None,
-                   help="truncate epochs (smoke runs)")
+    _add_diffusion(p)
+    _add_training(p)
     p.add_argument("--lr", type=float, default=None)
-    p.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint")
-    p.add_argument("--profile-dir", type=str, default=None,
-                   help="torch.profiler trace of train steps 10-20 here")
     p.add_argument("--keep-checkpoints", type=int, default=None)
+
+    p = sub.add_parser("vaegan", help="train the VAE-GAN (checkpoints under "
+                       "<out-dir>/ckpt, loss log vaegan_loss.jsonl)")
+    _add_common(p, serving=False)
+    _add_training(p)
+    p.add_argument("--fused-conv", action="store_true",
+                   help="encoder/discriminator Conv+BN+LeakyReLU through "
+                   "the fused K1 kernel")
 
     p = sub.add_parser("sample", help="sample grid from a checkpoint")
     _add_common(p)
-    p.add_argument("--family", required=True, choices=["diffusion"])
+    _add_diffusion(p)
+    p.add_argument("--family", required=True, choices=["diffusion", "vaegan"])
     p.add_argument("-n", "--num-samples", type=int, default=64)
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--ddim-steps", type=int, default=0,
@@ -92,11 +117,21 @@ def main(argv=None):
     p = sub.add_parser("eval-diffusion", help="partial-noise restoration "
                        "evaluation (PSNR, MSE) of a checkpoint")
     _add_common(p)
+    _add_diffusion(p)
     p.add_argument("--max-batches", type=int, default=None)
 
     a = ap.parse_args(argv)
     from vgd_tpu_torch.train import loop as L
 
+    if a.cmd == "vaegan":
+        L.run_vaegan(_vaegan_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
+                     resume=a.resume, device=a.device)
+        return 0
+    if a.cmd == "sample" and a.family == "vaegan":
+        L.sample_from_dir("vaegan", _vaegan_cfg(a), n=a.num_samples,
+                          out_path=a.out, step=a.step, seed=a.seed,
+                          device=a.device)
+        return 0
     cfg = _diffusion_cfg(a)
     if a.cmd == "diffusion":
         L.run_diffusion(cfg, max_steps_per_epoch=a.steps_per_epoch,

@@ -1,7 +1,7 @@
 """Typed configuration for the ported workloads.
 
-Own copies of ``vgd_tpu/core/config.py``'s ``DataConfig``, ``RunConfig`` and
-``DiffusionConfig`` with the same defaults (a test pins them field by
+Own copies of ``vgd_tpu/core/config.py``'s ``DataConfig``, ``RunConfig``,
+``VAEGANConfig`` and ``DiffusionConfig`` with the same defaults (a test pins them field by
 field). ``RunConfig`` keeps only the fields the ported paths read;
 ``compute_dtype``/``param_dtype`` keep their meaning: convs and dense layers
 compute in ``compute_dtype``, parameters are stored in ``param_dtype``.
@@ -40,6 +40,31 @@ class RunConfig:
     # torch.profiler trace of train steps [start, stop) into this directory
     profile_dir: Optional[str] = None
     profile_steps: Tuple[int, int] = (10, 20)
+    # fused Conv4x4s2 + BatchNorm + LeakyReLU (K1) in the encoder and
+    # discriminator train paths; off by default, as in the JAX package
+    fused_conv: bool = False
+
+
+@dataclass(frozen=True)
+class VAEGANConfig:
+    """The flagship VAE-GAN (reference vaegan_code.py scale: latent 100,
+    three Adams at lr 2e-4, 150 epochs)."""
+    data: DataConfig = field(default_factory=DataConfig)
+    run: RunConfig = field(default_factory=lambda: RunConfig(out_dir="runs/vaegan"))
+    latent_dim: int = 100
+    epochs: int = 150
+    lr: float = 2e-4
+    alpha_kl: float = 0.1
+    alpha_adv: float = 0.1
+    kl_warmup_epochs: int = 50          # KL ramp min(1, epoch / 50)
+    label_real: float = 0.9             # label smoothing
+    label_fake: float = 0.1
+    instance_noise: float = 0.05        # std of the noise on D inputs
+    d_steps: int = 2                    # discriminator steps per batch
+    ngf: int = 64
+    ndf: int = 64
+    recon_loss: str = "pixel"           # "pixel" | "disl" (D-feature MSE)
+    val_noise_std: float = 0.05
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,9 @@
-"""Run artifacts (``vgd_tpu/io/artifacts.py``): the metric log.
+"""Run artifacts (``vgd_tpu/io/artifacts.py``): the metric log, sample
+grids and noisy / clean / reconstruction panels.
 
-Loss-curve plots and image grids need matplotlib and PIL, which the port
-does not depend on; they wait for the IO slice.
+Grids and panels are written as ``.npy`` arrays of the images in [-1, 1]:
+the JAX package draws them with matplotlib, which the port does not depend
+on. Loss-curve plots and image files wait for the IO slice.
 """
 from __future__ import annotations
 
@@ -45,3 +47,27 @@ class MetricLog:
         keys = sorted({k for row in self.history for k in row})
         return {k: [row.get(k, float("nan")) for row in self.history]
                 for k in keys}
+
+
+def _npy(images) -> np.ndarray:
+    if hasattr(images, "detach"):
+        images = images.detach().float().cpu().numpy()
+    return np.asarray(images, np.float32)
+
+
+def _save(path: str, arr: np.ndarray) -> str:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.save(path, arr)
+    return path
+
+
+def save_grid(images, path: str) -> str:
+    """The first 64 images (N, H, W, C) in [-1, 1] (the JAX package's 8 x 8
+    grid) as an (n, H, W, C) ``.npy`` at ``path``."""
+    return _save(path, _npy(images)[:64])
+
+
+def save_triplets(noisy, clean, recon, path: str) -> str:
+    """The first 6 noisy / clean / reconstructed images as a
+    (3, n, H, W, C) ``.npy`` at ``path``."""
+    return _save(path, np.stack([_npy(x)[:6] for x in (noisy, clean, recon)]))

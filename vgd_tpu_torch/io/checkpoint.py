@@ -7,7 +7,10 @@ step, ``<dir>/<step:08d>.pt``, holding ``{"params": state_dict on the CPU,
 optimizer ``state_dict``), ``"opt_step"`` (optimizer steps taken) and
 ``"rng_state"`` (``torch.Generator.get_state``, the counterpart of the JAX
 checkpoint's ``rng_key``); the newest ``keep``
-files are kept. Files are read with ``weights_only=True``: tensors and
+files are kept. A VAE-GAN checkpoint holds the three networks' parameters
+and BatchNorm buffers in ``params`` under ``encoder.`` / ``decoder.`` /
+``disc.`` and ``opt_state`` as ``{"encoder": ..., "decoder": ...,
+"disc": ...}`` of the three Adam state_dicts. Files are read with ``weights_only=True``: tensors and
 plain containers only.
 """
 from __future__ import annotations

@@ -1,14 +1,21 @@
-"""Weight bridge: a JAX ``DiffusionState.params`` tree (as numpy arrays) to
-the port's ``UNet`` state_dict, and its Adam state (``opt_state``) to a
-``torch.optim.Adam`` state, so a JAX run can continue in the port.
+"""Weight bridge: a JAX params tree (as numpy arrays) to the state_dict of
+the port's counterpart module (the DDPM ``UNet``; the VAE-GAN ``Encoder``,
+``Generator`` and ``Discriminator``, with their ``batch_stats``), and an
+optax Adam state (``opt_state``) to a ``torch.optim.Adam`` state, so a JAX
+run can continue in the port.
 
 Leaf conversions:
 
-* conv ``kernel`` HWIO -> ``weight`` OIHW;
+* conv ``kernel`` HWIO -> ``weight`` OIHW, transposed (3, 2, 0, 1);
+* ``ConvTranspose`` ``kernel`` (HWIO, unflipped) -> ``weight`` (in, out,
+  kh, kw), transposed (2, 3, 0, 1). Told apart by the port module the leaf
+  lands on, not by shape (a shape check catches a wrong transpose only
+  when in != out), so a tree with transposed convs needs ``model``;
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 * ``bias`` as is;
-* GroupNorm / LayerNorm ``scale`` -> ``weight``;
-* ``global_tokens`` as is.
+* GroupNorm / LayerNorm / BatchNorm ``scale`` -> ``weight``;
+* ``global_tokens`` as is;
+* ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 Module paths keep their names (``down1/conv1/kernel`` ->
 ``down1.conv1.weight``), so the channel order of the fused qkv and kv
@@ -25,11 +32,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from vgd_tpu_torch.ops.conv import ConvTranspose
 
-def _convert(name: str, arr: np.ndarray, path: str):
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _convert(name: str, arr: np.ndarray, path: str, transposed: bool):
     if name == "kernel":
         if arr.ndim == 4:
-            return "weight", arr.transpose(3, 2, 0, 1)
+            return "weight", arr.transpose((2, 3, 0, 1) if transposed
+                                           else (3, 2, 0, 1))
         if arr.ndim == 2:
             return "weight", arr.T
         raise ValueError(f"{path}: kernel of rank {arr.ndim}")
@@ -40,26 +52,49 @@ def _convert(name: str, arr: np.ndarray, path: str):
     raise ValueError(f"{path}: unknown parameter {name!r}")
 
 
-def from_jax_params(params: Mapping, model: Optional[nn.Module] = None
+def _is_transposed(model: Optional[nn.Module], owner: str) -> bool:
+    if model is None:
+        return False
+    try:
+        return isinstance(model.get_submodule(owner), ConvTranspose)
+    except AttributeError:
+        return False            # no such module: the strict check reports it
+
+
+def from_jax_params(params: Mapping, model: Optional[nn.Module] = None,
+                    batch_stats: Optional[Mapping] = None
                     ) -> Dict[str, torch.Tensor]:
-    """Convert a nested mapping of numpy arrays to a state_dict (f32 CPU
-    tensors). With ``model``, check it is exactly that model's parameter
-    set and shapes."""
+    """Convert a nested mapping of numpy arrays (and, when given, the
+    ``batch_stats`` collection) to a state_dict of f32 CPU tensors. With
+    ``model``, check it is exactly that model's parameter set and shapes,
+    plus its buffers when ``batch_stats`` is given."""
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(node, prefix):
+    def walk(node, prefix, stats):
         for key, val in node.items():
             path = f"{prefix}/{key}" if prefix else key
             if isinstance(val, Mapping):
-                walk(val, path)
+                walk(val, path, stats)
                 continue
-            name, arr = _convert(key, np.asarray(val), path)
-            dotted = ".".join(path.split("/")[:-1] + [name])
-            out[dotted] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+            owner = path.split("/")[:-1]
+            if stats:
+                if key not in _STATS:
+                    raise ValueError(f"{path}: unknown batch stat {key!r}")
+                name, arr = _STATS[key], np.asarray(val)
+            else:
+                name, arr = _convert(key, np.asarray(val), path,
+                                     _is_transposed(model, ".".join(owner)))
+            out[".".join(owner + [name])] = torch.from_numpy(
+                np.array(arr, np.float32, order="C"))
 
-    walk(params, "")
+    walk(params, "", False)
+    if batch_stats is not None:
+        walk(batch_stats, "", True)
     if model is not None:
-        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        want = {k: tuple(v.shape) for k, v in model.named_parameters()}
+        if batch_stats is not None:
+            want.update((k, tuple(v.shape))
+                        for k, v in model.named_buffers())
         got = {k: tuple(v.shape) for k, v in out.items()}
         missing = sorted(set(want) - set(got))
         extra = sorted(set(got) - set(want))
@@ -72,9 +107,12 @@ def from_jax_params(params: Mapping, model: Optional[nn.Module] = None
     return out
 
 
-def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Strictly load a JAX params tree into ``model`` (in place)."""
-    model.load_state_dict(from_jax_params(params, model), strict=True)
+def load_jax_params(model: nn.Module, params: Mapping,
+                    batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Strictly load a JAX params tree (and ``batch_stats``, which a model
+    with BatchNorm needs) into ``model`` (in place)."""
+    model.load_state_dict(from_jax_params(params, model, batch_stats),
+                          strict=True)
     return model
 
 
@@ -117,3 +155,16 @@ def load_jax_adam_state(optimizer: torch.optim.Optimizer, model: nn.Module,
     sd["state"] = from_jax_adam_state(opt_state, model)
     optimizer.load_state_dict(sd)
     return optimizer
+
+
+def load_jax_vaegan_state(trainer, state):
+    """Load a JAX ``VAEGANState`` (its ``encoder`` / ``decoder`` / ``disc``
+    each with ``params``, ``batch_stats`` and ``opt_state``, and ``step``;
+    leaves as numpy or array-likes) into a ``train.vaegan.VAEGANTrainer``:
+    weights, BN running stats and the three Adam states, strictly."""
+    for name, net in trainer.nets().items():
+        st = getattr(state, name)
+        load_jax_params(net, st.params, st.batch_stats)
+        load_jax_adam_state(trainer.opts[name], net, st.opt_state)
+    trainer.step = int(np.asarray(state.step))
+    return trainer

@@ -28,49 +28,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vgd_tpu_torch.ops import conv
+from vgd_tpu_torch.ops.conv import nchw, nhwc
+from vgd_tpu_torch.ops.initializers import lecun_normal_
 from vgd_tpu_torch.ops.kernels import (attention, flash_attention,
                                        groupnorm_silu, groupnorm_silu_plain)
 
 F32 = torch.float32
 
 
-def lecun_normal_(w: torch.Tensor, fan_in: int,
-                  generator: Optional[torch.Generator]) -> None:
-    """Flax's default kernel init: variance_scaling(1, fan_in,
-    truncated_normal), i.e. a normal truncated at two standard deviations
-    and rescaled so the truncated distribution has variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
-
-
-class Conv(nn.Module):
+class Conv(conv.Conv):
     """Flax ``nn.Conv`` (odd square kernel, SAME padding) on NHWC input."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, dtype: torch.dtype):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
-        self.bias = nn.Parameter(torch.empty(out_ch))
-        self.dtype = dtype
-
-    def reset_parameters(self, generator=None):
-        _, i, kh, kw = self.weight.shape
-        lecun_normal_(self.weight, i * kh * kw, generator)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        dt = self.dtype
-        y = F.conv2d(_nchw(x).to(dt), self.weight.to(dt), self.bias.to(dt),
-                     padding=self.weight.shape[-1] // 2)
-        return _nhwc(y)
+        super().__init__(in_ch, out_ch, k, padding=k // 2, dtype=dtype)
 
 
 class Dense(nn.Module):
@@ -162,7 +133,7 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x):
         b, hh, ww, c = x.shape
-        h = _nhwc(self.norm(_nchw(x.float())))
+        h = nhwc(self.norm(nchw(x.float())))
         qkv = self.qkv(h.to(self.dtype)).reshape(b, hh * ww, 3 * c)
         q, k, v = (t.float().contiguous() for t in qkv.split(c, dim=-1))
         attend = flash_attention if self.fused else attention
@@ -206,13 +177,13 @@ class CrossAttentionToGlobalTokens(nn.Module):
 
 def max_pool2(x):
     """MaxPool2d(2) on NHWC."""
-    return _nhwc(F.max_pool2d(_nchw(x), 2))
+    return nhwc(F.max_pool2d(nchw(x), 2))
 
 
 def upsample2_bilinear(x):
     """x2 bilinear, align_corners=False (half-pixel centres), NHWC; equals
     ``jax.image.resize(..., 'bilinear')`` for upsampling, edges included."""
-    return _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="bilinear",
+    return nhwc(F.interpolate(nchw(x), scale_factor=2, mode="bilinear",
                                align_corners=False))
 
 

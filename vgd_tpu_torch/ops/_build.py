@@ -111,3 +111,13 @@ def flash_attention_bwd_lib() -> ctypes.CDLL:
     return _load("flash_attention_bwd", {
         "vgd_flash_attention_bwd_dq": [_P] * 7 + [_I] * 4 + [_F, _P],
         "vgd_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _P]})
+
+
+@functools.cache
+def conv_bn_stats_lib() -> ctypes.CDLL:
+    """The fused Conv4x4s2 + batch-statistics library (K1)."""
+    lib = _load("conv_bn_stats", {
+        "vgd_conv_bn_stats": [_P] * 6 + [_I] * 7 + [_P]})
+    lib.vgd_conv_stats_row_tiles.argtypes = [_I] * 3
+    lib.vgd_conv_stats_row_tiles.restype = ctypes.c_int
+    return lib

@@ -4,6 +4,11 @@ from __future__ import annotations
 import torch
 
 
+def to_unit(x_uint8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """uint8 -> [0, 1] (ToTensor)."""
+    return x_uint8.to(dtype) / 255.0
+
+
 def to_signed(x_uint8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 -> [-1, 1] (ToTensor + Normalize(0.5, 0.5))."""
     return x_uint8.to(dtype) / 127.5 - 1.0

@@ -1,7 +1,7 @@
 """The port's kernels and their plain PyTorch versions.
 
-Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` for the kernels on the
-DDPM paths:
+Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernel of
+``vgd_tpu/ops/fused_conv.py``, for the kernels on the DDPM and VAE-GAN paths:
 
 * ``attention`` (K2, training: forward with logsumexp, dq, dk/dv) -> the
   CUDA kernels in ``csrc/flash_attention.cu`` (forward) and
@@ -10,7 +10,11 @@ DDPM paths:
 * ``flash_attention`` (K3, serving) -> the CUDA kernel in
   ``csrc/flash_attention.cu``;
 * ``groupnorm_silu`` (K4, serving) -> the Triton kernels in
-  ``ops/groupnorm_silu_triton.py``.
+  ``ops/groupnorm_silu_triton.py``;
+* ``conv_stats`` (K1, VAE-GAN training: Conv4x4 stride 2 with the
+  per-channel batch statistics of its output) -> the CUDA kernels in
+  ``csrc/conv_bn_stats.cu``; ``ops/fused_conv.py`` builds the
+  differentiable Conv + BatchNorm + LeakyReLU on it.
 
 Each wrapper takes its plain version only for a tensor that lies on the CPU
 (the tests); for a CUDA tensor it launches the kernel or raises. There is
@@ -30,6 +34,7 @@ import math
 from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vgd_tpu_torch.ops import _build, groupnorm_silu_triton
 
@@ -376,3 +381,69 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         y = groupnorm_silu_triton.launch(x, scale, bias, groups, eps)
     LAUNCHES["groupnorm_silu"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# K1: Conv 4x4 stride 2 + per-channel batch statistics
+# ---------------------------------------------------------------------------
+
+def conv4x4s2_f32(x: torch.Tensor, w: torch.Tensor,
+                  padding: int) -> torch.Tensor:
+    """Conv 4x4 stride 2 in f32 of the upcast operands: x (B, H, W, Cin)
+    NHWC, w (K, Cin, 4, 4) (torch's layout of the HWIO kernel) -> c
+    (B, Ho, Wo, K) f32 (the conv of ``conv_bn_lrelu_xla``)."""
+    return F.conv2d(x.float().permute(0, 3, 1, 2), w.float(), stride=2,
+                    padding=padding).permute(0, 2, 3, 1)
+
+
+def conv_stats_plain(x: torch.Tensor, w: torch.Tensor, padding: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(c, mean, var): ``conv4x4s2_f32`` and the per-channel mean and
+    biased two-pass variance of c over (B, Ho, Wo)."""
+    c = conv4x4s2_f32(x, w, padding)
+    var, mean = torch.var_mean(c, dim=(0, 1, 2), correction=0)
+    return c, mean, var
+
+
+def conv_stats(x: torch.Tensor, w: torch.Tensor, padding: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1: (c (B, Ho, Wo, K) f32, mean (K,), biased var (K,)) of the stride-2
+    4x4 conv of x (B, H, W, Cin) with w (K, Cin, 4, 4), padding 0 or 1,
+    accumulated in f32. On CUDA: x contiguous NHWC, bf16 or f32, w of the
+    same dtype in any layout (the wrapper flattens it to the (16 Cin, K)
+    rows the kernel reads); odd and ragged sizes are masked in the kernel.
+    Not differentiable: ``ops.fused_conv.conv_bn_lrelu`` is."""
+    if _on_cpu(x, w):
+        return conv_stats_plain(x, w, padding)
+    _require(x.ndim == 4 and w.ndim == 4,
+             "conv_stats takes x (B, H, W, Cin) and w (K, Cin, 4, 4)")
+    b, h, wd, cin = x.shape
+    k = w.shape[0]
+    _require(tuple(w.shape) == (k, cin, 4, 4),
+             f"w has shape {tuple(w.shape)}, want ({k}, {cin}, 4, 4)")
+    _require(padding in (0, 1), f"padding {padding} not in (0, 1)")
+    _require(x.dtype in (torch.bfloat16, torch.float32),
+             f"x must be bfloat16 or float32, got {x.dtype}")
+    _require(w.dtype == x.dtype, f"w is {w.dtype}, x is {x.dtype}")
+    _require(x.is_contiguous(), "x must be contiguous (NHWC)")
+    _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    ho, wo = (h + 2 * padding - 4) // 2 + 1, (wd + 2 * padding - 4) // 2 + 1
+    _require(ho >= 1 and wo >= 1, f"input {h}x{wd} too small for a 4x4 "
+             f"conv with padding {padding}")
+    wt = w.permute(2, 3, 1, 0).reshape(16 * cin, k).contiguous()
+    lib = _build.conv_bn_stats_lib()
+    tiles = lib.vgd_conv_stats_row_tiles(b, ho, wo)
+    dev = x.device
+    c = torch.empty((b, ho, wo, k), dtype=torch.float32, device=dev)
+    part = torch.empty((2, k, tiles), dtype=torch.float32, device=dev)
+    mean = torch.empty((k,), dtype=torch.float32, device=dev)
+    var = torch.empty((k,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.vgd_conv_bn_stats(
+            x.data_ptr(), wt.data_ptr(), c.data_ptr(), part.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), b, h, wd, cin, k, padding,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "conv_bn_stats")
+    LAUNCHES["conv_bn_stats"] += 1
+    return c, mean, var

@@ -1,6 +1,6 @@
 """Entry points of the port (``vgd_tpu/train/loop.py``): DDPM training
-(``run_diffusion``), sample grids from a checkpoint and partial-noise
-restoration evaluation.
+(``run_diffusion``), VAE-GAN training (``run_vaegan``), sample grids from a
+checkpoint of either family and partial-noise restoration evaluation.
 
 Grids and panels are written as ``.npy`` arrays in [-1, 1] (the JAX
 package's image writer needs matplotlib/PIL, which the port does not
@@ -17,21 +17,26 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vgd_tpu_torch.core.config import DiffusionConfig, to_dict
+from vgd_tpu_torch.core.config import DiffusionConfig, VAEGANConfig, to_dict
 from vgd_tpu_torch.core.rng import resolve_device, seed_all
 from vgd_tpu_torch.data.celeba import make_image_datasets
-from vgd_tpu_torch.eval.metrics import mse_metric, psnr
-from vgd_tpu_torch.io.artifacts import MetricLog
+from vgd_tpu_torch.eval.metrics import MetricAccumulator, mse_metric, psnr
+from vgd_tpu_torch.io.artifacts import MetricLog, save_grid, save_triplets
 from vgd_tpu_torch.io.checkpoint import Checkpointer
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
+from vgd_tpu_torch.train.vaegan import VAEGANTrainer
 from vgd_tpu_torch.utils.prefetch import device_prefetch
 
 # offset of the validation generator's seed from the run seed: every epoch
 # scores the same t and noise draws, as the JAX loop folds a fixed
 # 30_000 + j into its key for val batch j
 VAL_SEED_OFFSET = 30_000
+# the VAE-GAN loop's fixed grid latents and validation draws, likewise from
+# fixed offsets (the JAX loop folds 7 and 10_000 + j into its key)
+FIXED_Z_SEED_OFFSET = 7
+VAEGAN_VAL_SEED_OFFSET = 10_000
 
 
 class _Profiler:
@@ -69,7 +74,7 @@ class _Profiler:
         self.prof = None
 
 
-def _image_shape(cfg: DiffusionConfig):
+def _image_shape(cfg):
     return tuple(cfg.data.image_size) + (cfg.data.channels,)
 
 
@@ -222,31 +227,157 @@ def evaluate_diffusion_from_dir(cfg: DiffusionConfig,
     return out
 
 
+def restore_vaegan(cfg: VAEGANConfig, step: Optional[int] = None,
+                   device="cuda") -> VAEGANTrainer:
+    """A VAE-GAN trainer on ``device`` with the latest (or given) checkpoint
+    of ``<out_dir>/ckpt`` loaded (weights and BN running stats)."""
+    trainer = VAEGANTrainer(cfg, _image_shape(cfg), device=device)
+    params, s, _ = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt")).restore(
+        step, map_location=trainer.device)
+    trainer.load(params)
+    print(f"[checkpoint] restored step {s}")
+    return trainer
+
+
+def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
+               max_steps_per_epoch: Optional[int] = None,
+               resume: bool = False, device="cuda") -> Dict:
+    """Train the VAE-GAN: per epoch, ``train_step`` over
+    ``device_prefetch``ed batches with the KL ramp of the epoch (the losses
+    summed on the device and read once: epoch metrics are means over every
+    step), then the denoising validation pass over the true rows of every
+    val batch (val loss = mean(per_mse[:n]) + alpha_kl * sum(per_kl[:n]),
+    weighted by n; PSNR; SSIM through ``MetricAccumulator``), a
+    ``MetricLog`` row, the noisy / clean / reconstruction panel and the
+    fixed-z sample grid (``.npy``), and every ``checkpoint_every_epochs`` a
+    checkpoint of the three networks (BN buffers included), the three Adam
+    states, the optimizer step and the generator state at step = epochs
+    done. ``resume`` continues from the latest checkpoint exactly."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = VAEGANTrainer(cfg, img_shape, device=device)
+    trainer.init(gen)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
+                        keep=cfg.run.keep_checkpoints)
+    start_epoch = 0
+    if resume and ckpt.latest_step() is not None:
+        payload = ckpt.load(map_location=device)
+        trainer.load(payload["params"], payload["opt_state"],
+                     payload["opt_step"])
+        gen.set_state(payload["rng_state"])
+        start_epoch = payload["step"]
+        train.set_epoch(start_epoch)
+        print(f"[checkpoint] resumed at epoch {start_epoch}")
+    log = MetricLog(cfg.run.out_dir, "vaegan_loss")
+    prof = _Profiler(cfg.run, device)
+    fixed_z = torch.randn(
+        (64, cfg.latent_dim), device=device, generator=torch.Generator(
+            device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
+    epochs = cfg.epochs if epochs is None else epochs
+    gstep, n_val = trainer.step, 0
+    od = cfg.run.out_dir
+    for epoch in range(start_epoch, epochs):
+        ramp = trainer.kl_ramp(epoch)
+        t0 = time.perf_counter()
+        sums, count = {}, 0
+        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
+                                  device=device)
+        for i, batch in enumerate(batches):
+            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                break
+            prof.step(gstep)
+            m = trainer.train_step(batch, ramp, gen)
+            gstep += 1
+            count += 1
+            sums = {k: v + sums[k] if k in sums else v for k, v in m.items()}
+        means = {f"train_{k}": float(v) / count for k, v in sums.items()}
+        ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
+                                                1e-9)
+
+        tv0 = time.perf_counter()
+        acc = MetricAccumulator()
+        vgen = torch.Generator(device=device).manual_seed(
+            cfg.run.seed + VAEGAN_VAL_SEED_OFFSET)
+        rows, ns, panel = [], [], None
+        for vbatch, n in val.epoch():
+            vb = torch.from_numpy(vbatch).to(device)
+            ev = trainer.eval_step(vb, vgen)
+            img = to_signed(vb)
+            recon_u, img_u = signed_to_unit(ev["recon"]), signed_to_unit(img)
+            # only the true rows of a padded final batch count
+            acc.update(recon_u, img_u, n_valid=n)
+            rows.append(torch.stack([ev["per_mse"][:n].mean(),
+                                     ev["per_kl"][:n].sum(),
+                                     psnr(recon_u[:n], img_u[:n])]))
+            ns.append(n)
+            if panel is None:
+                panel = (ev["noisy"], img, ev["recon"])
+        n_val = sum(ns)
+        vals = torch.stack(rows).double().cpu().tolist() if rows else []
+        val_loss = sum((mse_ + cfg.alpha_kl * kl_) * n
+                       for (mse_, kl_, _), n in zip(vals, ns))
+        metrics = acc.compute()
+        metrics["psnr"] = sum(p * n for (_, _, p), n in zip(vals, ns)) \
+            / max(n_val, 1)
+        row = dict(means, val_loss=val_loss / max(n_val, 1),
+                   images_per_sec=ips, val_secs=time.perf_counter() - tv0,
+                   **metrics)
+        log.append(epoch=epoch, **row)
+        print(f"[vaegan] epoch {epoch + 1}/{epochs} "
+              f"recon={row.get('train_recon', 0):.4f} "
+              f"val={row['val_loss']:.4f} ssim={metrics['ssim']:.4f} "
+              f"psnr={metrics['psnr']:.2f} {ips:.0f} img/s")
+        if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
+            ckpt.save(epoch + 1, trainer.state_dict(), to_dict(cfg),
+                      opt_state=trainer.opt_state(),
+                      rng_state=gen.get_state(), opt_step=trainer.step)
+        if panel is not None:     # the val split can be empty on tiny data
+            save_triplets(*panel, os.path.join(
+                od, f"vaegan_decode_epoch_{epoch + 1:04d}.npy"))
+        save_grid(trainer.generate(fixed_z), os.path.join(
+            od, f"vaegan_fake_epoch_{epoch + 1:04d}.npy"))
+    prof.close()
+    log.save()
+    return {"trainer": trainer, "log": log.history, "val": val,
+            "val_rows": n_val}
+
+
 def sample_from_dir(family: str, cfg, n: int = 64,
                     out_path: Optional[str] = None,
                     step: Optional[int] = None, seed: int = 42,
                     ddim_steps: int = 0, ddim_eta: float = 0.0,
                     device="cuda") -> str:
-    """Generate a sample grid from a trained checkpoint through the DDIM
-    chain (``ddim_steps > 0``) or the full ancestral chain; writes an
-    (n, H, W, C) ``.npy`` in [-1, 1] and returns its path. Only the
-    diffusion family is ported."""
-    if family != "diffusion":
+    """Generate a sample grid from a trained checkpoint; writes an
+    (n, H, W, C) ``.npy`` in [-1, 1] and returns its path. ``diffusion``:
+    the DDIM chain (``ddim_steps > 0``) or the full ancestral chain from
+    noise drawn from ``seed``; ``vaegan``: the decoder in eval mode on z
+    (n, latent) drawn from ``seed``."""
+    if family not in ("diffusion", "vaegan"):
         raise NotImplementedError(f"family {family!r} is not ported yet")
     od = cfg.run.out_dir
     out_path = out_path or os.path.join(od, f"{family}_samples.npy")
     if not out_path.endswith(".npy"):
         out_path += ".npy"
-    trainer = restore_trainer(cfg, step, device)
-    gen = seed_all(seed, trainer.device)
-    x_t = torch.randn((n,) + _image_shape(cfg), generator=gen,
-                      device=trainer.device)
-    t0 = time.perf_counter()
-    if ddim_steps > 0:
-        imgs = trainer.ddim_sample(x_t, ddim_steps, eta=ddim_eta,
-                                   generator=gen)
+    if family == "vaegan":
+        trainer = restore_vaegan(cfg, step, device)
+        gen = seed_all(seed, trainer.device)
+        z = torch.randn((n, cfg.latent_dim), generator=gen,
+                        device=trainer.device)
+        t0 = time.perf_counter()
+        imgs = trainer.generate(z)
     else:
-        imgs = trainer.ancestral_sample(x_t, cfg.timesteps - 1, generator=gen)
+        trainer = restore_trainer(cfg, step, device)
+        gen = seed_all(seed, trainer.device)
+        x_t = torch.randn((n,) + _image_shape(cfg), generator=gen,
+                          device=trainer.device)
+        t0 = time.perf_counter()
+        if ddim_steps > 0:
+            imgs = trainer.ddim_sample(x_t, ddim_steps, eta=ddim_eta,
+                                       generator=gen)
+        else:
+            imgs = trainer.ancestral_sample(x_t, cfg.timesteps - 1,
+                                            generator=gen)
     imgs = imgs.cpu().numpy()
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     np.save(out_path, imgs)
