@@ -15,7 +15,7 @@ Run from the root of a checkout on a machine with one CUDA card:
    attention: forward with logsumexp, dq, dk/dv), K3 (serving attention),
    K4 (GroupNorm+SiLU) at the 256x256, batch-16 DDPM UNet's shapes; K1
    (Conv4x4 stride 2 + batch statistics) at the 256x256, batch-64 VAE-GAN's
-   nine shapes in bf16, one f32 shape and two ragged ones;
+   nine shapes in bf16, one f32 shape and two ragged ones; K5 (step 7);
 3. DDPM: holds the fused UNet forward and one training-form train step
    (loss and every gradient) against the same weights run with no kernel at
    all (``kernels.plain_reference``), and profiles both by kernel group;
@@ -41,7 +41,19 @@ Run from the root of a checkout on a machine with one CUDA card:
    launches per train step and none in validation or ``generate``; then
    ``sample_from_dir("vaegan", n=64)`` serves that checkpoint with no K1
    launch;
-7. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+7. Glow (64x64, batch 16, K=32, L=4, width 512, bf16 couplings,
+   ``fused_coupling=True``): K5 (the coupling network's forward, backward 1
+   and backward 2) against its plain versions at the four block shapes,
+   one f32 shape and two ragged ones, timed against the cuDNN conv chain;
+   one train step's loss and gradients with K5 against no kernel (f32 at
+   the DDPM step's bounds, bf16 against the measured noise floor), profiled;
+   ``run_glow`` on 400 synthetic faces, 2 x 10 iterations with a grid and a
+   checkpoint every 10, an exact resume and 10 more iterations from the
+   right stream batch, with exactly 128 K5 launches of each kind per train
+   step, 128 forwards per ``init_step`` and per ``reverse``, and no K1-K4;
+   then ``sample_from_dir("glow")`` and ``evaluate_glow_from_dir`` serve the
+   checkpoint;
+8. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -1280,6 +1292,596 @@ def vaegan_path(K, gen, failures):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Glow: K5 on the coupling networks (fused_coupling=True)
+# ---------------------------------------------------------------------------
+
+# K5 at the reference Glow (64x64, B=16, K=32, L=4, width 512): (site, B, H,
+# W, cin = half the squeezed channels, f, launches of each kind per train
+# step: the block's 32 couplings)
+K5_SHAPES = [("block0", 16, 32, 32, 6, 512, 32),
+             ("block1", 16, 16, 16, 12, 512, 32),
+             ("block2", 16, 8, 8, 24, 512, 32),
+             ("block3", 16, 4, 4, 48, 512, 32)]
+K5_PER_STEP = sum(s[-1] for s in K5_SHAPES)          # 128
+K5_NAMES = ("glow_coupling_fwd", "glow_coupling_bwd1", "glow_coupling_bwd2")
+# checked, not timed: one f32 shape and two ragged ones (odd sizes, channel
+# counts no tile divides)
+K5_EXTRA = [("f32", 16, 16, 16, 12, 512, "float32"),
+            ("ragged", 3, 7, 5, 5, 40, "bfloat16"),
+            ("ragged", 2, 9, 13, 11, 72, "bfloat16")]
+# K5 against its plain version on the same operands: f32 within 1e-4 of
+# max |.| (sums in other orders); bf16 within 2e-2 of max |.| + 2e-3, since
+# a bf16 rounding of h1 or h2 flips on an f32-ulp difference. Elements where
+# one side is exactly zero and the other is not are a ReLU mask flipped by
+# an f32-ulp difference of a pre-activation within rounding of 0: they are
+# counted, must be at most 1e-5 of the elements, and left out of the error
+K5_F32_REL, K5_BF16_REL, K5_BF16_ATOL, K5_FLIP_SHARE = 1e-4, 2e-2, 2e-3, 1e-5
+# Glow training run: 400 synthetic faces -> 360 train (22 batches of 16 per
+# pass of the endless stream) / 40 val; 2 x 10 iterations with a grid and a
+# checkpoint every 10, a resume, 10 more
+GLOW_DATASET, GLOW_ITERS, GLOW_EVERY = 400, 20, 10
+GLOW_GROUPS = [("K5 (glow_gemm_kernel, split and column sums, zeroconv "
+                "grad)", ("glow_",)),
+               ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
+               ("triangular solves and small matmuls (cuBLAS)",
+                ("trsm", "gemm", "gemv", "cutlass", "xmma")),
+               ("reductions", ("reduce",)),
+               ("dtype casts and copies", ("copy",)),
+               ("convolutions (cuDNN: priors)", ("conv", "nchw", "nhwc",
+                                                 "dgrad", "wgrad"))]
+
+
+def glow_config():
+    """The reference Glow: 64x64, batch 16, K=32, L=4, width 512, 5 bits,
+    lr 1e-4, temperature 0.7, bf16 couplings, ``fused_coupling=True`` (K5),
+    on GLOW_DATASET synthetic faces."""
+    from vgd_tpu_torch.core.config import DataConfig, GlowConfig, RunConfig
+    return GlowConfig(
+        data=DataConfig(batch_size=16, image_size=(64, 64),
+                        dataset_size=GLOW_DATASET, normalize=False),
+        run=RunConfig(out_dir=str(OUT_DIR / "glow"), seed=42,
+                      compute_dtype="bfloat16",
+                      sample_every_iters=GLOW_EVERY,
+                      checkpoint_every_iters=GLOW_EVERY),
+        fused_coupling=True)
+
+
+def k5_operands(dev, gen, b, h, w, cin, f, dtype):
+    """HWIO weights with a non-zero (trained-like) ZeroConv, packed."""
+    import torch
+    from vgd_tpu_torch.ops.glow_coupling import prep
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, device=dev, generator=gen)
+    raw = dict(ya=rnd(b, h, w, cin), w1=rnd(3, 3, cin, f, s=0.05),
+               w2=rnd(1, 1, f, f, s=0.05), wz=rnd(3, 3, f, cin, s=0.01),
+               b1=rnd(f, s=0.05), b2=rnd(f, s=0.05), bz=rnd(cin, s=0.02),
+               scale=rnd(cin, s=0.1), g=rnd(b, h, w, cin))
+    return raw, prep(raw["ya"], raw["w1"], raw["w2"], raw["wz"], dtype)
+
+
+def k5_error(got, ref, rel, atol):
+    """(max error outside mask flips, that over max |ref|, error / bound,
+    flipped elements, elements)."""
+    import torch
+    got, ref = got.float(), ref.float()
+    flip = (got == 0) != (ref == 0)
+    err = float(torch.where(flip, 0.0, (got - ref).abs()).max())
+    top = float(ref.abs().max())
+    return (err, err / max(top, 1e-30), err / (rel * top + atol),
+            int(flip.sum()), ref.numel())
+
+
+def k5_work(b, h, w, cin, f):
+    """(operations, bytes) of one call of fwd, bwd1 and bwd2 at bf16: each
+    conv and product the function computes (bwd1 recomputes h1 and h2), and
+    each input read and output written once."""
+    p, q, taps = b * h * w, b * (h + 2) * (w + 2), 9
+    conv1, conv2, convz = (2.0 * p * taps * cin * f, 2.0 * p * f * f,
+                           2.0 * p * taps * f * cin)
+    wbytes = 2.0 * (2 * taps * cin * f + f * f) + 4.0 * (2 * f + 2 * cin)
+    fwd = (conv1 + conv2 + convz, 2.0 * p * cin + wbytes + 4.0 * p * cin)
+    bwd1 = (conv1 + conv2 + convz + 2.0 * q * f * taps * cin
+            + 2.0 * p * taps * cin * f,
+            2.0 * p * cin + wbytes + 2.0 * taps * cin * f + 4.0 * p * cin
+            + 2 * 2.0 * p * f + 4.0 * (f * taps * cin + 2 * cin + f))
+    bwd2 = (2 * 2.0 * p * f * f + 2 * 2.0 * p * taps * cin * f,
+            2.0 * p * cin + 2.0 * (taps * f * cin + f * f) + 2 * 2.0 * p * f
+            + 4.0 * (p * cin + taps * cin * f + f + f * f))
+    return {"glow_coupling_fwd": fwd, "glow_coupling_bwd1": bwd1,
+            "glow_coupling_bwd2": bwd2}
+
+
+def check_k5(K, gen, dev, failures):
+    """K5 forward, backward 1 and backward 2 against their plain versions at
+    the four Glow shapes (bf16) and K5_EXTRA (backward 2 fed the plain h1 and
+    dh2); the Glow shapes timed as kernel, plain version and the library
+    yardstick: the cuDNN bf16 channels_last chain (conv2d, ReLU, conv2d,
+    ReLU, value-1 pad, conv2d, x exp) for the forward, autograd of that chain
+    for forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    rows = {n: [] for n in K5_NAMES}
+    khw, pad = (3, 3), (1, 1)
+    for site, b, h, w, cin, f, calls, *dt in \
+            [s_ + ("bfloat16",) for s_ in K5_SHAPES] + \
+            [(n, b, h, w, c, f, 0, d) for n, b, h, w, c, f, d in K5_EXTRA]:
+        dtype = getattr(torch, dt[0])
+        raw, p = k5_operands(dev, gen, b, h, w, cin, f, dtype)
+        rel, atol = ((K5_F32_REL, 0.0) if dtype == torch.float32
+                     else (K5_BF16_REL, K5_BF16_ATOL))
+        fa = (p["ya"], p["w1f"], raw["b1"], p["w2"], raw["b2"], p["wz"])
+        b1a = fa + (p["wzf"], raw["bz"], raw["scale"], raw["g"], khw, pad)
+        out = K.glow_coupling_fwd(*fa, raw["bz"], raw["scale"], khw, pad)
+        got1 = K.glow_coupling_bwd1(*b1a)
+        torch.cuda.synchronize()
+        ref = K.glow_coupling_fwd_plain(*fa, raw["bz"], raw["scale"], khw,
+                                        pad)
+        ref1 = K.glow_coupling_bwd1_plain(*b1a)
+        b2a = (p["ya"], p["w1t"], p["w2t"], ref1[0], ref1[1], khw, pad)
+        got2 = K.glow_coupling_bwd2(*b2a)
+        torch.cuda.synchronize()
+        ref2 = K.glow_coupling_bwd2_plain(*b2a)
+        per = {"glow_coupling_fwd": [("out", out, ref)],
+               "glow_coupling_bwd1": list(zip(
+                   ("h1", "dh2", "dwz", "dbz", "db2", "dscale"), got1, ref1)),
+               "glow_coupling_bwd2": list(zip(
+                   ("dya", "dw1", "db1", "dw2"), got2, ref2))}
+        shape = [b, h, w, cin, f]
+        line = []
+        for kname, items in per.items():
+            worst, worst_rel, errs = 0.0, 0.0, {}
+            for what, a, r in items:
+                err, rerr, ratio, flips, n = k5_error(a, r, rel, atol)
+                errs[what] = err
+                worst = max(worst, ratio)
+                worst_rel = max(worst_rel, rerr)
+                if not (ratio <= 1.0 and flips <= K5_FLIP_SHARE * n
+                        and a.shape == r.shape and a.dtype == r.dtype):
+                    failures.append(f"K5 {kname} {site} {shape} {dt[0]} "
+                                    f"{what}: err {err} ({ratio:.3g} of its "
+                                    f"bound), {flips} mask flips of {n}")
+                if flips:
+                    line.append(f"{what} flips={flips}")
+            rows[kname].append({
+                "shape": shape, "site": site, "dtype": dt[0],
+                "max_abs_err": max(errs.values()), "max_rel_err": worst_rel,
+                "err_over_bound": worst, "errors": errs,
+                "tol": f"{rel} x max|.| + {atol}; ReLU mask "
+                f"flips <= {K5_FLIP_SHARE} of the elements"})
+            line.append(f"{kname[14:]} worst err/bound {worst:.3g}")
+        if calls:
+            work = k5_work(b, h, w, cin, f)
+            # OIHW bf16 weights and NCHW input, channels_last in memory
+            w1, w2, wz = (raw[k].permute(3, 2, 0, 1).to(torch.bfloat16)
+                          .contiguous(memory_format=torch.channels_last)
+                          for k in ("w1", "w2", "wz"))
+            bb1, bb2, bbz = (raw[k].to(torch.bfloat16)
+                             for k in ("b1", "b2", "bz"))
+            esc = torch.exp(raw["scale"] * 3.0)[:, None, None]
+
+            def chain(xx, w1_, w2_, wz_):
+                hh = torch.relu(F.conv2d(xx, w1_, bb1, padding=1))
+                hh = torch.relu(F.conv2d(hh, w2_, bb2))
+                hh = F.pad(hh, (1, 1, 1, 1), value=1.0)
+                return F.conv2d(hh, wz_, bbz).float() * esc
+            xc = raw["ya"].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (xc, w1, w2, wz)]
+            gc = raw["g"].permute(0, 3, 1, 2)
+
+            def library_fwd():
+                return chain(xc, w1, w2, wz)
+
+            def library_fwd_bwd():
+                chain(*leaves).backward(gc)
+            fwd_bwd_ms = cuda_ms(library_fwd_bwd)
+            timed = {
+                "glow_coupling_fwd": (
+                    lambda: K.glow_coupling_fwd(*fa, raw["bz"], raw["scale"],
+                                                khw, pad),
+                    lambda: K.glow_coupling_fwd_plain(
+                        *fa, raw["bz"], raw["scale"], khw, pad),
+                    cuda_ms(library_fwd)),
+                "glow_coupling_bwd1": (
+                    lambda: K.glow_coupling_bwd1(*b1a),
+                    lambda: K.glow_coupling_bwd1_plain(*b1a), None),
+                "glow_coupling_bwd2": (
+                    lambda: K.glow_coupling_bwd2(*b2a),
+                    lambda: K.glow_coupling_bwd2_plain(*b2a), None)}
+            for kname, (kern, plain, lib) in timed.items():
+                ops, nbytes = work[kname]
+                rows[kname][-1].update(
+                    ms=cuda_ms(kern), plain_ms=cuda_ms(plain, 2, 5),
+                    library_ms=lib, library_fwd_bwd_ms=fwd_bwd_ms,
+                    flop_ms=ops / BF16_FLOPS * 1e3,
+                    byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=calls)
+                r = rows[kname][-1]
+                line.append(
+                    f"{kname[14:]}: ms={r['ms']:.4f} plain={r['plain_ms']:.4f}"
+                    f" bound={max(r['flop_ms'], r['byte_ms']):.4f} "
+                    f"({100 * max(r['flop_ms'], r['byte_ms']) / r['ms']:.1f}"
+                    f" % of it)")
+            line.append(f"library fwd={timed['glow_coupling_fwd'][2]:.4f} "
+                        f"fwd+bwd={fwd_bwd_ms:.4f}")
+        print(f"[kernel] K5 {site} {shape} {dt[0]} " + "; ".join(line),
+              flush=True)
+        del raw, p, out, got1, got2, ref, ref1, ref2
+    totals = {k: {key: sum(r[key] * r["calls"] for r in v if "ms" in r)
+                  for key in ("ms", "plain_ms", "flop_ms", "byte_ms")}
+              for k, v in rows.items()}
+    print("[kernel] K5 per train step (128 launches of each): " + "; ".join(
+        f"{k[14:]} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+        f"bound {max(t['flop_ms'], t['byte_ms']):.3f} ms" for k, t in
+        totals.items()) + f" (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+    return rows
+
+
+def glow_step_grads(trainer, batch, noise):
+    """Loss and every parameter's gradient of one train step (as
+    ``train_step`` computes them, without the Adam update)."""
+    import torch
+    from vgd_tpu_torch.models.glow import calc_loss
+    trainer.model.zero_grad(set_to_none=True)
+    x = trainer._prep(batch, None, noise)
+    log_p, logdet, _ = trainer.model(x)
+    loss = calc_loss(log_p, logdet.mean(), trainer.img_shape[0],
+                     trainer.n_bins, n_channels=trainer.img_shape[2])[0]
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+    trainer.model.zero_grad(set_to_none=True)
+    del x, log_p, logdet
+    torch.cuda.synchronize()
+    return loss.item(), grads
+
+
+def compare_glow_step(got, ref):
+    """(worst gradient error over its bound, its name, loss difference
+    relative) of two ``glow_step_grads`` results, at the DDPM step's
+    bounds (STEP_GRAD_REL x the tensor's max |g| + STEP_GRAD_FLOOR x the
+    model's largest |g|)."""
+    (lk, gk), (lr, gr) = got, ref
+    top = max(float(g.abs().max()) for g in gr.values())
+    worst = (0.0, "")
+    for name, r in gr.items():
+        err = float((gk[name] - r).abs().max())
+        bound = STEP_GRAD_REL * float(r.abs().max()) + STEP_GRAD_FLOOR * top
+        worst = max(worst, (err / bound, name))
+    return worst[0], worst[1], abs(lk - lr) / abs(lr)
+
+
+def check_glow_step(K, cfg, gen, failures):
+    """One full-width train step with K5 against the same state, batch and
+    noise with no kernel (``kernels.plain_reference``): the loss and every
+    gradient, in f32 at the DDPM step's bounds and in bf16 at the larger of
+    those and VAEGAN_FLOOR_X times the no-kernel step's own noise floor
+    (its coupling outputs perturbed by one f32 ulp), measured here. The
+    state: the seeded init, the ActNorm init on the batch, and ZeroConvs
+    set to 0.01 N(0, 1) (at init they are zero and the conv1 / conv2
+    gradients with them). Then one bf16 train step timed both ways and
+    profiled."""
+    import dataclasses
+    import torch
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    (h, w), b = cfg.data.image_size, cfg.data.batch_size
+    stats = {}
+    plain = K.glow_coupling_fwd_plain
+
+    def perturbed(*args):
+        out = plain(*args)
+        g = torch.Generator(device=out.device).manual_seed(123)
+        return out * (1 + 2.0 ** -23 * torch.randn(
+            out.shape, device=out.device, generator=g))
+
+    for dtype in ("float32", "bfloat16"):
+        dcfg = dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, compute_dtype=dtype))
+        trainer = GlowTrainer(dcfg, (h, w, 3), device="cuda")
+        dev = trainer.device
+        trainer.init(torch.Generator(device=dev).manual_seed(cfg.run.seed))
+        batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                              device=dev, generator=gen)
+        noise = torch.rand(b, h, w, 3, device=dev, generator=gen)
+        K.LAUNCHES.clear()
+        trainer.init_step(batch, noise=noise)
+        init_launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        with torch.no_grad():
+            for blk in trainer.model.blocks():
+                zw = blk.flows.coupling.zero.w
+                zw.copy_(0.01 * torch.randn(zw.shape, device=dev,
+                                            generator=gen))
+        if dtype == "float32":
+            n_params = sum(p.numel() for p in trainer.model.parameters())
+            stats["n_params"] = n_params
+            print(f"[glow-init] {h}x{w} B={b} K={cfg.n_flows} L="
+                  f"{cfg.n_blocks} width {cfg.filter_size}: {n_params} "
+                  f"parameters; init_step launches {init_launches}",
+                  flush=True)
+        if init_launches != {"glow_coupling_fwd": K5_PER_STEP,
+                             "glow_coupling_bwd1": 0,
+                             "glow_coupling_bwd2": 0}:
+            failures.append(f"glow init_step {dtype}: launches "
+                            f"{init_launches}")
+        K.LAUNCHES.clear()
+        kern = glow_step_grads(trainer, batch, noise)
+        launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        if launches != dict.fromkeys(K5_NAMES, K5_PER_STEP) or \
+                set(K.LAUNCHES) - set(K5_NAMES):
+            failures.append(f"glow step {dtype}: launches {dict(K.LAUNCHES)}"
+                            f", want {K5_PER_STEP} of each K5 kind only")
+        runs = {}
+        for name, fn in (("plain", plain), ("plain_perturbed", perturbed)):
+            if dtype == "float32" and name == "plain_perturbed":
+                continue
+            K.LAUNCHES.clear()
+            K.glow_coupling_fwd_plain = fn
+            try:
+                with K.plain_reference():
+                    runs[name] = glow_step_grads(trainer, batch, noise)
+            finally:
+                K.glow_coupling_fwd_plain = plain
+            if sum(K.LAUNCHES.values()):
+                failures.append(f"glow step: the no-kernel reference "
+                                f"launched {dict(K.LAUNCHES)}")
+        worst, wname, loss_rel = compare_glow_step(kern, runs["plain"])
+        row = {"worst_err_over_bound": worst, "worst_tensor": wname,
+               "loss_rel": loss_rel, "launches": launches,
+               "loss": kern[0], "loss_ref": runs["plain"][0]}
+        line = (f"[glow-step] {dtype} K5 vs no-kernel reference, B={b} "
+                f"{h}x{w}: loss {kern[0]:.6f} / {runs['plain'][0]:.6f}; "
+                f"{len(kern[1])} gradients, worst err/bound {worst:.3f} "
+                f"({wname}), loss difference {loss_rel:.3g} relative; "
+                f"launches {launches}")
+        if dtype == "float32":
+            if not (worst <= 1.0 and loss_rel <= STEP_LOSS_REL):
+                failures.append(f"glow step f32: K5 vs reference {row}")
+        else:
+            fworst, fname, floss = compare_glow_step(runs["plain_perturbed"],
+                                                     runs["plain"])
+            row.update(floor_worst_err_over_bound=fworst,
+                       floor_worst_tensor=fname, floor_loss_rel=floss)
+            line += (f"; noise floor (reference vs itself, coupling outputs "
+                     f"perturbed by one f32 ulp): worst {fworst:.3f} "
+                     f"({fname}), loss {floss:.3g}; held at the f32 bounds "
+                     f"or {VAEGAN_FLOOR_X} x the floor, whichever is larger")
+            if not (worst <= max(1.0, VAEGAN_FLOOR_X * fworst)
+                    and loss_rel <= max(STEP_LOSS_REL,
+                                        VAEGAN_FLOOR_X * floss)):
+                failures.append(f"glow step bf16: K5 vs reference {row}")
+        print(line, flush=True)
+        stats[f"step_{dtype}"] = row
+        del kern, runs
+        if dtype == "float32":
+            del trainer
+            torch.cuda.empty_cache()
+
+    def step():
+        trainer.train_step(batch, noise=noise)
+
+    def plain_step():
+        with K.plain_reference():
+            step()
+    stats.update(train_step_ms=cuda_ms(step, 1, 3),
+                 train_step_plain_ms=cuda_ms(plain_step, 1, 3))
+    stats["train_step_profile"] = profile_fn(
+        step, stats["train_step_ms"], GLOW_GROUPS, "profile-glow")
+    print(f"[glow-step] whole bf16 train step B={b} {h}x{w}: K5 "
+          f"{stats['train_step_ms']:.3f} ms, no-kernel reference "
+          f"{stats['train_step_plain_ms']:.3f} ms", flush=True)
+    return stats
+
+
+def glow_train_path(K, cfg, failures):
+    """``run_glow`` for GLOW_ITERS iterations (a grid and a checkpoint every
+    GLOW_EVERY), a resume that runs no iteration (it must restore exactly
+    what was saved), and a resume that trains GLOW_EVERY more from the
+    right place in the stream. K5 launches are read per train step, per
+    ``init_step`` and per ``reverse``."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data.celeba import make_image_datasets
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    calls = {"train_step": [], "init_step": [], "reverse": []}
+    originals = {n: getattr(GlowTrainer, n) for n in calls}
+    fed = []
+
+    def wrap(name):
+        fn = originals[name]
+
+        def counted(self, *args, **kwargs):
+            before = {k: K.LAUNCHES[k] for k in K5_NAMES}
+            if name == "train_step":
+                fed.append(args[0].clone())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(self, *args, **kwargs)
+            end.record()
+            calls[name].append((tuple(K.LAUNCHES[k] - before[k]
+                                      for k in K5_NAMES), start, end, out))
+            return out
+        return counted
+
+    per_step = (K5_PER_STEP,) * 3
+    for n in calls:
+        setattr(GlowTrainer, n, wrap(n))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = L.run_glow(cfg, n_iter=GLOW_ITERS, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        trainer = res["trainer"]
+        launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        losses = [float(c[3]["loss"]) for c in calls["train_step"]]
+        step_ms = sorted(s.elapsed_time(e) for _, s, e, _ in
+                         calls["train_step"][1:])
+        steps = len(losses)
+        stats = {"train_steps": steps, "train_run_s": train_s,
+                 "launches": dict(K.LAUNCHES),
+                 "per_train_step": sorted({c[0] for c in calls["train_step"]}),
+                 "per_init_step": [c[0] for c in calls["init_step"]],
+                 "per_reverse": sorted({c[0] for c in calls["reverse"]}),
+                 "reverses": len(calls["reverse"]),
+                 "losses": losses, "log": res["log"],
+                 "step_ms_median": step_ms[len(step_ms) // 2],
+                 "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+                 "images_per_sec_median_step":
+                     cfg.data.batch_size / step_ms[len(step_ms) // 2] * 1e3,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[glow-train] launches {dict(K.LAUNCHES)} over {steps} train "
+              f"steps (per step {stats['per_train_step']}), init_step "
+              f"{stats['per_init_step']}, {stats['reverses']} reverses (each "
+              f"{stats['per_reverse']})", flush=True)
+        if (steps != GLOW_ITERS or stats["per_train_step"] != [per_step]
+                or stats["per_init_step"] != [(K5_PER_STEP, 0, 0)]
+                or stats["per_reverse"] != [(K5_PER_STEP, 0, 0)]
+                or stats["reverses"] != GLOW_ITERS // GLOW_EVERY
+                or set(K.LAUNCHES) - set(K5_NAMES)):
+            failures.append(f"glow-train launches: {stats}")
+        if not (all(math.isfinite(v) for v in losses)
+                and np.mean(losses[-5:]) < np.mean(losses[:5])):
+            failures.append(f"glow-train: bits/dim not finite and falling: "
+                            f"{losses}")
+        grids = sorted((Path(cfg.run.out_dir) / "sample").glob("*.npy"))
+        grid = np.load(grids[-1])
+        if not (len(grids) == GLOW_ITERS // GLOW_EVERY and
+                grid.shape == (cfg.n_samples, 64, 64, 3) and
+                np.isfinite(grid).all()):
+            failures.append(f"glow-train grids {[g.name for g in grids]} "
+                            f"{grid.shape}")
+        print(f"[glow-train] bits/dim by step: " + " ".join(
+            f"{v:.4f}" for v in losses) + f"; log {res['log']}", flush=True)
+        print(f"[glow-train] {steps} steps; step ms median "
+              f"{stats['step_ms_median']:.3f} (min {step_ms[0]:.3f}, max "
+              f"{step_ms[-1]:.3f}) after the first = "
+              f"{stats['images_per_sec_median_step']:.1f} images/s; run "
+              f"{train_s:.1f} s with the ActNorm init, 2 grids and 2 "
+              f"checkpoints; peak memory {stats['peak_mem_gb']:.3f} GB",
+              flush=True)
+
+        # a resume with no iteration left restores, and must equal the save
+        final = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        opt_a = trainer.opt.state_dict()["state"]
+        payload = Checkpointer(f"{cfg.run.out_dir}/ckpt").load()
+        K.LAUNCHES.clear()
+        back = L.run_glow(cfg, n_iter=GLOW_ITERS, resume=True,
+                          device="cuda")["trainer"]
+        same_params = all(torch.equal(final[k], v) and
+                          torch.equal(payload["params"][k], v.cpu())
+                          for k, v in back.model.state_dict().items())
+        opt_b = back.opt.state_dict()["state"]
+        same_opt = opt_a.keys() == opt_b.keys() and all(
+            torch.equal(opt_a[i][x].cpu(), opt_b[i][x].cpu())
+            for i in opt_a for x in ("step", "exp_avg", "exp_avg_sq"))
+        ok = (same_params and same_opt and payload["step"] == GLOW_ITERS
+              and back.step == steps == payload["opt_step"]
+              and sum(K.LAUNCHES.values()) == 0)
+        print(f"[glow-resume] checkpoint iteration {payload['step']}, "
+              f"optimizer steps {back.step}: params and buffers equal "
+              f"{same_params}, Adam state equal {same_opt}", flush=True)
+        if not ok:
+            failures.append("glow resume did not restore what was saved")
+        del back, trainer, res, final, opt_a, opt_b
+        torch.cuda.empty_cache()
+
+        for v in calls.values():
+            v.clear()
+        fed.clear()
+        K.LAUNCHES.clear()
+        res = L.run_glow(cfg, n_iter=GLOW_ITERS + GLOW_EVERY, resume=True,
+                         device="cuda")
+        steps3 = len(calls["train_step"])
+        got = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        train, _, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
+        want_batch = torch.from_numpy(next(train.stream(GLOW_ITERS + 1)))
+        same_stream = torch.equal(fed[0].cpu(), want_batch)
+        losses3 = [float(c[3]["loss"]) for c in calls["train_step"]]
+        print(f"[glow-train] resumed: {steps3} steps from iteration "
+              f"{GLOW_ITERS}, first batch is stream batch {GLOW_ITERS + 1}: "
+              f"{same_stream}; bits/dim " + " ".join(
+                  f"{v:.4f}" for v in losses3) + f"; launches {got}",
+              flush=True)
+        if not (res["trainer"].step == GLOW_ITERS + GLOW_EVERY
+                == steps + steps3 and same_stream and not calls["init_step"]
+                and got == {"glow_coupling_fwd": K5_PER_STEP * (steps3 + 1),
+                            "glow_coupling_bwd1": K5_PER_STEP * steps3,
+                            "glow_coupling_bwd2": K5_PER_STEP * steps3}
+                and all(math.isfinite(v) for v in losses3)):
+            failures.append(f"glow resumed run: step {res['trainer'].step}, "
+                            f"stream {same_stream}, launches {got}")
+        stats["resumed_losses"] = losses3
+        stats["launches_total"] = {k: launches[k] + got[k] for k in K5_NAMES}
+    finally:
+        for n, fn in originals.items():
+            setattr(GlowTrainer, n, fn)
+    return stats
+
+
+def glow_serve_path(K, cfg, failures):
+    """``sample_from_dir("glow", n=cfg.n_samples)`` and
+    ``evaluate_glow_from_dir(max_batches=1)`` on the trained checkpoint:
+    finite samples, one reverse (128 K5 forwards) per request batch."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    latest = Checkpointer(f"{cfg.run.out_dir}/ckpt").latest_step()
+    if latest != GLOW_ITERS + GLOW_EVERY:
+        failures.append(f"glow-serve: latest checkpoint {latest}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    want = {"glow_coupling_fwd": K5_PER_STEP, "glow_coupling_bwd1": 0,
+            "glow_coupling_bwd2": 0}
+    K.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = L.sample_from_dir("glow", cfg, n=cfg.n_samples, device="cuda")
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = check_launches(K, want, "glow-serve", failures)
+    arr = np.load(path)
+    print(f"[glow-serve] samples {arr.shape} finite "
+          f"{bool(np.isfinite(arr).all())} range [{float(arr.min()):.4f}, "
+          f"{float(arr.max()):.4f}]", flush=True)
+    if not (arr.shape == (cfg.n_samples, 64, 64, 3)
+            and np.isfinite(arr).all()):
+        failures.append(f"glow-serve: bad samples {arr.shape}")
+    K.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = L.evaluate_glow_from_dir(cfg, max_batches=1, device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    check_launches(K, want, "glow-eval", failures)
+    if not math.isfinite(res["ssim"]):
+        failures.append(f"glow-eval: {res}")
+    stats = {"served_checkpoint": latest, "sample_s": sample_s,
+             "eval_s": eval_s, "ssim": res["ssim"], "launches": launches,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[glow-serve] sample request ({cfg.n_samples} images, checkpoint "
+          f"restore included) {sample_s:.3f} s; evaluation (one val batch "
+          f"of {cfg.data.batch_size}, restore included) {eval_s:.3f} s, ssim "
+          f"{res['ssim']:.4f}; peak memory {stats['peak_mem_gb']:.3f} GB",
+          flush=True)
+    return stats
+
+
+def glow_path(K, gen, failures):
+    cfg = glow_config()
+    shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+    stats = check_glow_step(K, cfg, gen, failures)
+    stats["train"] = glow_train_path(K, cfg, failures)
+    stats["serve"] = glow_serve_path(K, cfg, failures)
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=str, default=None,
@@ -1310,20 +1912,31 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _build.build_all()
         report["build_s"] = time.perf_counter() - t0
+        report["ptxas"] = {}
         for src, log in _build.BUILD_LOGS.items():
             for line in log.splitlines():
                 if "Compiling entry function" in line:
-                    print(f"[build] {src}: {line.split(chr(39))[1]}")
+                    line = line.split(chr(39))[1]
                 elif "registers" in line or "spill" in line:
-                    print(f"[build] {src}:   {line.strip()}")
+                    line = "  " + line.strip()
+                else:
+                    continue
+                report["ptxas"].setdefault(src, []).append(line)
+                print(f"[build] {src}: {line}")
         print(f"[build] nvcc {report['build_s']:.1f} s", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"] = check_k2(K, gen, dev, failures)
         attn_rows = check_attention(K, gen, dev, failures)
         gn_rows = check_groupnorm(K, gen, dev, failures)
         k1_rows = check_k1(K, gen, dev, failures)
+        # the Glow phases draw from their own generators, so the earlier
+        # phases see the inputs they saw before Glow was added
+        k5_rows = check_k5(K, torch.Generator(device=dev).manual_seed(5), dev,
+                           failures)
         train_l, serve_l, report["main_path"] = main_path(K, gen, failures)
         report["vaegan"] = vaegan_path(K, gen, failures)
+        report["glow"] = glow_path(
+            K, torch.Generator(device=dev).manual_seed(6), failures)
         per_step = "one 256x256 batch-16 train step"
         per_fwd = "one 256x256 batch-16 UNet forward"
         fwd_src = "vgd_tpu_torch/csrc/flash_attention.cu"
@@ -1352,7 +1965,12 @@ def main(argv=None) -> int:
                          "vgd_tpu_torch/csrc/conv_bn_stats.cu",
                          "vgd_tpu/ops/fused_conv.py:125", k1_rows,
                          report["vaegan"]["train"]["k1_launches"],
-                         "one 256x256 batch-64 VAE-GAN train step")]
+                         "one 256x256 batch-64 VAE-GAN train step")] + [
+            kernel_entry(name, "vgd_tpu_torch/csrc/glow_coupling.cu",
+                         f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
+                         report["glow"]["train"]["launches_total"][name],
+                         "one 64x64 batch-16 Glow train step (K=32, L=4)")
+            for name, line in zip(K5_NAMES, (164, 206, 266))]
     except Exception:                      # noqa: BLE001 - report and fail
         traceback.print_exc()
         failures.append("exception (traceback above)")

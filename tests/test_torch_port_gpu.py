@@ -305,3 +305,146 @@ def test_vaegan_step_fused_matches_stock_on_the_card(cuda):
     assert K.LAUNCHES["conv_bn_stats"] == 23
     for k in mf:
         assert abs(float(mf[k]) - float(ms[k])) <= 1e-4 * abs(float(ms[k])), k
+
+
+# K5 at the reference Glow's four coupling shapes (B=16, f=512; ya has half
+# the squeezed channels) and two ragged ones (odd sizes, channels no tile
+# divides)
+K5_SHAPES = [(16, 32, 32, 6, 512), (16, 16, 16, 12, 512),
+             (16, 8, 8, 24, 512), (16, 4, 4, 48, 512),
+             (3, 7, 5, 5, 40), (2, 9, 13, 11, 72)]
+
+
+def k5_inputs(cuda, b, h, w, cin, f, dtype, seed):
+    """Packed K5 operands from HWIO weights with a non-zero ZeroConv."""
+    from vgd_tpu_torch.ops.glow_coupling import prep
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, device=cuda, generator=g)
+    p = prep(rnd(b, h, w, cin), rnd(3, 3, cin, f, s=0.05),
+             rnd(1, 1, f, f, s=0.05), rnd(3, 3, f, cin, s=0.01), dtype)
+    vec = dict(b1=rnd(f, s=0.05), b2=rnd(f, s=0.05), bz=rnd(cin, s=0.02),
+               scale=rnd(cin, s=0.1), g=rnd(b, h, w, cin))
+    return p, vec
+
+
+def k5_close(got, ref, rel, what):
+    """got within rel * max |ref| of ref, except where one side is exactly
+    zero and the other is not: a ReLU mask that flips on an f32-ulp
+    difference of a pre-activation within rounding of 0 (at most 1e-5 of
+    the elements)."""
+    got, ref = got.float(), ref.float()
+    flip = (got == 0) != (ref == 0)
+    assert int(flip.sum()) <= 1e-5 * ref.numel(), (what, int(flip.sum()))
+    err = float(torch.where(flip, 0.0, (got - ref).abs()).max())
+    assert err <= rel * float(ref.abs().max()) + 1e-6, (what, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,w,cin,f", K5_SHAPES)
+def test_k5_kernels_match_plain(cuda, b, h, w, cin, f, dtype):
+    """K5 forward, backward 1 and backward 2 against their plain versions on
+    the same operands (backward 2 fed the plain h1 and dh2): f32 at 1e-4 of
+    max |.| (sums in other orders); bf16 at 2e-2 of max |.|, since an h1 or
+    h2 rounding to bf16 flips on an f32-ulp difference."""
+    p, v = k5_inputs(cuda, b, h, w, cin, f, dtype, 9)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    khw, pad = (3, 3), (1, 1)
+    fwd_args = (p["ya"], p["w1f"], v["b1"], p["w2"], v["b2"], p["wz"])
+    before = dict(K.LAUNCHES)
+    out = K.glow_coupling_fwd(*fwd_args, v["bz"], v["scale"], khw, pad)
+    got1 = K.glow_coupling_bwd1(*fwd_args, p["wzf"], v["bz"], v["scale"],
+                                v["g"], khw, pad)
+    torch.cuda.synchronize()
+    k5_close(out, K.glow_coupling_fwd_plain(*fwd_args, v["bz"], v["scale"],
+                                            khw, pad), rel, "out")
+    ref1 = K.glow_coupling_bwd1_plain(*fwd_args, p["wzf"], v["bz"],
+                                      v["scale"], v["g"], khw, pad)
+    for name, a, r in zip(("h1", "dh2", "dwz", "dbz", "db2", "dscale"),
+                          got1, ref1):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        k5_close(a, r, rel, name)
+    got2 = K.glow_coupling_bwd2(p["ya"], p["w1t"], p["w2t"], ref1[0],
+                                ref1[1], khw, pad)
+    torch.cuda.synchronize()
+    ref2 = K.glow_coupling_bwd2_plain(p["ya"], p["w1t"], p["w2t"], ref1[0],
+                                      ref1[1], khw, pad)
+    for name, a, r in zip(("dya", "dw1", "db1", "dw2"), got2, ref2):
+        k5_close(a, r, rel, name)
+    for name in ("glow_coupling_fwd", "glow_coupling_bwd1",
+                 "glow_coupling_bwd2"):
+        assert K.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+def test_k5_is_deterministic_and_refuses_what_it_cannot_take(cuda):
+    p, v = k5_inputs(cuda, 4, 16, 16, 6, 64, torch.bfloat16, 10)
+    args = (p["ya"], p["w1f"], v["b1"], p["w2"], v["b2"], p["wz"],
+            p["wzf"], v["bz"], v["scale"], v["g"], (3, 3), (1, 1))
+    a, b = K.glow_coupling_bwd1(*args), K.glow_coupling_bwd1(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="same"):
+        K.glow_coupling_fwd(*args[:6], v["bz"], v["scale"], (3, 3), (0, 0))
+    with pytest.raises(ValueError, match="w2"):
+        K.glow_coupling_fwd(p["ya"], p["w1f"], v["b1"], p["w2"].float(),
+                            v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
+                            (1, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.glow_coupling_fwd(p["ya"], p["w1f"], v["b1"], p["w2t"].t(),
+                            v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
+                            (1, 1))
+    with pytest.raises(ValueError):
+        K.glow_coupling_fwd(p["ya"].cpu(), p["w1f"], v["b1"], p["w2"],
+                            v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
+                            (1, 1))
+
+
+def test_glow_step_fused_matches_kernel_free_reference(cuda):
+    """A small f32 Glow (2 blocks of 3 flows, f = 64, 16x16, batch 4) with
+    fused_coupling: loss and every gradient with K5 agree with the same
+    weights run with no kernel (1e-4 of each tensor's max |g| plus 1e-6 of
+    the largest); one K5 launch of each kind per coupling."""
+    from vgd_tpu_torch.core import config as C
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    cfg = C.GlowConfig(data=C.DataConfig(image_size=(16, 16), batch_size=4),
+                       run=C.RunConfig(compute_dtype="float32"), n_flows=3,
+                       n_blocks=2, filter_size=64, fused_coupling=True)
+    tr = GlowTrainer(cfg, (16, 16, 3), device="cuda")
+    g = torch.Generator(device=cuda).manual_seed(11)
+    tr.init(g)
+    batch = torch.randint(0, 256, (4, 16, 16, 3), dtype=torch.uint8,
+                          device=cuda, generator=g)
+    noise = torch.rand(4, 16, 16, 3, device=cuda, generator=g)
+    K.LAUNCHES.clear()
+    tr.init_step(batch, noise=noise)
+    assert K.LAUNCHES["glow_coupling_fwd"] == 6
+    with torch.no_grad():       # a trained-like, non-zero ZeroConv
+        for blk in tr.model.blocks():
+            for t in blk.flows.coupling.zero.parameters():
+                t.copy_(0.01 * torch.randn(t.shape, device=cuda, generator=g))
+    x = tr._prep(batch, None, noise)
+    out = []
+    for plain in (False, True):
+        tr.model.zero_grad(set_to_none=True)
+        K.LAUNCHES.clear()
+        if plain:
+            with K.plain_reference():
+                lp, ld, _ = tr.model(x)
+                (-(lp.mean() + ld)).backward()
+            assert sum(K.LAUNCHES.values()) == 0
+        else:
+            lp, ld, _ = tr.model(x)
+            (-(lp.mean() + ld)).backward()
+            assert {k: K.LAUNCHES[k] for k in (
+                "glow_coupling_fwd", "glow_coupling_bwd1",
+                "glow_coupling_bwd2")} == dict.fromkeys(
+                ("glow_coupling_fwd", "glow_coupling_bwd1",
+                 "glow_coupling_bwd2"), 6)
+        out.append((float(lp.mean()), {n: p.grad.clone() for n, p in
+                                       tr.model.named_parameters()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    gmax = max(float(v.abs().max()) for v in out[1][1].values())
+    for name, ref in out[1][1].items():
+        err = float((out[0][1][name] - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()) + 1e-6 * gmax, name

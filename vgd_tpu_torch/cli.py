@@ -10,11 +10,16 @@
       [--fused-conv] [--resume] [--profile-dir runs/vaegan/trace]
   python -m vgd_tpu_torch.cli sample --family vaegan --out-dir runs/vaegan \\
       --image-size 256 [-n 64]
+  python -m vgd_tpu_torch.cli glow --iters 30000 --out-dir runs/glow \\
+      [--fused-coupling] [--sample-every 100] [--checkpoint-every 1000] \\
+      [--resume] [--profile-dir runs/glow/trace]
+  python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow [-n 20]
+  python -m vgd_tpu_torch.cli eval-glow --out-dir runs/glow [--max-batches 1]
 
-``diffusion`` and ``vaegan`` train (``train.loop.run_diffusion`` /
-``run_vaegan``) and write ``<out-dir>/ckpt``; ``sample`` and
-``eval-diffusion`` restore it. All run on ``--device cuda`` unless
-``--device cpu`` is given.
+``diffusion``, ``vaegan`` and ``glow`` train (``train.loop.run_diffusion``
+/ ``run_vaegan`` / ``run_glow``) and write ``<out-dir>/ckpt``; ``sample``,
+``eval-diffusion`` and ``eval-glow`` restore it. All run on ``--device
+cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -45,6 +50,18 @@ def _add_common(p, serving=True):
 def _add_diffusion(p):
     p.add_argument("--timesteps", type=int, default=1000)
     p.add_argument("--no-attn", action="store_true")
+
+
+def _add_glow(p):
+    p.add_argument("--n-flows", type=int, default=None, help="K (32)")
+    p.add_argument("--n-blocks", type=int, default=None, help="L (4)")
+    p.add_argument("--filter-size", type=int, default=None,
+                   help="coupling width (512)")
+    p.add_argument("--fused-coupling", action="store_true",
+                   help="Glow: the coupling networks through the K5 kernels")
+    p.add_argument("--flow-stack", action="store_true",
+                   help="Glow: whole flow chains per kernel (K6, not ported "
+                   "yet: raises)")
 
 
 def _add_training(p):
@@ -83,6 +100,18 @@ def _vaegan_cfg(a) -> C.VAEGANConfig:
                       fused_conv=bool(getattr(a, "fused_conv", False)))
 
 
+def _glow_cfg(a) -> C.GlowConfig:
+    run = {k: getattr(a, arg) for k, arg in (
+        ("sample_every_iters", "sample_every"),
+        ("checkpoint_every_iters", "checkpoint_every"))
+        if getattr(a, arg, None) is not None}
+    sizes = {k: getattr(a, k) for k in ("n_flows", "n_blocks", "filter_size")
+             if getattr(a, k, None) is not None}
+    return _with_args(C.GlowConfig(
+        fused_coupling=bool(getattr(a, "fused_coupling", False)),
+        flow_stack=bool(getattr(a, "flow_stack", False)), **sizes), a, **run)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="vgd_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -103,10 +132,31 @@ def main(argv=None):
                    help="encoder/discriminator Conv+BN+LeakyReLU through "
                    "the fused K1 kernel")
 
+    p = sub.add_parser("glow", help="train Glow (checkpoints under "
+                       "<out-dir>/ckpt, loss log glow_loss.jsonl)")
+    _add_common(p, serving=False)
+    _add_glow(p)
+    p.add_argument("--iters", type=int, default=None,
+                   help="iterations (default: the config's 30000)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="torch.profiler trace of train steps 10-20 here")
+    p.add_argument("--sample-every", type=int, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+
+    p = sub.add_parser("eval-glow", help="temperature-sample SSIM of a "
+                       "Glow checkpoint against the val split")
+    _add_common(p)
+    _add_glow(p)
+    p.add_argument("--max-batches", type=int, default=None)
+
     p = sub.add_parser("sample", help="sample grid from a checkpoint")
     _add_common(p)
     _add_diffusion(p)
-    p.add_argument("--family", required=True, choices=["diffusion", "vaegan"])
+    _add_glow(p)
+    p.add_argument("--family", required=True,
+                   choices=["diffusion", "vaegan", "glow"])
     p.add_argument("-n", "--num-samples", type=int, default=64)
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--ddim-steps", type=int, default=0,
@@ -123,6 +173,20 @@ def main(argv=None):
     a = ap.parse_args(argv)
     from vgd_tpu_torch.train import loop as L
 
+    if a.cmd == "glow":
+        L.run_glow(_glow_cfg(a), n_iter=a.iters, resume=a.resume,
+                   device=a.device)
+        return 0
+    if a.cmd == "eval-glow":
+        res = L.evaluate_glow_from_dir(_glow_cfg(a), max_batches=a.max_batches,
+                                       step=a.step, device=a.device)
+        print(json.dumps(res))
+        return 0
+    if a.cmd == "sample" and a.family == "glow":
+        L.sample_from_dir("glow", _glow_cfg(a), n=a.num_samples,
+                          out_path=a.out, step=a.step, seed=a.seed,
+                          device=a.device)
+        return 0
     if a.cmd == "vaegan":
         L.run_vaegan(_vaegan_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
                      resume=a.resume, device=a.device)

@@ -1,10 +1,11 @@
 """Typed configuration for the ported workloads.
 
 Own copies of ``vgd_tpu/core/config.py``'s ``DataConfig``, ``RunConfig``,
-``VAEGANConfig`` and ``DiffusionConfig`` with the same defaults (a test pins them field by
-field). ``RunConfig`` keeps only the fields the ported paths read;
-``compute_dtype``/``param_dtype`` keep their meaning: convs and dense layers
-compute in ``compute_dtype``, parameters are stored in ``param_dtype``.
+``VAEGANConfig``, ``GlowConfig`` and ``DiffusionConfig`` with the same
+defaults (a test pins them field by field). ``RunConfig`` keeps only the
+fields the ported paths read; ``compute_dtype``/``param_dtype`` keep their
+meaning: convs and dense layers compute in ``compute_dtype``, parameters
+are stored in ``param_dtype``.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ class RunConfig:
     seed: int = 42
     out_dir: str = "runs/default"
     checkpoint_every_epochs: int = 1
+    checkpoint_every_iters: int = 1000   # iteration-driven trainers (Glow)
+    sample_every_iters: int = 100
     keep_checkpoints: int = 3
     compute_dtype: str = "bfloat16"      # conv/matmul compute dtype
     param_dtype: str = "float32"
@@ -65,6 +68,42 @@ class VAEGANConfig:
     ndf: int = 64
     recon_loss: str = "pixel"           # "pixel" | "disl" (D-feature MSE)
     val_noise_std: float = 0.05
+
+
+FLOW_STACK_NOT_PORTED = (
+    "flow_stack (K6, the whole flow chain of a block as one kernel, "
+    "vgd_tpu/ops/glow_flow_stack.py) is not ported yet; leave it False")
+
+
+@dataclass(frozen=True)
+class GlowConfig:
+    """Glow on images at the reference's training scale (64x64, batch 16,
+    K=32 flows, L=4 blocks, coupling width 512, 5 bits, 30k iterations),
+    bf16 coupling convs. Left out: ``remat``, ``pp_stages`` /
+    ``pp_microbatches`` and ``scan_unroll`` (the last has no meaning without
+    ``lax.scan``)."""
+    data: DataConfig = field(default_factory=lambda: DataConfig(
+        batch_size=16, normalize=False))
+    run: RunConfig = field(default_factory=lambda: RunConfig(
+        out_dir="runs/glow", compute_dtype="bfloat16"))
+    n_bits: int = 5
+    n_flows: int = 32                   # K
+    n_blocks: int = 4                   # L
+    filter_size: int = 512              # coupling width
+    n_iter: int = 30000
+    lr: float = 1e-4
+    temperature: float = 0.7
+    n_samples: int = 20
+    # the coupling network through K5 (ops/glow_coupling.py); off by
+    # default, as in the JAX package
+    fused_coupling: bool = False
+    # K6 (a whole flow chain per kernel) is not ported: anything but False
+    # raises, so no caller quietly gets the per-flow path
+    flow_stack: "bool | int" = False
+
+    def __post_init__(self):
+        if self.flow_stack is not False:
+            raise NotImplementedError(FLOW_STACK_NOT_PORTED)
 
 
 @dataclass(frozen=True)

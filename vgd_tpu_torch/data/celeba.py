@@ -96,6 +96,24 @@ class Loader:
         order), so a resumed run sees the batches a straight run would."""
         self._epoch = int(epoch)
 
+    def stream(self, start_batch: int = 0) -> Iterator[np.ndarray]:
+        """Endless full batches from global batch index ``start_batch``: a
+        resumed run sees exactly the batches a straight run would (the
+        skipped prefix replays only the shuffle permutations)."""
+        b = self.batch_size
+        per = max(len(self.indices) // b, 1)
+        self._epoch = start_batch // per
+        skip = start_batch % per
+        while True:
+            idx = self.indices
+            if self.shuffle:
+                idx = np.random.default_rng(self.seed + self._epoch
+                                            ).permutation(idx)
+            self._epoch += 1
+            for i in range(skip, len(idx) // b):
+                yield self.ds.array[np.sort(idx[i * b:(i + 1) * b])]
+            skip = 0
+
     def epoch(self) -> Iterator[Tuple[np.ndarray, int]]:
         idx = self.indices
         if self.shuffle:

@@ -10,7 +10,9 @@ checkpoint's ``rng_key``); the newest ``keep``
 files are kept. A VAE-GAN checkpoint holds the three networks' parameters
 and BatchNorm buffers in ``params`` under ``encoder.`` / ``decoder.`` /
 ``disc.`` and ``opt_state`` as ``{"encoder": ..., "decoder": ...,
-"disc": ...}`` of the three Adam state_dicts. Files are read with ``weights_only=True``: tensors and
+"disc": ...}`` of the three Adam state_dicts. A Glow checkpoint holds the
+model's state_dict (the P / s_sign buffers included) in ``params``, its Adam
+in ``opt_state``, and the iteration in ``step``. Files are read with ``weights_only=True``: tensors and
 plain containers only.
 """
 from __future__ import annotations

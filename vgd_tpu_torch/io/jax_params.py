@@ -1,8 +1,13 @@
 """Weight bridge: a JAX params tree (as numpy arrays) to the state_dict of
 the port's counterpart module (the DDPM ``UNet``; the VAE-GAN ``Encoder``,
-``Generator`` and ``Discriminator``, with their ``batch_stats``), and an
-optax Adam state (``opt_state``) to a ``torch.optim.Adam`` state, so a JAX
-run can continue in the port.
+``Generator`` and ``Discriminator``, with their ``batch_stats``; ``Glow``),
+and an optax Adam state (``opt_state``) to a ``torch.optim.Adam`` state, so
+a JAX run can continue in the port.
+
+Glow has its own converter (``from_jax_glow_params``): its tree is plain
+(not Flax), its leaf names (``w``, ``P``, ``L``, ``U``, ``log_s``,
+``s_sign``) are kept, and its ZeroConv ``scale`` is a scale, not a
+normalisation weight.
 
 Leaf conversions:
 
@@ -166,5 +171,78 @@ def load_jax_vaegan_state(trainer, state):
         st = getattr(state, name)
         load_jax_params(net, st.params, st.batch_stats)
         load_jax_adam_state(trainer.opts[name], net, st.opt_state)
+    trainer.step = int(np.asarray(state.step))
+    return trainer
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}.{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _strict(got: Dict[str, np.ndarray], want: Dict[str, tuple], what: str):
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    wrong = sorted(k for k in set(want) & set(got)
+                   if tuple(got[k].shape) != want[k])
+    if missing or extra or wrong:
+        raise ValueError(
+            f"{what} do not match the model: missing {missing}, unused "
+            f"{extra}, shape mismatch "
+            f"{[(k, tuple(got[k].shape), want[k]) for k in wrong]}")
+
+
+def from_jax_glow_params(params: Mapping, model: nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX Glow params tree (``block{i}/flows/...`` stacked over K,
+    ``block{i}/prior``) as the state_dict of the port's ``Glow``: every
+    leaf keeps its name and layout (HWIO kernels, ZeroConv ``scale`` stays
+    ``scale``); the PLU buffers ``P`` and ``s_sign`` included. Strict: every
+    leaf lands on a tensor of the same shape and every tensor is filled."""
+    got = _flatten(params)
+    _strict(got, {k: tuple(v.shape) for k, v in model.state_dict().items()},
+            "JAX Glow params")
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in got.items()}
+
+
+def load_jax_glow_state(trainer, state):
+    """Load a JAX ``GlowState`` (``params``, the optax Adam ``opt_state``,
+    ``step``; leaves as numpy or array-likes) into a
+    ``train.glow.GlowTrainer``: parameters, the P / s_sign buffers, Adam's
+    moments and count, the iteration. The optax state also holds moments
+    for P and s_sign, which never get a gradient: they must be zero and are
+    dropped (the port's Adam holds the trainable leaves only)."""
+    model = trainer.model
+    trainer.model.load_state_dict(from_jax_glow_params(state.params, model),
+                                  strict=True)
+    trainer._fresh_optimizer()
+    count, mu, nu = _adam_leaves(state.opt_state)
+    names = [k for k, _ in model.named_parameters()]
+    buffers = {k for k, _ in model.named_buffers()}
+    moments = []
+    for tree in (mu, nu):
+        flat = _flatten(tree)
+        _strict(flat, {k: tuple(v.shape)
+                       for k, v in model.state_dict().items()},
+                "JAX Adam moments")
+        for k in buffers:
+            if np.any(flat[k] != 0):
+                raise ValueError(f"JAX Adam moment of the buffer {k} is not "
+                                 f"zero")
+        moments.append({k: torch.from_numpy(np.array(flat[k], np.float32))
+                        for k in names})
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    sd = trainer.opt.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": moments[0][k],
+                       "exp_avg_sq": moments[1][k]}
+                   for i, k in enumerate(names)}
+    trainer.opt.load_state_dict(sd)
     trainer.step = int(np.asarray(state.step))
     return trainer

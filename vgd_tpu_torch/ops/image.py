@@ -22,3 +22,12 @@ def signed_to_unit(x: torch.Tensor) -> torch.Tensor:
 def unit_to_uint8(x: torch.Tensor) -> torch.Tensor:
     """[0, 1] float -> uint8 with clamping."""
     return torch.clamp(x * 255.0, 0, 255).to(torch.uint8)
+
+
+def quantize_bits(x_unit: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Glow's n-bit input: x * 255 -> floor(/ 2^(8 - n)) -> / n_bins - 0.5."""
+    n_bins = 2.0 ** n_bits
+    x = x_unit * 255.0
+    if n_bits < 8:
+        x = torch.floor(x / 2 ** (8 - n_bits))
+    return x / n_bins - 0.5

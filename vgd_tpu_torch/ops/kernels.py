@@ -14,7 +14,12 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernel of
 * ``conv_stats`` (K1, VAE-GAN training: Conv4x4 stride 2 with the
   per-channel batch statistics of its output) -> the CUDA kernels in
   ``csrc/conv_bn_stats.cu``; ``ops/fused_conv.py`` builds the
-  differentiable Conv + BatchNorm + LeakyReLU on it.
+  differentiable Conv + BatchNorm + LeakyReLU on it;
+* ``glow_coupling_fwd``, ``glow_coupling_bwd1``, ``glow_coupling_bwd2`` (K5,
+  Glow training and sampling: the coupling network's forward and its two
+  backward passes) -> the CUDA kernels in ``csrc/glow_coupling.cu``;
+  ``ops/glow_coupling.py`` packs the weights and binds them as a
+  ``torch.autograd.Function``.
 
 Each wrapper takes its plain version only for a tensor that lies on the CPU
 (the tests); for a CUDA tensor it launches the kernel or raises. There is
@@ -447,3 +452,246 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor, padding: int
     _raise_on(lib, err, "conv_bn_stats")
     LAUNCHES["conv_bn_stats"] += 1
     return c, mean, var
+
+
+# ---------------------------------------------------------------------------
+# K5: the Glow coupling network NN(ya) = ZeroConv(ReLU(Conv1x1(ReLU(
+# Conv(ya))))) * exp(3 scale), forward and its two backward passes
+# ---------------------------------------------------------------------------
+#
+# Packed layouts (``ops/glow_coupling.prep`` makes them from the model's HWIO
+# weights): ya (B, H, W, cin) unpadded; w1f (kh*kw*cin, f) rows (tap, ci);
+# w1t (kh*kw*f, cin) with w1t[(tap, k), ci] = W1[tap, ci, k]; w2 (f, f) and
+# w2t = w2^T; wz (kh*kw*f, cout) rows (tap, k); wzf (kh*kw*cout, f) with
+# wzf[(tap, c), k] = Wz[tap, k, c]; all in the compute dtype cd (ya's dtype).
+# Biases, scale and the gradient g are f32. The conv is "same" (k = 2 pad + 1).
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of cd operands, summed in f32 (the operands upcast exactly)."""
+    return a.float() @ b.float()
+
+
+def _pad_hw(x: torch.Tensor, ph: int, pw: int, value: float) -> torch.Tensor:
+    return F.pad(x, (0, 0, pw, pw, ph, ph), value=value)
+
+
+def _im2col(xp: torch.Tensor, h: int, w: int, kh: int, kw: int
+            ) -> torch.Tensor:
+    """(B, h + kh - 1, w + kw - 1, C) -> (B*h*w, kh*kw*C), taps major."""
+    cols = [xp[:, dy:dy + h, dx:dx + w, :] for dy in range(kh)
+            for dx in range(kw)]
+    return torch.cat(cols, -1).reshape(-1, kh * kw * xp.shape[-1])
+
+
+def _coupling_hidden(ya, w1f, b1, w2, b2, khw, pad):
+    """h1, h2 (B*H*W, f) in cd: ReLU in f32 after the f32 sums, then the
+    rounding (``_recompute_fwd``)."""
+    b, h, w, _ = ya.shape
+    cd = ya.dtype
+    cols = _im2col(_pad_hw(ya, pad[0], pad[1], 0.0), h, w, *khw)
+    h1 = torch.relu(_mm(cols, w1f) + b1).to(cd)
+    return h1, torch.relu(_mm(h1, w2) + b2).to(cd)
+
+
+def _coupling_convz(h2, wz, bz, shape, khw, pad):
+    """convz (B*H*W, cout) = conv of h2 padded with the value 1, + bz."""
+    b, h, w = shape
+    h2p = _pad_hw(h2.reshape(b, h, w, -1), pad[0], pad[1], 1.0)
+    return _mm(_im2col(h2p, h, w, *khw), wz) + bz
+
+
+def glow_coupling_fwd_plain(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad
+                            ) -> torch.Tensor:
+    """NN(ya) (B, H, W, cout) f32 (the math of ``_fwd_kernel``)."""
+    b, h, w, _ = ya.shape
+    h1, h2 = _coupling_hidden(ya, w1f, b1, w2, b2, khw, pad)
+    convz = _coupling_convz(h2, wz, bz, (b, h, w), khw, pad)
+    return (convz * torch.exp(scale * 3.0)).reshape(b, h, w, -1)
+
+
+def glow_coupling_bwd1_plain(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, g, khw,
+                             pad):
+    """(h1, dh2 (B, H, W, f) in cd; dwz (f, kh*kw*cout), dbz, db2, dscale
+    f32) (the math of ``_bwd1_kernel``): the forward recomputed, the
+    ZeroConv's gradients with dWz over the value-1-padded grid, dh2 on the
+    interior masked by the cd h2 > 0, db2 from the f32 dh2."""
+    b, h, w, _ = ya.shape
+    (kh, kw), (ph, pw) = khw, pad
+    cd = ya.dtype
+    h1, h2 = _coupling_hidden(ya, w1f, b1, w2, b2, khw, pad)
+    f = h2.shape[-1]
+    convz = _coupling_convz(h2, wz, bz, (b, h, w), khw, pad)
+    cout = convz.shape[-1]
+    gg = g.reshape(-1, cout).float()
+    e = torch.exp(scale * 3.0)
+    dscale = 3.0 * (gg * convz * e).sum(0)
+    gs = gg * e
+    dbz = gs.sum(0)
+    gs16 = gs.to(cd).reshape(b, h, w, cout)
+    # every tap's shifted placement of the gradient on the padded grid
+    grid = torch.cat([F.pad(gs16, (0, 0, dx, 2 * pw - dx, dy, 2 * ph - dy))
+                      .reshape(-1, cout) for dy in range(kh)
+                      for dx in range(kw)], -1)
+    h2p = _pad_hw(h2.reshape(b, h, w, f), ph, pw, 1.0).reshape(-1, f)
+    dwz = _mm(h2p.t(), grid)
+    # dh2 = correlation of the zero-padded gradient with the flipped taps
+    wz_flipped = wzf.reshape(kh, kw, cout, f).flip(0, 1).reshape(-1, f)
+    dh2 = _mm(_im2col(_pad_hw(gs16, ph, pw, 0.0), h, w, kh, kw), wz_flipped)
+    dh2 = torch.where(h2.float() > 0, dh2, 0.0)
+    return (h1.reshape(b, h, w, f), dh2.to(cd).reshape(b, h, w, f), dwz,
+            dbz, dh2.sum(0), dscale)
+
+
+def glow_coupling_bwd2_plain(ya, w1t, w2t, h1, dh2, khw, pad):
+    """(dya (B, H, W, cin), dw1 (kh*kw*cin, f), db1, dw2 (f, f)) f32 (the
+    math of ``_bwd2_kernel``): dh1 masked by the cd h1 > 0 and rounded to cd
+    before dW1 and dya."""
+    b, h, w, cin = ya.shape
+    (kh, kw), (ph, pw) = khw, pad
+    f = h1.shape[-1]
+    h1f, dh2f = h1.reshape(-1, f), dh2.reshape(-1, f)
+    dw2 = _mm(h1f.t(), dh2f)
+    dh1 = torch.where(h1f.float() > 0, _mm(dh2f, w2t), 0.0)
+    db1 = dh1.sum(0)
+    dh1 = dh1.to(ya.dtype)
+    cols = _im2col(_pad_hw(ya, ph, pw, 0.0), h, w, kh, kw)
+    dw1 = _mm(cols.t(), dh1)
+    taps = kh * kw
+    w1r = w1t.reshape(taps, f, cin).permute(1, 0, 2).reshape(f, taps * cin)
+    r2p = _pad_hw(_mm(dh1, w1r).reshape(b, h, w, taps * cin), ph, pw, 0.0)
+    dya = sum(r2p[:, 2 * ph - dy:2 * ph - dy + h, 2 * pw - dx:2 * pw - dx + w,
+                  (kw * dy + dx) * cin:(kw * dy + dx + 1) * cin]
+              for dy in range(kh) for dx in range(kw))
+    return dya, dw1, db1, dw2
+
+
+def _k5_geometry(what, ya, f, cout, khw, pad, named):
+    """Checks K5's operands on CUDA; returns the C functions' 11 ints."""
+    _require(ya.ndim == 4, f"{what}: ya must be (B, H, W, cin)")
+    b, h, w, cin = ya.shape
+    (kh, kw), (ph, pw) = khw, pad
+    _require(kh == 2 * ph + 1 and kw == 2 * pw + 1,
+             f"{what}: kernel {khw} with padding {pad} is not a 'same' conv")
+    _require(ya.dtype in (torch.bfloat16, torch.float32),
+             f"{what}: ya must be bfloat16 or float32, got {ya.dtype}")
+    for name, t, shape, dtype in named:
+        _require(tuple(t.shape) == shape,
+                 f"{what}: {name} has shape {tuple(t.shape)}, want {shape}")
+        _require(t.dtype == dtype, f"{what}: {name} is {t.dtype}, want "
+                 f"{dtype}")
+        _require(t.is_contiguous(), f"{what}: {name} must be contiguous")
+        # the kernels read the activations and weights in 16-byte vectors
+        _require(t.ndim == 1 or t.data_ptr() % 16 == 0,
+                 f"{what}: {name} must be 16-byte aligned")
+    return [b, h, w, cin, f, cout, kh, kw, ph, pw,
+            int(ya.dtype == torch.bfloat16)]
+
+
+def _k5_part(lib, dims, dev) -> torch.Tensor:
+    n = lib.vgd_glow_coupling_part_floats(*dims[:10])
+    _require(n > 0, f"K5: shape {dims[:10]} not supported")
+    return torch.empty((n,), dtype=torch.float32, device=dev)
+
+
+def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad
+                      ) -> torch.Tensor:
+    """K5 forward: NN(ya) (B, H, W, cout) f32. On CUDA every operand is
+    contiguous, the weights in ya's dtype (bf16 or f32), in the packed
+    layouts above; ragged sizes are masked in the kernel."""
+    if _on_cpu(ya, w1f, b1, w2, b2, wz, bz, scale):
+        return glow_coupling_fwd_plain(ya, w1f, b1, w2, b2, wz, bz, scale,
+                                       khw, pad)
+    cd, f32 = ya.dtype, torch.float32
+    taps = khw[0] * khw[1]
+    f, cout = w2.shape[0], bz.shape[0]
+    cin = ya.shape[-1]
+    dims = _k5_geometry("glow_coupling_fwd", ya, f, cout, khw, pad, [
+        ("ya", ya, tuple(ya.shape), cd), ("w1f", w1f, (taps * cin, f), cd),
+        ("b1", b1, (f,), f32), ("w2", w2, (f, f), cd), ("b2", b2, (f,), f32),
+        ("wz", wz, (taps * f, cout), cd), ("bz", bz, (cout,), f32),
+        ("scale", scale, (cout,), f32)])
+    b, h, w = dims[:3]
+    dev = ya.device
+    out = torch.empty((b, h, w, cout), dtype=f32, device=dev)
+    h1 = torch.empty((b * h * w, f), dtype=cd, device=dev)
+    h2 = torch.empty_like(h1)
+    lib = _build.glow_coupling_lib()
+    part = _k5_part(lib, dims, dev)
+    with torch.cuda.device(dev):
+        err = lib.vgd_glow_coupling_fwd(
+            *(t.data_ptr() for t in (ya, w1f, b1, w2, b2, wz, bz, scale, out,
+                                     h1, h2, part)),
+            *dims, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "glow_coupling_fwd")
+    LAUNCHES["glow_coupling_fwd"] += 1
+    return out
+
+
+def glow_coupling_bwd1(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, g, khw, pad):
+    """K5 backward 1: (h1, dh2 (B, H, W, f) in cd; dwz (f, kh*kw*cout),
+    dbz (cout,), db2 (f,), dscale (cout,) f32). g (B, H, W, cout) f32."""
+    if _on_cpu(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, g):
+        return glow_coupling_bwd1_plain(ya, w1f, b1, w2, b2, wz, wzf, bz,
+                                        scale, g, khw, pad)
+    cd, f32 = ya.dtype, torch.float32
+    taps = khw[0] * khw[1]
+    f, cout = w2.shape[0], bz.shape[0]
+    b, h, w, cin = ya.shape
+    dims = _k5_geometry("glow_coupling_bwd1", ya, f, cout, khw, pad, [
+        ("ya", ya, tuple(ya.shape), cd), ("w1f", w1f, (taps * cin, f), cd),
+        ("b1", b1, (f,), f32), ("w2", w2, (f, f), cd), ("b2", b2, (f,), f32),
+        ("wz", wz, (taps * f, cout), cd), ("wzf", wzf, (taps * cout, f), cd),
+        ("bz", bz, (cout,), f32), ("scale", scale, (cout,), f32),
+        ("g", g, (b, h, w, cout), f32)])
+    dev = ya.device
+    h1 = torch.empty((b, h, w, f), dtype=cd, device=dev)
+    dh2, h2 = torch.empty_like(h1), torch.empty_like(h1)
+    dwz = torch.empty((f, taps * cout), dtype=f32, device=dev)
+    dbz, dscale = (torch.empty((cout,), dtype=f32, device=dev)
+                   for _ in range(2))
+    db2 = torch.empty((f,), dtype=f32, device=dev)
+    convz = torch.empty((b * h * w, cout), dtype=f32, device=dev)
+    gs = torch.empty((b * h * w, cout), dtype=cd, device=dev)
+    lib = _build.glow_coupling_lib()
+    part = _k5_part(lib, dims, dev)
+    with torch.cuda.device(dev):
+        err = lib.vgd_glow_coupling_bwd1(
+            *(t.data_ptr() for t in (ya, w1f, b1, w2, b2, wz, wzf, bz, scale,
+                                     g, h1, dh2, dwz, dbz, db2, dscale, h2,
+                                     convz, gs, part)),
+            *dims, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "glow_coupling_bwd1")
+    LAUNCHES["glow_coupling_bwd1"] += 1
+    return h1, dh2, dwz, dbz, db2, dscale
+
+
+def glow_coupling_bwd2(ya, w1t, w2t, h1, dh2, khw, pad):
+    """K5 backward 2: (dya (B, H, W, cin), dw1 (kh*kw*cin, f), db1 (f,),
+    dw2 (f, f)) f32, from backward 1's h1 and dh2."""
+    if _on_cpu(ya, w1t, w2t, h1, dh2):
+        return glow_coupling_bwd2_plain(ya, w1t, w2t, h1, dh2, khw, pad)
+    cd, f32 = ya.dtype, torch.float32
+    taps = khw[0] * khw[1]
+    b, h, w, cin = ya.shape
+    f = w2t.shape[0]
+    # backward 2 never reads the ZeroConv's width: cout 1 stands for it
+    dims = _k5_geometry("glow_coupling_bwd2", ya, f, 1, khw, pad, [
+        ("ya", ya, tuple(ya.shape), cd), ("w1t", w1t, (taps * f, cin), cd),
+        ("w2t", w2t, (f, f), cd), ("h1", h1, (b, h, w, f), cd),
+        ("dh2", dh2, (b, h, w, f), cd)])
+    dev = ya.device
+    dya = torch.empty((b, h, w, cin), dtype=f32, device=dev)
+    dw1 = torch.empty((taps * cin, f), dtype=f32, device=dev)
+    db1 = torch.empty((f,), dtype=f32, device=dev)
+    dw2 = torch.empty((f, f), dtype=f32, device=dev)
+    dh1 = torch.empty((b, h, w, f), dtype=cd, device=dev)
+    lib = _build.glow_coupling_lib()
+    part = _k5_part(lib, dims, dev)
+    with torch.cuda.device(dev):
+        err = lib.vgd_glow_coupling_bwd2(
+            *(t.data_ptr() for t in (ya, w1t, w2t, h1, dh2, dya, dw1, db1,
+                                     dw2, dh1, part)),
+            *dims, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "glow_coupling_bwd2")
+    LAUNCHES["glow_coupling_bwd2"] += 1
+    return dya, dw1, db1, dw2

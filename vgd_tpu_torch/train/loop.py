@@ -1,6 +1,8 @@
 """Entry points of the port (``vgd_tpu/train/loop.py``): DDPM training
-(``run_diffusion``), VAE-GAN training (``run_vaegan``), sample grids from a
-checkpoint of either family and partial-noise restoration evaluation.
+(``run_diffusion``), VAE-GAN training (``run_vaegan``), Glow training
+(``run_glow``) and its temperature-sampled SSIM evaluation
+(``evaluate_glow``), sample grids from a checkpoint of any of them and
+partial-noise restoration evaluation.
 
 Grids and panels are written as ``.npy`` arrays in [-1, 1] (the JAX
 package's image writer needs matplotlib/PIL, which the port does not
@@ -17,7 +19,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vgd_tpu_torch.core.config import DiffusionConfig, VAEGANConfig, to_dict
+from vgd_tpu_torch.core.config import (DiffusionConfig, GlowConfig,
+                                       VAEGANConfig, to_dict)
 from vgd_tpu_torch.core.rng import resolve_device, seed_all
 from vgd_tpu_torch.data.celeba import make_image_datasets
 from vgd_tpu_torch.eval.metrics import MetricAccumulator, mse_metric, psnr
@@ -26,6 +29,7 @@ from vgd_tpu_torch.io.checkpoint import Checkpointer
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
+from vgd_tpu_torch.train.glow import GlowTrainer
 from vgd_tpu_torch.train.vaegan import VAEGANTrainer
 from vgd_tpu_torch.utils.prefetch import device_prefetch
 
@@ -343,6 +347,115 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
             "val_rows": n_val}
 
 
+def restore_glow(cfg: GlowConfig, step: Optional[int] = None,
+                 device="cuda") -> GlowTrainer:
+    """A Glow trainer on ``device`` with the latest (or given) checkpoint of
+    ``<out_dir>/ckpt`` loaded."""
+    trainer = GlowTrainer(cfg, _image_shape(cfg), device=device)
+    params, s, _ = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt")).restore(
+        step, map_location=trainer.device)
+    trainer.load(params)
+    print(f"[checkpoint] restored step {s}")
+    return trainer
+
+
+def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
+             resume: bool = False, device="cuda") -> Dict:
+    """Train Glow for ``n_iter`` iterations (default ``cfg.n_iter``) on an
+    endless shuffled stream: the data-dependent ActNorm init on batch 0,
+    then iteration i on batch i + 1; every ``sample_every_iters`` a grid of
+    ``reverse(z_sample) * 2`` (fixed temperature z from seed + 7) as
+    ``sample/<iter>.npy`` and a ``MetricLog`` row (iter, loss, log_p,
+    logdet, images_per_sec); every ``checkpoint_every_iters`` and at the
+    end a checkpoint of the model (buffers included), Adam, the generator
+    and the iteration. ``resume`` continues from the latest checkpoint
+    exactly: same parameters, moments, draws and stream position."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = GlowTrainer(cfg, img_shape, device=device)
+    trainer.init(gen)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
+                        keep=cfg.run.keep_checkpoints)
+    log = MetricLog(cfg.run.out_dir, "glow_loss")
+    prof = _Profiler(cfg.run, device)
+    z_sample = trainer.sample_z(torch.Generator(device=device).manual_seed(
+        cfg.run.seed + FIXED_Z_SEED_OFFSET), cfg.n_samples)
+    n_iter = cfg.n_iter if n_iter is None else n_iter
+    sample_dir = os.path.join(cfg.run.out_dir, "sample")
+    start = 0
+    if resume and ckpt.latest_step() is not None:
+        payload = ckpt.load(map_location=device)
+        trainer.load(payload["params"], payload["opt_state"],
+                     payload["opt_step"])
+        gen.set_state(payload["rng_state"])
+        start = payload["step"]
+        print(f"[checkpoint] resumed at iteration {start}")
+    # batch 0 goes to the ActNorm init and batch i + 1 to iteration i, so a
+    # run resumed at `start` continues from batch start + 1
+    batches = device_prefetch(train.stream(start + 1 if start else 0),
+                              size=2, device=device)
+    if start == 0:
+        trainer.init_step(next(batches), gen)
+
+    def save(step):
+        ckpt.save(step, trainer.model.state_dict(), to_dict(cfg),
+                  opt_state=trainer.opt.state_dict(),
+                  rng_state=gen.get_state(), opt_step=trainer.step)
+    t0 = time.perf_counter()
+    for i in range(start, n_iter):
+        prof.step(i)
+        m = trainer.train_step(next(batches), gen)
+        if (i + 1) % cfg.run.sample_every_iters == 0:
+            save_grid(trainer.reverse(z_sample) * 2.0, os.path.join(
+                sample_dir, f"{i + 1:06d}.npy"))
+            ips = cfg.run.sample_every_iters * cfg.data.batch_size / \
+                max(time.perf_counter() - t0, 1e-9)
+            t0 = time.perf_counter()
+            log.append(iter=i + 1, loss=float(m["loss"]),
+                       log_p=float(m["log_p"]), logdet=float(m["logdet"]),
+                       images_per_sec=ips)
+            print(f"[glow] iter {i + 1}/{n_iter} loss={float(m['loss']):.4f}"
+                  f" {ips:.0f} img/s")
+        if (i + 1) % cfg.run.checkpoint_every_iters == 0:
+            save(i + 1)
+    if ckpt.latest_step() != n_iter:      # always leave a final checkpoint
+        save(n_iter)
+    prof.close()
+    log.save()
+    return {"trainer": trainer, "log": log.history, "val": val}
+
+
+def evaluate_glow(cfg: GlowConfig, trainer: GlowTrainer, val,
+                  max_batches: Optional[int] = None) -> Dict[str, float]:
+    """Temperature samples, one batch per val batch, scored by SSIM against
+    it: fake in [-0.5, 0.5] mapped to clip(fake + 0.5, 0, 1), real uint8 /
+    255, true rows only. IS / FID wait for the eval slice."""
+    gen = seed_all(cfg.run.seed, trainer.device)
+    acc = MetricAccumulator()
+    for j, (vbatch, n_valid) in enumerate(val.epoch()):
+        if max_batches is not None and j >= max_batches:
+            break
+        fake = trainer.reverse(trainer.sample_z(gen, len(vbatch)))
+        real = torch.from_numpy(vbatch).to(trainer.device).float() / 255.0
+        acc.update(torch.clamp(fake + 0.5, 0.0, 1.0), real, n_valid=n_valid)
+    return acc.compute()
+
+
+def evaluate_glow_from_dir(cfg: GlowConfig, max_batches: Optional[int] = None,
+                           step: Optional[int] = None,
+                           device="cuda") -> Dict[str, float]:
+    """Restore the latest (or given) Glow checkpoint and run
+    ``evaluate_glow`` on the val split."""
+    device = resolve_device(device)
+    _, val, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = restore_glow(cfg, step, device)
+    out = evaluate_glow(cfg, trainer, val, max_batches=max_batches)
+    np.savez(os.path.join(cfg.run.out_dir, "glow_eval_metrics.npz"), **out)
+    print("[eval-glow] " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    return out
+
+
 def sample_from_dir(family: str, cfg, n: int = 64,
                     out_path: Optional[str] = None,
                     step: Optional[int] = None, seed: int = 42,
@@ -352,8 +465,9 @@ def sample_from_dir(family: str, cfg, n: int = 64,
     (n, H, W, C) ``.npy`` in [-1, 1] and returns its path. ``diffusion``:
     the DDIM chain (``ddim_steps > 0``) or the full ancestral chain from
     noise drawn from ``seed``; ``vaegan``: the decoder in eval mode on z
-    (n, latent) drawn from ``seed``."""
-    if family not in ("diffusion", "vaegan"):
+    (n, latent) drawn from ``seed``; ``glow``: the reverse flow on
+    temperature z drawn from ``seed``, times 2 (images in [-1, 1])."""
+    if family not in ("diffusion", "vaegan", "glow"):
         raise NotImplementedError(f"family {family!r} is not ported yet")
     od = cfg.run.out_dir
     out_path = out_path or os.path.join(od, f"{family}_samples.npy")
@@ -366,6 +480,11 @@ def sample_from_dir(family: str, cfg, n: int = 64,
                         device=trainer.device)
         t0 = time.perf_counter()
         imgs = trainer.generate(z)
+    elif family == "glow":
+        trainer = restore_glow(cfg, step, device)
+        z = trainer.sample_z(seed_all(seed, trainer.device), n)
+        t0 = time.perf_counter()
+        imgs = trainer.reverse(z) * 2.0
     else:
         trainer = restore_trainer(cfg, step, device)
         gen = seed_all(seed, trainer.device)
