@@ -15,7 +15,8 @@ Run from the root of a checkout on a machine with one CUDA card:
    attention: forward with logsumexp, dq, dk/dv), K3 (serving attention),
    K4 (GroupNorm+SiLU) at the 256x256, batch-16 DDPM UNet's shapes; K1
    (Conv4x4 stride 2 + batch statistics) at the 256x256, batch-64 VAE-GAN's
-   nine shapes in bf16, one f32 shape and two ragged ones; K5 (step 7);
+   nine shapes in bf16, one f32 shape and two ragged ones; K5 (step 7); K6
+   (step 8);
 3. DDPM: holds the fused UNet forward and one training-form train step
    (loss and every gradient) against the same weights run with no kernel at
    all (``kernels.plain_reference``), and profiles both by kernel group;
@@ -53,7 +54,20 @@ Run from the root of a checkout on a machine with one CUDA card:
    step, 128 forwards per ``init_step`` and per ``reverse``, and no K1-K4;
    then ``sample_from_dir("glow")`` and ``evaluate_glow_from_dir`` serve the
    checkpoint;
-8. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+8. Glow with ``flow_stack=True`` (the same model, ``fused_coupling=True``
+   for the ActNorm init and the reverse): K6 (forward with and without
+   saves, backward: one launch per block) against its plain versions at the
+   four block shapes in bf16, one f32 shape, two ragged ones and the EEG
+   variant's (3, 1) kernel, the no-save forward bit-equal to the saving
+   one and the backward bit-equal run to run, timed against the per-flow
+   path of the same block (K5, and the cuDNN conv chain); one train step
+   against no kernel (as step 7), profiled, and the same step timed on the
+   per-flow path and with ``flow_stack=256``; ``run_glow`` as in step 7
+   with exactly 4 + 4 K6 launches and no K5 per train step, 128 K5
+   forwards per ``init_step`` and per ``reverse``; then the checkpoint's
+   likelihood (``GlowTrainer.forward``: 4 no-save launches, bits/dim
+   against no kernel) and ``sample_from_dir("glow")``;
+9. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -1305,6 +1319,9 @@ K5_SHAPES = [("block0", 16, 32, 32, 6, 512, 32),
              ("block3", 16, 4, 4, 48, 512, 32)]
 K5_PER_STEP = sum(s[-1] for s in K5_SHAPES)          # 128
 K5_NAMES = ("glow_coupling_fwd", "glow_coupling_bwd1", "glow_coupling_bwd2")
+K6_NAMES = ("glow_flow_stack_fwd", "glow_flow_stack_fwd_nosave",
+            "glow_flow_stack_bwd")
+GLOW_NAMES = K5_NAMES + K6_NAMES
 # checked, not timed: one f32 shape and two ragged ones (odd sizes, channel
 # counts no tile divides)
 K5_EXTRA = [("f32", 16, 16, 16, 12, 512, "float32"),
@@ -1321,7 +1338,8 @@ K5_F32_REL, K5_BF16_REL, K5_BF16_ATOL, K5_FLIP_SHARE = 1e-4, 2e-2, 2e-3, 1e-5
 # pass of the endless stream) / 40 val; 2 x 10 iterations with a grid and a
 # checkpoint every 10, a resume, 10 more
 GLOW_DATASET, GLOW_ITERS, GLOW_EVERY = 400, 20, 10
-GLOW_GROUPS = [("K5 (glow_gemm_kernel, split and column sums, zeroconv "
+GLOW_GROUPS = [("K6 (flow_stack_fwd, flow_stack_bwd)", ("flow_stack",)),
+               ("K5 (glow_gemm_kernel, split and column sums, zeroconv "
                 "grad)", ("glow_",)),
                ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
                ("triangular solves and small matmuls (cuBLAS)",
@@ -1553,16 +1571,20 @@ def compare_glow_step(got, ref):
     return worst[0], worst[1], abs(lk - lr) / abs(lr)
 
 
-def check_glow_step(K, cfg, gen, failures):
-    """One full-width train step with K5 against the same state, batch and
-    noise with no kernel (``kernels.plain_reference``): the loss and every
-    gradient, in f32 at the DDPM step's bounds and in bf16 at the larger of
-    those and VAEGAN_FLOOR_X times the no-kernel step's own noise floor
-    (its coupling outputs perturbed by one f32 ulp), measured here. The
-    state: the seeded init, the ActNorm init on the batch, and ZeroConvs
-    set to 0.01 N(0, 1) (at init they are zero and the conv1 / conv2
-    gradients with them). Then one bf16 train step timed both ways and
-    profiled."""
+def check_glow_step(K, cfg, gen, failures, tag, init_want, step_want,
+                    compare=()):
+    """One full-width train step with the kernels against the same state,
+    batch and noise with no kernel (``kernels.plain_reference``): the loss
+    and every gradient, in f32 at the DDPM step's bounds and in bf16 at the
+    larger of those and VAEGAN_FLOOR_X times the no-kernel step's own noise
+    floor (its coupling outputs perturbed by one f32 ulp), measured here.
+    The state: the seeded init, the ActNorm init on the batch, and
+    ZeroConvs set to 0.01 N(0, 1) (at init they are zero and the conv1 /
+    conv2 gradients with them). The K5 / K6 launches of the ActNorm init
+    and of the step are held to ``init_want`` and ``step_want``. Then one
+    bf16 train step timed both ways and profiled, and timed with the same
+    weights under each (name, config changes) of ``compare``; ``tag``
+    names the phase in the log."""
     import dataclasses
     import torch
     from vgd_tpu_torch.train.glow import GlowTrainer
@@ -1587,7 +1609,7 @@ def check_glow_step(K, cfg, gen, failures):
         noise = torch.rand(b, h, w, 3, device=dev, generator=gen)
         K.LAUNCHES.clear()
         trainer.init_step(batch, noise=noise)
-        init_launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        init_launches = {k: K.LAUNCHES[k] for k in GLOW_NAMES}
         with torch.no_grad():
             for blk in trainer.model.blocks():
                 zw = blk.flows.coupling.zero.w
@@ -1596,22 +1618,19 @@ def check_glow_step(K, cfg, gen, failures):
         if dtype == "float32":
             n_params = sum(p.numel() for p in trainer.model.parameters())
             stats["n_params"] = n_params
-            print(f"[glow-init] {h}x{w} B={b} K={cfg.n_flows} L="
+            print(f"[{tag}] init: {h}x{w} B={b} K={cfg.n_flows} L="
                   f"{cfg.n_blocks} width {cfg.filter_size}: {n_params} "
                   f"parameters; init_step launches {init_launches}",
                   flush=True)
-        if init_launches != {"glow_coupling_fwd": K5_PER_STEP,
-                             "glow_coupling_bwd1": 0,
-                             "glow_coupling_bwd2": 0}:
-            failures.append(f"glow init_step {dtype}: launches "
+        if init_launches != init_want:
+            failures.append(f"{tag} init_step {dtype}: launches "
                             f"{init_launches}")
         K.LAUNCHES.clear()
         kern = glow_step_grads(trainer, batch, noise)
-        launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
-        if launches != dict.fromkeys(K5_NAMES, K5_PER_STEP) or \
-                set(K.LAUNCHES) - set(K5_NAMES):
-            failures.append(f"glow step {dtype}: launches {dict(K.LAUNCHES)}"
-                            f", want {K5_PER_STEP} of each K5 kind only")
+        launches = {k: K.LAUNCHES[k] for k in GLOW_NAMES}
+        if launches != step_want or set(K.LAUNCHES) - set(GLOW_NAMES):
+            failures.append(f"{tag} {dtype}: launches {dict(K.LAUNCHES)}, "
+                            f"want {step_want}")
         runs = {}
         for name, fn in (("plain", plain), ("plain_perturbed", perturbed)):
             if dtype == "float32" and name == "plain_perturbed":
@@ -1624,20 +1643,20 @@ def check_glow_step(K, cfg, gen, failures):
             finally:
                 K.glow_coupling_fwd_plain = plain
             if sum(K.LAUNCHES.values()):
-                failures.append(f"glow step: the no-kernel reference "
+                failures.append(f"{tag}: the no-kernel reference "
                                 f"launched {dict(K.LAUNCHES)}")
         worst, wname, loss_rel = compare_glow_step(kern, runs["plain"])
         row = {"worst_err_over_bound": worst, "worst_tensor": wname,
                "loss_rel": loss_rel, "launches": launches,
                "loss": kern[0], "loss_ref": runs["plain"][0]}
-        line = (f"[glow-step] {dtype} K5 vs no-kernel reference, B={b} "
+        line = (f"[{tag}] {dtype} kernels vs no-kernel reference, B={b} "
                 f"{h}x{w}: loss {kern[0]:.6f} / {runs['plain'][0]:.6f}; "
                 f"{len(kern[1])} gradients, worst err/bound {worst:.3f} "
                 f"({wname}), loss difference {loss_rel:.3g} relative; "
                 f"launches {launches}")
         if dtype == "float32":
             if not (worst <= 1.0 and loss_rel <= STEP_LOSS_REL):
-                failures.append(f"glow step f32: K5 vs reference {row}")
+                failures.append(f"{tag} f32: kernels vs reference {row}")
         else:
             fworst, fname, floss = compare_glow_step(runs["plain_perturbed"],
                                                      runs["plain"])
@@ -1650,7 +1669,7 @@ def check_glow_step(K, cfg, gen, failures):
             if not (worst <= max(1.0, VAEGAN_FLOOR_X * fworst)
                     and loss_rel <= max(STEP_LOSS_REL,
                                         VAEGAN_FLOOR_X * floss)):
-                failures.append(f"glow step bf16: K5 vs reference {row}")
+                failures.append(f"{tag} bf16: kernels vs reference {row}")
         print(line, flush=True)
         stats[f"step_{dtype}"] = row
         del kern, runs
@@ -1667,19 +1686,30 @@ def check_glow_step(K, cfg, gen, failures):
     stats.update(train_step_ms=cuda_ms(step, 1, 3),
                  train_step_plain_ms=cuda_ms(plain_step, 1, 3))
     stats["train_step_profile"] = profile_fn(
-        step, stats["train_step_ms"], GLOW_GROUPS, "profile-glow")
-    print(f"[glow-step] whole bf16 train step B={b} {h}x{w}: K5 "
+        step, stats["train_step_ms"], GLOW_GROUPS, f"profile-{tag}")
+    print(f"[{tag}] whole bf16 train step B={b} {h}x{w}: kernels "
           f"{stats['train_step_ms']:.3f} ms, no-kernel reference "
           f"{stats['train_step_plain_ms']:.3f} ms", flush=True)
+    for name, changes in compare:
+        other = GlowTrainer(dataclasses.replace(trainer.cfg, **changes),
+                            (h, w, 3), device="cuda")
+        other.load(trainer.model.state_dict())
+        stats[f"train_step_{name}_ms"] = cuda_ms(
+            lambda: other.train_step(batch, noise=noise), 1, 3)
+        print(f"[{tag}] the same bf16 step with {changes}: "
+              f"{stats[f'train_step_{name}_ms']:.3f} ms", flush=True)
+        del other
     return stats
 
 
-def glow_train_path(K, cfg, failures):
+def glow_train_path(K, cfg, failures, tag, per_step, per_init, per_reverse):
     """``run_glow`` for GLOW_ITERS iterations (a grid and a checkpoint every
     GLOW_EVERY), a resume that runs no iteration (it must restore exactly
     what was saved), and a resume that trains GLOW_EVERY more from the
-    right place in the stream. K5 launches are read per train step, per
-    ``init_step`` and per ``reverse``."""
+    right place in the stream. The K5 and K6 launches (GLOW_NAMES) are read
+    per train step, per ``init_step`` and per ``reverse`` and held to
+    ``per_step``, ``per_init`` and ``per_reverse``; ``tag`` names the
+    phase in the log."""
     import numpy as np
     import torch
     from vgd_tpu_torch.data.celeba import make_image_datasets
@@ -1694,7 +1724,7 @@ def glow_train_path(K, cfg, failures):
         fn = originals[name]
 
         def counted(self, *args, **kwargs):
-            before = {k: K.LAUNCHES[k] for k in K5_NAMES}
+            before = {k: K.LAUNCHES[k] for k in GLOW_NAMES}
             if name == "train_step":
                 fed.append(args[0].clone())
             start = torch.cuda.Event(enable_timing=True)
@@ -1703,11 +1733,10 @@ def glow_train_path(K, cfg, failures):
             out = fn(self, *args, **kwargs)
             end.record()
             calls[name].append((tuple(K.LAUNCHES[k] - before[k]
-                                      for k in K5_NAMES), start, end, out))
+                                      for k in GLOW_NAMES), start, end, out))
             return out
         return counted
 
-    per_step = (K5_PER_STEP,) * 3
     for n in calls:
         setattr(GlowTrainer, n, wrap(n))
     try:
@@ -1719,7 +1748,7 @@ def glow_train_path(K, cfg, failures):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         trainer = res["trainer"]
-        launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        launches = {k: K.LAUNCHES[k] for k in GLOW_NAMES}
         losses = [float(c[3]["loss"]) for c in calls["train_step"]]
         step_ms = sorted(s.elapsed_time(e) for _, s, e, _ in
                          calls["train_step"][1:])
@@ -1736,30 +1765,30 @@ def glow_train_path(K, cfg, failures):
                  "images_per_sec_median_step":
                      cfg.data.batch_size / step_ms[len(step_ms) // 2] * 1e3,
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        print(f"[glow-train] launches {dict(K.LAUNCHES)} over {steps} train "
+        print(f"[{tag}] launches {dict(K.LAUNCHES)} over {steps} train "
               f"steps (per step {stats['per_train_step']}), init_step "
               f"{stats['per_init_step']}, {stats['reverses']} reverses (each "
               f"{stats['per_reverse']})", flush=True)
         if (steps != GLOW_ITERS or stats["per_train_step"] != [per_step]
-                or stats["per_init_step"] != [(K5_PER_STEP, 0, 0)]
-                or stats["per_reverse"] != [(K5_PER_STEP, 0, 0)]
+                or stats["per_init_step"] != [per_init]
+                or stats["per_reverse"] != [per_reverse]
                 or stats["reverses"] != GLOW_ITERS // GLOW_EVERY
-                or set(K.LAUNCHES) - set(K5_NAMES)):
-            failures.append(f"glow-train launches: {stats}")
+                or set(K.LAUNCHES) - set(GLOW_NAMES)):
+            failures.append(f"{tag} launches: {stats}")
         if not (all(math.isfinite(v) for v in losses)
                 and np.mean(losses[-5:]) < np.mean(losses[:5])):
-            failures.append(f"glow-train: bits/dim not finite and falling: "
+            failures.append(f"{tag}: bits/dim not finite and falling: "
                             f"{losses}")
         grids = sorted((Path(cfg.run.out_dir) / "sample").glob("*.npy"))
         grid = np.load(grids[-1])
         if not (len(grids) == GLOW_ITERS // GLOW_EVERY and
                 grid.shape == (cfg.n_samples, 64, 64, 3) and
                 np.isfinite(grid).all()):
-            failures.append(f"glow-train grids {[g.name for g in grids]} "
+            failures.append(f"{tag} grids {[g.name for g in grids]} "
                             f"{grid.shape}")
-        print(f"[glow-train] bits/dim by step: " + " ".join(
+        print(f"[{tag}] bits/dim by step: " + " ".join(
             f"{v:.4f}" for v in losses) + f"; log {res['log']}", flush=True)
-        print(f"[glow-train] {steps} steps; step ms median "
+        print(f"[{tag}] {steps} steps; step ms median "
               f"{stats['step_ms_median']:.3f} (min {step_ms[0]:.3f}, max "
               f"{step_ms[-1]:.3f}) after the first = "
               f"{stats['images_per_sec_median_step']:.1f} images/s; run "
@@ -1784,11 +1813,11 @@ def glow_train_path(K, cfg, failures):
         ok = (same_params and same_opt and payload["step"] == GLOW_ITERS
               and back.step == steps == payload["opt_step"]
               and sum(K.LAUNCHES.values()) == 0)
-        print(f"[glow-resume] checkpoint iteration {payload['step']}, "
+        print(f"[{tag}] resume: checkpoint iteration {payload['step']}, "
               f"optimizer steps {back.step}: params and buffers equal "
               f"{same_params}, Adam state equal {same_opt}", flush=True)
         if not ok:
-            failures.append("glow resume did not restore what was saved")
+            failures.append(f"{tag}: resume did not restore what was saved")
         del back, trainer, res, final, opt_a, opt_b
         torch.cuda.empty_cache()
 
@@ -1799,26 +1828,26 @@ def glow_train_path(K, cfg, failures):
         res = L.run_glow(cfg, n_iter=GLOW_ITERS + GLOW_EVERY, resume=True,
                          device="cuda")
         steps3 = len(calls["train_step"])
-        got = {k: K.LAUNCHES[k] for k in K5_NAMES}
+        got = {k: K.LAUNCHES[k] for k in GLOW_NAMES}
+        reverses3 = steps3 // GLOW_EVERY
         train, _, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
         want_batch = torch.from_numpy(next(train.stream(GLOW_ITERS + 1)))
         same_stream = torch.equal(fed[0].cpu(), want_batch)
         losses3 = [float(c[3]["loss"]) for c in calls["train_step"]]
-        print(f"[glow-train] resumed: {steps3} steps from iteration "
+        print(f"[{tag}] resumed: {steps3} steps from iteration "
               f"{GLOW_ITERS}, first batch is stream batch {GLOW_ITERS + 1}: "
               f"{same_stream}; bits/dim " + " ".join(
                   f"{v:.4f}" for v in losses3) + f"; launches {got}",
               flush=True)
         if not (res["trainer"].step == GLOW_ITERS + GLOW_EVERY
                 == steps + steps3 and same_stream and not calls["init_step"]
-                and got == {"glow_coupling_fwd": K5_PER_STEP * (steps3 + 1),
-                            "glow_coupling_bwd1": K5_PER_STEP * steps3,
-                            "glow_coupling_bwd2": K5_PER_STEP * steps3}
+                and got == {k: per_step[i] * steps3 + per_reverse[i] * reverses3
+                            for i, k in enumerate(GLOW_NAMES)}
                 and all(math.isfinite(v) for v in losses3)):
-            failures.append(f"glow resumed run: step {res['trainer'].step}, "
+            failures.append(f"{tag} resumed run: step {res['trainer'].step}, "
                             f"stream {same_stream}, launches {got}")
         stats["resumed_losses"] = losses3
-        stats["launches_total"] = {k: launches[k] + got[k] for k in K5_NAMES}
+        stats["launches_total"] = {k: launches[k] + got[k] for k in GLOW_NAMES}
     finally:
         for n, fn in originals.items():
             setattr(GlowTrainer, n, fn)
@@ -1876,9 +1905,359 @@ def glow_serve_path(K, cfg, failures):
 def glow_path(K, gen, failures):
     cfg = glow_config()
     shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
-    stats = check_glow_step(K, cfg, gen, failures)
-    stats["train"] = glow_train_path(K, cfg, failures)
+    none = (0,) * len(K6_NAMES)
+    stats = check_glow_step(
+        K, cfg, gen, failures, "glow-step",
+        dict(zip(GLOW_NAMES, (K5_PER_STEP, 0, 0) + none)),
+        dict(zip(GLOW_NAMES, (K5_PER_STEP,) * 3 + none)))
+    stats["train"] = glow_train_path(
+        K, cfg, failures, "glow-train", (K5_PER_STEP,) * 3 + none,
+        (K5_PER_STEP, 0, 0) + none, (K5_PER_STEP, 0, 0) + none)
     stats["serve"] = glow_serve_path(K, cfg, failures)
+    return stats
+
+
+
+# ---------------------------------------------------------------------------
+# Glow with flow_stack: K6 runs each block's whole flow chain, one launch per
+# block and direction
+# ---------------------------------------------------------------------------
+
+# K6 at the reference Glow (64x64, B=16, K=32, L=4, width 512): (site, B, H,
+# W, c = the squeezed channels, f, flows); one launch of each direction per
+# block and train step
+K6_SHAPES = [("block0", 16, 32, 32, 12, 512, 32),
+             ("block1", 16, 16, 16, 24, 512, 32),
+             ("block2", 16, 8, 8, 48, 512, 32),
+             ("block3", 16, 4, 4, 96, 512, 32)]
+K6_PER_STEP = len(K6_SHAPES)
+# checked, not timed: (site, B, H, W, c, f, flows, kernel, dtype): one f32
+# shape, two ragged ones (odd sizes, channel counts no tile divides) and the
+# EEG variant's (3, 1) kernel
+K6_EXTRA = [("f32", 16, 16, 16, 24, 512, 8, (3, 3), "float32"),
+            ("ragged", 3, 7, 5, 10, 40, 3, (3, 3), "bfloat16"),
+            ("ragged", 2, 9, 13, 22, 72, 2, (3, 3), "bfloat16"),
+            ("eeg", 2, 40, 1, 44, 64, 2, (3, 1), "bfloat16")]
+# K6 against its plain version on the same operands (the backward fed the
+# plain version's saved inputs). f32, the JAX flow-stack test's bounds:
+# values within 1e-4 of max |.|, gradients within 5e-4 (1e-3 + max |g|).
+# bf16: 5e-2 of max |.| + 2e-3, K5's per-flow bound widened for a chain of
+# 32 flows: a cd rounding of y1, h1, h2 or dy2 that goes the other way in
+# one flow moves that flow's output by a bf16 ulp (3.9e-3 relative) and
+# every later flow carries it on (measured on the H100: y at 1.6e-2, the
+# block-3 dW2 and db2 at 3.0e-2 and 2.5e-2 of max); ReLU mask flips are
+# counted and left out as K5's
+K6_F32_REL, K6_GRAD_REL, K6_GRAD_FLOOR = 1e-4, 5e-4, 1e-3
+# the per-flow path of the same block, timed beside K6 (``check_k6``)
+K6_PER_FLOW_KEYS = ("op_fwd_bwd_ms", "per_flow_k5_fwd_ms",
+                    "per_flow_k5_fwd_bwd_ms", "per_flow_cudnn_fwd_ms",
+                    "per_flow_cudnn_fwd_bwd_ms")
+K6_BF16_REL, K6_BF16_ATOL, K6_FLIP_SHARE = 5e-2, K5_BF16_ATOL, K5_FLIP_SHARE
+
+
+def k6_operands(dev, gen, b, h, w, c, f, n, khw, dtype):
+    """A block's stacked flow leaves (trained-like: ActNorm off the
+    identity, an orthogonal 1x1 conv, a non-zero ZeroConv), x and g; and
+    K6's packed operands of them."""
+    import torch
+    from vgd_tpu_torch.ops.glow_flow_stack import _pack
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, device=dev, generator=gen)
+    kh, kw = khw
+    ch = c // 2
+    q, _ = torch.linalg.qr(rnd(n, c, c))
+    raw = dict(x=rnd(b, h, w, c), g=rnd(b, h, w, c), an_b=rnd(n, c, s=0.1),
+               an_s=torch.exp(rnd(n, c, s=0.1)), wt=q.transpose(1, 2),
+               w1=rnd(n, kh, kw, ch, f, s=0.05), b1=rnd(n, f, s=0.05),
+               w2=rnd(n, 1, 1, f, f, s=0.05), b2=rnd(n, f, s=0.05),
+               wz=rnd(n, kh, kw, f, ch, s=0.01), bz=rnd(n, ch, s=0.02),
+               scale=rnd(n, ch, s=0.1))
+    p = _pack(raw["w1"], raw["w2"], raw["wz"], dtype, backward=True)
+    v = {k: raw[k].contiguous() for k in ("an_b", "an_s", "wt", "b1", "b2",
+                                          "bz", "scale")}
+    fwd = (raw["x"], v["an_b"], v["an_s"], v["wt"], p["w1f"], v["b1"],
+           p["w2"], v["b2"], p["wz"], v["bz"], v["scale"])
+    bwd = (v["an_b"], v["an_s"], v["wt"], p["w1f"], p["w1t"], v["b1"],
+           p["w2"], p["w2t"], v["b2"], p["wz"], p["wzf"], v["bz"],
+           v["scale"], raw["g"])
+    return raw, fwd, bwd
+
+
+def k6_work(b, h, w, c, f, n, khw, cdb):
+    """(operations, bytes) of one K6 call of each kind over n flows: every
+    product the function computes (the backward recomputes each flow's
+    forward to h2 and the ZeroConv), each input read and each output
+    written once."""
+    kh, kw = khw
+    taps, ch = kh * kw, c // 2
+    p, q = b * h * w, b * (h + 2 * (kh // 2)) * (w + 2 * (kw // 2))
+    conv = 2.0 * p * (taps * ch * f + f * f + taps * f * ch)
+    fwd_ops = n * (2.0 * p * c * c + conv)
+    bwd_ops = n * (2.0 * p * c * ch + conv + 2.0 * q * f * taps * ch
+                   + 3 * 2.0 * p * taps * ch * f + 2 * 2.0 * p * f * f
+                   + 2 * 2.0 * p * c * c)
+    vec = 4.0 * (2 * c + c * c + 2 * f + 2 * ch)
+    wts = cdb * (2 * taps * ch * f + f * f)
+    act = 4.0 * p * c
+    fwd = (fwd_ops, n * (wts + vec) + 2 * act)
+    save = (fwd_ops, n * (wts + vec) + 2 * act + n * act)
+    grads = 4.0 * (2 * c + c * c + 2 * taps * ch * f + 2 * f + f * f + 2 * ch)
+    bwd = (bwd_ops, n * (2 * wts + vec + grads) + 3 * act + n * act)
+    return {"glow_flow_stack_fwd": save, "glow_flow_stack_fwd_nosave": fwd,
+            "glow_flow_stack_bwd": bwd}
+
+
+def per_flow_block(raw, khw, fused, cd):
+    """The per-flow path of the same block (``Glow._flow_fwd`` flow after
+    flow: the f32 1x1 conv, and K5 with ``fused``, else the cuDNN conv
+    chain) as (forward, forward + backward) callables."""
+    import torch
+    from vgd_tpu_torch.models.glow import Glow
+    variant = "image" if khw == (3, 3) else "eeg"
+    m = Glow(in_channels=4, n_flows=1, n_blocks=1, variant=variant,
+             filter_size=8, compute_dtype=cd, fused_coupling=fused)
+    leaves = {k: raw[k].detach().clone().requires_grad_() for k in (
+        "x", "an_b", "an_s", "wt", "w1", "b1", "w2", "b2", "wz", "bz",
+        "scale")}
+    zero = torch.zeros((), device=raw["x"].device)
+
+    def run(t):
+        y = t["x"]
+        for k in range(t["an_b"].shape[0]):
+            p = {"actnorm": {"b": t["an_b"][k], "s": t["an_s"][k]},
+                 "coupling": {
+                     "conv1": {"w": t["w1"][k], "b": t["b1"][k]},
+                     "conv2": {"w": t["w2"][k], "b": t["b2"][k]},
+                     "zero": {"w": t["wz"][k], "b": t["bz"][k],
+                              "scale": t["scale"][k]}}}
+            y, _, _ = m._flow_fwd(p, y, 0, False, t["wt"][k].t(), zero)
+        return y
+
+    def forward():
+        with torch.no_grad():
+            return run(raw)
+
+    def forward_backward():
+        run(leaves).backward(raw["g"])
+    return forward, forward_backward
+
+
+def check_k6(K, gen, dev, failures):
+    """K6 (forward with and without saves, backward) against its plain
+    versions at the four Glow block shapes (bf16) and K6_EXTRA: y, the saved
+    inputs and every gradient; the no-save forward bit-equal to the saving
+    one; two backward runs bit-equal. The block shapes timed as kernel,
+    plain version, and the per-flow path of the same block (K5 with the f32
+    1x1 conv, and the cuDNN conv chain), forward and forward + backward."""
+    import torch
+    from vgd_tpu_torch.ops.glow_flow_stack import glow_flow_stack
+    rows = {n: [] for n in K6_NAMES}
+    lib = None
+    for site, b, h, w, c, f, n, khw, dt in \
+            [s_ + ((3, 3), "bfloat16") for s_ in K6_SHAPES] + K6_EXTRA:
+        dtype = getattr(torch, dt)
+        pad = (khw[0] // 2, khw[1] // 2)
+        raw, fa, ba = k6_operands(dev, gen, b, h, w, c, f, n, khw, dtype)
+        y, xsave = K.glow_flow_stack_fwd(*fa, khw, pad, True)
+        y_ns = K.glow_flow_stack_fwd(*fa, khw, pad, False)
+        got = K.glow_flow_stack_bwd(xsave, *ba, khw, pad)
+        again = K.glow_flow_stack_bwd(xsave, *ba, khw, pad)
+        torch.cuda.synchronize()
+        ref_y, ref_xsave = K.glow_flow_stack_fwd_plain(*fa, khw, pad, True)
+        ref = K.glow_flow_stack_bwd_plain(ref_xsave, *ba, khw, pad)
+        got_r = K.glow_flow_stack_bwd(ref_xsave, *ba, khw, pad)
+        torch.cuda.synchronize()
+        same_ns = torch.equal(y, y_ns)
+        same_bwd = all(torch.equal(a, r) for a, r in zip(got, again))
+        if not (same_ns and same_bwd):
+            failures.append(f"K6 {site} {dt}: no-save y bit-equal {same_ns}, "
+                            f"backward bit-equal run to run {same_bwd}")
+        gnames = ("dx", "danb", "dans", "dwt", "dw1", "db1", "dw2", "db2",
+                  "dwz", "dbz", "dscale")
+        per = {"glow_flow_stack_fwd": [("y", y, ref_y),
+                                       ("xsave", xsave, ref_xsave)],
+               "glow_flow_stack_fwd_nosave": [("y", y_ns, ref_y)],
+               "glow_flow_stack_bwd": list(zip(gnames, got_r, ref))}
+        shape = [b, h, w, c, f, n]
+        line = []
+        for kname, items in per.items():
+            worst, worst_rel, errs = 0.0, 0.0, {}
+            for what, a, r in items:
+                if dtype == torch.float32:
+                    rel, atol = ((K6_F32_REL, 0.0) if kname != K6_NAMES[2]
+                                 else (K6_GRAD_REL,
+                                       K6_GRAD_REL * K6_GRAD_FLOOR))
+                else:
+                    rel, atol = K6_BF16_REL, K6_BF16_ATOL
+                err, rerr, ratio, flips, cnt = k5_error(a, r, rel, atol)
+                errs[what] = err
+                worst = max(worst, ratio)
+                worst_rel = max(worst_rel, rerr)
+                if not (ratio <= 1.0 and flips <= K6_FLIP_SHARE * cnt
+                        and a.shape == r.shape and a.dtype == r.dtype):
+                    failures.append(f"K6 {kname} {site} {shape} {dt} {what}:"
+                                    f" err {err} ({ratio:.3g} of its bound, "
+                                    f"{rerr:.3g} of max), {flips} flips of "
+                                    f"{cnt}")
+                line.append(f"{what} {rerr:.2e}")
+            rows[kname].append({
+                "shape": shape, "site": site, "dtype": dt, "kernel": khw,
+                "max_abs_err": max(errs.values()), "max_rel_err": worst_rel,
+                "err_over_bound": worst, "errors": errs,
+                "tol": "f32: values 1e-4 x max|.|, gradients 5e-4 x (1e-3 "
+                f"+ max|g|); bf16: {K6_BF16_REL} x max|.| + {K6_BF16_ATOL}"})
+        print(f"[kernel] K6 {site} {shape} {dt} err/max: " + " ".join(line)
+              + f"; no-save y bit-equal {same_ns}, backward deterministic "
+              f"{same_bwd}", flush=True)
+        if site.startswith("block"):
+            if lib is None:
+                from vgd_tpu_torch.ops import _build
+                lib = _build.glow_flow_stack_lib()
+            work = k6_work(b, h, w, c, f, n, khw, 2)
+            timed = {
+                "glow_flow_stack_fwd": (
+                    lambda: K.glow_flow_stack_fwd(*fa, khw, pad, True),
+                    lambda: K.glow_flow_stack_fwd_plain(*fa, khw, pad, True)),
+                "glow_flow_stack_fwd_nosave": (
+                    lambda: K.glow_flow_stack_fwd(*fa, khw, pad, False),
+                    lambda: K.glow_flow_stack_fwd_plain(*fa, khw, pad,
+                                                        False)),
+                "glow_flow_stack_bwd": (
+                    lambda: K.glow_flow_stack_bwd(xsave, *ba, khw, pad),
+                    lambda: K.glow_flow_stack_bwd_plain(ref_xsave, *ba, khw,
+                                                        pad))}
+            # the op with autograd (weight packing included) against the
+            # per-flow path of the same block
+            leaves = {k: raw[k].detach().clone().requires_grad_() for k in (
+                "x", "an_b", "an_s", "wt", "w1", "b1", "w2", "b2", "wz",
+                "bz", "scale")}
+            tree = {"actnorm": {"b": leaves["an_b"], "s": leaves["an_s"]},
+                    "coupling": {"conv1": {"w": leaves["w1"],
+                                           "b": leaves["b1"]},
+                                 "conv2": {"w": leaves["w2"],
+                                           "b": leaves["b2"]},
+                                 "zero": {"w": leaves["wz"],
+                                          "b": leaves["bz"],
+                                          "scale": leaves["scale"]}}}
+
+            def op_fwd_bwd():
+                glow_flow_stack(tree, leaves["wt"], leaves["x"], khw, pad,
+                                dtype).backward(raw["g"])
+            k5_fwd, k5_fb = per_flow_block(raw, khw, True, dtype)
+            dnn_fwd, dnn_fb = per_flow_block(raw, khw, False, dtype)
+            cmp = dict(zip(K6_PER_FLOW_KEYS, (
+                cuda_ms(fn, 1, 3) for fn in (op_fwd_bwd, k5_fwd, k5_fb,
+                                             dnn_fwd, dnn_fb))))
+            for kname, (kern, plain) in timed.items():
+                ops, nbytes = work[kname]
+                rows[kname][-1].update(
+                    ms=cuda_ms(kern, 2, 10), plain_ms=cuda_ms(plain, 1, 2),
+                    library_ms=None, flop_ms=ops / BF16_FLOPS * 1e3,
+                    byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=1, **cmp)
+                r = rows[kname][-1]
+                bound = max(r["flop_ms"], r["byte_ms"])
+                print(f"[kernel] K6 {site} {kname[16:]}: ms={r['ms']:.4f} "
+                      f"plain={r['plain_ms']:.3f} bound={bound:.4f} "
+                      f"({100 * bound / r['ms']:.1f} % of it)", flush=True)
+            syncs = {"fwd": 5 * n, "bwd": 10 * n + 1}
+            print(f"[kernel] K6 {site}: grid {lib.vgd_glow_flow_stack_grid(1, 0)}"
+                  f" blocks (forward), {lib.vgd_glow_flow_stack_grid(1, 1)} "
+                  f"(backward); grid syncs {syncs}; op fwd+bwd (autograd, "
+                  f"packing included) {cmp['op_fwd_bwd_ms']:.3f} ms; per-flow "
+                  f"path: K5 fwd {cmp['per_flow_k5_fwd_ms']:.3f} / fwd+bwd "
+                  f"{cmp['per_flow_k5_fwd_bwd_ms']:.3f} ms, cuDNN fwd "
+                  f"{cmp['per_flow_cudnn_fwd_ms']:.3f} / fwd+bwd "
+                  f"{cmp['per_flow_cudnn_fwd_bwd_ms']:.3f} ms", flush=True)
+            del leaves, tree, k5_fwd, k5_fb, dnn_fwd, dnn_fb
+        del raw, fa, ba, y, xsave, y_ns, got, again, ref_y, ref_xsave, ref, \
+            got_r
+        torch.cuda.empty_cache()
+    totals = {k: {key: sum(r[key] for r in v if "ms" in r)
+                  for key in ("ms", "plain_ms", "flop_ms", "byte_ms")}
+              for k, v in rows.items()}
+    print("[kernel] K6 per train step (4 launches of each): " + "; ".join(
+        f"{k[16:]} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+        f"bound {max(t['flop_ms'], t['byte_ms']):.3f} ms" for k, t in
+        totals.items()) + f" (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+    return rows
+
+
+def glow_stack_config():
+    """The reference Glow of ``glow_config`` with ``flow_stack=True``: every
+    block's train-step flows through K6; the ActNorm init and the reverse
+    keep the per-flow path through K5."""
+    import dataclasses
+    cfg = glow_config()
+    return dataclasses.replace(cfg, flow_stack=True, run=dataclasses.replace(
+        cfg.run, out_dir=str(OUT_DIR / "glow_stack")))
+
+
+def glow_stack_serve(K, cfg, failures):
+    """The trained ``flow_stack`` checkpoint: ``GlowTrainer.forward`` (the
+    no-grad likelihood) on a val batch, exactly one K6 no-save launch per
+    block and nothing else, its bits/dim within STEP_LOSS_REL of the same
+    forward with no kernel; then ``sample_from_dir("glow")`` (the reverse:
+    128 K5 forwards, no K6)."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data.celeba import make_image_datasets
+    from vgd_tpu_torch.models.glow import calc_loss
+    from vgd_tpu_torch.train import loop as L
+    trainer = L.restore_glow(cfg, device="cuda")
+    _, val, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    vbatch, _ = next(iter(val.epoch()))
+    gen = torch.Generator(device=trainer.device).manual_seed(cfg.run.seed)
+    x = trainer._prep(torch.from_numpy(vbatch), gen, None)
+
+    def bits(out):
+        lp, ld, zs = out
+        return (float(calc_loss(lp, ld, cfg.data.image_size[0],
+                                trainer.n_bins)[0]),
+                all(bool(torch.isfinite(z).all()) for z in zs))
+    torch.cuda.synchronize()
+    K.LAUNCHES.clear()
+    start = time.perf_counter()
+    got, finite = bits(trainer.forward(x))
+    forward_s = time.perf_counter() - start
+    launches = check_launches(K, dict(zip(GLOW_NAMES, (0,) * 4 + (
+        K6_PER_STEP, 0))), "glow-stack-serve likelihood", failures)
+    with K.plain_reference():
+        ref, _ = bits(trainer.forward(x))
+    rel = abs(got - ref) / abs(ref)
+    print(f"[glow-stack-serve] val batch {tuple(x.shape)} bits/dim {got:.6f}"
+          f" (no kernel {ref:.6f}, {rel:.3g} relative), z finite {finite}, "
+          f"{forward_s * 1e3:.3f} ms", flush=True)
+    if not (finite and rel <= STEP_LOSS_REL):
+        failures.append(f"glow-stack-serve: bits/dim {got} vs {ref}")
+    K.LAUNCHES.clear()
+    path = L.sample_from_dir("glow", cfg, n=cfg.n_samples, device="cuda")
+    check_launches(K, dict(zip(GLOW_NAMES, (K5_PER_STEP,) + (0,) * 5)),
+                   "glow-stack-serve sample", failures)
+    arr = np.load(path)
+    if not (arr.shape == (cfg.n_samples, 64, 64, 3)
+            and np.isfinite(arr).all()):
+        failures.append(f"glow-stack-serve: bad samples {arr.shape}")
+    return {"bits_per_dim": got, "bits_per_dim_ref": ref, "rel": rel,
+            "forward_s": forward_s, "launches": launches,
+            "samples": list(arr.shape)}
+
+
+def glow_stack_path(K, gen, failures):
+    cfg = glow_stack_config()
+    shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+    none5 = (0,) * len(K5_NAMES)
+    k6_step = (K6_PER_STEP, 0, K6_PER_STEP)
+    k5_fwd = (K5_PER_STEP, 0, 0) + (0,) * len(K6_NAMES)
+    stats = check_glow_step(
+        K, cfg, gen, failures, "glow-stack-step", dict(zip(GLOW_NAMES, k5_fwd)),
+        dict(zip(GLOW_NAMES, none5 + k6_step)),
+        compare=(("per_flow_k5", {"flow_stack": False}),
+                 ("stack256", {"flow_stack": 256})))
+    stats["train"] = glow_train_path(K, cfg, failures, "glow-stack-train",
+                                     none5 + k6_step, k5_fwd, k5_fwd)
+    stats["serve"] = glow_stack_serve(K, cfg, failures)
     return stats
 
 
@@ -1933,10 +2312,14 @@ def main(argv=None) -> int:
         # phases see the inputs they saw before Glow was added
         k5_rows = check_k5(K, torch.Generator(device=dev).manual_seed(5), dev,
                            failures)
+        k6_rows = check_k6(K, torch.Generator(device=dev).manual_seed(7), dev,
+                           failures)
         train_l, serve_l, report["main_path"] = main_path(K, gen, failures)
         report["vaegan"] = vaegan_path(K, gen, failures)
         report["glow"] = glow_path(
             K, torch.Generator(device=dev).manual_seed(6), failures)
+        report["glow_stack"] = glow_stack_path(
+            K, torch.Generator(device=dev).manual_seed(8), failures)
         per_step = "one 256x256 batch-16 train step"
         per_fwd = "one 256x256 batch-16 UNet forward"
         fwd_src = "vgd_tpu_torch/csrc/flash_attention.cu"
@@ -1971,6 +2354,29 @@ def main(argv=None) -> int:
                          report["glow"]["train"]["launches_total"][name],
                          "one 64x64 batch-16 Glow train step (K=32, L=4)")
             for name, line in zip(K5_NAMES, (164, 206, 266))]
+        # K6's forward and backward run on the training path, its no-save
+        # forward on the likelihood path (the serve phase)
+        stack = report["glow_stack"]
+        k6_launches = dict(stack["train"]["launches_total"])
+        k6_launches[K6_NAMES[1]] = stack["serve"]["launches"][K6_NAMES[1]]
+        for name, line in zip(K6_NAMES, (143, 156, 173)):
+            entry = kernel_entry(
+                name, "vgd_tpu_torch/csrc/glow_flow_stack.cu",
+                f"vgd_tpu/ops/glow_flow_stack.py:{line}", k6_rows[name],
+                k6_launches[name],
+                "one 64x64 batch-16 Glow likelihood forward (K=32, L=4)"
+                if name == "glow_flow_stack_fwd_nosave" else
+                "one 64x64 batch-16 Glow train step (K=32, L=4, flow_stack)")
+            # no one PyTorch call computes a flow stack: the per-flow path
+            # of the same four blocks stands beside it
+            timed = [r for r in k6_rows[name] if "ms" in r]
+            entry.update(library="none alone", **{k: sum(r[k] for r in timed)
+                                                  for k in K6_PER_FLOW_KEYS})
+            report["kernels"].append(entry)
+        idle = [e["name"] for e in report["kernels"] if not e["launches"]]
+        if idle:
+            failures.append(f"kernels never launched on their main path: "
+                            f"{idle}")
     except Exception:                      # noqa: BLE001 - report and fail
         traceback.print_exc()
         failures.append("exception (traceback above)")

@@ -19,7 +19,8 @@ steps from the same init is held at the JAX coupling test's rtol 2e-3 /
 atol 1e-4 on the losses.
 
 Then ``run_glow`` on the CPU: resume is exact, the CLI trains and serves,
-``flow_stack`` raises, and the entry points refuse to run without a card.
+and the entry points refuse to run without a card (``flow_stack`` has its
+own file, ``test_torch_port_glow_flow_stack.py``).
 """
 import dataclasses
 import json
@@ -448,18 +449,6 @@ def test_cli_glow_trains_and_serves(tmp_path, capsys):
     assert imgs.shape == (3, HW, HW, 3) and np.isfinite(imgs).all()
     assert cli.main(["eval-glow", "--max-batches", "1"] + common) == 0
     assert "ssim" in capsys.readouterr().out
-
-
-def test_flow_stack_raises_until_k6_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="K6"):
-        PC.GlowConfig(flow_stack=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        PC.GlowConfig(flow_stack=16)
-    with pytest.raises(NotImplementedError, match="K6"):
-        PG.Glow(n_flows=1, n_blocks=1, filter_size=4, flow_stack=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        cli.main(["glow", "--flow-stack", "--device", "cpu", "--out-dir",
-                  str(tmp_path)])
 
 
 def test_glow_entry_points_need_a_card(monkeypatch, tmp_path):

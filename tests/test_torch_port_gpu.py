@@ -448,3 +448,136 @@ def test_glow_step_fused_matches_kernel_free_reference(cuda):
     for name, ref in out[1][1].items():
         err = float((out[0][1][name] - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()) + 1e-6 * gmax, name
+
+
+# K6 at small shapes: (B, H, W, c, f, flows, kernel)
+K6_SHAPES = [(2, 8, 8, 12, 64, 3, (3, 3)), (3, 7, 5, 10, 40, 3, (3, 3)),
+             (2, 16, 1, 22, 32, 2, (3, 1))]
+
+
+def k6_inputs(cuda, b, h, w, c, f, n, khw, dtype, seed):
+    """K6's forward and backward operands from stacked leaves (an
+    orthogonal 1x1 conv, a non-zero ZeroConv), packed."""
+    from vgd_tpu_torch.ops.glow_flow_stack import _pack
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, device=cuda, generator=g)
+    kh, kw = khw
+    ch = c // 2
+    q, _ = torch.linalg.qr(rnd(n, c, c))
+    p = _pack(rnd(n, kh, kw, ch, f, s=0.05), rnd(n, 1, 1, f, f, s=0.05),
+              rnd(n, kh, kw, f, ch, s=0.01), dtype, backward=True)
+    an_b, an_s = rnd(n, c, s=0.1), torch.exp(rnd(n, c, s=0.1))
+    wt = q.transpose(1, 2).contiguous()
+    b1, b2 = rnd(n, f, s=0.05), rnd(n, f, s=0.05)
+    bz, sc = rnd(n, ch, s=0.02), rnd(n, ch, s=0.1)
+    fwd = (rnd(b, h, w, c), an_b, an_s, wt, p["w1f"], b1, p["w2"], b2,
+           p["wz"], bz, sc)
+    bwd = (an_b, an_s, wt, p["w1f"], p["w1t"], b1, p["w2"], p["w2t"], b2,
+           p["wz"], p["wzf"], bz, sc, rnd(b, h, w, c))
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,w,c,f,n,khw", K6_SHAPES)
+def test_k6_kernels_match_plain(cuda, b, h, w, c, f, n, khw, dtype):
+    """K6 forward (with and without saves) and backward (fed the plain
+    saved inputs) against the plain versions: f32 at 1e-4 of max |.| for
+    the values and 5e-4 for the gradients (sums in other orders, as the
+    JAX flow-stack test), bf16 at K5's 2e-2 of max |.|. The no-save y
+    equals the saving one bit for bit; one launch of each."""
+    fa, ba = k6_inputs(cuda, b, h, w, c, f, n, khw, dtype, 12)
+    pad = (khw[0] // 2, khw[1] // 2)
+    bf16 = dtype == torch.bfloat16
+    before = dict(K.LAUNCHES)
+    y, xsave = K.glow_flow_stack_fwd(*fa, khw, pad, True)
+    y_ns = K.glow_flow_stack_fwd(*fa, khw, pad, False)
+    ref_y, ref_xsave = K.glow_flow_stack_fwd_plain(*fa, khw, pad, True)
+    got = K.glow_flow_stack_bwd(ref_xsave, *ba, khw, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ns)
+    k5_close(y, ref_y, 2e-2 if bf16 else 1e-4, "y")
+    k5_close(xsave, ref_xsave, 2e-2 if bf16 else 1e-4, "xsave")
+    ref = K.glow_flow_stack_bwd_plain(ref_xsave, *ba, khw, pad)
+    for name, a, r in zip(("dx", "danb", "dans", "dwt", "dw1", "db1", "dw2",
+                           "db2", "dwz", "dbz", "dscale"), got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        k5_close(a, r, 2e-2 if bf16 else 5e-4, name)
+    for name in ("glow_flow_stack_fwd", "glow_flow_stack_fwd_nosave",
+                 "glow_flow_stack_bwd"):
+        assert K.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+def test_k6_is_deterministic_and_refuses_what_it_cannot_take(cuda):
+    fa, ba = k6_inputs(cuda, 2, 8, 8, 12, 64, 2, (3, 3), torch.bfloat16, 13)
+    y, xsave = K.glow_flow_stack_fwd(*fa, (3, 3), (1, 1), True)
+    a = K.glow_flow_stack_bwd(xsave, *ba, (3, 3), (1, 1))
+    b = K.glow_flow_stack_bwd(xsave, *ba, (3, 3), (1, 1))
+    assert all(torch.equal(x, z) for x, z in zip(a, b))
+    with pytest.raises(ValueError, match="same"):
+        K.glow_flow_stack_fwd(*fa, (3, 3), (0, 0), False)
+    with pytest.raises(ValueError, match="w2"):
+        K.glow_flow_stack_fwd(*fa[:6], fa[6].float(), *fa[7:], (3, 3),
+                              (1, 1), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.glow_flow_stack_fwd(fa[0].transpose(1, 2), *fa[1:], (3, 3),
+                              (1, 1), False)
+    with pytest.raises(ValueError, match="aligned"):
+        w1f = torch.empty(fa[4].numel() + 1, dtype=fa[4].dtype,
+                          device=cuda)[1:].view(fa[4].shape)
+        K.glow_flow_stack_fwd(*fa[:4], w1f, *fa[5:], (3, 3), (1, 1), False)
+    with pytest.raises(ValueError):
+        K.glow_flow_stack_fwd(fa[0].cpu(), *fa[1:], (3, 3), (1, 1), False)
+
+
+def test_glow_step_flow_stack_matches_kernel_free_reference(cuda):
+    """A small f32 Glow (2 blocks of 3 flows, f = 64, 16x16, batch 4) with
+    flow_stack=True: loss and every gradient with K6 agree with the same
+    weights run with no kernel (5e-4 of each tensor's max |g| plus 1e-6 of
+    the largest); one K6 launch of each direction per block, and the
+    likelihood forward one no-save launch per block."""
+    from vgd_tpu_torch.core import config as C
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    cfg = C.GlowConfig(data=C.DataConfig(image_size=(16, 16), batch_size=4),
+                       run=C.RunConfig(compute_dtype="float32"), n_flows=3,
+                       n_blocks=2, filter_size=64, flow_stack=True)
+    tr = GlowTrainer(cfg, (16, 16, 3), device="cuda")
+    g = torch.Generator(device=cuda).manual_seed(14)
+    tr.init(g)
+    batch = torch.randint(0, 256, (4, 16, 16, 3), dtype=torch.uint8,
+                          device=cuda, generator=g)
+    noise = torch.rand(4, 16, 16, 3, device=cuda, generator=g)
+    K.LAUNCHES.clear()
+    tr.init_step(batch, noise=noise)
+    assert sum(K.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        for blk in tr.model.blocks():
+            for t in blk.flows.coupling.zero.parameters():
+                t.copy_(0.01 * torch.randn(t.shape, device=cuda, generator=g))
+    x = tr._prep(batch, None, noise)
+    out = []
+    for plain in (False, True):
+        tr.model.zero_grad(set_to_none=True)
+        K.LAUNCHES.clear()
+        if plain:
+            with K.plain_reference():
+                lp, ld, _ = tr.model(x)
+                (-(lp.mean() + ld)).backward()
+            assert sum(K.LAUNCHES.values()) == 0
+        else:
+            lp, ld, _ = tr.model(x)
+            (-(lp.mean() + ld)).backward()
+            assert dict(K.LAUNCHES) == {"glow_flow_stack_fwd": 2,
+                                        "glow_flow_stack_bwd": 2}
+        out.append((float(lp.mean()), {n: p.grad.clone() for n, p in
+                                       tr.model.named_parameters()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    gmax = max(float(v.abs().max()) for v in out[1][1].values())
+    for name, ref in out[1][1].items():
+        err = float((out[0][1][name] - ref).abs().max())
+        assert err <= 5e-4 * float(ref.abs().max()) + 1e-6 * gmax, name
+    K.LAUNCHES.clear()
+    tr.forward(x)
+    assert dict(K.LAUNCHES) == {"glow_flow_stack_fwd_nosave": 2}

@@ -1,4 +1,4 @@
-"""Command line of the port (``vgd_tpu/cli.py``), DDPM and VAE-GAN:
+"""Command line of the port (``vgd_tpu/cli.py``), DDPM, VAE-GAN and Glow:
 
   python -m vgd_tpu_torch.cli diffusion --epochs 100 --out-dir runs/diffusion \\
       [--steps-per-epoch 8] [--resume] [--profile-dir runs/diffusion/trace]
@@ -11,8 +11,8 @@
   python -m vgd_tpu_torch.cli sample --family vaegan --out-dir runs/vaegan \\
       --image-size 256 [-n 64]
   python -m vgd_tpu_torch.cli glow --iters 30000 --out-dir runs/glow \\
-      [--fused-coupling] [--sample-every 100] [--checkpoint-every 1000] \\
-      [--resume] [--profile-dir runs/glow/trace]
+      [--fused-coupling] [--flow-stack [N]] [--sample-every 100] \\
+      [--checkpoint-every 1000] [--resume] [--profile-dir runs/glow/trace]
   python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow [-n 20]
   python -m vgd_tpu_torch.cli eval-glow --out-dir runs/glow [--max-batches 1]
 
@@ -59,9 +59,12 @@ def _add_glow(p):
                    help="coupling width (512)")
     p.add_argument("--fused-coupling", action="store_true",
                    help="Glow: the coupling networks through the K5 kernels")
-    p.add_argument("--flow-stack", action="store_true",
-                   help="Glow: whole flow chains per kernel (K6, not ported "
-                   "yet: raises)")
+    p.add_argument("--flow-stack", nargs="?", const="all", default=None,
+                   metavar="POSITIONS",
+                   help="Glow: each block's whole flow chain through the K6 "
+                   "kernel (one launch per block and direction); bare flag "
+                   "= every block, an int N = only the blocks whose "
+                   "squeezed h*w <= N")
 
 
 def _add_training(p):
@@ -109,7 +112,13 @@ def _glow_cfg(a) -> C.GlowConfig:
              if getattr(a, k, None) is not None}
     return _with_args(C.GlowConfig(
         fused_coupling=bool(getattr(a, "fused_coupling", False)),
-        flow_stack=bool(getattr(a, "flow_stack", False)), **sizes), a, **run)
+        flow_stack=_flow_stack(getattr(a, "flow_stack", None)), **sizes), a,
+        **run)
+
+
+def _flow_stack(arg):
+    """--flow-stack: absent -> False, bare -> True, N -> the int N."""
+    return False if arg is None else True if arg == "all" else int(arg)
 
 
 def main(argv=None):

@@ -70,9 +70,13 @@ class VAEGANConfig:
     val_noise_std: float = 0.05
 
 
-FLOW_STACK_NOT_PORTED = (
-    "flow_stack (K6, the whole flow chain of a block as one kernel, "
-    "vgd_tpu/ops/glow_flow_stack.py) is not ported yet; leave it False")
+def check_flow_stack(flow_stack) -> None:
+    """``flow_stack`` is False, True or a positive int (an h*w threshold)."""
+    if not (isinstance(flow_stack, bool) or (
+            isinstance(flow_stack, int) and flow_stack > 0)):
+        raise ValueError(f"flow_stack must be False, True or a positive int "
+                         f"(the squeezed h*w up to which a block runs K6), "
+                         f"got {flow_stack!r}")
 
 
 @dataclass(frozen=True)
@@ -97,13 +101,13 @@ class GlowConfig:
     # the coupling network through K5 (ops/glow_coupling.py); off by
     # default, as in the JAX package
     fused_coupling: bool = False
-    # K6 (a whole flow chain per kernel) is not ported: anything but False
-    # raises, so no caller quietly gets the per-flow path
+    # a block's whole flow chain through K6 (ops/glow_flow_stack.py): True
+    # = every block, an int N = the blocks whose squeezed h*w <= N; off by
+    # default, as in the JAX package
     flow_stack: "bool | int" = False
 
     def __post_init__(self):
-        if self.flow_stack is not False:
-            raise NotImplementedError(FLOW_STACK_NOT_PORTED)
+        check_flow_stack(self.flow_stack)
 
 
 @dataclass(frozen=True)

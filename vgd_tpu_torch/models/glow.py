@@ -15,6 +15,11 @@ Layers, as in the JAX package:
   in f32.
 * A block: squeeze, K flows, split with a ZeroConv prior; the last block
   has a prior on zeros. The model: L blocks, a list of z in and out.
+* ``flow_stack``: True sends every block's K flows through
+  ``ops/glow_flow_stack.glow_flow_stack`` (K6 on the card: one kernel per
+  block and direction, the 1x1 conv in the compute dtype), an int N only
+  the blocks whose squeezed h*w is at most N; never in the ActNorm-init
+  pass, and the reverse keeps the per-flow path.
 
 The parameters keep the JAX tree: each block's K flows are stacked along a
 leading K axis (one tensor per leaf, HWIO conv kernels), under the module
@@ -26,8 +31,7 @@ once per block.
 
 Left out: ``remat`` (activation checkpointing), ``scan_unroll`` (an unroll
 factor of ``lax.scan``, math-identical by construction, meaningless without
-the scan), pipeline parallelism, and ``flow_stack`` (K6, the whole flow
-chain as one kernel), which raises until it is ported.
+the scan) and pipeline parallelism.
 """
 from __future__ import annotations
 
@@ -38,8 +42,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vgd_tpu_torch.core.config import FLOW_STACK_NOT_PORTED
+from vgd_tpu_torch.core.config import check_flow_stack
 from vgd_tpu_torch.ops.glow_coupling import glow_coupling_nn
+from vgd_tpu_torch.ops.glow_flow_stack import glow_flow_stack
 
 
 def gaussian_log_p(x, mean, log_sd):
@@ -157,8 +162,7 @@ class Glow(nn.Module):
                  filter_size=512, compute_dtype=torch.float32,
                  fused_coupling=False, flow_stack=False):
         super().__init__()
-        if flow_stack is not False:
-            raise NotImplementedError(FLOW_STACK_NOT_PORTED)
+        check_flow_stack(flow_stack)
         if variant not in ("image", "eeg"):
             raise ValueError(f"variant {variant!r} (image or eeg)")
         self.in_channels, self.n_flows, self.n_blocks = (
@@ -166,6 +170,7 @@ class Glow(nn.Module):
         self.variant, self.filter_size = variant, filter_size
         self.compute_dtype = compute_dtype
         self.fused_coupling = fused_coupling
+        self.flow_stack = flow_stack
         self.kernel = (3, 3) if variant == "image" else (3, 1)
         self.pad = (1, 1) if variant == "image" else (1, 0)
         self.squeeze_factor = 4 if variant == "image" else 2
@@ -185,6 +190,11 @@ class Glow(nn.Module):
 
     def blocks(self) -> List[_Block]:
         return [getattr(self, f"block{i}") for i in range(self.n_blocks)]
+
+    def _use_flow_stack(self, hw: int) -> bool:
+        """K6 for a block whose squeezed h*w is ``hw``."""
+        fs = self.flow_stack
+        return fs if isinstance(fs, bool) else hw <= fs
 
     # -- init ---------------------------------------------------------------
     @torch.no_grad()
@@ -311,6 +321,14 @@ class Glow(nn.Module):
         w_all = self._plu_weight(fl.invconv)
         ld_all = hw * (torch.sum(torch.log(torch.abs(fl.actnorm.s)), dim=1)
                        + torch.sum(fl.invconv.log_s, dim=1))
+        if not init and self._use_flow_stack(hw):
+            tree = {"actnorm": fl.actnorm.tree(),
+                    "coupling": {n: getattr(fl.coupling, n).tree()
+                                 for n in ("conv1", "conv2", "zero")}}
+            y = glow_flow_stack(tree, w_all.transpose(1, 2), y, self.kernel,
+                                self.pad, self.compute_dtype)
+            y, log_p, z_new = self._block_tail(blk, y, bsz, split)
+            return y, torch.sum(ld_all), log_p, z_new, []
         logdet = torch.zeros((), dtype=y.dtype, device=y.device)
         stats = []
         for k, p in enumerate(fl.per_flow()):

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` file has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into a shared library under ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), named by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+the flags and of the local headers it includes (``#include "..."``), so an
+edited source or header is rebuilt and an unchanged one is reused.
 Nothing here runs at import: the CPU tests import the package on machines
 without ``nvcc``.
 """
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,8 +45,25 @@ def find_nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _local_headers(src: Path, seen=None) -> List[Path]:
+    """The headers ``src`` includes with quotes, found beside the file that
+    includes them, and theirs in turn (each once, in include order)."""
+    seen = [] if seen is None else seen
+    for name in _LOCAL_INCLUDE.findall(src.read_bytes()):
+        header = (src.parent / name.decode()).resolve()
+        if header.exists() and header not in seen:
+            seen.append(header)
+            _local_headers(header, seen)
+    return seen
+
+
 def _library_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in _local_headers(src):
+        digest.update(header.name.encode() + header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -132,4 +151,18 @@ def glow_coupling_lib() -> ctypes.CDLL:
         "vgd_glow_coupling_bwd2": [_P] * 11 + [_I] * 11 + [_P]})
     lib.vgd_glow_coupling_part_floats.argtypes = [_I] * 10
     lib.vgd_glow_coupling_part_floats.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def glow_flow_stack_lib() -> ctypes.CDLL:
+    """The Glow flow-stack library (K6: forward with and without saving each
+    flow's input, backward)."""
+    lib = _load("glow_flow_stack", {
+        "vgd_glow_flow_stack_fwd": [_P] * 14 + [_I] * 12 + [_P],
+        "vgd_glow_flow_stack_bwd": [_P] * 27 + [_I] * 11 + [_P]})
+    lib.vgd_glow_flow_stack_scratch_bytes.argtypes = [_I] * 11
+    lib.vgd_glow_flow_stack_scratch_bytes.restype = ctypes.c_longlong
+    lib.vgd_glow_flow_stack_grid.argtypes = [_I] * 2
+    lib.vgd_glow_flow_stack_grid.restype = ctypes.c_int
     return lib

@@ -1,7 +1,8 @@
 """The port's kernels and their plain PyTorch versions.
 
-Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernel of
-``vgd_tpu/ops/fused_conv.py``, for the kernels on the DDPM and VAE-GAN paths:
+Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
+``vgd_tpu/ops/fused_conv.py``, ``vgd_tpu/ops/glow_coupling.py`` and
+``vgd_tpu/ops/glow_flow_stack.py``:
 
 * ``attention`` (K2, training: forward with logsumexp, dq, dk/dv) -> the
   CUDA kernels in ``csrc/flash_attention.cu`` (forward) and
@@ -19,7 +20,12 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernel of
   Glow training and sampling: the coupling network's forward and its two
   backward passes) -> the CUDA kernels in ``csrc/glow_coupling.cu``;
   ``ops/glow_coupling.py`` packs the weights and binds them as a
-  ``torch.autograd.Function``.
+  ``torch.autograd.Function``;
+* ``glow_flow_stack_fwd`` (with and without saving each flow's input) and
+  ``glow_flow_stack_bwd`` (K6, Glow training with ``flow_stack``: a chunk
+  of flows of one block per launch) -> the persistent CUDA kernels in
+  ``csrc/glow_flow_stack.cu``; ``ops/glow_flow_stack.py`` packs the weights
+  and binds them as a ``torch.autograd.Function``.
 
 Each wrapper takes its plain version only for a tensor that lies on the CPU
 (the tests); for a CUDA tensor it launches the kernel or raises. There is
@@ -695,3 +701,216 @@ def glow_coupling_bwd2(ya, w1t, w2t, h1, dh2, khw, pad):
     _raise_on(lib, err, "glow_coupling_bwd2")
     LAUNCHES["glow_coupling_bwd2"] += 1
     return dya, dw1, db1, dw2
+
+
+# ---------------------------------------------------------------------------
+# K6: a chunk of G Glow flows (ActNorm -> 1x1 conv -> additive coupling) of
+# one block, forward with and without saving each flow's input, and backward
+# ---------------------------------------------------------------------------
+#
+# x (B, H, W, c) f32; an_b, an_s (G, c) f32; wt (G, c, c) f32, the
+# TRANSPOSED PLU weight (y2 = y1 @ wt); b1, b2 (G, f), bz, scale (G, ch) f32
+# with ch = c / 2. The conv weights are packed per flow in cd, one row of
+# ``k6_stride(n)`` elements per flow (n the flow's size, rounded up to a
+# multiple of 8 so each flow starts 16-byte aligned), each flow's slice in
+# K5's layout: w1f, w1t, w2, w2t, wz, wzf (``ops/glow_flow_stack._pack``).
+
+K6_NAMES = ("glow_flow_stack_fwd", "glow_flow_stack_fwd_nosave",
+            "glow_flow_stack_bwd")
+
+
+def k6_stride(n: int) -> int:
+    """Per-flow row length of a packed K6 weight of n elements."""
+    return (n + 7) // 8 * 8
+
+
+def _k6_flow(packed: torch.Tensor, k: int, rows: int, cols: int
+             ) -> torch.Tensor:
+    return packed[k, :rows * cols].reshape(rows, cols)
+
+
+def _k6_invconv(x, an_b, an_s, wt, cd):
+    """(cd(y1) (P, c), y2 (P, c) f32): ActNorm in f32, then the 1x1 conv of
+    cd operands with f32 sums (K6 rounds here; the per-flow path does not)."""
+    y1 = (an_s * (x + an_b)).reshape(-1, x.shape[-1]).to(cd)
+    return y1, _mm(y1, wt.to(cd))
+
+
+def glow_flow_stack_fwd_plain(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz,
+                              scale, khw, pad, save: bool):
+    """y (B, H, W, c) f32 after the G flows, and with ``save`` also xsave
+    (G, B, H, W, c), each flow's input (the math of ``_fwd_kernel`` /
+    ``_fwd_sample_kernel``)."""
+    b, h, w, c = x.shape
+    ch, f, taps = c // 2, b1.shape[-1], khw[0] * khw[1]
+    cd = w1f.dtype
+    saved = []
+    for k in range(an_b.shape[0]):
+        if save:
+            saved.append(x)
+        _, y2 = _k6_invconv(x, an_b[k], an_s[k], wt[k], cd)
+        ya = y2[:, :ch]
+        nn = glow_coupling_fwd_plain(
+            ya.to(cd).reshape(b, h, w, ch), _k6_flow(w1f, k, taps * ch, f),
+            b1[k], _k6_flow(w2, k, f, f), b2[k],
+            _k6_flow(wz, k, taps * f, ch), bz[k], scale[k], khw, pad)
+        x = torch.cat([ya, y2[:, ch:] + nn.reshape(-1, ch)], -1).reshape(
+            b, h, w, c)
+    return (x, torch.stack(saved)) if save else x
+
+
+def glow_flow_stack_bwd_plain(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t,
+                              b2, wz, wzf, bz, scale, g, khw, pad):
+    """(dx (B, H, W, c), d an_b, d an_s (G, c), dwt (G, c, c), dw1 (G,
+    kh*kw*ch, f), db1 (G, f), dw2 (G, f, f), db2 (G, f), dwz (G, f,
+    kh*kw*ch), dbz, dscale (G, ch)) f32 (the math of ``_bwd_kernel``): the
+    flows in reverse, each recomputed from its saved input, the coupling's
+    gradients as K5's two backward passes, then dy2 = cd([ga + dya, gb]),
+    dwt = cd(y1)^T dy2, dy1 = dy2 cd(wt)^T, d an_s = sum dy1 (x + b),
+    dx = dy1 s, d an_b = sum dx."""
+    n_flows, b, h, w, c = xsave.shape
+    ch, f, taps = c // 2, b1.shape[-1], khw[0] * khw[1]
+    cd = w1f.dtype
+    grads = [[None] * n_flows for _ in range(10)]
+    g = g.float()
+    for k in range(n_flows - 1, -1, -1):
+        x = xsave[k]
+        y1, y2 = _k6_invconv(x, an_b[k], an_s[k], wt[k], cd)
+        ya = y2[:, :ch].to(cd).reshape(b, h, w, ch)
+        gf = g.reshape(-1, c)
+        h1, dh2, dwz, dbz, db2, dscale = glow_coupling_bwd1_plain(
+            ya, _k6_flow(w1f, k, taps * ch, f), b1[k], _k6_flow(w2, k, f, f),
+            b2[k], _k6_flow(wz, k, taps * f, ch),
+            _k6_flow(wzf, k, taps * ch, f), bz[k], scale[k],
+            gf[:, ch:].reshape(b, h, w, ch), khw, pad)
+        dya, dw1, db1, dw2 = glow_coupling_bwd2_plain(
+            ya, _k6_flow(w1t, k, taps * f, ch), _k6_flow(w2t, k, f, f), h1,
+            dh2, khw, pad)
+        dy2 = torch.cat([gf[:, :ch] + dya.reshape(-1, ch), gf[:, ch:]],
+                        -1).to(cd)
+        dwt = _mm(y1.t(), dy2)
+        dy1 = _mm(dy2, wt[k].to(cd).t())
+        dans = (dy1 * (x.reshape(-1, c) + an_b[k])).sum(0)
+        dx = dy1 * an_s[k]
+        for i, t in enumerate((dx.sum(0), dans, dwt, dw1, db1, dw2, db2, dwz,
+                               dbz, dscale)):
+            grads[i][k] = t
+        g = dx.reshape(b, h, w, c)
+    return (g, *(torch.stack(t) for t in grads))
+
+
+def _k6_dims(what, x, named, n_flows, f, khw, pad, cd):
+    """Checks K6's operands on CUDA; returns the C functions' shape ints
+    (flows, b, h, w, c, f, kh, kw, ph, pw, bf16)."""
+    _require(x.ndim == 4 and x.shape[-1] % 2 == 0,
+             f"{what}: x must be (B, H, W, c) with c even")
+    b, h, w, c = x.shape
+    (kh, kw), (ph, pw) = khw, pad
+    _require(kh == 2 * ph + 1 and kw == 2 * pw + 1,
+             f"{what}: kernel {khw} with padding {pad} is not a 'same' conv")
+    _require(cd in (torch.bfloat16, torch.float32),
+             f"{what}: the packed weights must be bfloat16 or float32, got "
+             f"{cd}")
+    _require(c <= 128, f"{what}: {c} flow channels (at most 128)")
+    for name, t, shape, dtype in named:
+        _require(tuple(t.shape) == shape,
+                 f"{what}: {name} has shape {tuple(t.shape)}, want {shape}")
+        _require(t.dtype == dtype, f"{what}: {name} is {t.dtype}, want "
+                 f"{dtype}")
+        _require(t.is_contiguous(), f"{what}: {name} must be contiguous")
+        # the GEMM stages read the packed weights in 16-byte vectors
+        _require(t.data_ptr() % 16 == 0,
+                 f"{what}: {name} must be 16-byte aligned")
+    return [n_flows, b, h, w, c, f, kh, kw, ph, pw,
+            int(cd == torch.bfloat16)]
+
+
+def _k6_weights(n_flows, c, f, taps, cd, **operands):
+    """(name, tensor, shape, dtype) of K6's per-flow operands for
+    ``_k6_dims``: the packed conv weights in cd, the vectors and wt f32."""
+    ch = c // 2
+    packed = {"w1f": taps * ch * f, "w1t": taps * f * ch, "w2": f * f,
+              "w2t": f * f, "wz": taps * f * ch, "wzf": taps * ch * f}
+    plain = {"an_b": (c,), "an_s": (c,), "wt": (c, c), "b1": (f,),
+             "b2": (f,), "bz": (ch,), "scale": (ch,)}
+    return [(n, t, (n_flows, k6_stride(packed[n])), cd) if n in packed
+            else (n, t, (n_flows,) + plain[n], torch.float32)
+            for n, t in operands.items()]
+
+
+def _k6_scratch(lib, dims, backward, dev) -> torch.Tensor:
+    n = lib.vgd_glow_flow_stack_scratch_bytes(*dims[1:], int(backward))
+    _require(n > 0, f"K6: shape {dims[1:10]} not supported")
+    return torch.empty((n,), dtype=torch.uint8, device=dev)
+
+
+def glow_flow_stack_fwd(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz, scale,
+                        khw, pad, save: bool):
+    """K6 forward: y (B, H, W, c) f32, and with ``save`` also xsave (G, B,
+    H, W, c) f32. One launch for the G flows; on CUDA every operand is
+    contiguous, the packed weights in cd (bf16 or f32)."""
+    if _on_cpu(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz, scale):
+        return glow_flow_stack_fwd_plain(x, an_b, an_s, wt, w1f, b1, w2, b2,
+                                         wz, bz, scale, khw, pad, save)
+    n_flows, c, f = an_b.shape[0], x.shape[-1], b1.shape[-1]
+    taps = khw[0] * khw[1]
+    dims = _k6_dims("glow_flow_stack_fwd", x, [
+        ("x", x, tuple(x.shape), torch.float32),
+        *_k6_weights(n_flows, c, f, taps, w1f.dtype, an_b=an_b, an_s=an_s,
+                     wt=wt, w1f=w1f, b1=b1, w2=w2, b2=b2, wz=wz, bz=bz,
+                     scale=scale)], n_flows, f, khw, pad, w1f.dtype)
+    dev = x.device
+    lib = _build.glow_flow_stack_lib()
+    scratch = _k6_scratch(lib, dims, False, dev)
+    y = torch.empty_like(x)
+    xsave = (torch.empty((n_flows,) + tuple(x.shape), dtype=torch.float32,
+                         device=dev) if save else None)
+    with torch.cuda.device(dev):
+        err = lib.vgd_glow_flow_stack_fwd(
+            *(t.data_ptr() for t in (x, an_b, an_s, wt, w1f, b1, w2, b2, wz,
+                                     bz, scale, y)),
+            None if xsave is None else xsave.data_ptr(), scratch.data_ptr(),
+            *dims, int(save), torch.cuda.current_stream(dev).cuda_stream)
+    name = "glow_flow_stack_fwd" if save else "glow_flow_stack_fwd_nosave"
+    _raise_on(lib, err, name)
+    LAUNCHES[name] += 1
+    return (y, xsave) if save else y
+
+
+def glow_flow_stack_bwd(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t, b2, wz,
+                        wzf, bz, scale, g, khw, pad):
+    """K6 backward: the gradients of ``glow_flow_stack_bwd_plain``, one
+    launch for the G flows. g (B, H, W, c) f32."""
+    if _on_cpu(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t, b2, wz, wzf, bz,
+               scale, g):
+        return glow_flow_stack_bwd_plain(xsave, an_b, an_s, wt, w1f, w1t, b1,
+                                         w2, w2t, b2, wz, wzf, bz, scale, g,
+                                         khw, pad)
+    n_flows, c, f = an_b.shape[0], g.shape[-1], b1.shape[-1]
+    taps = khw[0] * khw[1]
+    ch, f32 = c // 2, torch.float32
+    dims = _k6_dims("glow_flow_stack_bwd", g, [
+        ("g", g, tuple(g.shape), f32),
+        ("xsave", xsave, (n_flows,) + tuple(g.shape), f32),
+        *_k6_weights(n_flows, c, f, taps, w1f.dtype, an_b=an_b, an_s=an_s,
+                     wt=wt, w1f=w1f, w1t=w1t, b1=b1, w2=w2, w2t=w2t, b2=b2,
+                     wz=wz, wzf=wzf, bz=bz, scale=scale)],
+        n_flows, f, khw, pad, w1f.dtype)
+    dev = g.device
+    lib = _build.glow_flow_stack_lib()
+    scratch = _k6_scratch(lib, dims, True, dev)
+
+    def out(*shape):
+        return torch.empty((n_flows,) + shape, dtype=f32, device=dev)
+    grads = (torch.empty_like(g), out(c), out(c), out(c, c),
+             out(taps * ch, f), out(f), out(f, f), out(f),
+             out(f, taps * ch), out(ch), out(ch))
+    with torch.cuda.device(dev):
+        err = lib.vgd_glow_flow_stack_bwd(
+            *(t.data_ptr() for t in (xsave, an_b, an_s, wt, w1f, w1t, b1, w2,
+                                     w2t, b2, wz, wzf, bz, scale, g)),
+            *(t.data_ptr() for t in grads), scratch.data_ptr(), *dims,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "glow_flow_stack_bwd")
+    LAUNCHES["glow_flow_stack_bwd"] += 1
+    return grads

@@ -105,7 +105,8 @@ class GlowTrainer:
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor):
-        """(log_p, logdet, z list) for likelihood evaluation."""
+        """(log_p, logdet, z list) for likelihood evaluation; with
+        ``flow_stack`` the blocks run K6's forward that saves nothing."""
         return self.model(x.to(self.device))
 
     def sample_z(self, generator: Optional[torch.Generator], n: int,
