@@ -89,9 +89,13 @@ def test_fused_unet_matches_plain_f32(cuda):
     assert K.LAUNCHES["flash_attention"] == 3
 
 
-K2_SHAPES = [(2, 256, 64, 256), (2, 1024, 1024, 256), (3, 1000, 70, 256),
-             (1, 129, 33, 128), (2, 100, 40, 64), (2, 64, 1, 256),
-             (16, 4096, 64, 256)]
+# the three training shapes of the 256x256, batch-16 UNet (cross_attn2,
+# cross_attn3, the bottleneck), the two ragged ones of chip_smoke.py, and
+# smaller and degenerate ones
+K2_SHAPES = [(16, 16384, 64, 256), (16, 4096, 64, 256), (16, 1024, 1024, 256),
+             (3, 1000, 70, 256), (2, 129, 33, 128),
+             (2, 256, 64, 256), (2, 1024, 1024, 256), (1, 129, 33, 128),
+             (2, 100, 40, 64), (2, 64, 1, 256)]
 
 
 @pytest.mark.parametrize("b,n,m,d", K2_SHAPES)
@@ -121,10 +125,12 @@ def test_k2_kernels_match_plain(cuda, b, n, m, d):
         assert err <= 1e-4 * float(r.abs().max()) + 1e-5, (name, err)
 
 
-def test_k2_autograd_matches_plain_autograd(cuda):
-    """The autograd.Function on the card against autograd through the plain
-    attention, with k/v expanded over the batch as in the cross-attention
-    (the gradient reaches the one projection summed over the batch)."""
+def test_k2_autograd_matches_plain_autograd(cuda, monkeypatch):
+    """The autograd.Function on the card (past the size gate) against
+    autograd through the plain attention, with k/v expanded over the batch
+    as in the cross-attention (the gradient reaches the one projection
+    summed over the batch)."""
+    monkeypatch.setattr(K, "MIN_FLASH_ELEMS", 0)
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(4, 300, 256, device=cuda, generator=g)
     kv = torch.randn(1, 64, 512, device=cuda, generator=g)
@@ -159,13 +165,44 @@ def test_k2_refuses_what_it_cannot_take(cuda):
     o, lse = K.attention_fwd_lse(q, q, q, 1.0)
     with pytest.raises(ValueError, match="lse"):
         K.attention_bwd(q, q, q, o, lse[:, :32].contiguous(), q, 1.0)
+    # the backward kernels stream their tiles with 16-byte cp.async copies
+    delta = (q * o).sum(-1)
+    shifted = torch.empty(64 * 256 + 1, device=cuda)[1:].view(1, 64, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        K.attention_dq(q, q, q, shifted, lse, delta, 1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        K.attention_dkv(shifted, q, q, q, lse, delta, 1.0)
+    with pytest.raises(ValueError, match="delta"):
+        K.attention_dkv(q, q, q, q, lse, delta[:, :32].contiguous(), 1.0)
 
 
-def test_training_unet_matches_kernel_free_reference(cuda):
-    """Small f32 training-form UNet: loss and every gradient with K2 agree
-    with the same weights run with no kernel (plain attention under
-    autograd); 1e-3 of each tensor's max |g| plus 1e-6 of the largest,
-    since several gradients are zero in exact arithmetic."""
+@pytest.mark.parametrize("b,n,m,d", [(16, 4096, 64, 256),
+                                     (2, 1024, 1024, 256),
+                                     (3, 1000, 70, 256), (1, 129, 33, 128)])
+def test_k2_backward_is_bit_deterministic(cuda, b, n, m, d):
+    """dq, dk and dv are bit-equal from call to call: no atomics, and the
+    split dk/dv partials are summed in a fixed order."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(b, s, d, device=cuda, generator=g)
+                   for s in (n, m, m, n))
+    scale = d ** -0.5
+    o, lse = K.attention_fwd_lse(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    first = (K.attention_dq(q, k, v, do, lse, delta, scale),
+             *K.attention_dkv(q, k, v, do, lse, delta, scale))
+    again = (K.attention_dq(q, k, v, do, lse, delta, scale),
+             *K.attention_dkv(q, k, v, do, lse, delta, scale))
+    for name, a, r in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, r), name
+
+
+def test_training_unet_matches_kernel_free_reference(cuda, monkeypatch):
+    """Small f32 training-form UNet: loss and every gradient with K2 (its
+    three attentions past the size gate) agree with the same weights run
+    with no kernel (plain attention under autograd); 1e-3 of each tensor's
+    max |g| plus 1e-6 of the largest, since several gradients are zero in
+    exact arithmetic."""
+    monkeypatch.setattr(K, "MIN_FLASH_ELEMS", 0)
     from vgd_tpu_torch.models.unet import UNet
     g = torch.Generator(device=cuda).manual_seed(5)
     with torch.device(cuda):

@@ -158,9 +158,12 @@ def test_attention_bwd_plain_matches_pallas_interpret(b, n, m, d, bq, bkv):
 
 
 @pytest.mark.parametrize("b,n,m,d,bq,bkv", K2_SHAPES)
-def test_attention_grads_match_jax_pallas_interpret(b, n, m, d, bq, bkv):
+def test_attention_grads_match_jax_pallas_interpret(monkeypatch, b, n, m, d,
+                                                   bq, bkv):
     """The port's autograd.Function (plain versions on the CPU) against
-    jax.grad through the custom-VJP Pallas kernels, loss sum(sin(o))."""
+    jax.grad through the custom-VJP Pallas kernels, loss sum(sin(o)); both
+    sides past their size gate (JAX: force="pallas")."""
+    monkeypatch.setattr(K, "MIN_FLASH_ELEMS", 0)
     q, k, v, _, _ = _k2_inputs(b, n, m, d)
 
     def loss(q, k, v):
@@ -175,10 +178,11 @@ def test_attention_grads_match_jax_pallas_interpret(b, n, m, d, bq, bkv):
                                    atol=1e-5, err_msg=name)
 
 
-def test_attention_grad_reaches_expanded_keys():
+def test_attention_grad_reaches_expanded_keys(monkeypatch):
     """k/v expanded over the batch (the cross-attention's global tokens):
     autograd sums dk/dv over the batch, equal to differentiating the plain
-    full-matrix attention."""
+    full-matrix attention (the autograd.Function, past the size gate)."""
+    monkeypatch.setattr(K, "MIN_FLASH_ELEMS", 0)
     rng = np.random.default_rng(6)
     q = torch.from_numpy(rng.standard_normal((3, 40, 16)).astype(np.float32))
     kv = torch.from_numpy(rng.standard_normal((1, 8, 32)).astype(np.float32))
@@ -193,10 +197,11 @@ def test_attention_grad_reaches_expanded_keys():
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-5)
 
 
-def test_k2_cpu_dispatch_and_plain_reference():
-    """On the CPU the autograd.Function runs the plain versions and counts
-    no launch; inside plain_reference() ``attention`` is the plain
-    full-matrix form, and the context restores itself."""
+def test_k2_cpu_dispatch_and_plain_reference(monkeypatch):
+    """On the CPU the autograd.Function (past the size gate) runs the plain
+    versions and counts no launch; inside plain_reference() ``attention``
+    is the plain full-matrix form, and the context restores itself."""
+    monkeypatch.setattr(K, "MIN_FLASH_ELEMS", 0)
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _qkv(1, 64, 32, 32))
     K.LAUNCHES.clear()
@@ -214,12 +219,80 @@ def test_k2_cpu_dispatch_and_plain_reference():
         K.attention_fwd_lse(x, x, x, 1.0)
 
 
+@pytest.mark.parametrize("n,m,kernel", [
+    (4096, 64, False),      # cross_attn3 at 256x256: 2^18
+    (16384, 64, True),      # cross_attn2: 2^20
+    (1024, 1024, True),     # the bottleneck: 2^20
+    (1023, 1024, False)])
+def test_attention_size_gate_follows_the_reference(n, m, kernel):
+    """``attention`` sends N * M below the JAX package's MIN_FLASH_ELEMS to
+    the plain full-matrix form (no autograd.Function, no launch) and
+    everything else to K2, as ``vgd_tpu``'s ``attention`` does."""
+    assert K.MIN_FLASH_ELEMS == JK.MIN_FLASH_ELEMS
+    q = torch.zeros(1, n, 8, requires_grad=True)
+    kv = torch.zeros(1, m, 8)
+    out = K.attention(q, kv, kv)
+    assert ("Attention" in type(out.grad_fn).__name__) == kernel
+
+
 @pytest.mark.parametrize("b,n,m,want", [
-    (16, 16384, 64, (16, 1024)),     # cross_attn2 at 256x256: 32 blocks
+    (16, 16384, 64, (16, 1024)),     # cross_attn2 at 256x256: 16 key blocks
     (16, 4096, 64, (16, 256)),       # cross_attn3
-    (16, 1024, 1024, (1, 1024)),     # bottleneck: 512 blocks, no split
-    (3, 1000, 70, (16, 64))])        # ragged
+    (16, 1024, 1024, (1, 1024)),     # bottleneck: 256 key blocks, no split
+    (3, 1000, 70, (32, 32))])        # ragged: 6 key blocks
 def test_dkv_splits_cover_the_rows(b, n, m, want):
     splits, rows = K.dkv_splits(b, n, m, 132)
     assert (splits, rows) == want
-    assert rows % 64 == 0 and splits * rows >= n > (splits - 1) * rows
+    assert rows % 16 == 0 and splits * rows >= n > (splits - 1) * rows
+
+
+def _tf32_split(x):
+    """(hi, lo) of f32 x as the K2 backward kernels split it: hi = x rounded
+    to TF32 (10 mantissa bits, to nearest, ties away from zero: cvt.rna),
+    lo = x - hi (exact) truncated to TF32."""
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _tf32_mm(a, b, passes):
+    """a @ b as the kernels' tensor cores compute it: three TF32 products
+    (hi hi + hi lo + lo hi; lo lo dropped) accumulated in f32, or with
+    passes=1 the single TF32 product."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    return ah @ bh if passes == 1 else ah @ bh + (ah @ bl + al @ bh)
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 256, 64), (1, 300, 130),
+                                   (2, 129, 33)])
+def test_k2_backward_three_tf32_passes_meet_the_chip_tolerance(b, n, m):
+    """The K2 backward kernels run every product as three TF32 tensor-core
+    products. Emulated on the CPU at D = 256, dq, dk and dv come within
+    chip_smoke's K2_GRAD_REL x max |.| of the f32 plain versions, and a
+    single TF32 pass does not: the three passes are what the tolerance
+    needs."""
+    from chip_smoke import K2_GRAD_REL
+    d = 256
+    rng = np.random.default_rng(b * n + m)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, d))
+                                    .astype(np.float32)) for s in (n, m, m, n))
+    scale = d ** -0.5
+    o, lse = K.attention_fwd_lse_plain(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    ref = (K.attention_dq_plain(q, k, v, do, lse, delta, scale),
+           *K.attention_dkv_plain(q, k, v, do, lse, delta, scale))
+    for passes in (3, 1):
+        s_ = _tf32_mm(q, k.transpose(1, 2), passes) * scale
+        p = torch.exp(s_ - lse[..., None])
+        ds = p * (_tf32_mm(do, v.transpose(1, 2), passes)
+                  - delta[..., None]) * scale
+        got = (_tf32_mm(ds, k, passes),
+               _tf32_mm(ds.transpose(1, 2), q, passes),
+               _tf32_mm(p.transpose(1, 2), do, passes))
+        rel = [float((a - r).abs().max() / r.abs().max())
+               for a, r in zip(got, ref)]
+        if passes == 3:
+            assert max(rel) <= K2_GRAD_REL, rel
+        else:
+            assert max(rel) > K2_GRAD_REL, rel

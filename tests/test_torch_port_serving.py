@@ -55,10 +55,12 @@ def test_sample_from_dir_cpu(run_dir, ddim_steps):
 
 
 def test_evaluate_diffusion_from_dir_cpu(run_dir):
-    """PSNR is the mean over the true val rows; the restore panel holds
-    original / noisy / multi-step / one-step."""
+    """The reference's keys (SSIM, PSNR over the true val rows) and MSE;
+    the restore panel holds original / noisy / multi-step / one-step."""
     cfg = _cfg(run_dir)
     out = L.evaluate_diffusion_from_dir(cfg, max_batches=1, device="cpu")
+    assert set(out) == {"ssim", "psnr", "mse"}
+    assert -1.0 <= out["ssim"] <= 1.0
     assert math.isfinite(out["psnr"]) and out["mse"] > 0
     np.testing.assert_allclose(out["psnr"], 10 * np.log10(1 / out["mse"]),
                                rtol=0.5)
@@ -90,6 +92,27 @@ def test_cli_cpu(tmp_path, capsys):
     with pytest.raises(RuntimeError):
         L.sample_from_dir("diffusion", dataclasses.replace(cfg, base_ch=8),
                           n=2, device="cpu")
+
+
+@pytest.mark.parametrize("cmd,runner,cfg_cls", [
+    ("glow", "run_glow", PC.GlowConfig),
+    ("vaegan", "run_vaegan", PC.VAEGANConfig),
+    ("diffusion", "run_diffusion", PC.DiffusionConfig)])
+@pytest.mark.parametrize("given", [True, False])
+def test_cli_training_commands_take_lr_and_keep_checkpoints(
+        monkeypatch, cmd, runner, cfg_cls, given):
+    """Every training command takes --lr and --keep-checkpoints, as each of
+    the reference's does, and the values reach the config it trains;
+    without them the config's defaults stand."""
+    seen = []
+    monkeypatch.setattr(L, runner, lambda cfg, **kw: seen.append(cfg))
+    flags = ["--lr", "1e-3", "--keep-checkpoints", "5"] if given else []
+    assert cli.main([cmd, "--device", "cpu"] + flags) == 0
+    (cfg,) = seen
+    default = cfg_cls()
+    assert cfg.lr == (1e-3 if given else default.lr)
+    assert cfg.run.keep_checkpoints == \
+        (5 if given else default.run.keep_checkpoints)
 
 
 def test_no_jax_import_in_port():

@@ -7,12 +7,14 @@
   python -m vgd_tpu_torch.cli eval-diffusion --out-dir runs/diffusion [--max-batches 1]
   python -m vgd_tpu_torch.cli vaegan --image-size 256 --batch-size 64 \\
       --out-dir runs/vaegan [--epochs 150] [--steps-per-epoch 9] \\
-      [--fused-conv] [--resume] [--profile-dir runs/vaegan/trace]
+      [--fused-conv] [--lr 2e-4] [--keep-checkpoints 3] [--resume] \\
+      [--profile-dir runs/vaegan/trace]
   python -m vgd_tpu_torch.cli sample --family vaegan --out-dir runs/vaegan \\
       --image-size 256 [-n 64]
   python -m vgd_tpu_torch.cli glow --iters 30000 --out-dir runs/glow \\
       [--fused-coupling] [--flow-stack [N]] [--sample-every 100] \\
-      [--checkpoint-every 1000] [--resume] [--profile-dir runs/glow/trace]
+      [--checkpoint-every 1000] [--lr 1e-4] [--keep-checkpoints 3] \\
+      [--resume] [--profile-dir runs/glow/trace]
   python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow [-n 20]
   python -m vgd_tpu_torch.cli eval-glow --out-dir runs/glow [--max-batches 1]
 
@@ -77,6 +79,15 @@ def _add_training(p):
                    help="torch.profiler trace of train steps 10-20 here")
 
 
+def _add_optim(p):
+    """The training commands' --lr and --keep-checkpoints (each command of
+    the reference takes both)."""
+    p.add_argument("--lr", type=float, default=None,
+                   help="learning rate (default: the config's)")
+    p.add_argument("--keep-checkpoints", type=int, default=None,
+                   help="checkpoint retention count (default 3)")
+
+
 def _with_args(cfg, a, **run):
     """``cfg`` with the values given on the command line."""
     data = {k: getattr(a, k) for k in ("batch_size", "dataset_size")
@@ -130,13 +141,13 @@ def main(argv=None):
     _add_common(p, serving=False)
     _add_diffusion(p)
     _add_training(p)
-    p.add_argument("--lr", type=float, default=None)
-    p.add_argument("--keep-checkpoints", type=int, default=None)
+    _add_optim(p)
 
     p = sub.add_parser("vaegan", help="train the VAE-GAN (checkpoints under "
                        "<out-dir>/ckpt, loss log vaegan_loss.jsonl)")
     _add_common(p, serving=False)
     _add_training(p)
+    _add_optim(p)
     p.add_argument("--fused-conv", action="store_true",
                    help="encoder/discriminator Conv+BN+LeakyReLU through "
                    "the fused K1 kernel")
@@ -153,6 +164,7 @@ def main(argv=None):
                    help="torch.profiler trace of train steps 10-20 here")
     p.add_argument("--sample-every", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
+    _add_optim(p)
 
     p = sub.add_parser("eval-glow", help="temperature-sample SSIM of a "
                        "Glow checkpoint against the val split")
@@ -174,7 +186,7 @@ def main(argv=None):
     p.add_argument("--ddim-eta", type=float, default=0.0)
 
     p = sub.add_parser("eval-diffusion", help="partial-noise restoration "
-                       "evaluation (PSNR, MSE) of a checkpoint")
+                       "evaluation (SSIM, PSNR, MSE) of a checkpoint")
     _add_common(p)
     _add_diffusion(p)
     p.add_argument("--max-batches", type=int, default=None)

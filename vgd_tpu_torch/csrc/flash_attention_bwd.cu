@@ -1,4 +1,5 @@
-// Single-head FlashAttention-2 backward, f32, for Hopper (sm_90a).
+// Single-head FlashAttention-2 backward, f32, for Hopper (sm_90a), with the
+// products on the tensor cores in three TF32 passes.
 //
 // Replaces the TPU kernels vgd_tpu/ops/pallas_kernels.py :
 // _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (called through attention
@@ -15,333 +16,466 @@
 //
 // without materialising the N x M matrices in device memory.
 //
-// What bounds it on the H100. The model's attention runs in f32, so the
-// products run on the CUDA cores at the 67 TFLOP/s f32 peak: dq does
-// 6 B N M D operations (q.k, dO.v, ds.K) and dk/dv 8 B N M D (q.k, dO.v,
-// p^T dO, ds^T q). Summed over the three attentions of a 256x256, batch-16
-// UNet (B N M D = 9.66e9), that is 58.0 GFLOP (0.87 ms) for dq and 77.3
-// GFLOP (1.15 ms) for dk/dv per train step. The bytes are below that: the
-// largest operands, cross_attn2's q / dO / dq (16 x 16384 x 256 f32), are
-// 268 MB each, about 0.08 ms each at 3.35 TB/s. So both kernels are about
-// feeding the FMA units from shared memory, as in the forward:
+// What bounds it on the H100. Inputs and outputs are f32 and the results
+// must be f32-accurate, so every product runs as three TF32 tensor-core
+// products (CUTLASS's "fast f32"): each operand x is split in registers
+// into hi = tf32(x) (round to nearest) and lo = x - hi truncated to TF32,
+// and a b ~ hi_a hi_b + hi_a lo_b + lo_a hi_b (the truncation and the
+// dropped lo_a lo_b are below 2^-20 of |a b| each). dq does 6 B N M D
+// operations (q.k, dO.v, ds.K) and dk/dv 8 B N M D (k.q, v.dO, p^T dO,
+// ds^T q); three passes at the 495 TFLOP/s TF32 rate make that 0.35 ms for
+// dq and 0.47 ms for dk/dv per 256x256, batch-16 UNet train step (B N M D =
+// 9.66e9 over its three attentions). The cross-attentions (M = 64) also
+// move q, dO and dq (268 MB each at cross_attn2), about 0.24 ms for dq at
+// 3.35 TB/s, so there dq is close to its byte bound.
 //
-// * dq: one block per (batch, 64-row q tile), 8 warps of 8 rows. The q and
-//   dO tiles (64 KB each at D=256) stay in shared memory for the whole KV
-//   loop; K and V tiles of 32 keys (rows padded by 4 floats) are loaded per
-//   tile. Each lane owns one key: s and dp of the warp's 8 rows are
-//   register dot products over D (q and dO are warp-wide broadcasts, the
-//   padded K/V rows are conflict-free), p and ds stay in registers, and
-//   ds K accumulates with ds broadcast by shuffles and K rows read as
-//   16-byte vectors. 193 KB of dynamic shared memory at D=256.
-// * dk/dv: one block per (batch, 32-key tile, split of the q rows). The K
-//   and V tiles stay in shared memory; the block walks its q rows in tiles
-//   of 64. Phase 1 computes p and ds for 64 rows x 32 keys as in dq and
-//   writes them to shared memory; phase 2 gives each warp 4 keys and each
-//   lane D/32 columns of their dk and dv (64 accumulators in registers),
-//   reading p/ds as 16-byte broadcasts and the q/dO rows as 16-byte
-//   vectors. 209 KB of dynamic shared memory at D=256.
-// * The cross-attentions have M = 64 keys: 2 KV tiles per image, only 32
-//   blocks on 132 SMs, each walking up to 16384 q rows. The wrapper splits
-//   the q rows when there are fewer than two blocks per SM: each split
-//   writes its partial dk/dv to scratch and a second small kernel sums the
-//   splits in a fixed order, so the result is deterministic (no atomics).
-// * Ragged N and M are masked in the kernels: q rows past N (or past the
-//   split) and keys past M load as zero and get p = ds = 0; nothing past N
-//   or M is stored.
+// The design (both kernels: 8 warps, mma.sync m16n8k8 TF32, f32 accumulate):
+// * One operand is resident in shared memory for the block's life, the
+//   other is streamed in tiles of 16 rows, double-buffered with cp.async so
+//   the next tile's load overlaps this tile's products. dq: a 64-row q / dO
+//   tile resident, K / V streamed. dk/dv: a 64-key K / V tile resident,
+//   q / dO (and their lse / delta) streamed. Rows are padded to D + 4
+//   floats, so every fragment load of a warp (8 rows x 4 columns) hits 32
+//   distinct banks. 211 KB of dynamic shared memory at D = 256.
+// * Fragments of the scores' operands come in with ldmatrix.x4 (one
+//   instruction per 16 x 8 A fragment or per two 8 x 8 B fragments), and
+//   the hi / lo split is integer and float arithmetic on the fast pipes
+//   (ptxas expands cvt.rna.tf32.f32 into a longer compare-and-select
+//   sequence that guards NaN and infinity).
+// * The warps form 4 row groups (16 resident rows each) x 2 halves of D.
+//   The scores s and dp (16 x 16 per warp) are contracted over the warp's
+//   half of D and the two halves' partial sums are exchanged through shared
+//   memory (a + b on both sides, so both warps hold the same bits); each
+//   warp then accumulates its half of the D columns of dq (or dk and dv):
+//   64 f32 accumulators per output at D = 256.
+// * p and ds never leave registers. dq: S = Q K^T and dP = dO V^T, and dS
+//   is the A operand of dQ += dS K. dk/dv: the transposed S^T = K Q^T and
+//   dP^T = V dO^T (as FlashAttention-2 does), and P^T and dS^T are the A
+//   operands of dV += P^T dO and dK += dS^T Q. The accumulator layout of
+//   m16n8k8 gives a lane columns 2t and 2t + 1 of each 8-column tile, so
+//   the A fragment's k index t stands for column 2t and t + 4 for 2t + 1,
+//   and the B operand's rows are read in that same order: the contraction
+//   runs over keys (q rows), and a consistent permutation of them is exact.
+// * The 64-key cross-attentions give dk/dv one key block per image (16
+//   blocks on 132 SMs): the wrapper splits the q rows so that the card
+//   fills; each split writes its partial dk/dv to scratch and a second
+//   small kernel sums the splits in a fixed order, so the result is
+//   deterministic (no atomics anywhere).
+// * Ragged N and M are masked in the kernels: rows past N (or past the
+//   split) and keys past M load as zero (cp.async zero-fill) and get
+//   p = ds = 0; nothing past N or M is stored.
 //
 // Plain C interface for ctypes. Each function launches on the given stream,
 // does not synchronise and allocates nothing; it returns the CUDA error of
 // its launches (cudaErrorInvalidValue for a shape it does not take).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;                       // q rows per tile
-constexpr int kBK = 32;                       // keys per KV tile, one per lane
 constexpr int kWarps = 8;
-constexpr int kRows = kBQ / kWarps;           // q rows per warp (phase 1)
-constexpr int kKeys = kBK / kWarps;           // keys per warp (dk/dv phase 2)
 constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroups = 4;                    // row groups of 16 resident rows
+constexpr int kResident = 16 * kGroups;       // dq: q rows; dk/dv: keys
+constexpr int kTile = 16;                     // streamed rows per tile
+constexpr int kExchange = 16;                 // floats per lane: s and dp
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-__host__ __device__ constexpr int k_stride() { return D + 4; }
+__host__ __device__ constexpr int row_stride() { return D + 4; }
 
-// A lane owns D/32 columns: VW consecutive ones in each of G groups,
-// columns VW*lane + 32*VW*g + e, so a warp reads a row as 16-byte
-// (8-byte at D=64) vectors on consecutive addresses.
+// resident rows (2 operands), two stages of streamed rows (2 operands),
+// two stages of the streamed rows' lse and delta (dk/dv), the exchange
 template <int D>
-__host__ __device__ constexpr int vec_width() { return D >= 128 ? 4 : 2; }
-template <int D>
-__host__ __device__ constexpr int col_groups() { return D / (32 * vec_width<D>()); }
-
-template <int D>
-__host__ __device__ constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * size_t(kBQ) * D + 2 * size_t(kBK) * k_stride<D>());
+__host__ __device__ constexpr size_t smem_floats() {
+  return 2 * size_t(kResident) * row_stride<D>() + 4 * size_t(kTile) * row_stride<D>() +
+         4 * size_t(kTile) + size_t(kWarps) * 32 * kExchange;
 }
 
-template <int D>
-__host__ __device__ constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * size_t(kBK) * k_stride<D>() + 2 * size_t(kBQ) * D +
-                          2 * size_t(kBQ) * kBK);
+__device__ __forceinline__ uint32_t smem_ptr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (VW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  }
+// 16 bytes global -> shared; zero-filled when !valid (nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_ptr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-template <int VW>
-__device__ __forceinline__ void store_vec(float* p, const float* in) {
-  if constexpr (VW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
-  }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_ptr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the two warps of row group `group` (ids 1-4; __syncthreads uses 0)
+__device__ __forceinline__ void pair_barrier(int group) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + group));
 }
 
 // Rows [r0, r0 + R) of a row-major (rows, D) matrix into shared memory with
-// row stride S floats; rows at or past `limit` load as zero.
-template <int D, int R, int S>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int limit,
+// row stride D + 4; rows at or past `limit` are zero-filled.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int limit,
                                           int tid) {
   constexpr int D4 = D / 4;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int idx = tid; idx < R * D4; idx += kThreads) {
     const int r = idx / D4, c4 = idx % D4;
-    float4 val = zero4;
-    if (r0 + r < limit) val = reinterpret_cast<const float4*>(src + size_t(r0 + r) * D)[c4];
-    reinterpret_cast<float4*>(dst + r * S)[c4] = val;
+    const bool valid = r0 + r < limit;
+    cp_async16(dst + r * row_stride<D>() + 4 * c4,
+               valid ? src + size_t(r0 + r) * D + 4 * c4 : src, valid);
   }
 }
 
-// s[i] = q_i . k_lane and dp[i] = dO_i . v_lane for kRows rows starting at
-// row0 of the q / dO tiles (row stride D) and key `lane` of the K / V tiles
-// (row stride D + 4).
-template <int D>
-__device__ __forceinline__ void row_key_dots(const float* qs, const float* dos,
-                                             const float* ks, const float* vs, int row0,
-                                             int lane, float* s, float* dp) {
-  constexpr int KS = k_stride<D>();
-  constexpr int D4 = D / 4;
+// x ~ hi + lo: hi = x rounded to TF32 (to nearest, ties away from zero:
+// cvt.rna.tf32.f32 for finite x, done in two integer operations, since
+// ptxas expands the cvt into a longer sequence that guards NaN and
+// infinity), lo = the exact rest x - hi truncated to TF32 (its low 13 bits
+// cleared)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in three TF32 products, the two small cross terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  mma(c, alo, bh0, bh1);
+  mma(c, ahi, bl0, bl1);
+  mma(c, ahi, bh0, bh1);
+}
+
+// big += hi hi and small += the two cross terms. The tensor core truncates
+// each accumulation, so the scores keep their small terms apart, and dp its
+// large ones in two alternating sums (fewer truncated additions into large
+// values): dp - delta must cancel to f32 noise where a row's p is one key
+__device__ __forceinline__ void mma3_split(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ahi)[4], const uint32_t (&alo)[4],
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma(small, alo, bh0, bh1);
+  mma(small, ahi, bl0, bl1);
+  mma(big, ahi, bh0, bh1);
+}
+
+// Four 8 x 4 f32 blocks of a shared tile into registers with one
+// ldmatrix.x4 (each block is an 8 x 8 b16 matrix): lane l gives the address
+// of row l % 8 of block l / 8, and receives element (g, t) of each block,
+// i.e. the TF32 fragment layout of mma.m16n8k8.
+__device__ __forceinline__ void ldsm4(const float* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_ptr(p)));
+}
+
+__device__ __forceinline__ void split4(const uint32_t (&r)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) { s[i] = 0.f; dp[i] = 0.f; }
-  const float4* krow = reinterpret_cast<const float4*>(ks + lane * KS);
-  const float4* vrow = reinterpret_cast<const float4*>(vs + lane * KS);
-  const float4* qrow = reinterpret_cast<const float4*>(qs + row0 * D);
-  const float4* drow = reinterpret_cast<const float4*>(dos + row0 * D);
-#pragma unroll 2
-  for (int d4 = 0; d4 < D4; ++d4) {
-    const float4 kk = krow[d4];
-    const float4 vv = vrow[d4];
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+
+// s[j] = A1 B1_j^T and dp[j] = A2 B2_j^T over the columns [c0, c0 + DH):
+// A1, A2 are 16 rows, B1, B2 2 x 8 rows of shared tiles (row stride S). The
+// result is 16 x 16 in the accumulator layout: lane (g, t) holds rows g and
+// g + 8, columns 8j + 2t and 8j + 2t + 1. Per 8 columns one ldmatrix.x4
+// loads each operand: an A fragment (blocks: rows 0-7 and 8-15 at columns
+// +0, then at +4), or the B fragments of both j (rows 0-7 at +0 and +4,
+// then rows 8-15).
+template <int S, int DH>
+__device__ __forceinline__ void scores(const float* a1, const float* a2, const float* b1,
+                                       const float* b2, int c0, int lane,
+                                       float (&s)[2][4], float (&dp)[2][4]) {
+  const int blk = lane / 8, r = lane % 8;
+  const int arow = (r + 8 * (blk & 1)) * S + c0 + 4 * (blk >> 1);
+  const int brow = (r + 8 * (blk >> 1)) * S + c0 + 4 * (blk & 1);
+  // s: one large and one small sum; dp: two alternating large sums
+  float s_big[2][4] = {}, s_small[2][4] = {}, dp_big[2][2][4] = {}, dp_small[2][4] = {};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float4 qq = qrow[i * D4 + d4];
-      const float4 oo = drow[i * D4 + d4];
-      s[i] = fmaf(qq.x, kk.x, s[i]);
-      s[i] = fmaf(qq.y, kk.y, s[i]);
-      s[i] = fmaf(qq.z, kk.z, s[i]);
-      s[i] = fmaf(qq.w, kk.w, s[i]);
-      dp[i] = fmaf(oo.x, vv.x, dp[i]);
-      dp[i] = fmaf(oo.y, vv.y, dp[i]);
-      dp[i] = fmaf(oo.z, vv.z, dp[i]);
-      dp[i] = fmaf(oo.w, vv.w, dp[i]);
+  for (int kk = 0; kk < DH; kk += 8) {
+    const int alt = (kk / 8) & 1;
+    uint32_t raw[4], xh[4], xl[4], yh[4], yl[4], bh[4], bl[4];
+    ldsm4(a1 + arow + kk, raw);
+    split4(raw, xh, xl);
+    ldsm4(a2 + arow + kk, raw);
+    split4(raw, yh, yl);
+    ldsm4(b1 + brow + kk, raw);
+    split4(raw, bh, bl);
+    mma3_split(s_big[0], s_small[0], xh, xl, bh[0], bh[1], bl[0], bl[1]);
+    mma3_split(s_big[1], s_small[1], xh, xl, bh[2], bh[3], bl[2], bl[3]);
+    ldsm4(b2 + brow + kk, raw);
+    split4(raw, bh, bl);
+    mma3_split(dp_big[alt][0], dp_small[0], yh, yl, bh[0], bh[1], bl[0], bl[1]);
+    mma3_split(dp_big[alt][1], dp_small[1], yh, yl, bh[2], bh[3], bl[2], bl[3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = s_big[j][e] + s_small[j][e];
+      dp[j][e] = (dp_big[0][j][e] + dp_big[1][j][e]) + dp_small[j][e];
     }
   }
 }
 
+// acc[n] += X B over B's columns c0 + 8n + [0, 8): X is 16 x 16 in the
+// accumulator layout of `scores`, B 16 rows of a shared tile (row stride S)
+// read in X's column order (k index t <-> row 8kc + 2t, t + 4 <-> 8kc + 2t + 1).
+template <int S, int NT>
+__device__ __forceinline__ void product(const float (&x)[2][4], const float* b, int c0,
+                                        int g, int t, float (&acc)[NT][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc) {
+    uint32_t ah[4], al[4];
+    split(x[kc][0], ah[0], al[0]);
+    split(x[kc][2], ah[1], al[1]);
+    split(x[kc][1], ah[2], al[2]);
+    split(x[kc][3], ah[3], al[3]);
+    const float* r0 = b + (8 * kc + 2 * t) * S + c0 + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split(r0[8 * nt], bh0, bl0);
+      split(r0[S + 8 * nt], bh1, bl1);
+      mma3(acc[nt], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// s += the other half's partial s (a + b on both warps: the same bits)
+__device__ __forceinline__ void exchange(float* xch, int warp, int lane, int group,
+                                         float (&s)[2][4], float (&dp)[2][4]) {
+  float* mine = xch + warp * kExchange * 32 + lane;
+  const float* other = xch + (warp ^ kGroups) * kExchange * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mine[i * 32] = s[i / 4][i % 4];
+    mine[(8 + i) * 32] = dp[i / 4][i % 4];
+  }
+  pair_barrier(group);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[i / 4][i % 4] += other[i * 32];
+    dp[i / 4][i % 4] += other[(8 + i) * 32];
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, int n, int m, float scale) {
-  constexpr int KS = k_stride<D>();
-  constexpr int VW = vec_width<D>();
-  constexpr int G = col_groups<D>();
-  constexpr int CPL = D / 32;
+  constexpr int S = row_stride<D>();
+  constexpr int DH = D / 2;
+  constexpr int NT = DH / 8;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBQ * D;
-  float* ks = dos + kBQ * D;
-  float* vs = ks + kBK * KS;
+  float* dos = qs + kResident * S;
+  float* kv = dos + kResident * S;            // [stage][K, V][kTile][S]
+  float* xch = kv + 4 * kTile * S + 4 * kTile;
 
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kResident;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int group = warp % kGroups, half = warp / kGroups;
   const size_t qoff = size_t(b) * n;
   const float* kb = k + size_t(b) * m * D;
   const float* vb = v + size_t(b) * m * D;
   const float scale_log2 = scale * kLog2e;
 
-  load_tile<D, kBQ, D>(qs, q + qoff * D, q0, n, tid);
-  load_tile<D, kBQ, D>(dos, dout + qoff * D, q0, n, tid);
+  load_rows<D, kResident>(qs, q + qoff * D, q0, n, tid);
+  load_rows<D, kResident>(dos, dout + qoff * D, q0, n, tid);
+  load_rows<D, kTile>(kv, kb, 0, m, tid);
+  load_rows<D, kTile>(kv + kTile * S, vb, 0, m, tid);
+  cp_async_commit();
 
-  float lse2[kRows], dl[kRows];
-  float acc[kRows][CPL];
+  // rows past n have q = dO = 0, so ds = 0 whatever lse says; not stored
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp * kRows + i;
-    // rows past n have q = dO = 0, so ds = 0 whatever lse says; not stored
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 16 * group + g + 8 * i;
     lse2[i] = row < n ? lse[qoff + row] * kLog2e : 0.f;
     dl[i] = row < n ? delta[qoff + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
   }
-
-  const int n_tiles = (m + kBK - 1) / kBK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                          // previous tile consumed
-    load_tile<D, kBK, KS>(ks, kb, k0, m, tid);
-    load_tile<D, kBK, KS>(vs, vb, k0, m, tid);
-    __syncthreads();
-
-    float s[kRows], dp[kRows];
-    row_key_dots<D>(qs, dos, ks, vs, warp * kRows, lane, s, dp);
-    const bool valid = k0 + lane < m;
+  float acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float p = valid ? exp2f(s[i] * scale_log2 - lse2[i]) : 0.f;
-      s[i] = p * (dp[i] - dl[i]) * scale;     // ds of (row i, key lane)
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  const float* qw = qs + 16 * group * S;
+  const float* dow = dos + 16 * group * S;
+  const int n_tiles = (m + kTile - 1) / kTile;
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    if (tt + 1 < n_tiles) {
+      float* next = kv + ((tt + 1) & 1) * 2 * kTile * S;
+      load_rows<D, kTile>(next, kb, (tt + 1) * kTile, m, tid);
+      load_rows<D, kTile>(next + kTile * S, vb, (tt + 1) * kTile, m, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const float* ks = kv + (tt & 1) * 2 * kTile * S;
+    const float* vs = ks + kTile * S;
 
-    // acc += ds K (masked keys have ds = 0 and zero K rows)
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float kj[CPL];
+    float s[2][4], dp[2][4];
+    scores<S, DH>(qw, dow, ks, vs, half * DH, lane, s, dp);
+    exchange(xch, warp, lane, group, s, dp);
 #pragma unroll
-      for (int g = 0; g < G; ++g) load_vec<VW>(ks + j * KS + VW * lane + 32 * VW * g, kj + g * VW);
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float dsij = __shfl_sync(kFull, s[i], j);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(dsij, kj[c], acc[i][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int key = tt * kTile + 8 * j + 2 * t + (e & 1);
+        const float p = key < m ? exp2f(s[j][e] * scale_log2 - lse2[e / 2]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[e / 2]) * scale;   // ds
       }
     }
+    product<S, NT>(s, ks, half * DH, g, t, acc);
+    __syncthreads();                          // stage and exchange consumed
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp * kRows + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 16 * group + g + 8 * i;
     if (row < n) {
-      float* dqrow = dq + (qoff + row) * D;
+      float* dqrow = dq + (qoff + row) * D + half * DH + 2 * t;
 #pragma unroll
-      for (int g = 0; g < G; ++g) store_vec<VW>(dqrow + VW * lane + 32 * VW * g, acc[i] + g * VW);
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(dqrow + 8 * nt) =
+            make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int n, int m,
                      int rows_per_split, float scale) {
-  constexpr int KS = k_stride<D>();
-  constexpr int VW = vec_width<D>();
-  constexpr int G = col_groups<D>();
-  constexpr int CPL = D / 32;
+  constexpr int S = row_stride<D>();
+  constexpr int DH = D / 2;
+  constexpr int NT = DH / 8;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBK * KS;
-  float* qs = vs + kBK * KS;
-  float* dos = qs + kBQ * D;
-  float* ps = dos + kBQ * D;                  // (kBQ, kBK) probabilities
-  float* dss = ps + kBQ * kBK;                // (kBQ, kBK) ds
+  float* vs = ks + kResident * S;
+  float* qd = vs + kResident * S;             // [stage][q, dO][kTile][S]
+  float* ld = qd + 4 * kTile * S;             // [stage][lse, delta][kTile]
+  float* xch = ld + 4 * kTile;
 
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * kResident;
   const int b = blockIdx.y;
-  const int split = blockIdx.z;
+  const int split_id = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int group = warp % kGroups, half = warp / kGroups;
   const size_t qoff = size_t(b) * n;
   const float* qb = q + qoff * D;
   const float* dob = dout + qoff * D;
   const float scale_log2 = scale * kLog2e;
-  const int row_begin = split * rows_per_split;
+  const int row_begin = split_id * rows_per_split;
   const int row_end = min(n, row_begin + rows_per_split);
-  const bool key_valid = k0 + lane < m;
+  const int n_tiles = row_end > row_begin ? (row_end - row_begin + kTile - 1) / kTile : 0;
 
-  load_tile<D, kBK, KS>(ks, k + size_t(b) * m * D, k0, m, tid);
-  load_tile<D, kBK, KS>(vs, v + size_t(b) * m * D, k0, m, tid);
+  // q rows [r0, r0 + kTile) with their lse and delta into stage `st`
+  auto load_q_tile = [&](int st, int r0) {
+    float* dst = qd + st * 2 * kTile * S;
+    load_rows<D, kTile>(dst, qb, r0, row_end, tid);
+    load_rows<D, kTile>(dst + kTile * S, dob, r0, row_end, tid);
+    if (tid < 2 * kTile) {
+      const int r = tid % kTile;
+      const bool valid = r0 + r < row_end;
+      const float* src = tid < kTile ? lse : delta;
+      cp_async4(ld + st * 2 * kTile + tid, valid ? src + qoff + r0 + r : src, valid);
+    }
+  };
 
-  float dk_acc[kKeys][CPL], dv_acc[kKeys][CPL];
+  load_rows<D, kResident>(ks, k + size_t(b) * m * D, k0, m, tid);
+  load_rows<D, kResident>(vs, v + size_t(b) * m * D, k0, m, tid);
+  if (n_tiles > 0) load_q_tile(0, row_begin);
+  cp_async_commit();
+
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < kKeys; ++j) {
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) { dk_acc[j][c] = 0.f; dv_acc[j][c] = 0.f; }
-  }
+    for (int e = 0; e < 4; ++e) { dk_acc[nt][e] = 0.f; dv_acc[nt][e] = 0.f; }
 
-  for (int q0 = row_begin; q0 < row_end; q0 += kBQ) {
-    __syncthreads();                          // K/V loaded; previous tile consumed
-    load_tile<D, kBQ, D>(qs, qb, q0, row_end, tid);
-    load_tile<D, kBQ, D>(dos, dob, q0, row_end, tid);
-    __syncthreads();
-
-    // phase 1: p and ds of (this warp's 8 rows, key lane) into shared memory
-    float s[kRows], dp[kRows];
-    row_key_dots<D>(qs, dos, ks, vs, warp * kRows, lane, s, dp);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = warp * kRows + i;
-      const int row = q0 + r;
-      const bool valid = key_valid && row < row_end;
-      const float l2 = row < row_end ? lse[qoff + row] * kLog2e : 0.f;
-      const float dl = row < row_end ? delta[qoff + row] : 0.f;
-      const float p = valid ? exp2f(s[i] * scale_log2 - l2) : 0.f;
-      ps[r * kBK + lane] = p;
-      dss[r * kBK + lane] = p * (dp[i] - dl) * scale;
+  const float* kw = ks + 16 * group * S;
+  const float* vw = vs + 16 * group * S;
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    const int r0 = row_begin + tt * kTile;
+    if (tt + 1 < n_tiles) {
+      load_q_tile((tt + 1) & 1, r0 + kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* qs = qd + (tt & 1) * 2 * kTile * S;
+    const float* dos = qs + kTile * S;
+    const float* ls = ld + (tt & 1) * 2 * kTile;
+    const float* dls = ls + kTile;
 
-    // phase 2: dv_j += p_ij dO_i and dk_j += ds_ij q_i for this warp's keys
-#pragma unroll 2
-    for (int i = 0; i < kBQ; ++i) {
-      const float4 p4 = *reinterpret_cast<const float4*>(ps + i * kBK + warp * kKeys);
-      const float4 d4 = *reinterpret_cast<const float4*>(dss + i * kBK + warp * kKeys);
-      const float pj[kKeys] = {p4.x, p4.y, p4.z, p4.w};
-      const float dsj[kKeys] = {d4.x, d4.y, d4.z, d4.w};
-      float o[CPL], qv[CPL];
+    // s^T and dp^T: rows are this group's keys, columns the tile's q rows
+    float s[2][4], dp[2][4];
+    scores<S, DH>(kw, vw, qs, dos, half * DH, lane, s, dp);
+    exchange(xch, warp, lane, group, s, dp);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        load_vec<VW>(dos + i * D + VW * lane + 32 * VW * g, o + g * VW);
-        load_vec<VW>(qs + i * D + VW * lane + 32 * VW * g, qv + g * VW);
-      }
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          dv_acc[j][c] = fmaf(pj[j], o[c], dv_acc[j][c]);
-          dk_acc[j][c] = fmaf(dsj[j], qv[c], dk_acc[j][c]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * t + (e & 1);
+        const float p =
+            r0 + r < row_end ? exp2f(s[j][e] * scale_log2 - ls[r] * kLog2e) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dls[r]) * scale;      // ds
       }
     }
+    product<S, NT>(s, dos, half * DH, g, t, dv_acc);
+    product<S, NT>(dp, qs, half * DH, g, t, dk_acc);
+    __syncthreads();                          // stage and exchange consumed
   }
+  cp_async_wait<0>();                         // an empty split's K / V load
 
   // this split's dk/dv rows: (split, b, key, :) of a (splits, B, M, D) array
-  const size_t base = (size_t(split) * gridDim.y + b) * m;
+  const size_t base = (size_t(split_id) * gridDim.y + b) * m;
 #pragma unroll
-  for (int j = 0; j < kKeys; ++j) {
-    const int key = k0 + warp * kKeys + j;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + 16 * group + g + 8 * i;
     if (key < m) {
+      const size_t off = (base + key) * D + half * DH + 2 * t;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int col = VW * lane + 32 * VW * g;
-        store_vec<VW>(dk + (base + key) * D + col, dk_acc[j] + g * VW);
-        store_vec<VW>(dv + (base + key) * D + col, dv_acc[j] + g * VW);
+      for (int nt = 0; nt < NT; ++nt) {
+        *reinterpret_cast<float2*>(dk + off + 8 * nt) =
+            make_float2(dk_acc[nt][2 * i], dk_acc[nt][2 * i + 1]);
+        *reinterpret_cast<float2*>(dv + off + 8 * nt) =
+            make_float2(dv_acc[nt][2 * i], dv_acc[nt][2 * i + 1]);
       }
     }
   }
@@ -374,12 +508,12 @@ template <int D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
                       const float* lse, const float* delta, float* dq, int b, int n, int m,
                       float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
+  const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBQ - 1) / kBQ, b);
+  const dim3 grid((n + kResident - 1) / kResident, b);
   flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq, n,
                                                            m, scale);
   return cudaGetLastError();
@@ -390,7 +524,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
                        const float* lse, const float* delta, float* dk, float* dv,
                        float* scratch, int b, int n, int m, int splits, int rows_per_split,
                        float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
+  const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -398,7 +532,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
   const size_t count = size_t(b) * m * D;
   float* dk_part = splits == 1 ? dk : scratch;
   float* dv_part = splits == 1 ? dv : scratch + size_t(splits) * count;
-  const dim3 grid((m + kBK - 1) / kBK, b, splits);
+  const dim3 grid((m + kResident - 1) / kResident, b, splits);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dk_part, dv_part, n, m, rows_per_split, scale);
   err = cudaGetLastError();

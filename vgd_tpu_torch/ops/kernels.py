@@ -29,8 +29,10 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
 
 Each wrapper takes its plain version only for a tensor that lies on the CPU
 (the tests); for a CUDA tensor it launches the kernel or raises. There is
-no size gate and no fallback. ``LAUNCHES`` counts the wrapper calls that
-launched a kernel, so a run can show that its main path went through them.
+no fallback; the one size gate is ``attention``'s, the JAX package's, which
+sends small attentions to the plain form before any wrapper is called.
+``LAUNCHES`` counts the wrapper calls that launched a kernel, so a run can
+show that its main path went through them.
 
 ``plain_reference()`` is a context manager that routes every wrapper to its
 plain version on any device. It exists so that ``chip_smoke.py`` and the
@@ -192,21 +194,22 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *attention_dkv_plain(q, k, v, do, lse, delta, scale))
 
 
-_BQ = 64            # q rows per tile of the backward kernels
-_BK = 32            # keys per tile
+_DKV_KEYS = 64      # keys per block of the dk/dv kernel (resident)
+_DKV_ROWS = 16      # q rows per tile it streams
 
 
 def dkv_splits(b: int, n: int, m: int, sm_count: int) -> Tuple[int, int]:
-    """(splits, rows_per_split) of the q rows for the dk/dv kernel: one
-    split while there are at least two (batch, key tile) blocks per SM,
-    else about four blocks per SM, in whole 64-row tiles, so the 64-key
-    cross-attentions (two key tiles per image) still fill the card."""
-    q_tiles = -(-n // _BQ)
-    blocks = b * -(-m // _BK)
-    splits = 1 if blocks >= 2 * sm_count else \
-        min(q_tiles, -(-4 * sm_count // blocks))
+    """(splits, rows_per_split) of the q rows for the dk/dv kernel. A block
+    takes 211 KB of shared memory at D = 256, so one fits on an SM: one
+    split while there are at least as many (batch, 64-key) blocks as SMs,
+    else about two blocks per SM, in whole 16-row tiles, so the 64-key
+    cross-attentions (one key block per image) still fill the card."""
+    q_tiles = -(-n // _DKV_ROWS)
+    blocks = b * -(-m // _DKV_KEYS)
+    splits = 1 if blocks >= sm_count else \
+        min(q_tiles, max(1, 2 * sm_count // blocks))
     tiles_per_split = -(-q_tiles // splits)
-    return -(-q_tiles // tiles_per_split), tiles_per_split * _BQ
+    return -(-q_tiles // tiles_per_split), tiles_per_split * _DKV_ROWS
 
 
 def _check_attention_inputs(what, tensors, b, n, m, d):
@@ -340,18 +343,24 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+# Attentions with N * M below this take the plain full-matrix form: the JAX
+# package's MIN_FLASH_ELEMS. Kept because on the H100 K2 under autograd
+# (forward, delta, dq, dk/dv) measured slower than the plain form at the
+# UNet's cross_attn3, N * M = 2^18 (PERF.md, Findings).
+MIN_FLASH_ELEMS = 1 << 20
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable softmax(q k^T scale) v, the counterpart of
     ``attention`` in ``vgd_tpu/ops/pallas_kernels.py``. q (B, N, D), k/v
-    (B, M, D). Unlike the TPU dispatch there is no size gate: the JAX
-    package sends N * M < 2^20 to XLA because a Pallas call cost more than
-    it saved there, a launch-overhead heuristic of the TPU; every call on
-    CUDA runs the K2 kernels. Inside ``plain_reference()`` it is the plain
-    full-matrix attention, differentiated by autograd."""
+    (B, M, D). As there, N * M below ``MIN_FLASH_ELEMS`` takes the plain
+    full-matrix attention (differentiated by autograd, no launch); every
+    larger call runs the K2 kernels on CUDA. Inside ``plain_reference()``
+    it is always the plain form."""
     d = q.shape[-1]
     scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
-    if _PLAIN_REFERENCE:
+    if _PLAIN_REFERENCE or q.shape[1] * k.shape[1] < MIN_FLASH_ELEMS:
         return attention_plain(q, k, v, scale)
     return _Attention.apply(q, k, v, scale)
 

@@ -178,12 +178,15 @@ def evaluate_diffusion(cfg: DiffusionConfig, trainer: DiffusionTrainer, val,
                        max_batches: Optional[int] = None,
                        save_panels: bool = True) -> Dict[str, float]:
     """Restoration evaluation: noise each val batch to a seeded random
-    start step, run the ancestral chain back, and score PSNR and MSE on
-    [0, 1] images (padded repeats of the last batch excluded). With
+    start step, run the ancestral chain back, and score on [0, 1] images
+    over the true rows (padded repeats of the last batch excluded): SSIM
+    through ``MetricAccumulator`` and PSNR, as the reference returns them,
+    and MSE beside them. With
     ``save_panels`` the first batch's original / noisy / multi-step /
     one-step panel is saved as ``diffusion_restore_panel.npy``."""
     gen = seed_all(cfg.run.seed, trainer.device)
     dev = trainer.device
+    acc = MetricAccumulator()
     psnr_sum, mse_sum, n_b = 0.0, 0.0, 0
     for j, (vbatch, n_valid) in enumerate(val.epoch()):
         if max_batches is not None and j >= max_batches:
@@ -199,6 +202,7 @@ def evaluate_diffusion(cfg: DiffusionConfig, trainer: DiffusionTrainer, val,
         restored = trainer.ancestral_sample(xt, t_start, generator=gen)
         fake_unit = signed_to_unit(restored)[:n_valid]
         real_unit = signed_to_unit(x0)[:n_valid]
+        acc.update(fake_unit, real_unit)
         psnr_sum += float(psnr(fake_unit, real_unit)) * n_valid
         mse_sum += float(mse_metric(fake_unit, real_unit)) * n_valid
         n_b += n_valid
@@ -211,7 +215,9 @@ def evaluate_diffusion(cfg: DiffusionConfig, trainer: DiffusionTrainer, val,
             np.save(os.path.join(cfg.run.out_dir,
                                  "diffusion_restore_panel.npy"),
                     panel.float().cpu().numpy())
-    return {"psnr": psnr_sum / max(n_b, 1), "mse": mse_sum / max(n_b, 1)}
+    out = acc.compute()
+    out.update(psnr=psnr_sum / max(n_b, 1), mse=mse_sum / max(n_b, 1))
+    return out
 
 
 def evaluate_diffusion_from_dir(cfg: DiffusionConfig,
