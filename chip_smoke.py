@@ -1577,11 +1577,12 @@ K5_NAMES = ("glow_coupling_fwd", "glow_coupling_bwd1", "glow_coupling_bwd2")
 K6_NAMES = ("glow_flow_stack_fwd", "glow_flow_stack_fwd_nosave",
             "glow_flow_stack_bwd")
 GLOW_NAMES = K5_NAMES + K6_NAMES
-# checked, not timed: one f32 shape and two ragged ones (odd sizes, channel
-# counts no tile divides)
+# checked, not timed: one f32 shape and three ragged ones (odd sizes, channel
+# counts no tile divides; the last large enough for the 128-row tiles)
 K5_EXTRA = [("f32", 16, 16, 16, 12, 512, "float32"),
             ("ragged", 3, 7, 5, 5, 40, "bfloat16"),
-            ("ragged", 2, 9, 13, 11, 72, "bfloat16")]
+            ("ragged", 2, 9, 13, 11, 72, "bfloat16"),
+            ("ragged", 1, 129, 127, 6, 72, "bfloat16")]
 # K5 against its plain version on the same operands: f32 within 1e-4 of
 # max |.| (sums in other orders); bf16 within 2e-2 of max |.| + 2e-3, since
 # a bf16 rounding of h1 or h2 flips on an f32-ulp difference. Elements where
@@ -1594,8 +1595,8 @@ K5_F32_REL, K5_BF16_REL, K5_BF16_ATOL, K5_FLIP_SHARE = 1e-4, 2e-2, 2e-3, 1e-5
 # checkpoint every 10, a resume, 10 more
 GLOW_DATASET, GLOW_ITERS, GLOW_EVERY = 400, 20, 10
 GLOW_GROUPS = [("K6 (flow_stack_fwd, flow_stack_bwd)", ("flow_stack",)),
-               ("K5 (glow_gemm_kernel, split and column sums, zeroconv "
-                "grad)", ("glow_",)),
+               ("K5 (glow_mma_kernel, glow_wgmma_kernel, shift and "
+                "finishing sums)", ("glow_",)),
                ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
                ("triangular solves and small matmuls (cuBLAS)",
                 ("trsm", "gemm", "gemv", "cutlass", "xmma")),
@@ -1666,6 +1667,71 @@ def k5_work(b, h, w, cin, f):
             "glow_coupling_bwd2": bwd2}
 
 
+# K5's stages, each named by its kernels: a kernel whose name holds one of a
+# stage's keys belongs to it (the GEMM kernels carry their Op's name); a
+# split sum belongs to the GEMM launched just before it
+K5_STAGES = [("conv1", ("Conv1Op",)), ("conv2", ("Conv2Op",)),
+             ("zeroconv shift + grad", ("zeroconv_shift_grad",)),
+             ("zeroconv", ("ZeroConv", "zeroconv_shift")),
+             ("zeroconv grad", ("zeroconv_grad",)),
+             ("dWz", ("DwzOp",)), ("dh2", ("Dh2Op",)),
+             ("column sums", ("sum_columns",)),
+             ("dW2", ("Dw2Op",)), ("dh1", ("Dh1Op",)), ("dW1", ("Dw1Op",)),
+             ("dya", ("Dya",)),
+             ("finish (split, column and dya shift sums)", ("glow_finish",))]
+K5_AFTER_GEMM = ("sum_splits",)
+
+
+def k5_stage(name):
+    """The K5 stage of a kernel name, or None; a GEMM kernel that runs two
+    products side by side is both stages ("dW2 + dh1")."""
+    hits = [s for s, keys in K5_STAGES if any(k in name for k in keys)]
+    if "gemm_kernel" in name or "mma_kernel" in name:
+        return " + ".join(hits) if hits else None
+    return hits[0] if hits else None
+
+
+def k5_stages(fn, calls=5):
+    """(device ms per call of each K5 stage of ``fn``, kernels per call):
+    torch.profiler's kernel times of one call, in launch order, over
+    ``calls`` calls. Each call is profiled alone after a marker kernel (a
+    fill; the trace can lose the first kernels of a session), and only the
+    kernels after the marker count; a call whose trace still lost kernels
+    (fewer than the most any call showed) is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    traces = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.full((1,), 1.0, device="cuda")
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if "CUDA" in str(e.device_type)),
+                         key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(kernels) if "Fill" in e.name]
+        traces.append(kernels[marks[-1] + 1:] if marks else kernels)
+    most = max(len(t) for t in traces)
+    kept = [t for t in traces if len(t) == most]
+    stages = {}
+    for kernels in kept:
+        last = "other"
+        for e in kernels:
+            stage = k5_stage(e.name)
+            if stage is not None:
+                last = stage
+            elif any(k in e.name for k in K5_AFTER_GEMM):
+                stage = last
+            else:
+                stage = "other"
+            stages[stage] = (stages.get(stage, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / len(kept))
+    return stages, most
+
+
 def check_k5(K, gen, dev, failures):
     """K5 forward, backward 1 and backward 2 against their plain versions at
     the four Glow shapes (bf16) and K5_EXTRA (backward 2 fed the plain h1 and
@@ -1686,14 +1752,15 @@ def check_k5(K, gen, dev, failures):
                      else (K5_BF16_REL, K5_BF16_ATOL))
         fa = (p["ya"], p["w1f"], raw["b1"], p["w2"], raw["b2"], p["wz"])
         b1a = fa + (p["wzf"], raw["bz"], raw["scale"], raw["g"], khw, pad)
-        out = K.glow_coupling_fwd(*fa, raw["bz"], raw["scale"], khw, pad)
+        out = K.glow_coupling_fwd(*fa, raw["bz"], raw["scale"], khw, pad,
+                                  wzf=p["wzf"])
         got1 = K.glow_coupling_bwd1(*b1a)
         torch.cuda.synchronize()
         ref = K.glow_coupling_fwd_plain(*fa, raw["bz"], raw["scale"], khw,
                                         pad)
         ref1 = K.glow_coupling_bwd1_plain(*b1a)
         b2a = (p["ya"], p["w1t"], p["w2t"], ref1[0], ref1[1], khw, pad)
-        got2 = K.glow_coupling_bwd2(*b2a)
+        got2 = K.glow_coupling_bwd2(*b2a, w1f=p["w1f"])
         torch.cuda.synchronize()
         ref2 = K.glow_coupling_bwd2_plain(*b2a)
         per = {"glow_coupling_fwd": [("out", out, ref)],
@@ -1750,10 +1817,15 @@ def check_k5(K, gen, dev, failures):
 
             def library_fwd_bwd():
                 chain(*leaves).backward(gc)
+            # the chain's backward alone: autograd of one retained forward
+            retained = chain(*leaves)
+
+            def library_bwd():
+                torch.autograd.grad(retained, leaves, gc, retain_graph=True)
             timed = {
                 "glow_coupling_fwd": (
                     lambda: K.glow_coupling_fwd(*fa, raw["bz"], raw["scale"],
-                                                khw, pad),
+                                                khw, pad, wzf=p["wzf"]),
                     lambda: K.glow_coupling_fwd_plain(
                         *fa, raw["bz"], raw["scale"], khw, pad),
                     library_fwd),
@@ -1761,30 +1833,41 @@ def check_k5(K, gen, dev, failures):
                     lambda: K.glow_coupling_bwd1(*b1a),
                     lambda: K.glow_coupling_bwd1_plain(*b1a), None),
                 "glow_coupling_bwd2": (
-                    lambda: K.glow_coupling_bwd2(*b2a),
+                    lambda: K.glow_coupling_bwd2(*b2a, w1f=p["w1f"]),
                     lambda: K.glow_coupling_bwd2_plain(*b2a), None)}
-            fwd_bwd_ms = None
+            lib_keys = None
             for kname, (kern, plain, lib) in timed.items():
                 ops, nbytes = work[kname]
                 r = rows[kname][-1]
-                if fwd_bwd_ms is None:
+                if lib_keys is None:
                     time_row(r, kern, plain, lib,
-                             library_fwd_bwd_ms=library_fwd_bwd)
-                    fwd_bwd_ms = r["library_fwd_bwd_ms"]
+                             library_fwd_bwd_ms=library_fwd_bwd,
+                             library_bwd_ms=library_bwd)
+                    lib_keys = {k: r[k] for k in (
+                        "library_fwd_bwd_ms", "library_fwd_bwd_ms_p90",
+                        "library_bwd_ms", "library_bwd_ms_p90")}
                 else:
                     time_row(r, kern, plain, lib)
-                    r["library_fwd_bwd_ms"] = fwd_bwd_ms
+                    r.update(lib_keys)
                 r.update(flop_ms=ops / BF16_FLOPS * 1e3,
                          byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=calls)
+                r["stages"], r["kernels_per_call"] = k5_stages(kern)
                 line.append(
                     f"{kname[14:]}: ms={r['ms']:.4f} p90={r['ms_p90']:.4f} "
                     f"call={r['call_ms']:.4f} plain={r['plain_ms']:.4f}"
                     f" bound={max(r['flop_ms'], r['byte_ms']):.4f} "
                     f"({100 * max(r['flop_ms'], r['byte_ms']) / r['ms']:.1f}"
                     f" % of it)")
+                print(f"[kernel] K5 stages {site} {kname[14:]} "
+                      f"({r['kernels_per_call']:g} kernels per call, "
+                      f"profiler ms): " + ", ".join(
+                          f"{s} {ms:.4f}" for s, ms in r["stages"].items()),
+                      flush=True)
             line.append(f"library fwd="
                         f"{rows['glow_coupling_fwd'][-1]['library_ms']:.4f} "
-                        f"fwd+bwd={fwd_bwd_ms:.4f}")
+                        f"fwd+bwd={lib_keys['library_fwd_bwd_ms']:.4f} "
+                        f"bwd={lib_keys['library_bwd_ms']:.4f}")
+            del retained, leaves
         print(f"[kernel] K5 {site} {shape} {dt[0]} " + "; ".join(line),
               flush=True)
         del raw, p, out, got1, got2, ref, ref1, ref2
@@ -1798,6 +1881,17 @@ def check_k5(K, gen, dev, failures):
         f"bound {max(t['flop_ms'], t['byte_ms']):.3f} ms" for k, t in
         totals.items()) + f" (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+    for k, v in rows.items():
+        staged = [r for r in v if "stages" in r]
+        stages = {}
+        for r in staged:
+            for s, ms in r["stages"].items():
+                stages[s] = stages.get(s, 0.0) + ms * r["calls"]
+        print(f"[kernel] K5 stages per train step {k[14:]} (profiler ms; "
+              f"kernels per call " + "/".join(
+                  f"{r['kernels_per_call']:g}" for r in staged) + "): " +
+              ", ".join(f"{s} {ms:.3f}" for s, ms in stages.items()),
+              flush=True)
     return rows
 
 
@@ -2537,10 +2631,17 @@ def glow_stack_path(K, gen, failures):
     return stats
 
 
+class _PartialRun(Exception):
+    """Ends a ``--only`` run after its kernel's checks."""
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=str, default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--only", choices=("k5",), default=None,
+                    help="build, then check and time only this kernel "
+                    "(no main path, no result line; exit 0 if it passed)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2565,7 +2666,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
-        _build.build_all()
+        if args.only:
+            _build.build([_build.CSRC_DIR / "glow_coupling.cu"])
+        else:
+            _build.build_all()
         report["build_s"] = time.perf_counter() - t0
         report["ptxas"] = {}
         for src, log in _build.BUILD_LOGS.items():
@@ -2579,6 +2683,10 @@ def main(argv=None) -> int:
                 report["ptxas"].setdefault(src, []).append(line)
                 print(f"[build] {src}: {line}")
         print(f"[build] nvcc {report['build_s']:.1f} s", flush=True)
+        if args.only:
+            report["k5"] = check_k5(K, torch.Generator(device=dev)
+                                    .manual_seed(5), dev, failures)
+            raise _PartialRun
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(
             K, gen, dev, failures)
@@ -2654,6 +2762,8 @@ def main(argv=None) -> int:
         if idle:
             failures.append(f"kernels never launched on their main path: "
                             f"{idle}")
+    except _PartialRun:
+        pass
     except Exception:                      # noqa: BLE001 - report and fail
         traceback.print_exc()
         failures.append("exception (traceback above)")
@@ -2667,6 +2777,8 @@ def main(argv=None) -> int:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
     print(f"[done] {report['total_s']:.1f} s", flush=True)
+    if args.only:
+        return 0
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "shapes"}
                                   for e in report["kernels"]]}))

@@ -155,3 +155,39 @@ def test_plain_functions_match_jax_kernel_pieces(dtype):
     for name, got in (("dya", dya), ("dw1", dw1), ("db1", db1),
                       ("dw2", dw2)):
         close(got, want[name], name)
+
+
+# (b, h, w, cout, f): ragged sizes whose corner pixels take five value-1
+# border taps and edge pixels three (one row or column takes six)
+NPACK_SHAPES = [(2, 7, 5, 5, 40), (1, 3, 4, 6, 16), (2, 1, 6, 3, 24)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,cout,f", NPACK_SHAPES)
+def test_zeroconv_npack_matches_jax(b, h, w, cout, f, dtype):
+    """The plain ZeroConv (``_coupling_convz``, the N-pack form K5 runs: r =
+    h2 @ Wzr on the interior, ones @ Wzr for the value-1 border, shifted
+    slice-adds) against JAX's ``_zeroconv_fwd`` / ``_shift_sum`` and against
+    the direct conv of h2 padded with the value 1, at 1e-5 of max |.| (sums
+    of the same exact products in other orders)."""
+    rng = np.random.default_rng(b * 100 + h * 10 + w)
+    jcd, cd = jnp.dtype(dtype), getattr(torch, dtype)
+    h2 = np.maximum(rng.standard_normal((b * h * w, f)), 0.0)
+    wz = rng.standard_normal((3, 3, f, cout)) * 0.1
+    bz = rng.standard_normal(cout) * 0.1
+    h2j = jnp.asarray(h2, jnp.float32).astype(jcd)
+    wzr = jnp.asarray(wz, jnp.float32).transpose(2, 0, 1, 3).reshape(
+        f, -1).astype(jcd)
+    want, _ = JGC._zeroconv_fwd(h2j, wzr, jnp.asarray(bz, jnp.float32), b,
+                                (h, w), KHW, PAD, cout, jcd)
+    h2t = torch.from_numpy(h2).float().to(cd)
+    wzt = torch.from_numpy(wz).float().reshape(9 * f, cout).to(cd)
+    bzt = torch.from_numpy(bz).float()
+    got = K._coupling_convz(h2t, wzt, bzt, (b, h, w), KHW, PAD)
+    direct = K._mm(K._im2col(K._pad_hw(h2t.reshape(b, h, w, f), 1, 1, 1.0),
+                             h, w, 3, 3), wzt) + bzt
+    want = np.asarray(want, np.float32)
+    tol = 1e-5 * np.abs(want).max()
+    assert got.shape == (b * h * w, cout) and got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= tol
+    assert np.abs(direct.numpy() - want).max() <= tol

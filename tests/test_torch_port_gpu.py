@@ -347,9 +347,13 @@ def test_vaegan_step_fused_matches_stock_on_the_card(cuda):
 # K5 at the reference Glow's four coupling shapes (B=16, f=512; ya has half
 # the squeezed channels) and two ragged ones (odd sizes, channels no tile
 # divides)
+# the four block shapes, then sizes no tile divides: pixel counts no
+# multiple of 64 or 128, f = 40 and 72, odd and even channel counts; the
+# last two are large enough for the 128-row tiles (wgmma for conv2, dh1)
 K5_SHAPES = [(16, 32, 32, 6, 512), (16, 16, 16, 12, 512),
              (16, 8, 8, 24, 512), (16, 4, 4, 48, 512),
-             (3, 7, 5, 5, 40), (2, 9, 13, 11, 72)]
+             (3, 7, 5, 5, 40), (2, 9, 13, 11, 72), (3, 5, 9, 6, 40),
+             (1, 129, 127, 6, 72), (1, 127, 129, 5, 40)]
 
 
 def k5_inputs(cuda, b, h, w, cin, f, dtype, seed):
@@ -421,6 +425,10 @@ def test_k5_is_deterministic_and_refuses_what_it_cannot_take(cuda):
             p["wzf"], v["bz"], v["scale"], v["g"], (3, 3), (1, 1))
     a, b = K.glow_coupling_bwd1(*args), K.glow_coupling_bwd1(*args)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # backward 2 too: its split and column sums run in a fixed order
+    args2 = (p["ya"], p["w1t"], p["w2t"], a[0], a[1], (3, 3), (1, 1))
+    a2, b2 = K.glow_coupling_bwd2(*args2), K.glow_coupling_bwd2(*args2)
+    assert all(torch.equal(x, y) for x, y in zip(a2, b2))
     with pytest.raises(ValueError, match="same"):
         K.glow_coupling_fwd(*args[:6], v["bz"], v["scale"], (3, 3), (0, 0))
     with pytest.raises(ValueError, match="w2"):
@@ -435,6 +443,11 @@ def test_k5_is_deterministic_and_refuses_what_it_cannot_take(cuda):
         K.glow_coupling_fwd(p["ya"].cpu(), p["w1f"], v["b1"], p["w2"],
                             v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
                             (1, 1))
+    # the bf16 tiles read f-wide operands in 16-byte runs
+    q, u = k5_inputs(cuda, 2, 4, 4, 6, 60, torch.bfloat16, 11)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.glow_coupling_fwd(q["ya"], q["w1f"], u["b1"], q["w2"], u["b2"],
+                            q["wz"], u["bz"], u["scale"], (3, 3), (1, 1))
 
 
 def test_glow_step_fused_matches_kernel_free_reference(cuda):

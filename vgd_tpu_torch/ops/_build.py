@@ -146,9 +146,9 @@ def conv_bn_stats_lib() -> ctypes.CDLL:
 def glow_coupling_lib() -> ctypes.CDLL:
     """The Glow coupling-network library (K5: forward, backward 1 and 2)."""
     lib = _load("glow_coupling", {
-        "vgd_glow_coupling_fwd": [_P] * 12 + [_I] * 11 + [_P],
+        "vgd_glow_coupling_fwd": [_P] * 13 + [_I] * 11 + [_P],
         "vgd_glow_coupling_bwd1": [_P] * 20 + [_I] * 11 + [_P],
-        "vgd_glow_coupling_bwd2": [_P] * 11 + [_I] * 11 + [_P]})
+        "vgd_glow_coupling_bwd2": [_P] * 12 + [_I] * 11 + [_P]})
     lib.vgd_glow_coupling_part_floats.argtypes = [_I] * 10
     lib.vgd_glow_coupling_part_floats.restype = ctypes.c_longlong
     return lib

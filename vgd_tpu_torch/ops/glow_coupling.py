@@ -59,7 +59,7 @@ class _GlowCoupling(torch.autograd.Function):
         p = prep(ya, w1, w2, wz, cd)
         out = K.glow_coupling_fwd(p["ya"], p["w1f"], b1.float(), p["w2"],
                                   b2.float(), p["wz"], bz.float(),
-                                  scale.float(), khw, pad)
+                                  scale.float(), khw, pad, wzf=p["wzf"])
         ctx.save_for_backward(ya, w1, b1, w2, b2, wz, bz, scale)
         ctx.conf = (khw, pad, cd)
         return out
@@ -74,7 +74,7 @@ class _GlowCoupling(torch.autograd.Function):
             p["wzf"], bz.float(), scale.float(), _operand(g, torch.float32),
             khw, pad)
         dya, dw1, db1, dw2 = K.glow_coupling_bwd2(
-            p["ya"], p["w1t"], p["w2t"], h1, dh2, khw, pad)
+            p["ya"], p["w1t"], p["w2t"], h1, dh2, khw, pad, w1f=p["w1f"])
         kh, kw, f, cout = wz.shape
         dwz = dwz.reshape(f, kh, kw, cout).permute(1, 2, 0, 3)
         return (dya.to(ya.dtype), dw1.reshape(w1.shape).to(w1.dtype),

@@ -509,10 +509,23 @@ def _coupling_hidden(ya, w1f, b1, w2, b2, khw, pad):
 
 
 def _coupling_convz(h2, wz, bz, shape, khw, pad):
-    """convz (B*H*W, cout) = conv of h2 padded with the value 1, + bz."""
+    """convz (B*H*W, cout) = conv of h2 padded with the value 1, + bz, in the
+    shared-LHS N-pack form of the TPU kernel (``_zeroconv_fwd``) and of K5:
+    r = h2 @ Wzr with Wzr[k, (tap, c)] = Wz[tap, k, c] on the interior; a
+    border pixel's row of r is ones @ Wzr (the value 1 on every channel);
+    then each tap's shifted slice of r, added in tap order."""
     b, h, w = shape
-    h2p = _pad_hw(h2.reshape(b, h, w, -1), pad[0], pad[1], 1.0)
-    return _mm(_im2col(h2p, h, w, *khw), wz) + bz
+    (kh, kw), (ph, pw) = khw, pad
+    taps, f, cout = kh * kw, h2.shape[-1], wz.shape[-1]
+    wzr = wz.reshape(taps, f, cout).permute(1, 0, 2).reshape(f, taps * cout)
+    edge = _mm(torch.ones((1, f), dtype=wzr.dtype, device=wzr.device), wzr)
+    rp = edge.reshape(1, 1, 1, -1).repeat(b, h + 2 * ph, w + 2 * pw, 1)
+    rp[:, ph:ph + h, pw:pw + w] = _mm(h2.reshape(-1, f), wzr).reshape(
+        b, h, w, -1)
+    convz = sum(rp[:, dy:dy + h, dx:dx + w,
+                   (kw * dy + dx) * cout:(kw * dy + dx + 1) * cout]
+                for dy in range(kh) for dx in range(kw))
+    return convz.reshape(-1, cout) + bz
 
 
 def glow_coupling_fwd_plain(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad
@@ -589,6 +602,10 @@ def _k5_geometry(what, ya, f, cout, khw, pad, named):
              f"{what}: kernel {khw} with padding {pad} is not a 'same' conv")
     _require(ya.dtype in (torch.bfloat16, torch.float32),
              f"{what}: ya must be bfloat16 or float32, got {ya.dtype}")
+    # the bf16 tiles read every f-wide operand in 16-byte runs
+    _require(ya.dtype == torch.float32 or f % 8 == 0,
+             f"{what}: in bfloat16 the width f must be a multiple of 8, got "
+             f"{f}")
     for name, t, shape, dtype in named:
         _require(tuple(t.shape) == shape,
                  f"{what}: {name} has shape {tuple(t.shape)}, want {shape}")
@@ -608,11 +625,21 @@ def _k5_part(lib, dims, dev) -> torch.Tensor:
     return torch.empty((n,), dtype=torch.float32, device=dev)
 
 
-def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad
-                      ) -> torch.Tensor:
+def _repack(t: torch.Tensor, taps: int, rows: int, cols: int
+            ) -> torch.Tensor:
+    """(taps * rows, cols) -> (taps * cols, rows), each tap's block
+    transposed: wz -> wzf, w1t -> w1f."""
+    return t.reshape(taps, rows, cols).transpose(1, 2).reshape(
+        taps * cols, rows).contiguous()
+
+
+def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad,
+                      wzf=None) -> torch.Tensor:
     """K5 forward: NN(ya) (B, H, W, cout) f32. On CUDA every operand is
     contiguous, the weights in ya's dtype (bf16 or f32), in the packed
-    layouts above; ragged sizes are masked in the kernel."""
+    layouts above; ragged sizes are masked in the kernel. ``wzf``, the
+    ZeroConv weight in the wzf packing, is what the bf16 kernel reads (made
+    from wz where not given)."""
     if _on_cpu(ya, w1f, b1, w2, b2, wz, bz, scale):
         return glow_coupling_fwd_plain(ya, w1f, b1, w2, b2, wz, bz, scale,
                                        khw, pad)
@@ -620,11 +647,13 @@ def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad
     taps = khw[0] * khw[1]
     f, cout = w2.shape[0], bz.shape[0]
     cin = ya.shape[-1]
+    if wzf is None:
+        wzf = _repack(wz, taps, f, cout)
     dims = _k5_geometry("glow_coupling_fwd", ya, f, cout, khw, pad, [
         ("ya", ya, tuple(ya.shape), cd), ("w1f", w1f, (taps * cin, f), cd),
         ("b1", b1, (f,), f32), ("w2", w2, (f, f), cd), ("b2", b2, (f,), f32),
-        ("wz", wz, (taps * f, cout), cd), ("bz", bz, (cout,), f32),
-        ("scale", scale, (cout,), f32)])
+        ("wz", wz, (taps * f, cout), cd), ("wzf", wzf, (taps * cout, f), cd),
+        ("bz", bz, (cout,), f32), ("scale", scale, (cout,), f32)])
     b, h, w = dims[:3]
     dev = ya.device
     out = torch.empty((b, h, w, cout), dtype=f32, device=dev)
@@ -634,8 +663,8 @@ def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad
     part = _k5_part(lib, dims, dev)
     with torch.cuda.device(dev):
         err = lib.vgd_glow_coupling_fwd(
-            *(t.data_ptr() for t in (ya, w1f, b1, w2, b2, wz, bz, scale, out,
-                                     h1, h2, part)),
+            *(t.data_ptr() for t in (ya, w1f, b1, w2, b2, wz, wzf, bz, scale,
+                                     out, h1, h2, part)),
             *dims, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "glow_coupling_fwd")
     LAUNCHES["glow_coupling_fwd"] += 1
@@ -666,7 +695,9 @@ def glow_coupling_bwd1(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, g, khw, pad):
                    for _ in range(2))
     db2 = torch.empty((f,), dtype=f32, device=dev)
     convz = torch.empty((b * h * w, cout), dtype=f32, device=dev)
-    gs = torch.empty((b * h * w, cout), dtype=cd, device=dev)
+    # bf16: gs rows padded to a multiple of 8 channels (16-byte runs)
+    gc = cout if cd == f32 else (cout + 7) // 8 * 8
+    gs = torch.empty((b * h * w, gc), dtype=cd, device=dev)
     lib = _build.glow_coupling_lib()
     part = _k5_part(lib, dims, dev)
     with torch.cuda.device(dev):
@@ -680,18 +711,23 @@ def glow_coupling_bwd1(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, g, khw, pad):
     return h1, dh2, dwz, dbz, db2, dscale
 
 
-def glow_coupling_bwd2(ya, w1t, w2t, h1, dh2, khw, pad):
+def glow_coupling_bwd2(ya, w1t, w2t, h1, dh2, khw, pad, w1f=None):
     """K5 backward 2: (dya (B, H, W, cin), dw1 (kh*kw*cin, f), db1 (f,),
-    dw2 (f, f)) f32, from backward 1's h1 and dh2."""
+    dw2 (f, f)) f32, from backward 1's h1 and dh2. ``w1f``, the conv1 weight
+    in the w1f packing, is what the bf16 kernel reads (made from w1t where
+    not given)."""
     if _on_cpu(ya, w1t, w2t, h1, dh2):
         return glow_coupling_bwd2_plain(ya, w1t, w2t, h1, dh2, khw, pad)
     cd, f32 = ya.dtype, torch.float32
     taps = khw[0] * khw[1]
     b, h, w, cin = ya.shape
     f = w2t.shape[0]
+    if w1f is None:
+        w1f = _repack(w1t, taps, f, cin)
     # backward 2 never reads the ZeroConv's width: cout 1 stands for it
     dims = _k5_geometry("glow_coupling_bwd2", ya, f, 1, khw, pad, [
-        ("ya", ya, tuple(ya.shape), cd), ("w1t", w1t, (taps * f, cin), cd),
+        ("ya", ya, tuple(ya.shape), cd), ("w1f", w1f, (taps * cin, f), cd),
+        ("w1t", w1t, (taps * f, cin), cd),
         ("w2t", w2t, (f, f), cd), ("h1", h1, (b, h, w, f), cd),
         ("dh2", dh2, (b, h, w, f), cd)])
     dev = ya.device
@@ -704,8 +740,8 @@ def glow_coupling_bwd2(ya, w1t, w2t, h1, dh2, khw, pad):
     part = _k5_part(lib, dims, dev)
     with torch.cuda.device(dev):
         err = lib.vgd_glow_coupling_bwd2(
-            *(t.data_ptr() for t in (ya, w1t, w2t, h1, dh2, dya, dw1, db1,
-                                     dw2, dh1, part)),
+            *(t.data_ptr() for t in (ya, w1f, w1t, w2t, h1, dh2, dya, dw1,
+                                     db1, dw2, dh1, part)),
             *dims, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "glow_coupling_bwd2")
     LAUNCHES["glow_coupling_bwd2"] += 1
