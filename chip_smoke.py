@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--only k1|attn|k5]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once; Triton compiles at its
@@ -16,14 +16,16 @@ Run from the root of a checkout on a machine with one CUDA card:
    graph cannot capture a function, its kernels' profiler time), median
    and p90 of TIMING_REPEATS, the functions in turns; the old call time
    (host work between launches included) is printed beside it. K2
-   (training attention: forward with logsumexp, dq, dk/dv; dq, dk and dv
-   bit-equal over two calls; K2 and the plain full-matrix attention under
-   autograd at each site, which decides the size gate), K3 (serving
-   attention),
-   K4 (GroupNorm+SiLU) at the 256x256, batch-16 DDPM UNet's shapes; K1
-   (Conv4x4 stride 2 + batch statistics) at the 256x256, batch-64 VAE-GAN's
-   nine shapes in bf16, one f32 shape and two ragged ones; K5 (step 7); K6
-   (step 8);
+   (training attention: forward with logsumexp, dq, dk/dv; all bit-equal
+   over two calls; K2 and the plain full-matrix attention under autograd at
+   each site, which decides the size gate), K3 (serving attention, bit-equal
+   over two calls), K4 (GroupNorm+SiLU) at the 256x256, batch-16 DDPM UNet's
+   shapes; K1 (Conv4x4 stride 2 + batch statistics) at the 256x256,
+   batch-64 VAE-GAN's nine shapes in bf16 (each with its plan, bit-equal
+   over two calls, its kernels' times by stage and other plans timed
+   beside it; then the decision at the odd 127x127 enc1, which the
+   reference's gate sends to XLA), one f32 shape and two ragged ones; K5
+   (step 7); K6 (step 8); ``--only`` runs one kernel's checks alone;
 3. DDPM: holds the fused UNet forward and one training-form train step
    (loss and every gradient) against the same weights run with no kernel at
    all (``kernels.plain_reference``), and profiles both by kernel group;
@@ -308,14 +310,19 @@ def check_attention(K, gen, dev, failures):
         v = torch.randn(b, m, d, device=dev, generator=gen)
         scale = 1.0 / math.sqrt(d)
         out = K.flash_attention(q, k, v, scale)
+        same = torch.equal(out, K.flash_attention(q, k, v, scale))
         torch.cuda.synchronize()
         ref = K.attention_plain(q, k, v, scale)
         err = float((out - ref).abs().max())
         row = {"shape": [b, n, m, d], "site": name, "max_abs_err": err,
-               "max_rel_err": err / float(ref.abs().max()), "tol": ATTN_ATOL}
+               "max_rel_err": err / float(ref.abs().max()), "tol": ATTN_ATOL,
+               "bit_equal_over_two_calls": same}
         if not err <= ATTN_ATOL:
             failures.append(f"flash_attention {name} {row['shape']}: "
                             f"max abs err {err} > {ATTN_ATOL}")
+        if not same:
+            failures.append(f"flash_attention {name} {row['shape']}: not "
+                            f"bit-equal over two calls")
         if name != "ragged":
             flops = 4.0 * b * n * m * d
             nbytes = 4.0 * (2 * b * n * d + 2 * b * m * d)
@@ -329,7 +336,17 @@ def check_attention(K, gen, dev, failures):
         rows.append(row)
         print(f"[kernel] flash_attention {name} {row['shape']} "
               f"abs_err={err:.3g} rel_err={row['max_rel_err']:.3g} "
-              f"tol={ATTN_ATOL} " + row_times(row), flush=True)
+              f"tol={ATTN_ATOL} bit-equal over two calls {same} "
+              + row_times(row), flush=True)
+    timed = [r for r in rows if "ms" in r]
+    print(f"[kernel] K3 per serving forward ({len(timed)} launches): kernel "
+          f"{sum(r['ms'] for r in timed):.4f} ms (p90 "
+          f"{sum(r['ms_p90'] for r in timed):.4f}) vs SDPA "
+          f"{sum(r['library_ms'] for r in timed):.4f} ms (p90 "
+          f"{sum(r['library_ms_p90'] for r in timed):.4f}), plain "
+          f"{sum(r['plain_ms'] for r in timed):.4f}, bound 3xTF32 "
+          f"{sum(max(r['flop_ms'], r['byte_ms']) for r in timed):.4f}",
+          flush=True)
     return rows
 
 
@@ -371,6 +388,9 @@ def check_k2(K, gen, dev, failures):
                        for s in (n, m, m, n))
         scale = 1.0 / math.sqrt(d)
         o, lse = K.attention_fwd_lse(q, k, v, scale)
+        o2, lse2 = K.attention_fwd_lse(q, k, v, scale)
+        same_fwd = {"o": torch.equal(o, o2), "lse": torch.equal(lse, lse2)}
+        del o2, lse2
         delta = (do * o).sum(-1)
         dq = K.attention_dq(q, k, v, do, lse, delta, scale)
         dk, dv = K.attention_dkv(q, k, v, do, lse, delta, scale)
@@ -382,6 +402,10 @@ def check_k2(K, gen, dev, failures):
         if not all(same.values()):
             failures.append(f"K2 {name} {[b, n, m, d]}: backward not "
                             f"bit-equal over two calls {same}")
+        if not all(same_fwd.values()):
+            failures.append(f"K2 {name} {[b, n, m, d]}: forward not "
+                            f"bit-equal over two calls {same_fwd}")
+        same.update(same_fwd)
         del dq2, dk2, dv2
         ro, rlse = K.attention_fwd_lse_plain(q, k, v, scale)
         rdelta = (do * ro).sum(-1)
@@ -536,6 +560,11 @@ def check_k2(K, gen, dev, failures):
     if not pair < sdpa_bwd_ms:
         print(f"[kernel] K2 finding: dq + dk/dv ({pair:.4f} ms) is not below "
               f"SDPA's f32 backward ({sdpa_bwd_ms:.4f} ms)", flush=True)
+    fwd = timed["attention_fwd"]
+    print(f"[kernel] K2 fwd per train step ({len(fwd)} launches): "
+          f"{sum(r['ms'] for r in fwd):.4f} ms (p90 "
+          f"{sum(r['ms_p90'] for r in fwd):.4f}) vs SDPA forward "
+          f"{sum(r['library_ms'] for r in fwd):.4f} ms", flush=True)
     return rows, backend, gate
 
 
@@ -576,11 +605,45 @@ def check_groupnorm(K, gen, dev, failures):
     return rows
 
 
+def k1_alternatives(K, site, plan, sm_count):
+    """Other plans timed beside K1's own at a main-path shape (label ->
+    plan): enc0's 3 channels gathered element by element instead of padded
+    to 4; where K <= 32 the 128 x 64 wgmma tile (half its columns idle)
+    instead of 128 x 32 on mma.sync; where K > 64 the 128 x 64 tile, and
+    the chosen tile with no split (or, unsplit, 2 splits)."""
+    b, h, w, cin, k, pad = next(
+        (b_, h_, w_, c_, k_, p_) for n_, b_, h_, w_, c_, k_, p_, _ in K1_SHAPES
+        if n_ == site)
+
+    def other(**kw):
+        return K.conv_stats_plan(b, h, w, cin, k, pad, sm_count=sm_count,
+                                 **kw)
+    alts = {}
+    if site == "enc0":
+        alts["element gather (Cin 3)"] = plan._replace(cin=3, run=1)
+    if k <= 32:
+        alts["tile 2"] = other(tile=2)
+    elif k > 64:
+        alts["tile 2"] = other(tile=2)
+        n = 1 if plan.splits > 1 else 2
+        alts[f"splits {n}"] = other(tile=plan.tile, splits=n)
+    return alts
+
+
+def plan_text(plan):
+    return (f"tile {plan.bm}x{plan.bn}"
+            f"{' wgmma' if plan.tile > 1 else ''} splits {plan.splits} x "
+            f"{plan.k_split} deep, cin {plan.cin} gather {plan.run}")
+
+
 def check_k1(K, gen, dev, failures):
     """K1 against its plain version at the nine main-path shapes (bf16) and
-    at K1_EXTRA: c, mean, var, and y = bn_lrelu of each; the main-path
-    shapes timed as kernel, plain version and the library yardstick (cuDNN
-    conv2d in bf16 on channels_last input, then torch.var_mean)."""
+    at K1_EXTRA: c, mean, var, and y = bn_lrelu of each; c, mean and var
+    bit-equal over two calls; the main-path shapes timed as kernel, plain
+    version and the library yardstick (cuDNN conv2d in bf16 on
+    channels_last input, then torch.var_mean), with other plans beside
+    (``k1_alternatives``); then the decision at the odd 127x127 enc1, where
+    the reference sends its even-size gate's odd input to XLA."""
     import torch
     import torch.nn.functional as F
     from vgd_tpu_torch.ops.fused_conv import bn_lrelu
@@ -595,8 +658,15 @@ def check_k1(K, gen, dev, failures):
               * (2.0 / (16 * cin)) ** 0.5).to(dtype)
         gamma = 1.0 + 0.02 * torch.randn(k, device=dev, generator=gen)
         beta = 0.02 * torch.randn(k, device=dev, generator=gen)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = K.conv_stats_plan(b, h, w, cin, k, pad,
+                                 bf16=dtype == torch.bfloat16, sm_count=sms)
         c, mean, var = K.conv_stats(x, wt, pad)
+        c2, mean2, var2 = K.conv_stats(x, wt, pad)
         torch.cuda.synchronize()
+        same = torch.equal(c, c2) and torch.equal(mean, mean2) and \
+            torch.equal(var, var2)
+        del c2, mean2, var2
         rc, rm, rv = K.conv_stats_plain(x, wt, pad)
         slope = 0.2 if pad else 0.01
         y = bn_lrelu(c, gamma, beta, mean, var, slope, 1e-5)
@@ -614,14 +684,20 @@ def check_k1(K, gen, dev, failures):
         shape = [b, h, w, cin, k, pad]
         if not ok:
             failures.append(f"K1 {site} {shape} {dt[0]}: errors {errs}")
+        if not same:
+            failures.append(f"K1 {site} {shape} {dt[0]}: not bit-equal over "
+                            f"two calls")
         row = {"shape": shape, "site": site, "dtype": dt[0],
+               "plan": plan._asdict(), "bit_equal_over_two_calls": same,
                "max_abs_err": max(errs.values()),
                "max_rel_err": errs["c"] / float(rc.abs().max()),
                "errors": errs, "tol": f"c {K1_C_REL} x max|c|, mean/var "
                f"rtol {K1_STAT_RTOL} atol {K1_STAT_ATOL}, y {K1_Y_REL} x "
                f"max|y| + {K1_Y_ATOL}"}
+        del c, mean, var, y, ry
+        alt_text = ""
         if calls:
-            ho, wo = c.shape[1], c.shape[2]
+            ho, wo = (h + 2 * pad - 4) // 2 + 1, (w + 2 * pad - 4) // 2 + 1
             m = b * ho * wo
             flops = 2.0 * m * k * 16 * cin
             nbytes = 2.0 * (b * h * w * cin + 16 * cin * k) + 4.0 * m * k \
@@ -631,14 +707,43 @@ def check_k1(K, gen, dev, failures):
             def library():
                 o = F.conv2d(xc, wt, stride=2, padding=pad)
                 return torch.var_mean(o, dim=(0, 2, 3), correction=0)
+            alts = k1_alternatives(K, site, plan, sms)
+            # each other plan computes the same function (to the same bound)
+            for a, p_ in alts.items():
+                ac, am, av = K.conv_stats(x, wt, pad, p_)
+                err = float((ac - rc).abs().max())
+                if not (err <= K1_C_REL * float(rc.abs().max())
+                        and torch.allclose(am, rm, K1_STAT_RTOL, K1_STAT_ATOL)
+                        and torch.allclose(av, rv, K1_STAT_RTOL,
+                                           K1_STAT_ATOL)):
+                    failures.append(f"K1 {site} other plan {a}: c err {err}")
+                del ac, am, av
+            stages, launches = profile_stages(
+                lambda: K.conv_stats(x, wt, pad), k1_stage)
+            row.update(stages=stages, stage_launches=launches)
             time_row(row, lambda: K.conv_stats(x, wt, pad),
-                     lambda: K.conv_stats_plain(x, wt, pad), library)
+                     lambda: K.conv_stats_plain(x, wt, pad), library,
+                     **{f"alt {a}": (lambda p_=p_: K.conv_stats(x, wt, pad,
+                                                                p_))
+                        for a, p_ in alts.items()})
             row.update(flop_ms=flops / BF16_FLOPS * 1e3,
-                       byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=calls)
+                       byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=calls,
+                       alternatives={a: plan_text(p_)
+                                     for a, p_ in alts.items()})
+            alt_text = "; profiler ms by stage (" + f"{launches} kernels): " \
+                + ", ".join(f"{st} {ms:.4f}" for st, ms in stages.items())
+            alt_text += "".join(
+                f"; other plan {a} ({plan_text(p_)}) {row['alt ' + a]:.4f}"
+                for a, p_ in alts.items())
+        del rc, rm, rv
         rows.append(row)
-        print(f"[kernel] K1 {site} {shape} {dt[0]} " + " ".join(
-            f"{n}_err={e:.3g}" for n, e in errs.items()) + " " +
-            row_times(row) + ("" if ok else " FAIL"), flush=True)
+        print(f"[kernel] K1 {site} {shape} {dt[0]} plan: {plan_text(plan)}; "
+              + " ".join(f"{n}_err={e:.3g}" for n, e in errs.items())
+              + f" bit-equal over two calls {same} " + row_times(row)
+              + (f" library_p90={row['library_ms_p90']:.4f}"
+                 if calls else "") + alt_text
+              + ("" if ok else " FAIL"), flush=True)
+        del x, wt
     timed = [r for r in rows if "ms" in r]
     print(f"[kernel] K1 per train step ({K1_PER_STEP} launches): kernel "
           f"{sum(r['ms'] * r['calls'] for r in timed):.3f} ms (p90 "
@@ -650,6 +755,19 @@ def check_k1(K, gen, dev, failures):
           f"{sum(max(r['flop_ms'], r['byte_ms']) * r['calls'] for r in timed):.3f}"
           f" ms (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+    # the reference's gate sends enc1's odd 127x127 input to XLA
+    # (vgd_tpu/ops/fused_conv.py:309-313); the port runs K1 there unless K1
+    # loses to the stock path beyond both p90s
+    enc1 = next(r for r in rows if r["site"] == "enc1")
+    slower = enc1["ms"] > enc1["library_ms_p90"] and \
+        enc1["ms_p90"] > enc1["library_ms"]
+    print(f"[kernel] K1 at enc1 (64x127x127x32 -> 64, padding 0): K1 "
+          f"{enc1['ms']:.4f} ms (p90 {enc1['ms_p90']:.4f}) vs stock (cuDNN "
+          f"conv + var_mean) {enc1['library_ms']:.4f} ms (p90 "
+          f"{enc1['library_ms_p90']:.4f}): K1 is "
+          f"{'slower' if slower else 'no slower'}; the port runs K1 there"
+          + (" (the decision no longer matches this measurement)"
+             if slower else ""), flush=True)
     return rows
 
 
@@ -1151,7 +1269,7 @@ VAEGAN_FLOOR_X = 3.0
 # perturbation seeds of the bf16 noise floor: the first one's floor sets the
 # held bound, all three are measured to show the floor's spread
 FLOOR_SEEDS = (123, 124, 125)
-VAEGAN_GROUPS = [("K1 conv + batch statistics", ("conv_stats_kernel",
+VAEGAN_GROUPS = [("K1 conv + batch statistics", ("conv_stats_",
                                                   "combine_stats")),
                  ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
                  ("reductions (BN statistics and backward, bias grads)",
@@ -1691,13 +1809,16 @@ def k5_stage(name):
     return hits[0] if hits else None
 
 
-def k5_stages(fn, calls=5):
-    """(device ms per call of each K5 stage of ``fn``, kernels per call):
+def profile_stages(fn, stage_of, after=(), calls=5):
+    """(device ms per call of each stage of ``fn``, kernels per call):
     torch.profiler's kernel times of one call, in launch order, over
-    ``calls`` calls. Each call is profiled alone after a marker kernel (a
-    fill; the trace can lose the first kernels of a session), and only the
-    kernels after the marker count; a call whose trace still lost kernels
-    (fewer than the most any call showed) is left out."""
+    ``calls`` calls; ``stage_of(name)`` names a kernel's stage (None: a
+    kernel in ``after`` joins the stage before it, any other is "other").
+    Each call is profiled alone after a marker kernel (a fill of int8, which
+    no kernel under test makes; the trace can lose the first kernels of a
+    session), and only the kernels after the marker count; a call whose
+    trace still lost kernels (fewer than the most any call showed) is left
+    out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1705,14 +1826,15 @@ def k5_stages(fn, calls=5):
     traces = []
     for _ in range(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.full((1,), 1.0, device="cuda")
+            torch.full((1,), 1, dtype=torch.int8, device="cuda")
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         kernels = sorted((e for e in prof.events()
                           if "CUDA" in str(e.device_type)),
                          key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(kernels) if "Fill" in e.name]
+        marks = [i for i, e in enumerate(kernels)
+                 if "Fill" in e.name and "signed char" in e.name]
         traces.append(kernels[marks[-1] + 1:] if marks else kernels)
     most = max(len(t) for t in traces)
     kept = [t for t in traces if len(t) == most]
@@ -1720,16 +1842,34 @@ def k5_stages(fn, calls=5):
     for kernels in kept:
         last = "other"
         for e in kernels:
-            stage = k5_stage(e.name)
+            stage = stage_of(e.name)
             if stage is not None:
                 last = stage
-            elif any(k in e.name for k in K5_AFTER_GEMM):
+            elif any(k in e.name for k in after):
                 stage = last
             else:
                 stage = "other"
             stages[stage] = (stages.get(stage, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / len(kept))
     return stages, most
+
+
+def k5_stages(fn, calls=5):
+    """K5's stages of ``fn`` (``profile_stages``), each kernel named by its
+    Op (``K5_STAGES``)."""
+    return profile_stages(fn, k5_stage, K5_AFTER_GEMM, calls)
+
+
+def k1_stage(name):
+    """K1's stage of a kernel name: its products (with their epilogue), the
+    split sum, the statistics combine, or the wrapper's layout copies (w's
+    layout, enc0's x padded to 4 channels), named by their kernel."""
+    for key, stage in (("conv_stats_mma", "products"),
+                       ("conv_stats_finish", "split sum"),
+                       ("combine_stats", "combine")):
+        if key in name:
+            return stage
+    return "copy " + name.split("<")[0].split("(")[0][-40:]
 
 
 def check_k5(K, gen, dev, failures):
@@ -2635,13 +2775,20 @@ class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
 
+# ``--only`` choices and the sources each builds
+ONLY = {"k1": ("conv_bn_stats.cu",),
+        "attn": ("flash_attention.cu", "flash_attention_bwd.cu"),
+        "k5": ("glow_coupling.cu",)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=str, default=None,
                     help="also write the full report as JSON here")
-    ap.add_argument("--only", choices=("k5",), default=None,
+    ap.add_argument("--only", choices=tuple(ONLY), default=None,
                     help="build, then check and time only this kernel "
-                    "(no main path, no result line; exit 0 if it passed)")
+                    "(k1; attn: K2 fwd, dq, dk/dv and K3; k5) with no main "
+                    "path and no result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2667,7 +2814,7 @@ def main(argv=None) -> int:
     try:
         t0 = time.perf_counter()
         if args.only:
-            _build.build([_build.CSRC_DIR / "glow_coupling.cu"])
+            _build.build([_build.CSRC_DIR / src for src in ONLY[args.only]])
         else:
             _build.build_all()
         report["build_s"] = time.perf_counter() - t0
@@ -2683,9 +2830,17 @@ def main(argv=None) -> int:
                 report["ptxas"].setdefault(src, []).append(line)
                 print(f"[build] {src}: {line}")
         print(f"[build] nvcc {report['build_s']:.1f} s", flush=True)
-        if args.only:
+        if args.only == "k5":
             report["k5"] = check_k5(K, torch.Generator(device=dev)
                                     .manual_seed(5), dev, failures)
+        elif args.only == "k1":
+            report["k1"] = check_k1(K, torch.Generator(device=dev)
+                                    .manual_seed(0), dev, failures)
+        elif args.only == "attn":
+            gen = torch.Generator(device=dev).manual_seed(0)
+            report["k2"] = check_k2(K, gen, dev, failures)
+            report["k3"] = check_attention(K, gen, dev, failures)
+        if args.only:
             raise _PartialRun
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(

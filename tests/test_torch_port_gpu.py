@@ -12,7 +12,8 @@ only the port need not have.)
 import pytest
 import torch
 
-from vgd_tpu_torch.ops import kernels as K
+import chip_smoke
+from vgd_tpu_torch.ops import _build, kernels as K
 
 pytestmark = pytest.mark.gpu
 
@@ -631,3 +632,65 @@ def test_glow_step_flow_stack_matches_kernel_free_reference(cuda):
     K.LAUNCHES.clear()
     tr.forward(x)
     assert dict(K.LAUNCHES) == {"glow_flow_stack_fwd_nosave": 2}
+
+
+K1_MAIN_AND_RAGGED = (
+    [tuple(s[1:7]) for s in chip_smoke.K1_SHAPES]
+    + [(2, 16, 16, 3, 32, 1), (2, 32, 32, 3, 32, 0), (3, 31, 29, 5, 7, 0),
+       (2, 9, 13, 12, 20, 1)])
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,pad", K1_MAIN_AND_RAGGED)
+def test_k1_plan_shapes_match_plain_and_are_bit_equal(cuda, b, h, w, cin, k,
+                                                      pad):
+    """K1 in bf16 at the VAE-GAN's nine shapes (256x256, B = 64: 128 x 32,
+    128 x 64, 128 x 128 and 64 x 64 tiles, split and unsplit reductions,
+    enc0's 3 channels padded to 4) and at ragged ones (Cin 3 at padding 1,
+    Cin 5 and 12 gathered element by element): chip_smoke's K1 tolerances
+    against the plain version, and c, mean and var bit-equal over two
+    calls (fixed-order sums, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(b, h, w, cin, device=cuda, generator=g).bfloat16()
+    wt = (torch.randn(k, cin, 4, 4, device=cuda, generator=g)
+          * (2.0 / (16 * cin)) ** 0.5).bfloat16()
+    c, mean, var = K.conv_stats(x, wt, pad)
+    again = K.conv_stats(x, wt, pad)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip((c, mean, var), again))
+    rc, rm, rv = K.conv_stats_plain(x, wt, pad)
+    # the plan's scratch is what the C entry point writes under that plan
+    plan = K.conv_stats_plan(b, h, w, cin, k, pad, sm_count=torch.cuda
+                             .get_device_properties(cuda).multi_processor_count)
+    assert _build.conv_bn_stats_lib().vgd_conv_stats_part_floats(
+        b, h, w, plan.cin, k, pad, plan.tile, plan.splits) == plan.part_floats
+    assert float((c - rc).abs().max()) <= \
+        chip_smoke.K1_C_REL * float(rc.abs().max())
+    for got, ref in ((mean, rm), (var, rv)):
+        torch.testing.assert_close(got, ref, rtol=chip_smoke.K1_STAT_RTOL,
+                                   atol=chip_smoke.K1_STAT_ATOL)
+
+
+@pytest.mark.parametrize("with_lse", [False, True], ids=["K3", "K2fwd"])
+@pytest.mark.parametrize("b,n,m,d", [
+    (16, 16384, 64, 256), (16, 4096, 64, 256), (16, 1024, 1024, 256),
+    (3, 1000, 70, 256), (2, 129, 33, 128)])
+def test_flash_forward_sites_match_plain_and_are_bit_equal(cuda, b, n, m, d,
+                                                           with_lse):
+    """The flash forward (3xTF32 tensor cores) at the UNet's three
+    attention sites and two ragged shapes, without lse (K3) and with it
+    (K2's forward): o and lse within chip_smoke's ATTN_ATOL of the plain
+    versions, and bit-equal over two calls."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(b, s, d, device=cuda, generator=g)
+               for s in (n, m, m))
+    scale = d ** -0.5
+    if with_lse:
+        got, again = (K.attention_fwd_lse(q, k, v, scale) for _ in range(2))
+        ref = K.attention_fwd_lse_plain(q, k, v, scale)
+    else:
+        got, again = ((K.flash_attention(q, k, v, scale),) for _ in range(2))
+        ref = (K.attention_plain(q, k, v, scale),)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2)
+        assert float((a - r).abs().max()) <= chip_smoke.ATTN_ATOL

@@ -296,3 +296,30 @@ def test_k2_backward_three_tf32_passes_meet_the_chip_tolerance(b, n, m):
             assert max(rel) <= K2_GRAD_REL, rel
         else:
             assert max(rel) > K2_GRAD_REL, rel
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 256, 64), (1, 300, 130),
+                                   (2, 129, 33), (2, 128, 1024)])
+def test_flash_forward_three_tf32_passes_meet_the_chip_tolerance(b, n, m):
+    """The flash forward (K2 fwd, K3) runs S = q k^T and P V as three TF32
+    tensor-core products each. Emulated on the CPU at D = 256, o and lse
+    come within chip_smoke's ATTN_ATOL of ``attention_fwd_lse_plain``, and
+    a single TF32 pass does not: the three passes are what the tolerance
+    needs."""
+    from chip_smoke import ATTN_ATOL
+    d = 256
+    rng = np.random.default_rng(b * n + m + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, d))
+                                .astype(np.float32)) for s in (n, m, m))
+    scale = d ** -0.5
+    ro, rlse = K.attention_fwd_lse_plain(q, k, v, scale)
+    for passes in (3, 1):
+        s_ = _tf32_mm(q, k.transpose(1, 2), passes) * scale
+        lse = torch.logsumexp(s_, dim=-1)
+        o = _tf32_mm(torch.exp(s_ - lse[..., None]), v, passes)
+        err = max(float((o - ro).abs().max()),
+                  float((lse - rlse).abs().max()))
+        if passes == 3:
+            assert err <= ATTN_ATOL, err
+        else:
+            assert err > ATTN_ATOL, err

@@ -1,4 +1,5 @@
-// Single-head flash attention forward, f32, for Hopper (sm_90a).
+// Single-head flash attention forward, f32, for Hopper (sm_90a), with the
+// products on the tensor cores in three TF32 passes.
 //
 // Replaces two TPU kernels of vgd_tpu/ops/pallas_kernels.py:
 // * _flash_kernel (called through flash_attention), which serves the DDPM
@@ -13,32 +14,44 @@
 // scale) v, never materialising the N x M matrix in device memory.
 //
 // What bounds it on the H100. The model casts q/k/v to f32 (unet.py:123,155)
-// and the reference semantics are f32, so the products run on the CUDA
-// cores: 4*B*N*M*D operations at the 67 TFLOP/s f32 peak. At 256x256,
-// B=16, D=256 that is 17.2 GFLOP for the 1024-token bottleneck, 17.2 for
-// cross_attn2 (N=16384, M=64) and 4.3 for cross_attn3 (N=4096, M=64):
-// about 0.58 ms per UNet forward. cross_attn2 also has to move q and o,
-// 537 MB, about 0.16 ms at 3.35 TB/s. So the kernel is bound by operations
-// and its design is about feeding the FMA units from shared memory:
+// and the reference semantics are f32, so every product runs as three TF32
+// tensor-core products (hi hi + hi lo + lo hi, f32 accumulate; the split is
+// in tf32_mma.cuh): 3 x 4 B N M D operations at 495 TFLOP/s. At 256x256,
+// B = 16, D = 256 that is 17.2 GFLOP each for the 1024-token bottleneck and
+// cross_attn2 (N = 16384, M = 64), 4.3 for cross_attn3 (N = 4096, M = 64):
+// 0.235 ms a UNet forward by operations. The cross-attentions also move q
+// and o, 537 MB at cross_attn2, 0.160 ms at 3.35 TB/s, so they sit near
+// their byte bound and the bottleneck near its operation bound.
 //
-// * One block per (batch, 64-row q tile), 8 warps; each warp owns 8 query
-//   rows. The q tile (64 KB at D=256) stays in shared memory for the whole
-//   KV loop; K and V tiles of 32 keys are loaded once per tile by all
-//   threads with 16-byte loads. At D=256 the block needs 128.5 KB of
-//   dynamic shared memory, above the 48 KB default, so the launch raises
-//   the limit with cudaFuncSetAttribute (the SM has 227 KB).
-// * A KV tile has 32 keys, one per lane, so each lane computes the logits
-//   of its key for the warp's 8 rows in registers (q values are warp-wide
-//   broadcasts; K rows are padded by 4 floats so the 16-byte reads of 8
-//   lanes hit 32 distinct banks). The online softmax (running max and sum,
-//   exp2 with log2(e) folded into the scale) then needs only warp
-//   shuffles, no shared-memory round trip.
-// * P V: each lane owns D/32 output columns of the warp's 8 rows (64 f32
-//   accumulators at D=256); p_ij is broadcast from lane j by a shuffle and
-//   V is read row by row, conflict-free.
-// * Ragged N and M are masked in the kernel: q rows past N load as zero and
-//   are not stored; keys past M get a logit of -inf and zero K/V rows. The
-//   first key of every tile is real, so the running max stays finite.
+// The design (8 warps, mma.sync m16n8k8 TF32, f32 accumulate), the K2
+// backward's dq loop with an online softmax in place of dP:
+// * One block per (batch, 64-row q tile). The q tile stays in shared memory
+//   for the block's life; K and V stream through in tiles of kKeys rows,
+//   double-buffered with cp.async so the next tile's load overlaps this
+//   tile's products. Rows are padded to D + 4 floats, so a warp's fragment
+//   loads hit 32 distinct banks. 211 KB of dynamic shared memory at D = 256
+//   (32-key tiles: half the barriers and exchanges a key of 16-key tiles,
+//   which took longer).
+// * The warps form 4 row groups (16 q rows each) x 2 halves of D. S = Q K^T
+//   (16 x kKeys per warp) is contracted over the warp's half of D with
+//   ldmatrix.x4 fragment loads, its hi hi products and its cross terms in
+//   separate sums, and the two halves' partial sums are exchanged through
+//   shared memory (a + b on both warps: both hold the same bits, so both run
+//   the same softmax).
+// * The online softmax runs in base 2 on the accumulator fragments: a lane
+//   holds rows g and g + 8 at keys 8j + 2t, 8j + 2t + 1, so a row's max is
+//   its lane's values and two shuffles over the row's 4 lanes. The running
+//   sum stays a per-lane partial (rescaled by the same alpha) until the end.
+// * O += P V: P never leaves registers; it is the A operand, its columns
+//   read in the m16n8k8 accumulator order (k index t <-> key 2t, t + 4 <->
+//   2t + 1) and V's rows in the same order. Each warp accumulates its half
+//   of D: 64 f32 accumulators at D = 256.
+// * At the end o = acc / sum is stored, and lse = (max + log2 sum) ln 2 where
+//   the caller asked for it. No atomics: the result is bit-equal run to run.
+// * Ragged N and M are masked: q rows past N and keys past M load as zero
+//   (cp.async zero-fill), keys past M get a logit of -inf, and nothing past
+//   N is stored. The first key of every tile is real, so the running max
+//   stays finite.
 //
 // Plain C interface for ctypes. The function launches on the given stream,
 // does not synchronise and allocates nothing; it returns the CUDA error of
@@ -46,148 +59,180 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;                       // query rows per block
-constexpr int kBK = 32;                       // keys per KV tile, one per lane
-constexpr int kWarps = 8;
-constexpr int kRows = kBQ / kWarps;           // query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKeys = 32;                     // keys per streamed K/V tile
+constexpr int kJ = kKeys / 8;                 // n8 score fragments per warp
+constexpr int kExchange = 4 * kJ;             // floats per lane: s
 
+// the resident q tile, two stages of K and V, the exchange
 template <int D>
-__host__ __device__ constexpr int k_stride() { return D + 4; }
+__host__ __device__ constexpr size_t smem_floats() {
+  return size_t(kResident) * row_stride<D>() + 4 * size_t(kKeys) * row_stride<D>() +
+         size_t(kWarps) * 32 * kExchange;
+}
 
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBQ) * D + size_t(kBK) * k_stride<D>() + size_t(kBK) * D);
+// s[j] = A B_j^T over the columns [c0, c0 + DH): A 16 rows, B kKeys rows of
+// shared tiles (row stride S), in the accumulator layout (lane (g, t): rows
+// g and g + 8, keys 8j + 2t and 8j + 2t + 1). Per 8 columns one ldmatrix.x4
+// loads the A fragment and one the B fragments of each pair of j.
+template <int S, int DH>
+__device__ __forceinline__ void scores(const float* a, const float* b, int c0, int lane,
+                                       float (&s)[kJ][4]) {
+  const int blk = lane / 8, r = lane % 8;
+  const int arow = (r + 8 * (blk & 1)) * S + c0 + 4 * (blk >> 1);
+  const int brow = (r + 8 * (blk >> 1)) * S + c0 + 4 * (blk & 1);
+  float big[kJ][4] = {}, small[kJ][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 8) {
+    uint32_t raw[4], xh[4], xl[4], bh[4], bl[4];
+    ldsm4(a + arow + kk, raw);
+    split4(raw, xh, xl);
+#pragma unroll
+    for (int jj = 0; jj < kJ / 2; ++jj) {
+      ldsm4(b + brow + 16 * jj * S + kk, raw);
+      split4(raw, bh, bl);
+      mma3_split(big[2 * jj], small[2 * jj], xh, xl, bh[0], bh[1], bl[0], bl[1]);
+      mma3_split(big[2 * jj + 1], small[2 * jj + 1], xh, xl, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = big[j][e] + small[j][e];
+}
+
+// s += the other half's partial s (a + b on both warps: the same bits)
+__device__ __forceinline__ void exchange(float* xch, int warp, int lane, int group,
+                                         float (&s)[kJ][4]) {
+  float* mine = xch + warp * kExchange * 32 + lane;
+  const float* other = xch + (warp ^ kGroups) * kExchange * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < kExchange; ++i) mine[i * 32] = s[i / 4][i % 4];
+  pair_barrier(group);
+#pragma unroll
+  for (int i = 0; i < kExchange; ++i) s[i / 4][i % 4] += other[i * 32];
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int n, int m, float scale_log2) {
-  constexpr int KS = k_stride<D>();
-  constexpr int D4 = D / 4;
-  constexpr int CPL = D / 32;                 // output columns per lane
+  constexpr int S = row_stride<D>();
+  constexpr int DH = D / 2;
+  constexpr int NT = DH / 8;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBQ * D;
-  float* vs = ks + kBK * KS;
+  float* kv = qs + kResident * S;             // [stage][K, V][kKeys][S]
+  float* xch = kv + 4 * kKeys * S;
 
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kResident;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const float* qb = q + size_t(b) * n * D;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int group = warp % kGroups, half = warp / kGroups;
+  const size_t qoff = size_t(b) * n;
   const float* kb = k + size_t(b) * m * D;
   const float* vb = v + size_t(b) * m * D;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int idx = tid; idx < kBQ * D4; idx += kThreads) {
-    const int r = idx / D4, c4 = idx % D4;
-    float4 val = zero4;
-    if (q0 + r < n) val = reinterpret_cast<const float4*>(qb + size_t(q0 + r) * D)[c4];
-    reinterpret_cast<float4*>(qs + r * D)[c4] = val;
-  }
+  load_rows<D, kResident>(qs, q + qoff * D, q0, n, tid);
+  load_rows<D, kKeys>(kv, kb, 0, m, tid);
+  load_rows<D, kKeys>(kv + kKeys * S, vb, 0, m, tid);
+  cp_async_commit();
 
-  float acc[kRows][CPL];
-  float row_max[kRows];
-  float row_sum[kRows];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    row_max[i] = -CUDART_INF_F;
-    row_sum[i] = 0.f;
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  // rows g and g + 8 of the group: running max (base 2) and this lane's
+  // share of the running sum
+  float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float row_sum[2] = {0.f, 0.f};
 
-  const int n_tiles = (m + kBK - 1) / kBK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                          // previous tile consumed
-    for (int idx = tid; idx < kBK * D4; idx += kThreads) {
-      const int r = idx / D4, c4 = idx % D4;
-      float4 kv = zero4, vv = zero4;
-      if (k0 + r < m) {
-        kv = reinterpret_cast<const float4*>(kb + size_t(k0 + r) * D)[c4];
-        vv = reinterpret_cast<const float4*>(vb + size_t(k0 + r) * D)[c4];
-      }
-      reinterpret_cast<float4*>(ks + r * KS)[c4] = kv;
-      reinterpret_cast<float4*>(vs + r * D)[c4] = vv;
+  const float* qw = qs + 16 * group * S;
+  const int n_tiles = (m + kKeys - 1) / kKeys;
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    if (tt + 1 < n_tiles) {
+      float* next = kv + ((tt + 1) & 1) * 2 * kKeys * S;
+      load_rows<D, kKeys>(next, kb, (tt + 1) * kKeys, m, tid);
+      load_rows<D, kKeys>(next + kKeys * S, vb, (tt + 1) * kKeys, m, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* ks = kv + (tt & 1) * 2 * kKeys * S;
+    const float* vs = ks + kKeys * S;
 
-    // logits of key (k0 + lane) for this warp's rows
-    float s[kRows];
+    float s[kJ][4];
+    scores<S, DH>(qw, ks, half * DH, lane, s);
+    exchange(xch, warp, lane, group, s);
+
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * KS);
-    const float4* qrow = reinterpret_cast<const float4*>(qs + warp * kRows * D);
-#pragma unroll 4
-    for (int d4 = 0; d4 < D4; ++d4) {
-      const float4 kk = krow[d4];
+    for (int j = 0; j < kJ; ++j) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 qq = qrow[i * D4 + d4];
-        s[i] = fmaf(qq.x, kk.x, s[i]);
-        s[i] = fmaf(qq.y, kk.y, s[i]);
-        s[i] = fmaf(qq.z, kk.z, s[i]);
-        s[i] = fmaf(qq.w, kk.w, s[i]);
+      for (int e = 0; e < 4; ++e) {
+        const int key = tt * kKeys + 8 * j + 2 * t + (e & 1);
+        s[j][e] = key < m ? s[j][e] * scale_log2 : -CUDART_INF_F;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
       }
     }
-
-    // online softmax over the tile, one row per step, lanes = keys
-    const bool valid = k0 + lane < m;
+    float alpha[2];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float x = valid ? s[i] * scale_log2 : -CUDART_INF_F;
-      float mx = x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(row_max[i], mx);
-      const float p = exp2f(x - m_new);
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(kFull, ps, off);
-      const float alpha = exp2f(row_max[i] - m_new);
-      row_sum[i] = row_sum[i] * alpha + ps;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(row_max[i], mx[i]);
+      alpha[i] = exp2f(row_max[i] - m_new);
       row_max[i] = m_new;
-      s[i] = p;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[i][c] *= alpha;
+      row_sum[i] *= alpha[i];
     }
-
-    // acc += P V (masked keys have p = 0 and zero V rows)
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vj[CPL];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) vj[c] = vs[j * D + lane + 32 * c];
+    for (int j = 0; j < kJ; ++j) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float pij = __shfl_sync(kFull, s[i], j);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(pij, vj[c], acc[i][c]);
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - row_max[e / 2]);
+        row_sum[e / 2] += s[j][e];
       }
     }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e / 2];
+#pragma unroll
+    for (int jj = 0; jj < kJ / 2; ++jj) {
+      const float(&p)[2][4] = *reinterpret_cast<const float(*)[2][4]>(&s[2 * jj]);
+      product<S, NT>(p, vs + 16 * jj * S, half * DH, g, t, acc);
+    }
+    __syncthreads();                          // stage and exchange consumed
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp * kRows + i;
+  for (int i = 0; i < 2; ++i) {
+    float l = row_sum[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = q0 + 16 * group + g + 8 * i;
     if (row < n) {
-      const float inv = 1.f / row_sum[i];
-      float* orow = o + (size_t(b) * n + row) * D;
+      const float inv = 1.f / l;
+      float* orow = o + (qoff + row) * D + half * DH + 2 * t;
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) orow[lane + 32 * c] = acc[i][c] * inv;
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(orow + 8 * nt) =
+            make_float2(acc[nt][2 * i] * inv, acc[nt][2 * i + 1] * inv);
       // natural-log logsumexp of the scaled logits: the running max and sum
-      // are in base 2 (exp2 with log2(e) folded into the scale)
-      if (lse != nullptr && lane == 0)
-        lse[size_t(b) * n + row] = (row_max[i] + log2f(row_sum[i])) * 0.6931471805599453f;
+      // are in base 2 (log2(e) folded into the scale)
+      if (lse != nullptr && half == 0 && t == 0)
+        lse[qoff + row] = (row_max[i] + log2f(l)) * 0.6931471805599453f;
     }
   }
 }
@@ -195,14 +240,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int b, int n, int m, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBQ - 1) / kBQ, b);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, n, m, scale * 1.4426950408889634f);
+  const dim3 grid((n + kResident - 1) / kResident, b);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, n, m,
+                                                        scale * kLog2e);
   return cudaGetLastError();
 }
 

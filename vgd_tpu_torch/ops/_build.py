@@ -136,9 +136,9 @@ def flash_attention_bwd_lib() -> ctypes.CDLL:
 def conv_bn_stats_lib() -> ctypes.CDLL:
     """The fused Conv4x4s2 + batch-statistics library (K1)."""
     lib = _load("conv_bn_stats", {
-        "vgd_conv_bn_stats": [_P] * 6 + [_I] * 7 + [_P]})
-    lib.vgd_conv_stats_row_tiles.argtypes = [_I] * 3
-    lib.vgd_conv_stats_row_tiles.restype = ctypes.c_int
+        "vgd_conv_bn_stats": [_P] * 6 + [_I] * 11 + [ctypes.c_longlong, _P]})
+    lib.vgd_conv_stats_part_floats.argtypes = [_I] * 8
+    lib.vgd_conv_stats_part_floats.restype = ctypes.c_longlong
     return lib
 
 

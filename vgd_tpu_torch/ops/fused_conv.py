@@ -124,5 +124,7 @@ def conv_bn_lrelu(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     (K,) f32. Returns (y f32, batch mean (+ bias), biased batch var). On a
     CUDA tensor the forward runs K1 (or raises); on the CPU its plain
     version. No size gate: odd inputs (the 127x127 second encoder layer,
-    which the TPU's space-to-depth gate sends to XLA) run K1 too."""
+    which the TPU's space-to-depth gate sends to XLA) run K1 too, which
+    measures faster there than the stock conv + statistics (``chip_smoke.py``
+    prints that decision each run)."""
     return _ConvBnLRelu.apply(x, w, gamma, beta, bias, padding, slope, eps)

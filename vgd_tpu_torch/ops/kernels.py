@@ -44,7 +44,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -425,13 +425,91 @@ def conv_stats_plain(x: torch.Tensor, w: torch.Tensor, padding: int
     return c, mean, var
 
 
-def conv_stats(x: torch.Tensor, w: torch.Tensor, padding: int
+class ConvStatsPlan(NamedTuple):
+    """How K1 runs one shape (``conv_stats_plan``)."""
+    tile: int          # 0: f32 64 x 64 (FMA); bf16 1: 128 x 32 (mma.sync),
+    #                    2: 128 x 64, 3: 128 x 128 (wgmma)
+    bm: int            # output pixels per tile
+    bn: int            # output channels per tile
+    cin: int           # channels the kernel reads (x and w zero-padded to it)
+    run: int           # elements per gather of A: 8 (16 bytes), 4 (f32) or 1
+    m_tiles: int
+    n_tiles: int
+    splits: int        # pieces of the reduction (bf16), each k_split deep
+    k_split: int
+    stat_rows: int     # rows per (mean, M2) partial: bm, or 16 with splits
+    part_floats: int   # scratch: the partials, then split partial tiles
+
+
+# bf16 tiles of conv_bn_stats.cu: (rows, channels, resident blocks per SM)
+_K1_TILES = {1: (128, 32, 5), 2: (128, 64, 3), 3: (128, 128, 2)}
+_K1_STAGE = 64          # depth of one stage of the cp.async ring
+_K1_MIN_SPLIT = 4       # stages per split at the least
+_K1_SPLIT_ROWS = 16     # rows of the split sum's pieces
+
+
+def _k1_splits(tiles: int, stages: int, resident: int, sm_count: int,
+               splits: Optional[int]) -> Tuple[int, int]:
+    """(splits, stages per split), unless ``splits`` is given: none while
+    the output tiles occupy at least half the SMs (a split sum costs 6-10
+    us, more than a second block an SM gains there), else as many as one
+    wave of resident blocks holds, each at least _K1_MIN_SPLIT stages."""
+    if splits is None:
+        splits = 1 if 2 * tiles >= sm_count else \
+            max(1, min(resident // tiles, stages // _K1_MIN_SPLIT))
+    per = -(-stages // splits)
+    return -(-stages // per), per
+
+
+def conv_stats_plan(b: int, h: int, w: int, cin: int, k: int, padding: int,
+                    *, bf16: bool = True, sm_count: int = 132,
+                    tile: Optional[int] = None,
+                    splits: Optional[int] = None) -> ConvStatsPlan:
+    """K1's plan for one shape, which the wrapper passes to the C entry
+    point. bf16: 1-3 channels padded to 4 with padding 0 and an even width
+    (every 16-byte run is then two taps of one kernel row); A gathered in
+    16-byte runs where Cin % 8 == 0 or in that padded case, else element by
+    element; the tile by K: 128 x 32 (mma.sync) for K <= 32, 128 x 64
+    for K <= 64, else 128 x 128 (both wgmma); the reduction cut into whole
+    64-deep stages where the output tiles leave more than half of the
+    ``sm_count`` SMs idle (``_k1_splits``). ``tile`` and ``splits``
+    override the choice (``chip_smoke.py`` times other plans). f32: the
+    64 x 64 FMA tile."""
+    ho, wo = (h + 2 * padding - 4) // 2 + 1, (w + 2 * padding - 4) // 2 + 1
+    m = b * ho * wo
+    if not bf16:
+        mt = -(-m // 64)
+        return ConvStatsPlan(0, 64, 64, cin, 4 if cin % 4 == 0 else 1, mt,
+                             -(-k // 64), 1, 16 * cin, 64, 2 * k * mt)
+    pair = padding == 0 and w % 2 == 0
+    kin = 4 if cin < 4 and pair else cin
+    run = 8 if kin % 8 == 0 or (kin == 4 and pair) else 1
+    stages = -(-16 * kin // _K1_STAGE)
+    if tile is None:
+        tile = 1 if k <= 32 else 2 if k <= 64 else 3
+    bm, bn, per_sm = _K1_TILES[tile]
+    mt, nt = -(-m // bm), -(-k // bn)
+    splits, per = _k1_splits(mt * nt, stages, sm_count * per_sm, sm_count,
+                             splits)
+    if splits == 1:
+        return ConvStatsPlan(tile, bm, bn, kin, run, mt, nt, 1,
+                             per * _K1_STAGE, bm, 2 * k * mt)
+    stats = 2 * k * -(-m // _K1_SPLIT_ROWS)
+    return ConvStatsPlan(tile, bm, bn, kin, run, mt, nt, splits,
+                         per * _K1_STAGE, _K1_SPLIT_ROWS,
+                         -(-stats // 32) * 32 + splits * m * k)
+
+
+def conv_stats(x: torch.Tensor, w: torch.Tensor, padding: int,
+               plan: Optional[ConvStatsPlan] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: (c (B, Ho, Wo, K) f32, mean (K,), biased var (K,)) of the stride-2
     4x4 conv of x (B, H, W, Cin) with w (K, Cin, 4, 4), padding 0 or 1,
     accumulated in f32. On CUDA: x contiguous NHWC, bf16 or f32, w of the
-    same dtype in any layout (the wrapper flattens it to the (16 Cin, K)
-    rows the kernel reads); odd and ragged sizes are masked in the kernel.
+    same dtype in any layout (the wrapper flattens it to the kernel's
+    layout: bf16 (K, 16 Cin), f32 (16 Cin, K), depth (ky, kx, ci)); odd and
+    ragged sizes are masked in the kernel;
+    ``plan`` defaults to ``conv_stats_plan`` of the shape.
     Not differentiable: ``ops.fused_conv.conv_bn_lrelu`` is."""
     if _on_cpu(x, w):
         return conv_stats_plain(x, w, padding)
@@ -450,20 +528,29 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor, padding: int
     ho, wo = (h + 2 * padding - 4) // 2 + 1, (wd + 2 * padding - 4) // 2 + 1
     _require(ho >= 1 and wo >= 1, f"input {h}x{wd} too small for a 4x4 "
              f"conv with padding {padding}")
-    wt = w.permute(2, 3, 1, 0).reshape(16 * cin, k).contiguous()
-    lib = _build.conv_bn_stats_lib()
-    tiles = lib.vgd_conv_stats_row_tiles(b, ho, wo)
     dev = x.device
+    bf16 = x.dtype == torch.bfloat16
+    if plan is None:
+        plan = conv_stats_plan(
+            b, h, wd, cin, k, padding, bf16=bf16,
+            sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
+    wt = w.permute(0, 2, 3, 1)                   # (K, 4, 4, Cin)
+    if plan.cin != cin:
+        x = F.pad(x, (0, plan.cin - cin))
+        wt = F.pad(wt, (0, plan.cin - cin))
+    wt = wt.reshape(k, 16 * plan.cin)
+    wt = (wt if bf16 else wt.t()).contiguous()
+    lib = _build.conv_bn_stats_lib()
     c = torch.empty((b, ho, wo, k), dtype=torch.float32, device=dev)
-    part = torch.empty((2, k, tiles), dtype=torch.float32, device=dev)
+    part = torch.empty((plan.part_floats,), dtype=torch.float32, device=dev)
     mean = torch.empty((k,), dtype=torch.float32, device=dev)
     var = torch.empty((k,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.vgd_conv_bn_stats(
             x.data_ptr(), wt.data_ptr(), c.data_ptr(), part.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), b, h, wd, cin, k, padding,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            mean.data_ptr(), var.data_ptr(), b, h, wd, plan.cin, k, padding,
+            int(bf16), plan.tile, plan.splits, plan.k_split, plan.run,
+            plan.part_floats, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "conv_bn_stats")
     LAUNCHES["conv_bn_stats"] += 1
     return c, mean, var
