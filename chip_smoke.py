@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--report PATH] [--only k1|attn|k5]
+    python3 chip_smoke.py [--report PATH] [--only k1|attn|k5|k6]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once; Triton compiles at its
@@ -34,9 +34,9 @@ Run from the root of a checkout on a machine with one CUDA card:
    a checkpoint per epoch, a resume that must restore exactly what was
    saved, and a third epoch. Every train step must launch K2 once of each
    kind (forward, dq, dk/dv) per attention past ``kernels.attention``'s
-   size gate (2: cross_attn2 and the bottleneck; cross_attn3, N * M =
-   2^18, takes the plain form), every validation forward as many K2
-   forwards, and K3/K4 never;
+   size gate (3: the port gates at N * M < 2^18, so cross_attn2,
+   cross_attn3 and the bottleneck all run K2), every validation forward as
+   many K2 forwards, and K3/K4 never;
 5. DDPM: serves that trained checkpoint: ``sample_from_dir`` answers a
    16-image DDIM-50 request and ``evaluate_diffusion`` restores one batch
    through the ancestral chain, with exactly 3 (K3) and 14 (K4) launches
@@ -71,8 +71,11 @@ Run from the root of a checkout on a machine with one CUDA card:
    saves, backward: one launch per block) against its plain versions at the
    four block shapes in bf16, one f32 shape, two ragged ones and the EEG
    variant's (3, 1) kernel, the no-save forward bit-equal to the saving
-   one and the backward bit-equal run to run, timed against the per-flow
-   path of the same block (K5, and the cuDNN conv chain); one train step
+   one and the backward bit-equal run to run, each with its plan
+   (``kernels.flow_stack_plan``) and grid syncs per flow (at most
+   K6_MAX_SYNCS), timed against the per-flow path of the same block (K5,
+   and the cuDNN conv chain), with the kernels' stage times (their own
+   device clock) and a probe's cost of one grid sync; one train step
    against no kernel (as step 7), profiled, and the same step timed on the
    per-flow path and with ``flow_stack=256``; ``run_glow`` as in step 7
    with exactly 4 + 4 K6 launches and no K5 per train step, 128 K5
@@ -527,15 +530,17 @@ def check_k2(K, gen, dev, failures):
           f"{backend['fwd_bwd']}; backward alone ran {backend['bwd']}",
           flush=True)
     # the reference sends N * M < 2^20 to its full-matrix form; the port
-    # keeps that gate (kernels.MIN_FLASH_ELEMS) where K2 measures slower
-    # than the plain form there, and drops it where K2 is no slower
+    # gates (kernels.MIN_FLASH_ELEMS) only where K2 measures slower than the
+    # plain form there, and drops the gate where K2 is no slower
     for site, g in gate.items():
         if g["elems"] >= 1 << 20:
             continue
         slower = g["k2_fwd_bwd_ms"] > g["plain_fwd_bwd_ms"]
         gated = g["elems"] < K.MIN_FLASH_ELEMS
         g.update(k2_slower=slower, gated=gated)
-        print(f"[kernel] K2 size gate at {site} (N*M = {g['elems']} < 2^20):"
+        print(f"[kernel] K2 size gate at {site} (N*M = {g['elems']} < 2^20,"
+              f" the reference's gate; the port's is "
+              f"{K.MIN_FLASH_ELEMS}):"
               f" K2 fwd+bwd {g['k2_fwd_bwd_ms']:.4f} ms vs plain full-matrix"
               f" fwd+bwd {g['plain_fwd_bwd_ms']:.4f} ms: K2 is "
               f"{'slower' if slower else 'no slower'}; the port "
@@ -2456,6 +2461,65 @@ K6_PER_FLOW_KEYS = ("op_fwd_bwd_ms", "per_flow_k5_fwd_ms",
                     "per_flow_k5_fwd_bwd_ms", "per_flow_cudnn_fwd_ms",
                     "per_flow_cudnn_fwd_bwd_ms")
 K6_BF16_REL, K6_BF16_ATOL, K6_FLIP_SHARE = 5e-2, K5_BF16_ATOL, K5_FLIP_SHARE
+# the bf16 kernels' grid syncs per flow at most (forward, backward)
+K6_MAX_SYNCS = (4, 8)
+# grid syncs of the probe's long run (its short run has none)
+K6_PROBE_SYNCS = 1000
+
+
+def k6_sync_probe(K, dev):
+    """The device time of one grid sync on K6's bf16 grid: the probe (the
+    same cooperative grid, nothing but syncs) with K6_PROBE_SYNCS syncs
+    against none, per sync."""
+    t = device_ms({"none": lambda: K.glow_flow_stack_sync_probe(0, dev),
+                   "many": lambda: K.glow_flow_stack_sync_probe(
+                       K6_PROBE_SYNCS, dev)})
+    us = (t["many"]["median"] - t["none"]["median"]) / K6_PROBE_SYNCS * 1e3
+    out = {"us_per_sync": us, "syncs": K6_PROBE_SYNCS,
+           "launch_ms": t["none"]["median"], "ms": t["many"]["median"],
+           "timing": t["many"]["how"]}
+    print(f"[kernel] K6 grid-sync probe: {K6_PROBE_SYNCS} syncs "
+          f"{out['ms']:.4f} ms, none {out['launch_ms']:.4f} ms: "
+          f"{us:.3f} us per grid sync ({out['timing']})", flush=True)
+    return out
+
+
+K6_FWD_STAGES = ("per pixel (ZeroConv finish, ActNorm, 1x1 conv)", "conv1",
+                 "conv2", "ZeroConv N-pack")
+K6_BWD_STAGES = ("S1 per pixel (tail, ZeroConv grad) | ya", "S2 dWz, dh2 | conv1",
+                 "S3 dW2, dh1 | conv2", "S4 dW1, dya N-pack | ZeroConv N-pack")
+
+
+def k6_stages(K, fa, ba, xsave, khw, pad, n, plan, dev):
+    """K6's bf16 stage times from the kernels' own clock (one warm call of
+    each direction with ``stamps``): block 0 stamps the device clock after
+    each grid sync, so a stage's time includes its sync. Returns us per
+    flow by stage kind, and the once-per-call stages."""
+    import torch
+    fs, bs = plan.syncs(n)
+    st = {"fwd": torch.zeros(fs + 1, dtype=torch.int64, device=dev),
+          "bwd": torch.zeros(bs + 1, dtype=torch.int64, device=dev)}
+    K.glow_flow_stack_fwd(*fa, khw, pad, False, stamps=st["fwd"])
+    K.glow_flow_stack_bwd(xsave, *ba, khw, pad, stamps=st["bwd"])
+    torch.cuda.synchronize()
+    d = {k: (v[1:] - v[:-1]).double().cpu() / 1e3 for k, v in st.items()}
+    fwd = {name: float(d["fwd"][i:4 * n:4].sum()) / n
+           for i, name in enumerate(K6_FWD_STAGES)}
+    bwd = {name: float(d["bwd"][4 + i:4 + 4 * n:4].sum()) / n
+           for i, name in enumerate(K6_BWD_STAGES)}
+    return {"fwd_us_per_flow": fwd, "bwd_us_per_flow": bwd,
+            "fwd_last_us": float(d["fwd"][4 * n]),
+            "bwd_prologue_us": float(d["bwd"][:4].sum()),
+            "bwd_closing_us": float(d["bwd"][4 + 4 * n:].sum()),
+            "fwd_total_us": float(d["fwd"].sum()),
+            "bwd_total_us": float(d["bwd"].sum())}
+
+
+def k6_plan_text(plan):
+    """One line of a K6 plan: each product's tile (and splits), the unit."""
+    return ", ".join(
+        f"{p.name} {p.tile}" + (f" x{p.splits}" if p.splits > 1 else "")
+        for p in plan.products) + f"; {plan.tail_pixels} px a unit"
 
 
 def k6_operands(dev, gen, b, h, w, c, f, n, khw, dtype):
@@ -2557,10 +2621,20 @@ def check_k6(K, gen, dev, failures):
     from vgd_tpu_torch.ops.glow_flow_stack import glow_flow_stack
     rows = {n: [] for n in K6_NAMES}
     lib = None
+    probe = k6_sync_probe(K, dev)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for site, b, h, w, c, f, n, khw, dt in \
             [s_ + ((3, 3), "bfloat16") for s_ in K6_SHAPES] + K6_EXTRA:
         dtype = getattr(torch, dt)
         pad = (khw[0] // 2, khw[1] // 2)
+        plan = K.flow_stack_plan(b, h, w, c, f, khw,
+                                 bf16=dtype == torch.bfloat16,
+                                 sm_count=sm_count)
+        syncs = dict(zip(("fwd", "bwd"), plan.syncs(n)))
+        if plan.bf16 and any(got > most for got, most in zip(
+                plan.syncs_per_flow, K6_MAX_SYNCS)):
+            failures.append(f"K6 {site}: {plan.syncs_per_flow} grid syncs "
+                            f"per flow, at most {K6_MAX_SYNCS}")
         raw, fa, ba = k6_operands(dev, gen, b, h, w, c, f, n, khw, dtype)
         y, xsave = K.glow_flow_stack_fwd(*fa, khw, pad, True)
         y_ns = K.glow_flow_stack_fwd(*fa, khw, pad, False)
@@ -2606,13 +2680,17 @@ def check_k6(K, gen, dev, failures):
                 line.append(f"{what} {rerr:.2e}")
             rows[kname].append({
                 "shape": shape, "site": site, "dtype": dt, "kernel": khw,
+                "plan": k6_plan_text(plan), "syncs": syncs,
+                "syncs_per_flow": plan.syncs_per_flow,
                 "max_abs_err": max(errs.values()), "max_rel_err": worst_rel,
                 "err_over_bound": worst, "errors": errs,
                 "tol": "f32: values 1e-4 x max|.|, gradients 5e-4 x (1e-3 "
                 f"+ max|g|); bf16: {K6_BF16_REL} x max|.| + {K6_BF16_ATOL}"})
         print(f"[kernel] K6 {site} {shape} {dt} err/max: " + " ".join(line)
               + f"; no-save y bit-equal {same_ns}, backward deterministic "
-              f"{same_bwd}", flush=True)
+              f"{same_bwd}; plan {k6_plan_text(plan)}; grid syncs "
+              f"{syncs} ({plan.syncs_per_flow[0]} / "
+              f"{plan.syncs_per_flow[1]} per flow)", flush=True)
         if site.startswith("block"):
             if lib is None:
                 from vgd_tpu_torch.ops import _build
@@ -2668,7 +2746,33 @@ def check_k6(K, gen, dev, failures):
                       f"plain={r['plain_ms']:.3f} bound={bound:.4f} "
                       f"({100 * bound / r['ms']:.1f} % of it); timing "
                       f"{r['timing']}", flush=True)
-            syncs = {"fwd": 5 * n, "bwd": 10 * n + 1}
+            stages = k6_stages(K, fa, ba, xsave, khw, pad, n, plan, dev)
+            rows[K6_NAMES[0]][-1]["stages"] = stages
+            print(f"[kernel] K6 {site} stages (us per flow, block 0's device "
+                  f"clock, each stage's grid sync included): fwd " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in
+                      stages["fwd_us_per_flow"].items())
+                  + f" (+ last {stages['fwd_last_us']:.2f}; call "
+                  f"{stages['fwd_total_us']:.1f}); bwd " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in
+                      stages["bwd_us_per_flow"].items())
+                  + f" (+ prologue {stages['bwd_prologue_us']:.2f}, closing "
+                  f"{stages['bwd_closing_us']:.2f}; call "
+                  f"{stages['bwd_total_us']:.1f})", flush=True)
+            fb = {k: rows[k][-1]["ms"] for k in K6_NAMES}
+            bound = {k: max(rows[k][-1]["flop_ms"], rows[k][-1]["byte_ms"])
+                     for k in K6_NAMES}
+            sync_ms = (syncs["fwd"] + syncs["bwd"]) * probe["us_per_sync"] / 1e3
+            print(f"[kernel] K6 {site} summary: fwd {fb[K6_NAMES[0]]:.4f} / "
+                  f"no-save {fb[K6_NAMES[1]]:.4f} / bwd "
+                  f"{fb[K6_NAMES[2]]:.4f} ms (bound {bound[K6_NAMES[0]]:.4f}"
+                  f" / {bound[K6_NAMES[1]]:.4f} / {bound[K6_NAMES[2]]:.4f});"
+                  f" fwd+bwd {fb[K6_NAMES[0]] + fb[K6_NAMES[2]]:.4f} ms vs "
+                  f"the per-flow K5 path {cmp['per_flow_k5_fwd_bwd_ms']:.4f}"
+                  f" ms; {plan.syncs_per_flow[0]} + {plan.syncs_per_flow[1]}"
+                  f" syncs per flow, {syncs['fwd'] + syncs['bwd']} a "
+                  f"fwd+bwd at {probe['us_per_sync']:.3f} us each = "
+                  f"{sync_ms:.4f} ms; plan {k6_plan_text(plan)}", flush=True)
             print(f"[kernel] K6 {site}: grid {lib.vgd_glow_flow_stack_grid(1, 0)}"
                   f" blocks (forward), {lib.vgd_glow_flow_stack_grid(1, 1)} "
                   f"(backward); grid syncs {syncs}; op fwd+bwd (autograd, "
@@ -2685,6 +2789,7 @@ def check_k6(K, gen, dev, failures):
                   for key in ("ms", "ms_p90", "call_ms", "plain_ms",
                               "flop_ms", "byte_ms")}
               for k, v in rows.items()}
+    rows["probe"] = probe
     print("[kernel] K6 per train step (4 launches of each): " + "; ".join(
         f"{k[16:]} kernel {t['ms']:.3f} ms (p90 {t['ms_p90']:.3f}, call "
         f"time {t['call_ms']:.3f}), plain {t['plain_ms']:.3f} ms, "
@@ -2778,7 +2883,8 @@ class _PartialRun(Exception):
 # ``--only`` choices and the sources each builds
 ONLY = {"k1": ("conv_bn_stats.cu",),
         "attn": ("flash_attention.cu", "flash_attention_bwd.cu"),
-        "k5": ("glow_coupling.cu",)}
+        "k5": ("glow_coupling.cu",),
+        "k6": ("glow_flow_stack.cu", "glow_coupling.cu")}
 
 
 def main(argv=None) -> int:
@@ -2787,7 +2893,8 @@ def main(argv=None) -> int:
                     help="also write the full report as JSON here")
     ap.add_argument("--only", choices=tuple(ONLY), default=None,
                     help="build, then check and time only this kernel "
-                    "(k1; attn: K2 fwd, dq, dk/dv and K3; k5) with no main "
+                    "(k1; attn: K2 fwd, dq, dk/dv and K3; k5; k6, with the "
+                    "per-flow K5 path it is timed against) with no main "
                     "path and no result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
@@ -2833,6 +2940,9 @@ def main(argv=None) -> int:
         if args.only == "k5":
             report["k5"] = check_k5(K, torch.Generator(device=dev)
                                     .manual_seed(5), dev, failures)
+        elif args.only == "k6":
+            report["k6"] = check_k6(K, torch.Generator(device=dev)
+                                    .manual_seed(7), dev, failures)
         elif args.only == "k1":
             report["k1"] = check_k1(K, torch.Generator(device=dev)
                                     .manual_seed(0), dev, failures)

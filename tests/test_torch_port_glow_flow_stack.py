@@ -414,10 +414,11 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     (tmp_path / "a.cuh").write_text("#define A 2\n")
     second = _build._library_path(src)
     assert second != first and second.name.startswith("k-")
-    # the real sources: K6 hashes the shared GEMM header, K5 its tensor-core
-    # tile header and, through it, the shared one
+    # the real sources: K5 and K6 hash their tensor-core tile header and,
+    # through it, the shared GEMM header (K6's f32 checks run on it)
     for name, headers in (("glow_coupling.cu", ["glow_mma.cuh",
                                                 "glow_gemm.cuh"]),
-                          ("glow_flow_stack.cu", ["glow_gemm.cuh"])):
+                          ("glow_flow_stack.cu", ["glow_mma.cuh",
+                                                  "glow_gemm.cuh"])):
         assert [h.name for h in _build._local_headers(
             _build.CSRC_DIR / name)] == headers

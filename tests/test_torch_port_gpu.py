@@ -538,10 +538,17 @@ def test_k6_kernels_match_plain(cuda, b, h, w, c, f, n, khw, dtype):
     saved inputs) against the plain versions: f32 at 1e-4 of max |.| for
     the values and 5e-4 for the gradients (sums in other orders, as the
     JAX flow-stack test), bf16 at K5's 2e-2 of max |.|. The no-save y
-    equals the saving one bit for bit; one launch of each."""
+    equals the saving one bit for bit; one launch of each; the plan's
+    scratch in Python equals the C entry point's, in both dtypes."""
     fa, ba = k6_inputs(cuda, b, h, w, c, f, n, khw, dtype, 12)
     pad = (khw[0] // 2, khw[1] // 2)
     bf16 = dtype == torch.bfloat16
+    plan = K.flow_stack_plan(b, h, w, c, f, khw, bf16=bf16)
+    lib = _build.glow_flow_stack_lib()
+    for backward in (0, 1):
+        assert lib.vgd_glow_flow_stack_scratch_bytes(
+            b, h, w, c, f, *khw, *pad, int(bf16), backward,
+            K._k6_ints(plan)) == plan.scratch_bytes(bool(backward))
     before = dict(K.LAUNCHES)
     y, xsave = K.glow_flow_stack_fwd(*fa, khw, pad, True)
     y_ns = K.glow_flow_stack_fwd(*fa, khw, pad, False)
@@ -581,6 +588,121 @@ def test_k6_is_deterministic_and_refuses_what_it_cannot_take(cuda):
         K.glow_flow_stack_fwd(*fa[:4], w1f, *fa[5:], (3, 3), (1, 1), False)
     with pytest.raises(ValueError):
         K.glow_flow_stack_fwd(fa[0].cpu(), *fa[1:], (3, 3), (1, 1), False)
+
+
+# every tile kind K6's bf16 path takes (mma64 for the forward's products,
+# which the backward maps to wgmma), with splits forced where the product
+# may split: (plan id, tiles, splits)
+K6_PLANS = [
+    ("mma64-split", {n: "mma64" for n, t, _ in K.K6_PRODUCTS if "mma64" in t},
+     {"zconv": 2, "dwz": 3, "dw2": 2, "dw1": 2, "dya": 2}),
+    ("wgmma", {n: t[0] for n, t, _ in K.K6_PRODUCTS},
+     {"zconv": 2, "dwz": 2, "dw2": 3, "dw1": 3, "dya": 2}),
+    ("wgmma-unsplit", {n: t[0] for n, t, _ in K.K6_PRODUCTS},
+     {n: 1 for n, _, split in K.K6_PRODUCTS if split})]
+
+
+@pytest.mark.parametrize("plan_id,tiles,splits", K6_PLANS,
+                         ids=[p[0] for p in K6_PLANS])
+@pytest.mark.parametrize("b,h,w,c,f,n,khw", [
+    (2, 16, 16, 12, 128, 2, (3, 3)), (2, 8, 8, 48, 128, 2, (3, 3)),
+    (3, 7, 5, 10, 40, 2, (3, 3))])
+def test_k6_every_tile_and_split_matches_plain(cuda, b, h, w, c, f, n, khw,
+                                               plan_id, tiles, splits):
+    """K6 bf16 with each tile kind and forced splits against the plain
+    versions (K5's 2e-2 of max |.|); the scratch size of the plan in
+    Python equals the C entry point's."""
+    fa, ba = k6_inputs(cuda, b, h, w, c, f, n, khw, torch.bfloat16, 15)
+    pad = (khw[0] // 2, khw[1] // 2)
+    plan = K.flow_stack_plan(b, h, w, c, f, khw, tiles=tiles, splits=splits)
+    lib = _build.glow_flow_stack_lib()
+    ints = K._k6_ints(plan)
+    dims = [b, h, w, c, f, *khw, *pad, 1]
+    for backward in (0, 1):
+        assert lib.vgd_glow_flow_stack_scratch_bytes(
+            *dims, backward, ints) == plan.scratch_bytes(bool(backward))
+    y, xsave = K.glow_flow_stack_fwd(*fa, khw, pad, True, plan=plan)
+    ref_y, ref_xsave = K.glow_flow_stack_fwd_plain(*fa, khw, pad, True)
+    got = K.glow_flow_stack_bwd(ref_xsave, *ba, khw, pad, plan=plan)
+    torch.cuda.synchronize()
+    k5_close(y, ref_y, 2e-2, "y")
+    k5_close(xsave, ref_xsave, 2e-2, "xsave")
+    ref = K.glow_flow_stack_bwd_plain(ref_xsave, *ba, khw, pad)
+    for name, a, r in zip(("dx", "danb", "dans", "dwt", "dw1", "db1", "dw2",
+                           "db2", "dwz", "dbz", "dscale"), got, ref):
+        k5_close(a, r, 2e-2, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k6_chunked_call_is_bit_equal_to_one_call(cuda, dtype):
+    """``glow_flow_stack`` with chunk=8 (two launches of each direction)
+    gives the same bits as one launch for the 16 flows: values and every
+    gradient."""
+    from vgd_tpu_torch.ops.glow_flow_stack import glow_flow_stack
+    g = torch.Generator(device=cuda).manual_seed(16)
+    n, c, f, khw = 16, 12, 64, (3, 3)
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, device=cuda, generator=g)
+    q, _ = torch.linalg.qr(rnd(n, c, c))
+    leaves = dict(an_b=rnd(n, c, s=0.1), an_s=torch.exp(rnd(n, c, s=0.1)),
+                  w1=rnd(n, 3, 3, c // 2, f, s=0.05), b1=rnd(n, f, s=0.05),
+                  w2=rnd(n, 1, 1, f, f, s=0.05), b2=rnd(n, f, s=0.05),
+                  wz=rnd(n, 3, 3, f, c // 2, s=0.01),
+                  bz=rnd(n, c // 2, s=0.02), scale=rnd(n, c // 2, s=0.1))
+    wt, x, cot = q.transpose(1, 2).contiguous(), rnd(2, 8, 8, c), rnd(
+        2, 8, 8, c)
+    out = []
+    for chunk in (None, 8):
+        t = {k: v.detach().clone().requires_grad_() for k, v in
+             leaves.items()}
+        tw, tx = wt.clone().requires_grad_(), x.clone().requires_grad_()
+        tree = {"actnorm": {"b": t["an_b"], "s": t["an_s"]},
+                "coupling": {"conv1": {"w": t["w1"], "b": t["b1"]},
+                             "conv2": {"w": t["w2"], "b": t["b2"]},
+                             "zero": {"w": t["wz"], "b": t["bz"],
+                                      "scale": t["scale"]}}}
+        before = dict(K.LAUNCHES)
+        y = glow_flow_stack(tree, tw, tx, khw, (1, 1), dtype, chunk=chunk)
+        y.backward(cot)
+        launches = {k: K.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("glow_flow_stack_fwd", "glow_flow_stack_bwd")}
+        assert launches == dict.fromkeys(launches, 1 if chunk is None else 2)
+        out.append([y.detach(), tx.grad, tw.grad] + [t[k].grad for k in t])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_k6_refuses_a_grid_the_occupancy_does_not_allow(cuda):
+    """A cooperative grid larger than the blocks that can be resident is
+    refused with an error, never shrunk; the resident grid itself runs and
+    so does a smaller one, with the same bits."""
+    fa, ba = k6_inputs(cuda, 2, 8, 8, 12, 64, 2, (3, 3), torch.bfloat16, 17)
+    lib = _build.glow_flow_stack_lib()
+    full_f, full_b = (lib.vgd_glow_flow_stack_grid(1, d) for d in (0, 1))
+    assert full_f > 0 and full_b > 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.glow_flow_stack_fwd(*fa, (3, 3), (1, 1), False, grid=full_f + 1)
+    y, xsave = K.glow_flow_stack_fwd(*fa, (3, 3), (1, 1), True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.glow_flow_stack_bwd(xsave, *ba, (3, 3), (1, 1), grid=full_b + 1)
+    small = K.glow_flow_stack_fwd(*fa, (3, 3), (1, 1), False,
+                                  grid=full_f // 3)
+    assert torch.equal(small, y)
+    a = K.glow_flow_stack_bwd(xsave, *ba, (3, 3), (1, 1))
+    b = K.glow_flow_stack_bwd(xsave, *ba, (3, 3), (1, 1), grid=full_b // 3)
+    assert all(torch.equal(x, z) for x, z in zip(a, b))
+
+
+def test_k6_sync_probe_runs_on_the_backward_grid(cuda):
+    """The grid-sync probe launches K6's bf16 backward grid through n syncs
+    and counts no kernel launch."""
+    before = dict(K.LAUNCHES)
+    for n in (0, 1, 64):
+        K.glow_flow_stack_sync_probe(n, cuda)
+    torch.cuda.synchronize()
+    assert dict(K.LAUNCHES) == before
 
 
 def test_glow_step_flow_stack_matches_kernel_free_reference(cuda):

@@ -40,7 +40,7 @@
 //   in shared memory (window origin, image row base); a 16-byte run then
 //   costs a table read, a multiply-shift division of its depth index and a
 //   bounds check.
-// * Products: K > 32 on wgmma (wgmma_ring_tile below: the ring's swizzled
+// * Products: K > 32 on wgmma (glow_mma.cuh's wgmma_ring_tile: the ring's swizzled
 //   K-major stages are the 128-byte swizzle wgmma reads, so the same copies
 //   feed m64n128k16 / m64n64k16 descriptors; 128 x 128 tiles of two
 //   warpgroups for K > 64, 128 x 64 of one for K <= 64); K <= 32 (enc0,
@@ -380,126 +380,8 @@ __device__ __forceinline__ Tile grid_tile(int bm, int bn) {
               static_cast<int>(gridDim.x)};
 }
 
-// ---------------------------------------------------------------------------
-// wgmma on the same cp.async ring
-// ---------------------------------------------------------------------------
-//
-// The ring's stages are [rows][64] bf16 with the 16-byte chunks of row r
-// XOR-swizzled by r % 8 (swz<64>): with 1024-byte aligned stages that is the
-// 128-byte swizzle wgmma reads, so A and B (both K-major) feed wgmma
-// descriptors directly. Each warpgroup owns 64-row blocks of the tile; per
-// 16-deep step it issues one m64nBNk16 per block. The copies are made visible
-// to wgmma's async proxy (fence.proxy.async) before the stage's barrier, and
-// a stage's products retire before the ring refills it.
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (64 x N, f32) += A (64 x 16) B (16 x N), both K-major, 128-byte swizzled
-template <int N>
-__device__ __forceinline__ void wgmma_kk(float (&d)[N / 2], uint64_t da, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_kk<128>(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
-}
-template <>
-__device__ __forceinline__ void wgmma_kk<64>(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db));
-}
-
-// mma_tile with the products on wgmma: the same ring, loads and epilogue;
-// C::BM = 128, C::BN 64 or 128, whole warpgroups; smem 1024-byte aligned
-template <class C, class Op>
-__device__ __forceinline__ void wgmma_ring_tile(const Op& op, int M, int N, int K, int k_split,
-                                                const Tile& t, unsigned char* smem) {
-  constexpr int WG = C::kThreads / 128;      // warpgroups
-  constexpr int RB = C::BM / 64 / WG;        // 64-row blocks per warpgroup
-  constexpr int NA = C::BN / 2;              // accumulators per block and thread
-  static_assert(C::kThreads % 128 == 0 && C::BM % (64 * WG) == 0, "warpgroup tiling");
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* cs = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
-  const int kbeg = t.z * k_split;
-  const int kend = min(K, kbeg + k_split);
-  const int nk = (kend - kbeg + mma::kBK - 1) / mma::kBK;
-  float d[RB][NA];
-#pragma unroll
-  for (int rb = 0; rb < RB; ++rb)
-#pragma unroll
-    for (int e = 0; e < NA; ++e) d[rb][e] = 0.0f;
-
-  __syncthreads();  // the pixel table is ready
-#pragma unroll
-  for (int s = 0; s < C::kStages - 1; ++s) {
-    if (s < nk) {
-      bf16* sa = ring + s * (C::kA + C::kB);
-      mma::load_stage<C>(op, sa, sa + C::kA, t.m0, t.n0, kbeg + s * mma::kBK, kend, M, N);
-    }
-    mma::cp_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    mma::cp_wait<C::kStages - 2>();
-    fence_proxy_async();
-    __syncthreads();  // stage kt has landed; stage kt - 1's products have retired
-    const int nxt = kt + C::kStages - 1;
-    if (nxt < nk) {
-      bf16* sa = ring + (nxt % C::kStages) * (C::kA + C::kB);
-      mma::load_stage<C>(op, sa, sa + C::kA, t.m0, t.n0, kbeg + nxt * mma::kBK, kend, M, N);
-    }
-    mma::cp_commit();
-    const bf16* sa = ring + (kt % C::kStages) * (C::kA + C::kB);
-    const bf16* sb = sa + C::kA;
-    mma::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < mma::kBK / 16; ++ks) {
-      const uint64_t db = mma::gmma_desc(sb + ks * 16, 16, 1024);
-#pragma unroll
-      for (int rb = 0; rb < RB; ++rb)
-        wgmma_kk<C::BN>(d[rb], mma::gmma_desc(sa + (wg * RB + rb) * 64 * mma::kBK + ks * 16,
-                                              16, 1024),
-                        db);
-    }
-    mma::wgmma_commit();
-    mma::wgmma_wait<0>();
-  }
-  mma::cp_wait<0>();
-  __syncthreads();  // the ring is consumed: the f32 tile takes its place
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int rb = 0; rb < RB; ++rb) {
-    const int r = (wg * RB + rb) * 64 + (warp & 3) * 16 + g;
-#pragma unroll
-    for (int i = 0; i < C::BN / 8; ++i) {
-      const int c = i * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(cs + r * C::kCS + c) = make_float2(d[rb][4 * i], d[rb][4 * i + 1]);
-      *reinterpret_cast<float2*>(cs + (r + 8) * C::kCS + c) =
-          make_float2(d[rb][4 * i + 2], d[rb][4 * i + 3]);
-    }
-  }
-  __syncthreads();
-  op.template epilogue<C>(cs, t, M, N);
-}
+// wgmma on the same cp.async ring: mma::wgmma_ring_tile (glow_mma.cuh, shared
+// with K6)
 
 // the dynamic shared memory of a tile: 1024 bytes of alignment slack (the
 // wgmma swizzle), the ring (or the f32 tile), then the pixel table
@@ -521,7 +403,7 @@ conv_stats_mma_kernel(const Op op, int M, int N, int K, int k_split) {
   tile_op.rows = rows;
   tile_op.m0 = t.m0;
   if constexpr (WGMMA) {  // both sync before their loads
-    wgmma_ring_tile<C>(tile_op, M, N, K, k_split, t, smem);
+    mma::wgmma_ring_tile<C>(tile_op, M, N, K, k_split, t, smem);
   } else {
     mma::mma_tile<C>(tile_op, M, N, K, k_split, t, smem);
   }

@@ -1,6 +1,10 @@
-// The bf16 tensor-core GEMM tiles of K5's coupling network
-// (glow_coupling.cu), written for Hopper (sm_90a): mma_tile (below) for
-// every product, wgmma_tile (further below) for the f x f ones.
+// The bf16 tensor-core GEMM tiles of the Glow coupling network, written for
+// Hopper (sm_90a), shared by K5 (glow_coupling.cu), K6 (glow_flow_stack.cu)
+// and K1 (conv_bn_stats.cu): mma_tile (below: K5's and K1's mma.sync
+// products, K6's 64 x 64 tiles), wgmma_ring_tile (further below: the same
+// cp.async ring feeding wgmma, its M- or N-major operands staged in
+// 64-column blocks; K1's products with K > 32 and K6's large tiles), and
+// wgmma_tile (TMA into an mbarrier ring, K5's f x f products).
 //
 // mma_tile<Cfg, Op> computes one BM x BN output tile of C = sum_k A(m, k)
 // B(k, n) over one split of the reduction:
@@ -26,7 +30,9 @@
 //
 // As in glow_gemm.cuh's gemm_tile, the caller names the tile (Tile) and hands
 // in the shared memory (Cfg::kSmemBytes, 128-byte aligned), so a persistent
-// kernel can walk many tiles of many Ops with one ring.
+// kernel (K6) can walk many tiles of many Ops with one ring. The column sums
+// of masked_grad take kThreads / BN row parts (two for K5's tiles, four for
+// K6's 64 x 64 tile of 256 threads), added in order.
 //
 // Each Op gives kAK (A is staged K-contiguous, [BM][kBK], else M-contiguous,
 // [kBK][BM]), kBKMajor (B is staged K-contiguous, [BN][kBK], else
@@ -63,11 +69,12 @@ struct Cfg {
   static constexpr int kCS = BN + 8;  // f32 tile row stride: float2 stores
                                       // of a half warp hit distinct banks
   static constexpr int kRingBytes = kStages * (kA + kB) * 2;
-  static constexpr int kCBytes = (BM * kCS + 2 * BN) * 4;
+  static constexpr int kCBytes = (BM * kCS + kThreads) * 4;  // + column-sum parts
   static constexpr int kSmemBytes = kRingBytes > kCBytes ? kRingBytes : kCBytes;
   static_assert(BM % (16 * WM) == 0 && BN % (16 * WN) == 0, "warp tiling");
   static_assert(kA % (8 * kThreads) == 0 && kB % (8 * kThreads) == 0, "loads");
-  static_assert(kThreads == 2 * BN, "column sums: two row halves");
+  static_assert(kThreads % BN == 0 && BM % (kThreads / BN) == 0,
+                "column sums: kThreads / BN row parts");
 };
 // conv1 and dh2 where they give about a tile an SM or more: 8 warps of 64 x
 // 32, two blocks an SM (also the output tile of wgmma_tile)
@@ -122,6 +129,19 @@ template <int W>
 __device__ __forceinline__ int swz(int row, int col) {
   const int c = col >> 3;
   return row * W + (((c & ~7) | ((c ^ row) & 7)) << 3) + (col & 7);
+}
+
+// the offset of (row, col) in a stage of kBK rows, W columns: plain (swz<W>,
+// mma_tile's ldmatrix layout) or, with Blocked, in 64-column blocks of kBK
+// rows each swizzled as swz<64> (wgmma's 128-byte-swizzled M- or N-major
+// layout: one block per 64 rows of M or columns of N)
+template <int W, bool Blocked>
+__device__ __forceinline__ int stage_at(int row, int col) {
+  if constexpr (Blocked && W > 64) {
+    return (col >> 6) * (kBK * 64) + swz<64>(row, col & 63);
+  } else {
+    return swz<W>(row, col);
+  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -196,7 +216,7 @@ __device__ __forceinline__ void put(bf16* dst, const Src& s) {
 // A's share of one ring stage (reduction rows [k0, kend)) in runs of W
 // elements along its contiguous axis: 8 (cp.async 16 bytes), 2 (cp.async 4
 // bytes, for an even channel count) or 1 (element by element)
-template <int W, class C, class Op>
+template <int W, class C, class Op, bool Blocked = false>
 __device__ __forceinline__ void load_a(const Op& op, bf16* sa, int m0, int k0, int kend, int M) {
   constexpr int kRow = Op::kAK ? kBK : C::BM;
 #pragma unroll 8
@@ -204,7 +224,7 @@ __device__ __forceinline__ void load_a(const Op& op, bf16* sa, int m0, int k0, i
     const int v = threadIdx.x + i * C::kThreads;
     const int r = v / (kRow / W), col = (v % (kRow / W)) * W;
     const int m = m0 + (Op::kAK ? r : col), k = k0 + (Op::kAK ? col : r);
-    bf16* dst = sa + swz<kRow>(r, col);
+    bf16* dst = sa + stage_at<kRow, Blocked>(r, col);
     const bool in = m < M && k < kend;
     if constexpr (W == 1) {
       *dst = in ? op.a_elt(m, k) : __float2bfloat16(0.0f);
@@ -214,9 +234,10 @@ __device__ __forceinline__ void load_a(const Op& op, bf16* sa, int m0, int k0, i
   }
 }
 
-// B's share in 16-byte runs, staged N-contiguous ([kBK][BN]), or
-// K-contiguous ([BN][kBK]) for an Op with kBKMajor
-template <class C, class Op>
+// B's share in 16-byte runs, staged N-contiguous ([kBK][BN], or with
+// Blocked in 64-column blocks), or K-contiguous ([BN][kBK]) for an Op with
+// kBKMajor
+template <class C, class Op, bool Blocked = false>
 __device__ __forceinline__ void load_b(const Op& op, bf16* sb, int n0, int k0, int kend, int N) {
   constexpr int W = 8;
   constexpr int kRow = Op::kBKMajor ? kBK : C::BN;
@@ -225,26 +246,28 @@ __device__ __forceinline__ void load_b(const Op& op, bf16* sb, int n0, int k0, i
     const int v = threadIdx.x + i * C::kThreads;
     const int r = v / (kRow / W), col = (v % (kRow / W)) * W;
     const int k = k0 + (Op::kBKMajor ? col : r), n = n0 + (Op::kBKMajor ? r : col);
-    put<W>(sb + swz<kRow>(r, col), k < kend && n < N ? op.b_src(k, n) : Src{op.any(), kZero});
+    put<W>(sb + stage_at<kRow, Blocked>(r, col),
+           k < kend && n < N ? op.b_src(k, n) : Src{op.any(), kZero});
   }
 }
 
 // one ring stage: A's and B's runs of reduction rows [k0, k0 + kBK); A
 // takes 16-byte runs where the Op fixes them (kRunA = 8), else the width
-// the host set (wa: 8, 2 or 1) is dispatched here
-template <class C, class Op>
+// the host set (wa: 8, 2 or 1) is dispatched here; Blocked: the M- or
+// N-major operands in wgmma's 64-column blocks
+template <class C, class Op, bool Blocked = false>
 __device__ __forceinline__ void load_stage(const Op& op, bf16* sa, bf16* sb, int m0, int n0,
                                            int k0, int kend, int M, int N) {
   if constexpr (Op::kRunA == 8) {
-    load_a<8, C>(op, sa, m0, k0, kend, M);
+    load_a<8, C, Op, Blocked>(op, sa, m0, k0, kend, M);
   } else if (op.wa == 8) {
-    load_a<8, C>(op, sa, m0, k0, kend, M);
+    load_a<8, C, Op, Blocked>(op, sa, m0, k0, kend, M);
   } else if (op.wa == 2) {
-    load_a<2, C>(op, sa, m0, k0, kend, M);
+    load_a<2, C, Op, Blocked>(op, sa, m0, k0, kend, M);
   } else {
-    load_a<1, C>(op, sa, m0, k0, kend, M);
+    load_a<1, C, Op, Blocked>(op, sa, m0, k0, kend, M);
   }
-  load_b<C>(op, sb, n0, k0, kend, N);
+  load_b<C, Op, Blocked>(op, sb, n0, k0, kend, N);
 }
 
 // the products of one stage; mlive / nlive: rows and columns of the warp's
@@ -450,16 +473,21 @@ __device__ __forceinline__ void masked_grad(float* cs, const bf16* act, bf16* ou
     }
   }
   __syncthreads();
-  // thread (half, c) sums half of the rows of column c, then one thread adds
-  // the halves
+  // thread (part, c) sums one of the kThreads / BN row parts of column c
+  // (two halves for K5's tiles), then one thread adds the parts in order
+  constexpr int kParts = C::kThreads / C::BN, kRows = C::BM / kParts;
   float* red = cs + C::BM * C::kCS;
-  const int c = threadIdx.x % C::BN, half = threadIdx.x / C::BN;
+  const int c = threadIdx.x % C::BN, part = threadIdx.x / C::BN;
   float s = 0.0f;
-  for (int r = half * (C::BM / 2); r < (half + 1) * (C::BM / 2); ++r) s += cs[r * C::kCS + c];
-  red[half * C::BN + c] = s;
+  for (int r = part * kRows; r < (part + 1) * kRows; ++r) s += cs[r * C::kCS + c];
+  red[part * C::BN + c] = s;
   __syncthreads();
-  if (half == 0 && t.n0 + c < N)
-    colpart[static_cast<long long>(t.mi) * N + t.n0 + c] = red[c] + red[C::BN + c];
+  if (part == 0 && t.n0 + c < N) {
+    float v = red[c];
+#pragma unroll
+    for (int j = 1; j < kParts; ++j) v += red[j * C::BN + c];
+    colpart[static_cast<long long>(t.mi) * N + t.n0 + c] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -903,6 +931,140 @@ __device__ __forceinline__ void wgmma_tile(const CUtensorMap* ta, const CUtensor
   }
   __syncthreads();
   op.template epilogue<Wide>(cs, t, M, N);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma on the same cp.async ring (K1's products with K > 32, K6's K-major
+// products)
+// ---------------------------------------------------------------------------
+//
+// The ring's stages are [rows][64] bf16 with the 16-byte chunks of row r
+// XOR-swizzled by r % 8 (swz<64>): with 1024-byte aligned stages that is the
+// 128-byte swizzle wgmma reads, so A and B (both K-major) feed wgmma
+// descriptors directly. Each warpgroup owns 64-row blocks of the tile; per
+// 16-deep step it issues one m64nBNk16 per block. The copies are made visible
+// to wgmma's async proxy (fence.proxy.async) before the stage's barrier, and
+// a stage's products retire before the ring refills it.
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x N, f32) += A (64 x 16) B (16 x N), 128-byte swizzled; TA / TB:
+// A is M-major / B is N-major (transposed), else K-major
+template <int N, int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_kk(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 128 || N == 64, "wgmma widths of the ring tile");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %66, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %34, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "n"(TA), "n"(TB));
+  }
+}
+
+// mma_tile with the products on wgmma: the same ring, loads and epilogue;
+// C::BM = 128, C::BN 64 or 128, whole warpgroups; smem 1024-byte aligned.
+// A K-major operand is staged as mma_tile stages it ([rows][64], swz<64>:
+// wgmma's 128-byte swizzle); an M- or N-major one (Op::kAK or
+// Op::kBKMajor false) in 64-column blocks of [64 k-rows][64] (stage_at),
+// read through transposed descriptors (8-row groups 1024 bytes apart, the
+// blocks 8192 bytes apart), as wgmma_tile reads TMA's boxes.
+template <class C, class Op>
+__device__ __forceinline__ void wgmma_ring_tile(const Op& op, int M, int N, int K, int k_split,
+                                                const Tile& t, unsigned char* smem) {
+  constexpr int WG = C::kThreads / 128;      // warpgroups
+  constexpr int RB = C::BM / 64 / WG;        // 64-row blocks per warpgroup
+  constexpr int NA = C::BN / 2;              // accumulators per block and thread
+  constexpr bool kBlocked = !(Op::kAK && Op::kBKMajor);
+  constexpr int kBlock = kBK * 64;           // elements of one 64-column block
+  static_assert(C::kThreads % 128 == 0 && C::BM % (64 * WG) == 0, "warpgroup tiling");
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* cs = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int kbeg = t.z * k_split;
+  const int kend = min(K, kbeg + k_split);
+  const int nk = (kend - kbeg + kBK - 1) / kBK;
+  float d[RB][NA];
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+    for (int e = 0; e < NA; ++e) d[rb][e] = 0.0f;
+
+  __syncthreads();  // the caller's shared memory (K1: its pixel table) is ready
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < nk) {
+      bf16* sa = ring + s * (C::kA + C::kB);
+      load_stage<C, Op, kBlocked>(op, sa, sa + C::kA, t.m0, t.n0, kbeg + s * kBK, kend, M, N);
+    }
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<C::kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage kt has landed; stage kt - 1's products have retired
+    const int nxt = kt + C::kStages - 1;
+    if (nxt < nk) {
+      bf16* sa = ring + (nxt % C::kStages) * (C::kA + C::kB);
+      load_stage<C, Op, kBlocked>(op, sa, sa + C::kA, t.m0, t.n0, kbeg + nxt * kBK, kend, M,
+                                  N);
+    }
+    cp_commit();
+    const bf16* sa = ring + (kt % C::kStages) * (C::kA + C::kB);
+    const bf16* sb = sa + C::kA;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      const uint64_t db = Op::kBKMajor ? gmma_desc(sb + ks * 16, 16, 1024)
+                                       : gmma_desc(sb + ks * 16 * 64, kBlock * 2, 1024);
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        const int blk = wg * RB + rb;
+        const uint64_t da = Op::kAK ? gmma_desc(sa + blk * 64 * kBK + ks * 16, 16, 1024)
+                                    : gmma_desc(sa + blk * kBlock + ks * 16 * 64, kBlock * 2,
+                                                1024);
+        wgmma_kk<C::BN, Op::kAK ? 0 : 1, Op::kBKMajor ? 0 : 1>(d[rb], da, db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is consumed: the f32 tile takes its place
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb) {
+    const int r = (wg * RB + rb) * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+    for (int i = 0; i < C::BN / 8; ++i) {
+      const int c = i * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(cs + r * C::kCS + c) = make_float2(d[rb][4 * i], d[rb][4 * i + 1]);
+      *reinterpret_cast<float2*>(cs + (r + 8) * C::kCS + c) =
+          make_float2(d[rb][4 * i + 2], d[rb][4 * i + 3]);
+    }
+  }
+  __syncthreads();
+  op.template epilogue<C>(cs, t, M, N);
 }
 
 // a 2-D bf16 tensor map (rows x cols, row-major) with boxes of box_cols x

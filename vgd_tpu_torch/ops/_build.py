@@ -157,11 +157,12 @@ def glow_coupling_lib() -> ctypes.CDLL:
 @functools.cache
 def glow_flow_stack_lib() -> ctypes.CDLL:
     """The Glow flow-stack library (K6: forward with and without saving each
-    flow's input, backward)."""
+    flow's input, backward; the grid-sync probe)."""
     lib = _load("glow_flow_stack", {
-        "vgd_glow_flow_stack_fwd": [_P] * 14 + [_I] * 12 + [_P],
-        "vgd_glow_flow_stack_bwd": [_P] * 27 + [_I] * 11 + [_P]})
-    lib.vgd_glow_flow_stack_scratch_bytes.argtypes = [_I] * 11
+        "vgd_glow_flow_stack_fwd": [_P] * 18 + [_I] * 13 + [_P],
+        "vgd_glow_flow_stack_bwd": [_P] * 29 + [_I] * 12 + [_P],
+        "vgd_glow_flow_stack_sync_probe": [_I, _P]})
+    lib.vgd_glow_flow_stack_scratch_bytes.argtypes = [_I] * 11 + [_P]
     lib.vgd_glow_flow_stack_scratch_bytes.restype = ctypes.c_longlong
     lib.vgd_glow_flow_stack_grid.argtypes = [_I] * 2
     lib.vgd_glow_flow_stack_grid.restype = ctypes.c_int

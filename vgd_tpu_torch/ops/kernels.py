@@ -29,8 +29,9 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
 
 Each wrapper takes its plain version only for a tensor that lies on the CPU
 (the tests); for a CUDA tensor it launches the kernel or raises. There is
-no fallback; the one size gate is ``attention``'s, the JAX package's, which
-sends small attentions to the plain form before any wrapper is called.
+no fallback; the one size gate is ``attention``'s (``MIN_FLASH_ELEMS``, set
+below the JAX package's by measurement), which sends small attentions to the
+plain form before any wrapper is called.
 ``LAUNCHES`` counts the wrapper calls that launched a kernel, so a run can
 show that its main path went through them.
 
@@ -44,7 +45,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import math
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -343,19 +344,24 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-# Attentions with N * M below this take the plain full-matrix form: the JAX
-# package's MIN_FLASH_ELEMS. Kept because on the H100 K2 under autograd
-# (forward, delta, dq, dk/dv) measured slower than the plain form at the
-# UNet's cross_attn3, N * M = 2^18 (PERF.md, Findings).
-MIN_FLASH_ELEMS = 1 << 20
+# Attentions with N * M below this take the plain full-matrix form. The JAX
+# package gates at 2^20; the port gates at 2^18, so that the UNet's
+# cross_attn3 (B 16, N 4096, M 64, D 256: N * M = 2^18) runs K2: there K2
+# under autograd (forward, delta, dq, dk/dv) measured 0.6009 ms (p90
+# 0.6055) against 0.6417 ms (p90 0.6479) for the plain full-matrix form on
+# an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's K2 gate line, PERF.md
+# Findings). The rule: gate a site where K2 measures slower, not where it
+# is no slower.
+MIN_FLASH_ELEMS = 1 << 18
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable softmax(q k^T scale) v, the counterpart of
     ``attention`` in ``vgd_tpu/ops/pallas_kernels.py``. q (B, N, D), k/v
-    (B, M, D). As there, N * M below ``MIN_FLASH_ELEMS`` takes the plain
-    full-matrix attention (differentiated by autograd, no launch); every
+    (B, M, D). As there, N * M below a size gate takes the plain
+    full-matrix attention (the port's ``MIN_FLASH_ELEMS``, 2^18, below the
+    JAX package's 2^20) (differentiated by autograd, no launch); every
     larger call runs the K2 kernels on CUDA. Inside ``plain_reference()``
     it is always the plain form."""
     d = q.shape[-1]
@@ -931,6 +937,219 @@ def glow_flow_stack_bwd_plain(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t,
     return (g, *(torch.stack(t) for t in grads))
 
 
+# The bf16 kernels' tiles (rows, columns) by name, and the number the C entry
+# points take; "f32" is the check path's 64 x 64 CUDA-core tile
+K6_TILES = {"mma64": (64, 64, 0), "wgmma128x64": (128, 64, 1),
+            "wgmma128": (128, 128, 2), "f32": (64, 64, -1)}
+# the products of one flow, in the plan's order: (name, the tiles it may
+# take, large first; splittable). The 64 x 64 mma.sync tile serves the
+# forward's products at the small blocks; the backward runs those on wgmma
+# too (the C entry point maps them), and every gradient product on wgmma.
+K6_PRODUCTS = (("conv1", ("wgmma128", "mma64"), False),
+               ("conv2", ("wgmma128", "mma64"), False),
+               ("zconv", ("wgmma128x64", "mma64"), True),
+               ("dwz", ("wgmma128x64",), True),
+               ("dh2", ("wgmma128",), False),
+               ("dw2", ("wgmma128",), True),
+               ("dh1", ("wgmma128",), False),
+               ("dw1", ("wgmma128",), True),
+               ("dya", ("wgmma128x64",), True))
+_K6_STAGE = 64          # depth of one ring stage (bf16)
+_K6_MIN_SPLIT = 2       # ring stages per split at the least
+_K6_PER_SM = 1          # resident blocks an SM (256 threads, 99 KB each)
+_K6_PIX_FLOATS = 2048   # tp * c at most (one per-pixel array)
+_K6_F32_CHUNK, _K6_F32_TARGET, _K6_F32_STACK = 32, 264, 64 * 68
+
+
+class FlowStackProduct(NamedTuple):
+    """One product of a flow as K6 runs it (``flow_stack_plan``)."""
+    name: str
+    tile: str          # a key of K6_TILES
+    m: int
+    n: int
+    k: int
+    m_tiles: int
+    n_tiles: int
+    splits: int        # pieces of the reduction, each k_split deep
+    k_split: int
+
+
+class FlowStackPlan(NamedTuple):
+    """How K6 runs one block shape (``flow_stack_plan``)."""
+    bf16: bool
+    products: Tuple[FlowStackProduct, ...]   # K6_PRODUCTS' order
+    ya_run: int        # elements per gather of ya's channels (conv1 and
+    #                    dW1's A): 8 (16 bytes), 2 (4 bytes) or 1; f32: 4, 1
+    tail_pixels: int   # pixels of one per-pixel unit
+    units: int         # per-pixel units
+    fwd_pieces: Tuple[Tuple[str, int], ...]  # scratch: (name, bytes)
+    bwd_pieces: Tuple[Tuple[str, int], ...]
+    syncs_per_flow: Tuple[int, int]          # grid syncs (forward, backward)
+    syncs_fixed: Tuple[int, int]             # ... plus these a call
+
+    def product(self, name: str) -> FlowStackProduct:
+        return next(p for p in self.products if p.name == name)
+
+    def scratch_bytes(self, backward: bool) -> int:
+        return sum(b for _, b in (self.bwd_pieces if backward
+                                  else self.fwd_pieces))
+
+    def syncs(self, flows: int) -> Tuple[int, int]:
+        """Grid syncs of one forward and one backward call over ``flows``."""
+        return tuple(flows * n + c for n, c in zip(self.syncs_per_flow,
+                                                   self.syncs_fixed))
+
+    def ints(self) -> list:
+        """The plan as the C entry points take it: (tile, splits, k_split)
+        per product, then the unit's pixels."""
+        out = []
+        for p in self.products:
+            out += [K6_TILES[p.tile][2], p.splits, p.k_split]
+        return out + [self.tail_pixels]
+
+
+def _k6_up(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def _k6_product(name, tiles, split, m, n, k, sm_count, tile=None,
+                splits=None) -> FlowStackProduct:
+    """The bf16 rule: an unsplit product takes its large tile where its
+    tiles occupy at least half the SMs, else 64 x 64; a split one its large
+    tile
+    where both output sides fill it, and a split into whole stages (at least
+    _K6_MIN_SPLIT each) where its tiles leave more than half the SMs idle,
+    as many as one wave of resident blocks holds."""
+    def grid(tile):
+        bm, bn, _ = K6_TILES[tile]
+        return -(-m // bm), -(-n // bn)
+    big, chosen = tiles[0], tiles[-1]
+    if not split and 2 * grid(big)[0] * grid(big)[1] >= sm_count:
+        chosen = big
+    if split and m >= K6_TILES[big][0] and n >= K6_TILES[big][1]:
+        chosen = big
+    if tile is not None:
+        _require(tile in tiles, f"K6 {name}: tile {tile} not in {tiles}")
+        chosen = tile
+    mt, nt = grid(chosen)
+    stages = -(-k // _K6_STAGE)
+    if splits is None:
+        splits = 1
+        if split and 2 * mt * nt < sm_count:
+            splits = max(1, min(stages // _K6_MIN_SPLIT,
+                                _K6_PER_SM * sm_count // (mt * nt)))
+    _require(split or splits == 1, f"K6 {name} is never split")
+    splits = max(1, min(splits, stages))
+    per = -(-stages // splits)
+    return FlowStackProduct(name, chosen, m, n, k, mt, nt, -(-stages // per),
+                            per * _K6_STAGE)
+
+
+def _k6_f32_product(name, split, m, n, k) -> FlowStackProduct:
+    """The f32 check path's rule (glow_gemm.cuh's split_k)."""
+    mt, nt = -(-m // 64), -(-n // 64)
+    chunks = -(-k // _K6_F32_CHUNK)
+    s = 1
+    if split:
+        s = min(max(1, -(-_K6_F32_TARGET // (mt * nt))), chunks)
+    per = -(-chunks // s)
+    return FlowStackProduct(name, "f32", m, n, k, mt, nt, -(-chunks // per),
+                            per * _K6_F32_CHUNK)
+
+
+def flow_stack_plan(b: int, h: int, w: int, c: int, f: int,
+                    khw: Tuple[int, int], *, bf16: bool = True,
+                    sm_count: int = 132,
+                    tiles: Optional[Dict[str, str]] = None,
+                    splits: Optional[Dict[str, int]] = None
+                    ) -> FlowStackPlan:
+    """K6's plan for one block shape, which the wrapper passes to the C
+    entry points (they check it): per product of a flow its tile (bf16:
+    ``wgmma128`` / ``wgmma128x64`` on wgmma, or for the forward's conv1,
+    conv2 and ZeroConv ``mma64`` on mma.sync, which the backward runs on
+    wgmma) and its reduction split (``_k6_product``), the pixels of one
+    per-pixel unit (about a unit an SM, at most _K6_PIX_FLOATS / c), the
+    scratch pieces and the grid syncs. bf16 needs f % 8 == 0 (16-byte runs along f). f32:
+    the check path's fixed design (64 x 64 tiles, its own split rule, 5 and
+    10 syncs per flow). ``tiles`` / ``splits`` (product name -> tile /
+    split count) override the bf16 choice (the gpu tests and
+    ``chip_smoke.py`` run other plans)."""
+    (kh, kw) = khw
+    ch, taps = c // 2, kh * kw
+    p = b * h * w
+    q = b * (h + 2 * (kh // 2)) * (w + 2 * (kw // 2))
+    if not bf16:
+        shapes = {"conv1": (p, f, taps * ch), "conv2": (p, f, f),
+                  "zconv": (p, ch, taps * f), "dwz": (f, taps * ch, q),
+                  "dh2": (p, f, taps * ch), "dw2": (f, f, p),
+                  "dh1": (p, f, f), "dw1": (taps * ch, f, p),
+                  "dya": (p, ch, taps * f)}
+        prods = tuple(_k6_f32_product(n, sp, *shapes[n])
+                      for n, _, sp in K6_PRODUCTS)
+        pr = {x.name: x for x in prods}
+        tp = min(64, _K6_F32_STACK // (2 * c))
+        units = -(-p // tp)
+        fwd = (("ya", p * ch * 4), ("h1", p * f * 4), ("h2", p * f * 4),
+               ("r", 4 * pr["zconv"].splits * p * ch), ("cur", 4 * 2 * p * c))
+        bwd = (("ya", p * ch * 4), ("h1", p * f * 4), ("h2", p * f * 4),
+               ("r", 4 * pr["zconv"].splits * p * ch), ("dh2", p * f * 4),
+               ("dh1", p * f * 4), ("gs", p * ch * 4), ("convz", 4 * p * ch),
+               ("pwz", 4 * pr["dwz"].splits * f * taps * ch),
+               ("pw2", 4 * pr["dw2"].splits * f * f),
+               ("pw1", 4 * pr["dw1"].splits * taps * ch * f),
+               ("pya", 4 * pr["dya"].splits * p * ch),
+               ("cp2", 4 * f * pr["dh2"].m_tiles),
+               ("cp1", 4 * f * pr["dh1"].m_tiles),
+               ("pdwt", 4 * units * c * c), ("pdans", 4 * units * c),
+               ("pdanb", 4 * units * c))
+        return FlowStackPlan(False, prods, 4 if ch % 4 == 0 else 1, tp, units,
+                             tuple((n, _k6_up(x)) for n, x in fwd),
+                             tuple((n, _k6_up(x)) for n, x in bwd),
+                             (5, 10), (0, 1))
+    gc = -(-ch // 8) * 8
+    shapes = {"conv1": (p, f, taps * ch), "conv2": (p, f, f),
+              "zconv": (p + 1, taps * ch, f), "dwz": (f, taps * gc, q),
+              "dh2": (p, f, taps * gc), "dw2": (f, f, p), "dh1": (p, f, f),
+              "dw1": (taps * ch, f, p), "dya": (p, taps * ch, f)}
+    tiles, splits = tiles or {}, splits or {}
+    prods = tuple(_k6_product(n, t, sp, *shapes[n], sm_count, tiles.get(n),
+                              splits.get(n))
+                  for n, t, sp in K6_PRODUCTS)
+    pr = {x.name: x for x in prods}
+    tp = 1
+    while tp * sm_count < p:
+        tp *= 2
+    while tp > 1 and tp * c > _K6_PIX_FLOATS:
+        tp //= 2
+    units = -(-p // tp)
+    z, y = pr["zconv"], pr["dya"]
+    fwd = (("ya", p * ch * 2), ("h1", p * f * 2), ("h2", p * f * 2),
+           ("r", 4 * z.splits * z.m * z.n), ("cur", 4 * p * c))
+    bwd = (("ya", 2 * p * ch * 2), ("h1", 2 * p * f * 2), ("h2", p * f * 2),
+           ("r", 4 * z.splits * z.m * z.n), ("dh2", p * f * 2),
+           ("dh1", p * f * 2), ("gs", p * gc * 2),
+           ("r2", 4 * y.splits * y.m * y.n),
+           ("pwz", 4 * pr["dwz"].splits * f * taps * gc),
+           ("cp2", 4 * pr["dh2"].m_tiles * f),
+           ("pw2", 4 * pr["dw2"].splits * f * f),
+           ("cp1", 4 * pr["dh1"].m_tiles * f),
+           ("pw1", 4 * pr["dw1"].splits * taps * ch * f),
+           ("pz", 4 * units * 2 * ch), ("ptail", 4 * units * (c * c + 2 * c)))
+    run = 8 if ch % 8 == 0 else 2 if ch % 2 == 0 else 1
+    return FlowStackPlan(True, prods, run, tp, units,
+                         tuple((n, _k6_up(x)) for n, x in fwd),
+                         tuple((n, _k6_up(x)) for n, x in bwd), (4, 4), (1, 6))
+
+
+def _k6_transposed(packed: torch.Tensor, taps: int, rows: int, cols: int
+                   ) -> torch.Tensor:
+    """(G, k6_stride(taps rows cols)) of per-flow taps x (rows, cols) blocks
+    -> the same with each block transposed: w2 -> w2t (taps 1), wz -> wzf."""
+    g, n = packed.shape[0], taps * rows * cols
+    t = packed[:, :n].reshape(g, taps, rows, cols).transpose(2, 3)
+    return F.pad(t.reshape(g, n), (0, k6_stride(n) - n)).contiguous()
+
+
 def _k6_dims(what, x, named, n_flows, f, khw, pad, cd):
     """Checks K6's operands on CUDA; returns the C functions' shape ints
     (flows, b, h, w, c, f, kh, kw, ph, pw, bf16)."""
@@ -944,6 +1163,10 @@ def _k6_dims(what, x, named, n_flows, f, khw, pad, cd):
              f"{what}: the packed weights must be bfloat16 or float32, got "
              f"{cd}")
     _require(c <= 128, f"{what}: {c} flow channels (at most 128)")
+    # the bf16 tiles read every f-wide operand in 16-byte runs
+    _require(cd == torch.float32 or f % 8 == 0,
+             f"{what}: in bfloat16 the width f must be a multiple of 8, got "
+             f"{f}")
     for name, t, shape, dtype in named:
         _require(tuple(t.shape) == shape,
                  f"{what}: {name} has shape {tuple(t.shape)}, want {shape}")
@@ -970,17 +1193,52 @@ def _k6_weights(n_flows, c, f, taps, cd, **operands):
             for n, t in operands.items()]
 
 
-def _k6_scratch(lib, dims, backward, dev) -> torch.Tensor:
-    n = lib.vgd_glow_flow_stack_scratch_bytes(*dims[1:], int(backward))
-    _require(n > 0, f"K6: shape {dims[1:10]} not supported")
+def _k6_plan(dims, plan, dev) -> FlowStackPlan:
+    """``plan``, or flow_stack_plan of the shape on ``dev``'s SM count."""
+    if plan is not None:
+        return plan
+    _, b, h, w, c, f, kh, kw = dims[:8]
+    return flow_stack_plan(
+        b, h, w, c, f, (kh, kw), bf16=bool(dims[-1]),
+        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _k6_scratch(lib, dims, backward, plan_ints, dev) -> torch.Tensor:
+    n = lib.vgd_glow_flow_stack_scratch_bytes(*dims[1:], int(backward),
+                                              plan_ints)
+    _require(n > 0, f"K6: shape {dims[1:10]} (or its plan) not supported")
     return torch.empty((n,), dtype=torch.uint8, device=dev)
 
 
+def _k6_stamps(stamps, syncs, like):
+    """The stamps buffer's address (None: no tracing), checked."""
+    if stamps is None:
+        return None
+    _require(stamps.dtype == torch.int64 and stamps.is_contiguous()
+             and stamps.numel() >= syncs + 1 and stamps.device == like.device,
+             f"K6: stamps must be a contiguous int64 tensor of at least "
+             f"{syncs + 1} on {like.device}")
+    return stamps.data_ptr()
+
+
+def _k6_ints(plan: FlowStackPlan):
+    import ctypes
+    ints = plan.ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def glow_flow_stack_fwd(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz, scale,
-                        khw, pad, save: bool):
+                        khw, pad, save: bool, *,
+                        plan: Optional[FlowStackPlan] = None,
+                        grid: int = 0, stamps: Optional[torch.Tensor] = None):
     """K6 forward: y (B, H, W, c) f32, and with ``save`` also xsave (G, B,
     H, W, c) f32. One launch for the G flows; on CUDA every operand is
-    contiguous, the packed weights in cd (bf16 or f32)."""
+    contiguous, the packed weights in cd (bf16 or f32; bf16 needs f % 8 ==
+    0; its ZeroConv and conv2 read wz and w2 transposed, made here).
+    ``plan`` defaults to ``flow_stack_plan`` of the shape; ``grid`` is the
+    number of blocks to launch (0: every resident block; more is refused);
+    ``stamps`` (bf16, int64, ``plan.syncs(G)[0] + 1`` long) receives the
+    device clock in ns at the start and after each stage (tracing)."""
     if _on_cpu(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz, scale):
         return glow_flow_stack_fwd_plain(x, an_b, an_s, wt, w1f, b1, w2, b2,
                                          wz, bz, scale, khw, pad, save)
@@ -992,17 +1250,24 @@ def glow_flow_stack_fwd(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz, scale,
                      wt=wt, w1f=w1f, b1=b1, w2=w2, b2=b2, wz=wz, bz=bz,
                      scale=scale)], n_flows, f, khw, pad, w1f.dtype)
     dev = x.device
+    plan = _k6_plan(dims, plan, dev)
+    ints = _k6_ints(plan)
+    bf16 = w1f.dtype == torch.bfloat16
+    w2t = _k6_transposed(w2, 1, f, f) if bf16 else w2
+    wzf = _k6_transposed(wz, taps, f, c // 2) if bf16 else wz
     lib = _build.glow_flow_stack_lib()
-    scratch = _k6_scratch(lib, dims, False, dev)
+    scratch = _k6_scratch(lib, dims, False, ints, dev)
     y = torch.empty_like(x)
     xsave = (torch.empty((n_flows,) + tuple(x.shape), dtype=torch.float32,
                          device=dev) if save else None)
     with torch.cuda.device(dev):
         err = lib.vgd_glow_flow_stack_fwd(
-            *(t.data_ptr() for t in (x, an_b, an_s, wt, w1f, b1, w2, b2, wz,
-                                     bz, scale, y)),
+            *(t.data_ptr() for t in (x, an_b, an_s, wt, w1f, b1, w2, w2t, b2,
+                                     wz, wzf, bz, scale, y)),
             None if xsave is None else xsave.data_ptr(), scratch.data_ptr(),
-            *dims, int(save), torch.cuda.current_stream(dev).cuda_stream)
+            ints, _k6_stamps(stamps, plan.syncs(n_flows)[0], x), *dims,
+            int(save), int(grid),
+            torch.cuda.current_stream(dev).cuda_stream)
     name = "glow_flow_stack_fwd" if save else "glow_flow_stack_fwd_nosave"
     _raise_on(lib, err, name)
     LAUNCHES[name] += 1
@@ -1010,9 +1275,12 @@ def glow_flow_stack_fwd(x, an_b, an_s, wt, w1f, b1, w2, b2, wz, bz, scale,
 
 
 def glow_flow_stack_bwd(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t, b2, wz,
-                        wzf, bz, scale, g, khw, pad):
+                        wzf, bz, scale, g, khw, pad, *,
+                        plan: Optional[FlowStackPlan] = None,
+                        grid: int = 0, stamps: Optional[torch.Tensor] = None):
     """K6 backward: the gradients of ``glow_flow_stack_bwd_plain``, one
-    launch for the G flows. g (B, H, W, c) f32."""
+    launch for the G flows. g (B, H, W, c) f32; ``plan``, ``grid`` and
+    ``stamps`` (``plan.syncs(G)[1] + 1`` long) as the forward's."""
     if _on_cpu(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t, b2, wz, wzf, bz,
                scale, g):
         return glow_flow_stack_bwd_plain(xsave, an_b, an_s, wt, w1f, w1t, b1,
@@ -1029,8 +1297,10 @@ def glow_flow_stack_bwd(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t, b2, wz,
                      wz=wz, wzf=wzf, bz=bz, scale=scale)],
         n_flows, f, khw, pad, w1f.dtype)
     dev = g.device
+    plan = _k6_plan(dims, plan, dev)
+    ints = _k6_ints(plan)
     lib = _build.glow_flow_stack_lib()
-    scratch = _k6_scratch(lib, dims, True, dev)
+    scratch = _k6_scratch(lib, dims, True, ints, dev)
 
     def out(*shape):
         return torch.empty((n_flows,) + shape, dtype=f32, device=dev)
@@ -1041,8 +1311,20 @@ def glow_flow_stack_bwd(xsave, an_b, an_s, wt, w1f, w1t, b1, w2, w2t, b2, wz,
         err = lib.vgd_glow_flow_stack_bwd(
             *(t.data_ptr() for t in (xsave, an_b, an_s, wt, w1f, w1t, b1, w2,
                                      w2t, b2, wz, wzf, bz, scale, g)),
-            *(t.data_ptr() for t in grads), scratch.data_ptr(), *dims,
-            torch.cuda.current_stream(dev).cuda_stream)
+            *(t.data_ptr() for t in grads), scratch.data_ptr(), ints,
+            _k6_stamps(stamps, plan.syncs(n_flows)[1], g), *dims,
+            int(grid), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "glow_flow_stack_bwd")
     LAUNCHES["glow_flow_stack_bwd"] += 1
     return grads
+
+
+def glow_flow_stack_sync_probe(n: int, device) -> None:
+    """Launches K6's bf16 backward grid (its block size, shared memory and
+    block count) through ``n`` grid syncs and nothing else: the cost of one
+    sync, measured apart (``chip_smoke.py``). Counts no launch."""
+    lib = _build.glow_flow_stack_lib()
+    with torch.cuda.device(device):
+        err = lib.vgd_glow_flow_stack_sync_probe(
+            int(n), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "glow_flow_stack_sync_probe")
