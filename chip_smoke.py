@@ -3,11 +3,10 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--report PATH] [--only k1|attn|k5|k6]
+    python3 chip_smoke.py [--report PATH] [--only k1|attn|k4|k5|k6]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
-   for sm_90a, one process per source, all at once; Triton compiles at its
-   first launch);
+   for sm_90a, one process per source, all at once);
 2. holds every kernel against its plain PyTorch version on the card at
    every shape its main path gives it, with the tolerance stated below, and
    times kernel, plain version, and the one PyTorch call that computes the
@@ -19,8 +18,12 @@ Run from the root of a checkout on a machine with one CUDA card:
    (training attention: forward with logsumexp, dq, dk/dv; all bit-equal
    over two calls; K2 and the plain full-matrix attention under autograd at
    each site, which decides the size gate), K3 (serving attention, bit-equal
-   over two calls), K4 (GroupNorm+SiLU) at the 256x256, batch-16 DDPM UNet's
-   shapes; K1 (Conv4x4 stride 2 + batch statistics) at the 256x256,
+   over two calls), K4 (GroupNorm+SiLU with the casts and the residual add
+   around it) at the 256x256, batch-16 DDPM UNet's shapes in its f32 form
+   and in the fused UNet's two bf16 forms (each with its plan, bit-equal
+   over two calls, timed against its bound; the f32 form also against
+   ``F.group_norm`` + ``F.silu`` on the NCHW view and on an NCHW copy),
+   ragged and streamed shapes checked; K1 (Conv4x4 stride 2 + batch statistics) at the 256x256,
    batch-64 VAE-GAN's nine shapes in bf16 (each with its plan, bit-equal
    over two calls, its kernels' times by stage and other plans timed
    beside it; then the decision at the odd 127x127 enc1, which the
@@ -125,7 +128,8 @@ ATTN_SHAPES = [("cross_attn2", 16, 16384, 64, 256),
                ("attn_bottleneck", 16, 1024, 1024, 256)]
 # ragged shapes the kernels mask (checked, not timed)
 ATTN_RAGGED = [("ragged", 3, 1000, 70, 256), ("ragged", 2, 129, 33, 128)]
-# K4 at 256x256, B=16: (B, H, W, C, calls per UNet forward)
+# K4 at 256x256, B=16: (B, H, W, C, calls per UNet forward: half of them
+# gn1's, half gn2's)
 GN_SHAPES = [(16, 256, 256, 64, 4), (16, 128, 128, 128, 2),
              (16, 64, 64, 256, 2), (16, 32, 32, 256, 2),
              (16, 64, 64, 128, 2), (16, 128, 128, 64, 2)]
@@ -218,7 +222,9 @@ def _graph_timer(fn, calls):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # captured on the warm-up stream, whose K4 barrier words exist, so
+        # the graph holds no zeroing of its own (kernels._k4_sync)
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(calls):
                 fn()
         graph.replay()
@@ -573,41 +579,236 @@ def check_k2(K, gen, dev, failures):
     return rows, backend, gate
 
 
-def check_groupnorm(K, gen, dev, failures):
+# K4's forms: the f32 form (the TPU kernel's own function: f32 in and out),
+# gn1's (bf16 in, bf16 out) and gn2's (bf16 in, bf16 residual, bf16 out)
+# on the fused UNet's main path; bytes an element moved at least (x read,
+# the residual read, out written once)
+K4_FORMS = (("f32", 8), ("gn1", 4), ("gn2", 6))
+# checked, not timed: ragged shapes and one an image of which the grid's
+# shared memory cannot hold (streamed), in f32 and bf16
+GN_EXTRA = [(3, 7, 9, 24), (1, 1, 1, 8), (2, 7, 9, 24), (2, 512, 512, 64)]
+# the seed of K4's own generator
+K4_SEED = 4
+
+
+def bf16_ulp(t):
+    """One bf16 ulp of |t|, elementwise (2^(e - 8) for |t| = m 2^e, m in
+    [0.5, 1))."""
+    import torch
+    _, e = torch.frexp(t.abs())
+    return torch.ldexp(torch.ones_like(t), e - 8)
+
+
+def gn_error(out, ref, form):
+    """(max abs err, max of err over its bound): f32 within GN_ATOL; a bf16
+    result within one bf16 ulp of the larger |value| plus GN_ATOL (the f32
+    values before the cast agree within GN_ATOL, and each rounds by at most
+    half an ulp)."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    if form == "f32":
+        bound = GN_ATOL
+    else:
+        bound = bf16_ulp(torch.maximum(out.float().abs(),
+                                       ref.float().abs())) + GN_ATOL
+    return float(err.max()), float((err / bound).max())
+
+
+def gn_operands(gen, dev, b, h, w, c):
+    """x, scale, bias and the residual of one K4 shape."""
+    import torch
+    x = torch.randn(b, h, w, c, device=dev, generator=gen) * 2.0 + 0.5
+    scale = 1.0 + 0.1 * torch.randn(c, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    res = torch.randn(b, h, w, c, device=dev, generator=gen)
+    return x, scale, bias, res
+
+
+def gn_form_args(form, x, res):
+    """(x, kwargs) of one form of K4's call."""
+    import torch
+    if form == "f32":
+        return x, {}
+    xb = x.to(torch.bfloat16)
+    if form == "gn1":
+        return xb, {"out_dtype": torch.bfloat16}
+    return xb, {"out_dtype": torch.bfloat16,
+                "residual": res.to(torch.bfloat16)}
+
+
+def gn_plan_text(plan):
+    return (f"{plan.mode} cpi {plan.cpi} ipw {plan.ipw} waves {plan.waves} "
+            f"run {plan.run_pix} px tiles {plan.tiles} refill "
+            f"{int(plan.refill)} smem {plan.smem} B grid {plan.grid} "
+            f"({plan.per_sm}/SM) threads {plan.threads}")
+
+
+def k4_phases(K, xi, scale, bias, kw, plan, dev):
+    """Block 0's phases (us, mean over the waves) from the kernel's own
+    clock: wait for the run, statistics, barrier, merge, apply."""
+    import torch
+    st = torch.zeros(K.K4_STAMPS * plan.waves, dtype=torch.int64, device=dev)
+    K.groupnorm_silu(xi, scale, bias, 8, stamps=st, **kw)
+    torch.cuda.synchronize()
+    d = st.view(plan.waves, K.K4_STAMPS).double()
+    ph = ((d[:, 1:] - d[:, :-1]).mean(0) / 1e3).tolist()
+    return dict(zip(("wait", "stats", "barrier", "merge", "apply"), ph))
+
+
+def check_groupnorm(K, gen, dev, failures, phases=False):
+    """K4 in its three forms at every main-path shape (each against its
+    plain version, bit-equal over two calls, one launch a call, timed with
+    its bound; the f32 form also against ``F.group_norm`` + ``F.silu`` on
+    the NHWC tensor's NCHW view and on an NCHW-contiguous copy), then the
+    ragged and streamed shapes in f32 and bf16. Returns the f32 rows (the
+    TPU kernel's function, the ``kernels`` line's) and the main-path
+    forms' totals per forward. With ``phases`` (``--only k4``) each form
+    also prints block 0's phases and is timed with the plan of the other
+    CTAs an SM beside it (the plan's choice, decided by measurement)."""
     import torch
     import torch.nn.functional as F
-    rows = []
-    for b, h, w, c, calls in GN_SHAPES + [(2, 7, 9, 24, 0)]:
-        x = torch.randn(b, h, w, c, device=dev, generator=gen) * 2.0 + 0.5
-        scale = 1.0 + 0.1 * torch.randn(c, device=dev, generator=gen)
-        bias = 0.1 * torch.randn(c, device=dev, generator=gen)
-        out = K.groupnorm_silu(x, scale, bias, 8)
-        torch.cuda.synchronize()
-        ref = K.groupnorm_silu_plain(x, scale, bias, 8)
-        err = float((out - ref).abs().max())
-        row = {"shape": [b, h, w, c], "max_abs_err": err,
-               "max_rel_err": err / float(ref.abs().max()), "tol": GN_ATOL}
-        if not err <= GN_ATOL:
-            failures.append(f"groupnorm_silu {row['shape']}: max abs err "
-                            f"{err} > {GN_ATOL}")
-        if calls:
-            nbytes = 4.0 * (2 * b * h * w * c + 2 * c)
-            # ~12 operations per element: statistics, normalise, affine, SiLU
-            flops = 12.0 * b * h * w * c
+    rows, main_rows = [], []
+    main = {"gn1_ms": 0.0, "gn2_ms": 0.0, "gn1_plain_ms": 0.0,
+            "gn2_plain_ms": 0.0, "bound_ms": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, h, w, c, calls in GN_SHAPES:
+        x, scale, bias, res = gn_operands(gen, dev, b, h, w, c)
+        n = b * h * w * c
+        for form, nbytes in K4_FORMS:
+            xi, kw = gn_form_args(form, x, res)
+            plan = K.groupnorm_silu_plan(b, h, w, c, 8, xi.dtype, sms)
+            before = K.LAUNCHES["groupnorm_silu"]
+            out = K.groupnorm_silu(xi, scale, bias, 8, **kw)
+            again = K.groupnorm_silu(xi, scale, bias, 8, **kw)
+            torch.cuda.synchronize()
+            launched = K.LAUNCHES["groupnorm_silu"] - before
+            ref = K.groupnorm_silu_plain(xi, scale, bias, 8, **kw)
+            err, ratio = gn_error(out, ref, form)
+            row = {"shape": [b, h, w, c], "form": form, "max_abs_err": err,
+                   "max_rel_err": err / float(ref.float().abs().max()),
+                   "err_over_tol": ratio, "bit_equal": torch.equal(out, again),
+                   "plan": plan._asdict(), "calls": calls,
+                   "byte_ms": (nbytes * n + 8 * c) / HBM_BYTES_PER_S * 1e3,
+                   # ~12 operations an element: statistics, normalise,
+                   # affine, SiLU (and the residual add)
+                   "flop_ms": 12.0 * n / F32_FLOPS * 1e3}
+            if not (ratio <= 1.0 and row["bit_equal"] and launched == 2):
+                failures.append(f"groupnorm_silu {form} {row['shape']}: err "
+                                f"{err} ({ratio:.3g} of the bound), bit-equal "
+                                f"{row['bit_equal']}, {launched} launches for "
+                                f"2 calls")
+            others = {}
+            library = None
+            if form == "f32":
+                xc = x.permute(0, 3, 1, 2).contiguous()
 
-            def library():
-                y = F.group_norm(x.permute(0, 3, 1, 2), 8, scale, bias, 1e-5)
-                return F.silu(y)
-            time_row(row, lambda: K.groupnorm_silu(x, scale, bias, 8),
-                     lambda: K.groupnorm_silu_plain(x, scale, bias, 8),
-                     library)
-            row.update(flop_ms=flops / F32_FLOPS * 1e3,
-                       byte_ms=nbytes / HBM_BYTES_PER_S * 1e3, calls=calls)
-        rows.append(row)
-        print(f"[kernel] groupnorm_silu {row['shape']} abs_err={err:.3g} "
-              f"rel_err={row['max_rel_err']:.3g} tol={GN_ATOL} " +
-              row_times(row), flush=True)
-    return rows
+                def library():
+                    return F.silu(F.group_norm(x.permute(0, 3, 1, 2), 8,
+                                               scale, bias, 1e-5))
+
+                def library_nchw():
+                    return F.silu(F.group_norm(xc, 8, scale, bias, 1e-5))
+                others["library_nchw_ms"] = library_nchw
+            if phases:            # the plan with the other CTAs an SM
+                other = K.groupnorm_silu_plan(b, h, w, c, 8, xi.dtype, sms,
+                                              per_sm=3 - plan.per_sm)
+                others[f"per_sm{other.per_sm}_ms"] = (
+                    lambda p=other: K.groupnorm_silu(xi, scale, bias, 8,
+                                                     plan=p, **kw))
+            time_row(row, lambda: K.groupnorm_silu(xi, scale, bias, 8, **kw),
+                     lambda: K.groupnorm_silu_plain(xi, scale, bias, 8, **kw),
+                     library, **others)
+            if phases:
+                row["phases_us"] = k4_phases(K, xi, scale, bias, kw, plan,
+                                             dev)
+            if form == "f32":
+                rows.append(row)
+            else:                 # half of a shape's calls are gn1, half gn2
+                main_rows.append(row)
+                main[f"{form}_ms"] += row["ms"] * calls / 2
+                main[f"{form}_plain_ms"] += row["plain_ms"] * calls / 2
+                main["bound_ms"] += row["byte_ms"] * calls / 2
+            lib = (f" library {row['library_ms']:.4f} (NCHW copy "
+                   f"{row['library_nchw_ms']:.4f})" if form == "f32" else "")
+            ph = (f" {3 - plan.per_sm}/SM "
+                  f"{row[f'per_sm{3 - plan.per_sm}_ms']:.4f}; phases us " +
+                  " ".join(f"{k} {v:.2f}" for k, v in
+                           row["phases_us"].items()) if phases else "")
+            print(f"[kernel] K4 {form} {row['shape']} {gn_plan_text(plan)}: "
+                  f"ms {row['ms']:.4f} (p90 {row['ms_p90']:.4f}) bound "
+                  f"{row['byte_ms']:.4f} plain {row['plain_ms']:.4f}{lib}; "
+                  f"abs_err {err:.3g} ({ratio:.3g} of tol), bit-equal "
+                  f"{row['bit_equal']}{ph}", flush=True)
+        del x, res
+        torch.cuda.empty_cache()
+    for b, h, w, c in GN_EXTRA:
+        x, scale, bias, res = gn_operands(gen, dev, b, h, w, c)
+        for form in ("f32", "gn2"):
+            xi, kw = gn_form_args(form, x, res)
+            plan = K.groupnorm_silu_plan(b, h, w, c, 8, xi.dtype, sms)
+            out = K.groupnorm_silu(xi, scale, bias, 8, **kw)
+            torch.cuda.synchronize()
+            ref = K.groupnorm_silu_plain(xi, scale, bias, 8, **kw)
+            err, ratio = gn_error(out, ref, form)
+            rows.append({"shape": [b, h, w, c], "form": form,
+                         "max_abs_err": err, "err_over_tol": ratio,
+                         "max_rel_err": err / float(ref.float().abs().max()),
+                         "plan": plan._asdict()})
+            if not ratio <= 1.0:
+                failures.append(f"groupnorm_silu {form} {[b, h, w, c]}: err "
+                                f"{err} ({ratio:.3g} of the bound)")
+            print(f"[kernel] K4 {form} {[b, h, w, c]} {gn_plan_text(plan)}: "
+                  f"abs_err {err:.3g} ({ratio:.3g} of tol)", flush=True)
+        del x, res
+    timed = [r for r in rows if "ms" in r]
+    f32 = {k: sum(r[k] * r["calls"] for r in timed)
+           for k in ("ms", "byte_ms", "plain_ms", "library_ms",
+                     "library_nchw_ms")}
+    main["forms_ms"] = main["gn1_ms"] + main["gn2_ms"]
+    if phases:
+        for form, _ in K4_FORMS:
+            got = [r for r in (rows if form == "f32" else main_rows)
+                   if r["form"] == form and "ms" in r]
+            for per_sm in (1, 2):
+                key = "ms" if got[0]["plan"]["per_sm"] == per_sm else \
+                    f"per_sm{per_sm}_ms"
+                share = sum(r[key] * r["calls"] for r in got) / \
+                    (1 if form == "f32" else 2)
+                print(f"[kernel] K4 {form} per forward with {per_sm} CTA(s) "
+                      f"an SM: {share:.4f} ms", flush=True)
+    print(f"[kernel] K4 per forward (14 calls): f32 form {f32['ms']:.4f} ms "
+          f"(bound {f32['byte_ms']:.4f}, plain {f32['plain_ms']:.4f}, "
+          f"library {f32['library_ms']:.4f}, on an NCHW copy "
+          f"{f32['library_nchw_ms']:.4f}); main-path forms gn1 + gn2 "
+          f"{main['forms_ms']:.4f} ms (gn1 {main['gn1_ms']:.4f}, gn2 "
+          f"{main['gn2_ms']:.4f}; bound {main['bound_ms']:.4f}, plain "
+          f"{main['gn1_plain_ms'] + main['gn2_plain_ms']:.4f})", flush=True)
+    return rows, main
+
+
+def k4_sync_probe(K, dev):
+    """us per barrier of K4's exchange alone (2000 rounds against none,
+    CUDA events): the per-image barrier words at the main path's CTAs an
+    image."""
+    import torch
+    out = {}
+    for cpi, ipw in ((8, 16), (16, 16), (33, 8), (44, 6), (88, 3), (132, 1)):
+        ts = []
+        for rounds in (0, 2000):
+            K.groupnorm_silu_sync_probe(rounds, cpi, ipw, dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            K.groupnorm_silu_sync_probe(rounds, cpi, ipw, dev)
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+        key = f"counters cpi {cpi} ipw {ipw}"
+        out[key] = (ts[1] - ts[0]) / 2000 * 1e3
+        print(f"[kernel] K4 exchange probe {key}: {out[key]:.3f} us a "
+              f"barrier", flush=True)
+    return out
 
 
 def k1_alternatives(K, site, plan, sm_count):
@@ -792,8 +993,8 @@ def kernel_entry(name, source, replaces, rows, launches, per):
                  if r["flop_ms"] >= r["byte_ms"])
     by_bytes = sum(r["byte_ms"] * r["calls"] for r in timed
                    if r["flop_ms"] < r["byte_ms"])
-    entry = {"name": name, "route": "cuda" if source.endswith(".cu")
-             else "triton", "source": source, "replaces": replaces,
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
              "launches": launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "max_rel_err": max(r["max_rel_err"] for r in rows),
@@ -934,7 +1135,7 @@ def check_train_step(K, trainer, gen, failures):
 K2_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
 # device kernels grouped by name (first match wins)
 FORWARD_GROUPS = [("flash_attention (K3)", ("flash_fwd_kernel",)),
-                  ("groupnorm_silu (K4)", ("_gn_",)),
+                  ("groupnorm_silu (K4)", ("groupnorm_silu_kernel",)),
                   ("upsample", ("upsample",)),
                   ("max pool", ("pool",)),
                   ("layer/group norm (stock)", ("norm",)),
@@ -980,21 +1181,22 @@ def profile_fn(fn, wall_ms, groups, tag):
             rows.append((evt.key, us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    by_group = {}
-    for name, ms, _ in rows:
+    by_group, launches = {}, {}
+    for name, ms, count in rows:
         low = name.lower()
         group = next((g for g, keys in groups
                       if any(k in low for k in keys)), "other elementwise")
         by_group[group] = by_group.get(group, 0.0) + ms
+        launches[group] = launches.get(group, 0) + count
     for group, ms in sorted(by_group.items(), key=lambda g: -g[1]):
-        print(f"[{tag}] {ms:8.3f} ms {100 * ms / total:5.1f}%  {group}",
-              flush=True)
+        print(f"[{tag}] {ms:8.3f} ms {100 * ms / total:5.1f}% "
+              f"x{launches[group]:<5d} {group}", flush=True)
     for name, ms, count in rows[:10]:
         print(f"[{tag}]   {ms:8.3f} ms x{count:<4d} {name[:80]}", flush=True)
     print(f"[{tag}] kernel time {total:.3f} ms of a {wall_ms:.3f} ms call: "
           f"device busy share {total / wall_ms:.3f}", flush=True)
     return {"kernel_ms": total, "groups": by_group,
-            "top": [list(r) for r in rows[:10]]}
+            "group_launches": launches, "top": [list(r) for r in rows[:10]]}
 
 
 def check_launches(K, want, what, failures):
@@ -1268,12 +1470,17 @@ def main_path(K, gen, failures):
 # roundings that the discriminator's real-minus-fake gradient and six
 # BatchNorm backwards amplify past those bounds. So the bf16 comparison is
 # held to VAEGAN_FLOOR_X times that noise floor, measured in the same run
-# (the reference against itself with c * (1 + 2^-23 N(0, 1))).
+# (the reference against itself with c * (1 + 2^-23 N(0, 1))), taken as
+# the median over FLOOR_SEEDS: the loss floor varies six- to seventeen-fold
+# between seeds on an H100, so a bound on the first seed alone rested on a
+# draw.
 VAEGAN_GRAD_REL, VAEGAN_GRAD_FLOOR, VAEGAN_LOSS_REL = 5e-2, 1e-4, 1e-3
 VAEGAN_FLOOR_X = 3.0
-# perturbation seeds of the bf16 noise floor: the first one's floor sets the
-# held bound, all three are measured to show the floor's spread
+# perturbation seeds of the bf16 noise floor: their median sets the VAE-GAN
+# bound, the first one's the Glow bounds; all are printed to show the spread
 FLOOR_SEEDS = (123, 124, 125)
+# the seed of the VAE-GAN phase's own generator (its data and draws)
+VAEGAN_SEED = 9
 VAEGAN_GROUPS = [("K1 conv + batch statistics", ("conv_stats_",
                                                   "combine_stats")),
                  ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
@@ -1456,15 +1663,16 @@ def check_vaegan_step(K, cfg, gen, failures):
             floors = {seed: compare_step(runs[f"perturbed_{seed}"],
                                          runs["plain"])
                       for seed in FLOOR_SEEDS}
-            fworst, fname, floss = floors[FLOOR_SEEDS[0]]
+            spread = floor_spread(floors)
+            fworst = spread["worst_min_median_max"][1]
+            floss = spread["loss_min_median_max"][1]
             row.update(floor_worst_err_over_bound=fworst,
-                       floor_worst_tensor=fname, floor_loss_rel=floss,
-                       floors=floor_spread(floors))
+                       floor_loss_rel=floss, floors=spread)
             line += (f"; noise floor (reference vs itself, c perturbed by "
-                     f"one f32 ulp, seed {FLOOR_SEEDS[0]}): worst "
-                     f"{fworst:.3f} ({fname}), loss {floss:.3g}; held at the "
-                     f"f32 bounds or {VAEGAN_FLOOR_X} x the floor, whichever "
-                     f"is larger; " + floor_line(row["floors"]))
+                     f"one f32 ulp, median over seeds {FLOOR_SEEDS}): worst "
+                     f"{fworst:.3f}, loss {floss:.3g}; held at the f32 bounds"
+                     f" or {VAEGAN_FLOOR_X} x the floor, whichever is "
+                     f"larger; " + floor_line(spread))
             # the f32 bounds, widened to VAEGAN_FLOOR_X x the floor where
             # the floor itself exceeds them
             if not (worst <= max(1.0, VAEGAN_FLOOR_X * fworst)
@@ -2883,6 +3091,7 @@ class _PartialRun(Exception):
 # ``--only`` choices and the sources each builds
 ONLY = {"k1": ("conv_bn_stats.cu",),
         "attn": ("flash_attention.cu", "flash_attention_bwd.cu"),
+        "k4": ("groupnorm_silu.cu",),
         "k5": ("glow_coupling.cu",),
         "k6": ("glow_flow_stack.cu", "glow_coupling.cu")}
 
@@ -2893,7 +3102,8 @@ def main(argv=None) -> int:
                     help="also write the full report as JSON here")
     ap.add_argument("--only", choices=tuple(ONLY), default=None,
                     help="build, then check and time only this kernel "
-                    "(k1; attn: K2 fwd, dq, dk/dv and K3; k5; k6, with the "
+                    "(k1; attn: K2 fwd, dq, dk/dv and K3; k4, with its plan, "
+                    "phases and the exchange probe; k5; k6, with the "
                     "per-flow K5 path it is timed against) with no main "
                     "path and no result line; exit 0 if it passed")
     args = ap.parse_args(argv)
@@ -2946,6 +3156,10 @@ def main(argv=None) -> int:
         elif args.only == "k1":
             report["k1"] = check_k1(K, torch.Generator(device=dev)
                                     .manual_seed(0), dev, failures)
+        elif args.only == "k4":
+            gen = torch.Generator(device=dev).manual_seed(K4_SEED)
+            report["k4"] = check_groupnorm(K, gen, dev, failures, phases=True)
+            report["k4_exchange"] = k4_sync_probe(K, dev)
         elif args.only == "attn":
             gen = torch.Generator(device=dev).manual_seed(0)
             report["k2"] = check_k2(K, gen, dev, failures)
@@ -2956,16 +3170,24 @@ def main(argv=None) -> int:
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(
             K, gen, dev, failures)
         attn_rows = check_attention(K, gen, dev, failures)
-        gn_rows = check_groupnorm(K, gen, dev, failures)
+        # K4, the VAE-GAN and the Glow phases draw from their own
+        # generators, so what one phase draws moves no other phase's inputs
+        gn_rows, report["k4_main_path"] = check_groupnorm(
+            K, torch.Generator(device=dev).manual_seed(K4_SEED), dev,
+            failures)
         k1_rows = check_k1(K, gen, dev, failures)
-        # the Glow phases draw from their own generators, so the earlier
-        # phases see the inputs they saw before Glow was added
         k5_rows = check_k5(K, torch.Generator(device=dev).manual_seed(5), dev,
                            failures)
         k6_rows = check_k6(K, torch.Generator(device=dev).manual_seed(7), dev,
                            failures)
         train_l, serve_l, report["main_path"] = main_path(K, gen, failures)
-        report["vaegan"] = vaegan_path(K, gen, failures)
+        mp = report["main_path"]
+        print(f"[serve] fused UNet forward (B=16, 256x256) "
+              f"{mp['unet_fused_ms']:.3f} ms; DDIM-50 request "
+              f"{mp['serve']['sample_s']:.3f} s ({mp['serve']['sample_forwards']}"
+              f" forwards, checkpoint restore included)", flush=True)
+        report["vaegan"] = vaegan_path(
+            K, torch.Generator(device=dev).manual_seed(VAEGAN_SEED), failures)
         report["glow"] = glow_path(
             K, torch.Generator(device=dev).manual_seed(6), failures)
         report["glow_stack"] = glow_stack_path(
@@ -2990,10 +3212,12 @@ def main(argv=None) -> int:
             kernel_entry("flash_attention", fwd_src,
                          "vgd_tpu/ops/pallas_kernels.py:63", attn_rows,
                          serve_l["flash_attention"], per_fwd),
-            kernel_entry("groupnorm_silu",
-                         "vgd_tpu_torch/ops/groupnorm_silu_triton.py",
-                         "vgd_tpu/ops/pallas_kernels.py:149", gn_rows,
-                         serve_l["groupnorm_silu"], per_fwd),
+            dict(kernel_entry("groupnorm_silu",
+                              "vgd_tpu_torch/csrc/groupnorm_silu.cu",
+                              "vgd_tpu/ops/pallas_kernels.py:193", gn_rows,
+                              serve_l["groupnorm_silu"], per_fwd),
+                 form="f32 in and out (the TPU kernel's function)",
+                 main_path_forms=report["k4_main_path"]),
             kernel_entry("conv_bn_stats",
                          "vgd_tpu_torch/csrc/conv_bn_stats.cu",
                          "vgd_tpu/ops/fused_conv.py:125", k1_rows,

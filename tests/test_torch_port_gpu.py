@@ -57,18 +57,189 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
         K.flash_attention(q, q.cpu(), q)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (2, 32, 32, 256),
-                                   (3, 7, 9, 24), (1, 1, 1, 8)])
-def test_groupnorm_silu_matches_plain(cuda, shape):
-    g = torch.Generator(device=cuda).manual_seed(1)
+# K4: chip_smoke's main-path shapes (B=16, 256x256 UNet), smaller ones,
+# ragged ones, and one an image of which the grid cannot hold (streamed);
+# each in its three forms (f32; gn1: bf16 in and out; gn2: bf16 in, bf16
+# residual, bf16 out)
+K4_SHAPES = ([tuple(s[:4]) for s in chip_smoke.GN_SHAPES]
+             + [(2, 64, 64, 64), (2, 32, 32, 256), (3, 7, 9, 24), (1, 1, 1, 8),
+                (2, 512, 512, 64)])
+
+
+def k4_call(cuda, shape, form, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     c = shape[-1]
     x = torch.randn(*shape, device=cuda, generator=g) * 3.0 + 1.0
     scale = torch.randn(c, device=cuda, generator=g)
     bias = torch.randn(c, device=cuda, generator=g)
-    out = K.groupnorm_silu(x, scale, bias)
+    res = torch.randn(*shape, device=cuda, generator=g)
+    xi, kw = chip_smoke.gn_form_args(form, x, res)
+    return xi, scale, bias, kw
+
+
+@pytest.mark.parametrize("form", ["f32", "gn1", "gn2"])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_groupnorm_silu_matches_plain(cuda, shape, form):
+    """f32 within chip_smoke's GN_ATOL; a bf16 result within one bf16 ulp
+    of |y| plus GN_ATOL (chip_smoke.gn_error)."""
+    xi, scale, bias, kw = k4_call(cuda, shape, form)
+    out = K.groupnorm_silu(xi, scale, bias, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, K.groupnorm_silu_plain(x, scale, bias),
-                               atol=1e-4, rtol=0)
+    ref = K.groupnorm_silu_plain(xi, scale, bias, **kw)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    err, ratio = chip_smoke.gn_error(out, ref, form)
+    assert ratio <= 1.0, (err, ratio)
+    if shape == (2, 512, 512, 64):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert K.groupnorm_silu_plan(*shape, 8, xi.dtype, sms).mode == \
+            "streamed"
+
+
+@pytest.mark.parametrize("form", ["f32", "gn2"])
+@pytest.mark.parametrize("shape", [(16, 256, 256, 64), (16, 32, 32, 256),
+                                   (3, 7, 9, 24), (2, 512, 512, 64)])
+def test_groupnorm_silu_is_bit_deterministic_with_one_launch(cuda, shape,
+                                                             form):
+    xi, scale, bias, kw = k4_call(cuda, shape, form, seed=2)
+    before = K.LAUNCHES["groupnorm_silu"]
+    a = K.groupnorm_silu(xi, scale, bias, **kw)
+    assert K.LAUNCHES["groupnorm_silu"] == before + 1
+    b = K.groupnorm_silu(xi, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["groupnorm_silu"] == before + 2
+    assert torch.equal(a, b)
+
+
+def test_groupnorm_silu_refuses_what_it_cannot_take(cuda):
+    x = torch.randn(2, 8, 8, 64, device=cuda)
+    one, zero = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K.groupnorm_silu(x.half(), one, zero)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.groupnorm_silu(x.transpose(1, 2), one, zero)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.groupnorm_silu(torch.randn(2, 8, 8, 12, device=cuda),
+                         torch.ones(12, device=cuda),
+                         torch.zeros(12, device=cuda), groups=4)
+    with pytest.raises(ValueError, match="residual"):
+        K.groupnorm_silu(x, one, zero, residual=x[:1])
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(x, one, zero, residual=x.cpu())
+    with pytest.raises(ValueError, match="out_dtype"):
+        K.groupnorm_silu(x, one, zero, out_dtype=torch.float16)
+
+
+def test_groupnorm_silu_refuses_a_grid_the_occupancy_does_not_allow(cuda):
+    """Four CTAs an SM do not fit (that needs at most 64 registers a
+    thread): the cooperative launch is refused with an error, never shrunk.
+    One and two CTAs an SM run and agree with the plain version. The C entry
+    point's shared-memory layout is the plan's."""
+    xi, scale, bias, kw = k4_call(cuda, (16, 128, 128, 64), "f32")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = K.groupnorm_silu_plan(16, 128, 128, 64, 8, xi.dtype, sms,
+                                 per_sm=4)
+    assert plan.grid > 3 * sms
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.groupnorm_silu(xi, scale, bias, plan=plan)
+    assert _build.groupnorm_silu_lib().vgd_groupnorm_silu_aux_bytes() == \
+        K.K4_AUX_BYTES
+    for per_sm in (1, 2):
+        plan = K.groupnorm_silu_plan(16, 128, 128, 64, 8, xi.dtype, sms,
+                                     per_sm=per_sm)
+        torch.testing.assert_close(
+            K.groupnorm_silu(xi, scale, bias, plan=plan),
+            K.groupnorm_silu_plain(xi, scale, bias), atol=1e-4, rtol=0)
+
+
+def test_groupnorm_silu_sync_probe_counts_no_launch_and_leaves_k4_right(cuda):
+    """K4's exchange probe runs on K4's barrier words, counts no kernel
+    launch, and leaves them ready for K4."""
+    before = dict(K.LAUNCHES)
+    for cpi, ipw in ((44, 3), (8, 16), (16, 8)):
+        for rounds in (0, 1, 64):
+            K.groupnorm_silu_sync_probe(rounds, cpi, ipw, cuda)
+    torch.cuda.synchronize()
+    assert dict(K.LAUNCHES) == before
+    xi, scale, bias, kw = k4_call(cuda, (16, 32, 32, 256), "gn2", seed=4)
+    err, ratio = chip_smoke.gn_error(
+        K.groupnorm_silu(xi, scale, bias, **kw),
+        K.groupnorm_silu_plain(xi, scale, bias, **kw), "gn2")
+    assert ratio <= 1.0, err
+
+
+# small grids, so that two launches can be resident at once: two images of
+# 7 x 9 pixels are 126 CTAs of one pixel each
+K4_CONCURRENT = (2, 7, 9, 24)
+
+
+def k4_inputs(cuda, n, seed):
+    """Operands of ``n`` gn2-form K4 calls at K4_CONCURRENT, made and
+    synchronized before any is launched."""
+    ops = [k4_call(cuda, K4_CONCURRENT, "gn2", seed=seed + i)
+           for i in range(n)]
+    torch.cuda.synchronize()
+    return ops
+
+
+def k4_launch(streams, ops):
+    """K4 on each operand set of ``ops``, the streams taken in turns, with
+    nothing between the launches; returns the (unsynchronized) outputs."""
+    outs = []
+    for i, (xi, scale, bias, kw) in enumerate(ops):
+        with torch.cuda.stream(streams[i % len(streams)]):
+            outs.append(K.groupnorm_silu(xi, scale, bias, **kw))
+    return outs
+
+
+def k4_check(outs, ops):
+    torch.cuda.synchronize()
+    for out, (xi, scale, bias, kw) in zip(outs, ops):
+        err, ratio = chip_smoke.gn_error(
+            out, K.groupnorm_silu_plain(xi, scale, bias, **kw), "gn2")
+        assert ratio <= 1.0, err
+
+
+def test_groupnorm_silu_on_two_streams_at_once_matches_plain(cuda):
+    """Launches on two streams that may overlap use barrier words of their
+    own (one buffer per device and stream), so each stays right."""
+    a, b = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    words = []
+    for st in (a, b):
+        with torch.cuda.stream(st):
+            words.append(K._k4_sync(torch.device(cuda)).data_ptr())
+    assert words[0] != words[1]
+    ops = k4_inputs(cuda, 80, 100)
+    k4_check(k4_launch((a, b), ops), ops)
+
+
+def test_groupnorm_silu_graph_replays_beside_eager_calls(cuda):
+    """A CUDA graph of K4 calls, captured on a stream that has barrier
+    words and on one that has none yet (each captured call then zeroes
+    words of its own), replays on the default stream while eager K4 calls
+    run on another; every result matches the plain version."""
+    dev = torch.device(cuda)
+    xi, scale, bias, kw = k4_call(cuda, K4_CONCURRENT, "gn2", seed=5)
+    ref = K.groupnorm_silu_plain(xi, scale, bias, **kw)
+    warm, fresh, eager = (torch.cuda.Stream(cuda) for _ in range(3))
+    with torch.cuda.stream(warm):
+        K.groupnorm_silu(xi, scale, bias, **kw)
+    torch.cuda.synchronize()
+    K._K4_SYNC.pop((dev, fresh.cuda_stream), None)
+    for st in (warm, fresh):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=st):
+            outs = [K.groupnorm_silu(xi, scale, bias, **kw)
+                    for _ in range(4)]
+        assert (dev, fresh.cuda_stream) not in K._K4_SYNC
+        ops = k4_inputs(cuda, 20, 200)
+        eager_outs = []
+        for k in range(10):     # a replay, then two eager calls beside it
+            graph.replay()
+            eager_outs += k4_launch((eager,), ops[2 * k:2 * k + 2])
+        k4_check(eager_outs, ops)
+        for out in outs:
+            err, ratio = chip_smoke.gn_error(out, ref, "gn2")
+            assert ratio <= 1.0, err
 
 
 def test_fused_unet_matches_plain_f32(cuda):
@@ -87,6 +258,32 @@ def test_fused_unet_matches_plain_f32(cuda):
             ref = fused(x, t)
         assert sum(K.LAUNCHES.values()) == 0
         torch.testing.assert_close(fused(x, t), ref, atol=2e-4, rtol=0)
+    assert K.LAUNCHES["flash_attention"] == 3
+    assert K.LAUNCHES["groupnorm_silu"] == 14
+
+
+def test_fused_unet_matches_plain_bf16(cuda):
+    """Small bf16 UNet (the serving dtype): K4 takes the bf16 conv outputs,
+    gn1's cast and gn2's residual add and cast; within chip_smoke's
+    UNET_REL_TOL of max |output| of the same model with no kernel, with 14
+    K4 and 3 K3 launches a forward."""
+    from vgd_tpu_torch.models.unet import UNet
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with torch.device(cuda):
+        fused = UNet(base_ch=16, time_emb_dim=32, dtype=torch.bfloat16,
+                     fused=True)
+        fused.init_parameters(g)
+    x = torch.randn(2, 32, 32, 3, device=cuda, generator=g)
+    t = torch.tensor([5, 900], device=cuda)
+    with torch.inference_mode():
+        with K.plain_reference():
+            ref = fused(x, t)
+        K.LAUNCHES.clear()
+        out = fused(x, t)
+    assert torch.isfinite(out).all()
+    err = float((out - ref).abs().max())
+    assert err <= chip_smoke.UNET_REL_TOL * float(ref.abs().max()), err
+    assert K.LAUNCHES["groupnorm_silu"] == 14
     assert K.LAUNCHES["flash_attention"] == 3
 
 

@@ -1,7 +1,8 @@
 """Port kernels, CPU side: the plain PyTorch versions of K2 (differentiable
 flash attention: forward with logsumexp, backward), K3 (flash attention)
-and K4 (GroupNorm+SiLU) against the JAX package's Pallas kernels run in
-interpret mode, and the wrappers' CPU dispatch.
+and K4 (GroupNorm+SiLU, with the casts and the residual add the fused UNet
+takes into it) against the JAX package's Pallas kernels run in interpret
+mode, and the wrappers' CPU dispatch.
 
 Tolerances are those of tests/test_kernels.py (rtol 1e-4, atol 1e-5): both
 sides compute in f32 and differ only in summation order."""
@@ -86,6 +87,82 @@ def test_groupnorm_silu_plain_two_pass_variance():
     ref = groupnorm_silu_xla(jnp.asarray(x), jnp.asarray(one),
                              jnp.asarray(zero))
     np.testing.assert_allclose(out, np.asarray(ref), rtol=RTOL, atol=1e-4)
+
+
+def _bf16(a):
+    """a (f32 numpy) rounded to bf16, returned as f32 numpy."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp of |a| (2^(e - 8) for |a| = m 2^e, m in [0.5, 1))."""
+    _, e = np.frexp(np.abs(a))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("form", ["gn1", "gn2", "gn2_f32_residual",
+                                  "f32_out"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (2, 16, 16, 16)])
+def test_groupnorm_silu_plain_forms_match_pallas_interpret(shape, form):
+    """The fused UNet's forms around K4: bf16 x read as f32, then gn1's cast
+    to bf16, or gn2's residual added in f32 and the sum cast to bf16 (the
+    JAX ConvBlock's ``GroupNormSiLU(x.astype(F32))`` and ``.astype`` /
+    ``(h + res.astype(F32)).astype``), against JAX's Pallas kernel in
+    interpret mode followed by the same jnp ops. bf16 results within one
+    bf16 ulp of |y| plus the f32 tolerance (each side rounds f32 values that
+    agree within it); f32 results at RTOL / ATOL."""
+    rng = np.random.default_rng(5)
+    c = shape[-1]
+    x = _bf16(rng.standard_normal(shape).astype(np.float32) * 2.0 + 0.5)
+    scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    res = rng.standard_normal(shape).astype(np.float32)
+    if form != "gn2_f32_residual":
+        res = _bf16(res)
+    y = groupnorm_silu(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                       groups=8, force="pallas", interpret=True)
+    bf16 = torch.bfloat16
+    xt = torch.from_numpy(x).to(bf16)
+    kw = {"gn1": {"out_dtype": bf16},
+          "gn2": {"out_dtype": bf16,
+                  "residual": torch.from_numpy(res).to(bf16)},
+          "gn2_f32_residual": {"out_dtype": bf16,
+                               "residual": torch.from_numpy(res)},
+          "f32_out": {"out_dtype": torch.float32}}[form]
+    if form.startswith("gn2"):
+        y = y + jnp.asarray(res)
+    out_dtype = kw["out_dtype"]
+    ref = np.asarray(y.astype(jnp.bfloat16 if out_dtype == bf16
+                              else jnp.float32).astype(jnp.float32))
+    out = K.groupnorm_silu_plain(xt, torch.from_numpy(scale),
+                                 torch.from_numpy(bias), groups=8, **kw)
+    assert out.dtype == out_dtype
+    out = out.float().numpy()
+    tol = ATOL + RTOL * np.abs(ref)
+    if out_dtype == bf16:
+        tol = tol + _bf16_ulp(np.maximum(np.abs(out), np.abs(ref)))
+    assert np.all(np.abs(out - ref) <= tol), float(np.max(np.abs(out - ref)))
+
+
+def test_groupnorm_silu_wrapper_refuses_mixed_and_meta_devices():
+    """Every operand, the residual too, must be on the CPU (the plain
+    version) or on one CUDA device: a meta tensor or a mix is refused."""
+    x = torch.randn(1, 4, 4, 16)
+    w, b = torch.ones(16), torch.zeros(16)
+    meta = torch.empty(1, 4, 4, 16, device="meta")
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(x, w, b, residual=meta)
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(meta, w, b, residual=meta)
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(x, w.to("meta"), b)
+    K.LAUNCHES.clear()
+    got = K.groupnorm_silu(x.bfloat16(), w, b, residual=x,
+                           out_dtype=torch.bfloat16)
+    torch.testing.assert_close(got, K.groupnorm_silu_plain(
+        x.bfloat16(), w, b, residual=x, out_dtype=torch.bfloat16),
+        rtol=0, atol=0)
+    assert sum(K.LAUNCHES.values()) == 0
 
 
 def test_wrappers_on_cpu_use_plain_and_count_no_launch():

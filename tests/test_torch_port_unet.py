@@ -77,6 +77,67 @@ def test_conv_block_matches_jax():
                                rtol=0)
 
 
+@pytest.mark.parametrize("in_ch", [8, 16], ids=["residual_conv", "identity"])
+def test_fused_conv_block_bf16_is_bit_equal_to_explicit_casts(in_ch):
+    """In bf16 with ``fused=True`` the block hands its bf16 conv outputs to
+    K4 with gn1's cast (``out_dtype``) and gn2's residual add and cast
+    (``residual``): on the CPU that is bit for bit the block written with
+    the explicit f32 casts and add (the JAX ConvBlock's form)."""
+    from vgd_tpu_torch.ops.kernels import groupnorm_silu_plain
+    g = torch.Generator().manual_seed(7)
+    pb = P.ConvBlock(in_ch, 16, 32, torch.bfloat16, fused=True)
+    with torch.no_grad():
+        for prm in pb.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=g) * 0.3
+                      + (1.0 if prm.ndim == 1 else 0.0) * 0.1)
+    x = torch.randn(2, 8, 8, in_ch, generator=g).to(torch.bfloat16)
+    temb = torch.randn(2, 32, generator=g)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        got = pb(x, temb)
+        res = x if pb.residual_conv is None else pb.residual_conv(x)
+        h = pb.conv1(x)
+        h = h + pb.time_proj(temb)[:, None, None, :].to(h.dtype)
+        h = groupnorm_silu_plain(h.float(), pb.gn1.weight, pb.gn1.bias,
+                                 8).to(bf16)
+        h = groupnorm_silu_plain(pb.conv2(h).float(), pb.gn2.weight,
+                                 pb.gn2.bias, 8)
+        want = (h + res.float()).to(bf16)
+    assert got.dtype == bf16
+    assert torch.equal(got, want)
+
+
+def test_training_conv_block_bf16_is_bit_equal_to_explicit_casts():
+    """With ``fused=False`` the block passes gn1's cast and gn2's residual
+    add and cast through the same calls as the fused form, in stock ops
+    under autograd: bit for bit the block written with the explicit f32
+    casts and add, and its gradients reach every parameter."""
+    from vgd_tpu_torch.ops.kernels import groupnorm_silu_plain
+    g = torch.Generator().manual_seed(8)
+    pb = P.ConvBlock(8, 16, 32, torch.bfloat16, fused=False)
+    with torch.no_grad():
+        for prm in pb.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=g) * 0.3)
+    x = torch.randn(2, 8, 8, 8, generator=g).to(torch.bfloat16)
+    temb = torch.randn(2, 32, generator=g)
+    bf16 = torch.bfloat16
+    got = pb(x, temb)
+    got.float().square().sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in pb.parameters())
+    with torch.no_grad():
+        res = pb.residual_conv(x)
+        h = pb.conv1(x)
+        h = h + pb.time_proj(temb)[:, None, None, :].to(h.dtype)
+        h = groupnorm_silu_plain(h.float(), pb.gn1.weight, pb.gn1.bias,
+                                 8).to(bf16)
+        h = groupnorm_silu_plain(pb.conv2(h).float(), pb.gn2.weight,
+                                 pb.gn2.bias, 8)
+        want = (h + res.float()).to(bf16)
+    assert got.dtype == bf16
+    assert torch.equal(got.detach(), want)
+
+
 @pytest.mark.parametrize("block", ["self", "cross"])
 def test_attention_blocks_match_jax(block):
     """q | k | v channel split of the qkv conv, k | v split of to_kv,

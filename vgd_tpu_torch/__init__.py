@@ -10,7 +10,7 @@ partial-noise restoration (``train.loop.sample_from_dir`` /
 FlashAttention-2 of the train step in CUDA C++ (``csrc/flash_attention.cu``
 forward, ``csrc/flash_attention_bwd.cu`` dq and dk/dv), single-head flash
 attention for serving in the same forward source, and fused GroupNorm+SiLU
-in Triton (``ops/groupnorm_silu_triton.py``).
+with the casts and the residual add around it (``csrc/groupnorm_silu.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.

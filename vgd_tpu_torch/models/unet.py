@@ -63,10 +63,14 @@ class Dense(nn.Module):
 
 
 class GroupNormSiLU(nn.Module):
-    """GroupNorm(8) + SiLU in f32, NHWC. ``fused=True`` runs the K4 kernel.
-    The training form (``fused=False``) runs stock PyTorch ops under
-    autograd and no kernel: the JAX train step keeps the XLA form there
-    (``vgd_tpu/models/unet.py`` GroupNormSiLU) and K4 has no backward."""
+    """GroupNorm(8) + SiLU in f32, NHWC. ``fused=True`` runs the K4 kernel,
+    which also takes the cast of its output (``out_dtype``) and a residual
+    added in f32 before that cast (``residual``), reading x in its own
+    dtype. The training form (``fused=False``) computes the same function
+    of ``x.float()`` in stock PyTorch ops under autograd and no kernel: the
+    JAX train step keeps the XLA form there (``vgd_tpu/models/unet.py``
+    GroupNormSiLU) and K4 has no backward. Both return f32 unless given
+    ``out_dtype``."""
 
     def __init__(self, channels: int, groups: int = 8, fused: bool = False):
         super().__init__()
@@ -75,12 +79,15 @@ class GroupNormSiLU(nn.Module):
         self.groups = groups
         self.fused = fused
 
-    def forward(self, x):
-        x = x.float()
+    def forward(self, x, out_dtype=None, residual=None):
         if self.fused:
-            return groupnorm_silu(x.contiguous(), self.weight, self.bias,
-                                  self.groups)
-        return groupnorm_silu_plain(x, self.weight, self.bias, self.groups)
+            return groupnorm_silu(
+                x.contiguous(), self.weight, self.bias, self.groups,
+                out_dtype=F32 if out_dtype is None else out_dtype,
+                residual=None if residual is None else residual.contiguous())
+        return groupnorm_silu_plain(x.float(), self.weight, self.bias,
+                                    self.groups, out_dtype=out_dtype,
+                                    residual=residual)
 
 
 def sinusoidal_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,7 +103,9 @@ def sinusoidal_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
 class ConvBlock(nn.Module):
     """Residual double conv with additive time embedding. The time
     projection is added after ``conv1`` and before ``gn1``, in the conv's
-    dtype; the residual add runs in f32 and is cast back."""
+    dtype; the residual add runs in f32 and is cast back. With ``fused``
+    the conv outputs go into K4 in their own dtype, and K4 writes gn1's
+    cast and gn2's residual add and cast itself."""
 
     def __init__(self, in_ch: int, out_ch: int, time_emb_dim: int,
                  dtype: torch.dtype, fused: bool):
@@ -114,9 +123,8 @@ class ConvBlock(nn.Module):
         res = x if self.residual_conv is None else self.residual_conv(x)
         h = self.conv1(x)
         h = h + self.time_proj(t_emb)[:, None, None, :].to(h.dtype)
-        h = self.gn1(h).to(self.dtype)
-        h = self.gn2(self.conv2(h))
-        return (h + res.float()).to(self.dtype)
+        h = self.gn1(h, out_dtype=self.dtype)
+        return self.gn2(self.conv2(h), out_dtype=self.dtype, residual=res)
 
 
 class AttentionBlock(nn.Module):

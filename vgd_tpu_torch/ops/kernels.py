@@ -10,8 +10,9 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
   ``torch.autograd.Function``;
 * ``flash_attention`` (K3, serving) -> the CUDA kernel in
   ``csrc/flash_attention.cu``;
-* ``groupnorm_silu`` (K4, serving) -> the Triton kernels in
-  ``ops/groupnorm_silu_triton.py``;
+* ``groupnorm_silu`` (K4, serving: GroupNorm + SiLU with the casts and the
+  residual add around it) -> the CUDA kernel in ``csrc/groupnorm_silu.cu``
+  under ``groupnorm_silu_plan``;
 * ``conv_stats`` (K1, VAE-GAN training: Conv4x4 stride 2 with the
   per-channel batch statistics of its output) -> the CUDA kernels in
   ``csrc/conv_bn_stats.cu``; ``ops/fused_conv.py`` builds the
@@ -44,13 +45,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import math
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from vgd_tpu_torch.ops import _build, groupnorm_silu_triton
+from vgd_tpu_torch.ops import _build
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -377,36 +379,244 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, groups: int = 8,
-                         eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over (H, W, C/G) then SiLU, NHWC, two-pass f32 variance
-    (the math of ``groupnorm_silu_xla``)."""
+                         eps: float = 1e-5, *,
+                         out_dtype: Optional[torch.dtype] = None,
+                         residual: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """GroupNorm over (H, W, C/G) then SiLU of x in f32, NHWC, two-pass f32
+    variance (the math of ``groupnorm_silu_xla`` on ``x.astype(F32)``);
+    then ``residual`` (upcast) added in f32 if given, and the result cast
+    to ``out_dtype`` (default x's dtype): what ``vgd_tpu/models/unet.py``
+    ConvBlock computes around its two ``GroupNormSiLU`` calls."""
     b, h, w, c = x.shape
     xg = x.reshape(b, h, w, groups, c // groups).float()
     mean = xg.mean(dim=(1, 2, 4), keepdim=True)
     var = ((xg - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
     xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
     y = xn * scale + bias
-    return (y * torch.sigmoid(y)).to(x.dtype)
+    y = y * torch.sigmoid(y)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(x.dtype if out_dtype is None else out_dtype)
+
+
+class GroupNormPlan(NamedTuple):
+    """How K4 runs one shape (``groupnorm_silu_plan``)."""
+    threads: int        # per CTA: a multiple of C / 8 (8 channels a thread)
+    cpi: int            # CTAs per image
+    ipw: int            # images per wave; the grid is cpi * ipw CTAs
+    waves: int
+    run_pix: int        # pixels of a CTA's run (an image's last run: less)
+    tile_pix: int       # pixels the buffer holds (run_pix when resident)
+    tiles: int          # tiles per run: 1 when resident
+    mode: str           # "resident" or "streamed"
+    refill: bool        # the next wave's run loads during the apply pass
+    buf_bytes: int      # the buffer
+    smem: int           # dynamic shared memory per CTA
+    per_sm: int         # CTAs an SM holds at once
+
+    @property
+    def grid(self) -> int:
+        return self.cpi * self.ipw
+
+
+# csrc/groupnorm_silu.cu: threads a CTA at most, channels, groups and CTAs an
+# image at most, and the shared memory besides the buffer (kAuxBytes: the
+# cross-thread reduction, per-group sums, the mbarrier)
+_K4_THREADS, _K4_MAX_C, _K4_MAX_GROUPS, _K4_MAX_CPI = 256, 2048, 32, 512
+K4_AUX_BYTES = _K4_THREADS * 8 * 4 + 4 * _K4_MAX_GROUPS * 4 + 16
+# the H100's shared memory a block may opt into (227 KB)
+K4_SMEM_BYTES = 232448
+# an SM's shared memory (228 KB) and what the system keeps of it a block
+K4_SM_SMEM, K4_BLOCK_RESERVED = 233472, 1024
+# device times block 0 stamps a wave (``stamps``)
+K4_STAMPS = 6
+# barrier words, one per image of a wave on a 128-byte line of its own
+# (kSyncStride words apart), kept per device and stream
+_K4_SYNC_STRIDE = 32
+_K4_SYNC_WORDS = 1024 * _K4_SYNC_STRIDE
+_K4_SYNC: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _k4_check(c: int, groups: int) -> None:
+    _require(c % groups == 0, f"channels {c} not a multiple of {groups}")
+    _require(c % 8 == 0 and 8 <= c <= _K4_MAX_C,
+             f"channels {c}: K4 takes a multiple of 8 up to {_K4_MAX_C}")
+    _require(1 <= groups <= _K4_MAX_GROUPS,
+             f"groups {groups} not in 1..{_K4_MAX_GROUPS}")
+
+
+def groupnorm_silu_plan(b: int, h: int, w: int, c: int, groups: int = 8,
+                        in_dtype: torch.dtype = torch.float32,
+                        sm_count: int = 132,
+                        smem_bytes: int = K4_SMEM_BYTES,
+                        per_sm: int = 2) -> GroupNormPlan:
+    """K4's plan for one shape: ``per_sm`` CTAs an SM (two: measured for
+    both input types, ``PERF.md`` §6), each image spread
+    over ``cpi`` CTAs as contiguous runs of whole pixels, as many images a
+    wave as one buffer a CTA holds, the images then spread evenly over the
+    waves ("resident": a run stays in shared memory between its statistics
+    and its apply pass, and with several waves the next wave's run refills
+    the buffer during the apply pass). An image the whole grid cannot hold
+    runs "streamed": one image a wave, each run cut into tiles that pass
+    through the buffer twice."""
+    _k4_check(c, groups)
+    es = torch.empty((), dtype=in_dtype).element_size()
+    u = c // 8
+    threads = u * (_K4_THREADS // u)
+    hw, pix = h * w, c * es
+    smem_bytes = min(smem_bytes, K4_SM_SMEM // per_sm - K4_BLOCK_RESERVED)
+    budget = (smem_bytes - K4_AUX_BYTES) // 128 * 128
+    sm_count = sm_count * per_sm
+
+    def runs(ipw):                # (pixels a run, CTAs an image)
+        rp = -(-hw // max(min(sm_count // ipw, _K4_MAX_CPI), 1))
+        return rp, -(-hw // rp)
+
+    def buf(pixels):
+        return -(-pixels * pix // 128) * 128
+
+    fits = [ipw for ipw in range(1, min(b, sm_count) + 1)
+            if buf(runs(ipw)[0]) <= budget]
+    if fits:
+        waves = -(-b // max(fits))
+        ipw = -(-b // waves)
+        rp, cpi = runs(ipw)
+        return GroupNormPlan(threads, cpi, ipw, waves, rp, rp, 1, "resident",
+                             waves > 1, buf(rp), buf(rp) + K4_AUX_BYTES,
+                             per_sm)
+    rp, cpi = runs(1)
+    tile = budget // pix
+    _require(tile >= 1, f"a pixel of {c} channels does not fit K4's buffer")
+    return GroupNormPlan(threads, cpi, 1, b, rp, tile, -(-rp // tile),
+                         "streamed", False, buf(tile),
+                         buf(tile) + K4_AUX_BYTES, per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_plan(b, h, w, c, groups, in_dtype, sm_count, smem_bytes):
+    return groupnorm_silu_plan(b, h, w, c, groups, in_dtype, sm_count,
+                               smem_bytes)
+
+
+def _k4_sync(dev: torch.device) -> torch.Tensor:
+    """Barrier words for a launch on the current stream: one buffer per
+    (device, stream), zero when made. Every launch leaves each word's count
+    at zero and launches on one stream run in order, so launches on other
+    streams never share its words. A graph captured on a stream that has a
+    buffer uses it, so it must not replay while K4 runs eagerly on that
+    stream; where the capture stream has none yet, each captured call gets
+    a zeroed buffer of its own, its zeroing captured with it (a buffer made
+    during a capture is not zeroed until the graph replays)."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    sync = _K4_SYNC.get(key)
+    if sync is None:
+        sync = torch.zeros(_K4_SYNC_WORDS, dtype=torch.int32, device=dev)
+        if not torch.cuda.is_current_stream_capturing():
+            _K4_SYNC[key] = sync
+    return sync
+
+
+def _k4_stamps(stamps, plan, like):
+    """The stamps buffer's address (None: no tracing), checked."""
+    if stamps is None:
+        return None
+    _require(stamps.dtype == torch.int64 and stamps.is_contiguous()
+             and stamps.numel() >= K4_STAMPS * plan.waves
+             and stamps.device == like.device,
+             f"K4: stamps must be a contiguous int64 tensor of at least "
+             f"{K4_STAMPS * plan.waves} on {like.device}")
+    return stamps.data_ptr()
+
+
+def _k4_card(dev: torch.device) -> Tuple[int, int]:
+    """(SMs, opt-in shared memory per block) of the card."""
+    props = torch.cuda.get_device_properties(dev)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", K4_SMEM_BYTES))
+
+
+_K4_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
-    """Fused GroupNorm(groups) + SiLU. x (B, H, W, C); on CUDA x, scale and
-    bias are f32 and contiguous, and C is a multiple of ``groups``."""
-    if _on_cpu(x, scale, bias):
-        return groupnorm_silu_plain(x, scale, bias, groups, eps)
+                   groups: int = 8, eps: float = 1e-5, *,
+                   out_dtype: Optional[torch.dtype] = None,
+                   residual: Optional[torch.Tensor] = None,
+                   plan: Optional[GroupNormPlan] = None,
+                   stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused GroupNorm(groups) + SiLU of x (B, H, W, C) in f32, plus
+    ``residual`` if given, cast to ``out_dtype`` (default x's dtype): the
+    function of ``groupnorm_silu_plain``. On CUDA: x and the residual f32
+    or bf16, contiguous and 16-byte aligned; scale and bias f32 (C,); C a
+    multiple of 8 and of ``groups``; ``plan`` defaults to
+    ``groupnorm_silu_plan`` of the shape on this card. ``stamps`` (an int64
+    tensor of K4_STAMPS x plan.waves) makes block 0 record the device clock
+    (ns) at each wave's phases: start, run loaded, statistics, barrier,
+    merge, apply (``chip_smoke.k4_phases``)."""
+    operands = (x, scale, bias) + (() if residual is None else (residual,))
+    if _on_cpu(*operands):
+        return groupnorm_silu_plain(x, scale, bias, groups, eps,
+                                    out_dtype=out_dtype, residual=residual)
     _require(x.ndim == 4, "groupnorm_silu takes x (B, H, W, C)")
-    c = x.shape[-1]
-    _require(c % groups == 0, f"channels {c} not a multiple of {groups}")
+    b, h, w, c = x.shape
+    _k4_check(c, groups)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     _require(scale.shape == (c,) and bias.shape == (c,),
              f"scale/bias must have shape ({c},)")
-    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
+    for name, t in (("scale", scale), ("bias", bias)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    with torch.cuda.device(x.device):
-        y = groupnorm_silu_triton.launch(x, scale, bias, groups, eps)
+    named = (("x", x),) + (() if residual is None else
+                           (("residual", residual),))
+    for name, t in named:
+        _require(t.dtype in _K4_DTYPES,
+                 f"{name} must be float32 or bfloat16, got {t.dtype}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+        _require(t.shape == x.shape, f"{name} has shape {tuple(t.shape)}, "
+                 f"want {tuple(x.shape)}")
+    _require(out_dtype in _K4_DTYPES,
+             f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _require(b * h * w >= 1, "groupnorm_silu takes a non-empty x")
+    dev = x.device
+    if plan is None:
+        plan = _k4_plan(b, h, w, c, groups, x.dtype, *_k4_card(dev))
+    lib = _build.groupnorm_silu_lib()
+    y = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    part = torch.empty((4 * plan.ipw * plan.cpi * groups,),
+                       dtype=torch.float32, device=dev)
+    bf16 = torch.bfloat16
+    res_kind = 0 if residual is None else 1 + (residual.dtype == bf16)
+    with torch.cuda.device(dev):
+        sync = _k4_sync(dev)
+        err = lib.vgd_groupnorm_silu(
+            x.data_ptr(), None if residual is None else residual.data_ptr(),
+            y.data_ptr(), scale.data_ptr(), bias.data_ptr(), part.data_ptr(),
+            sync.data_ptr(), _K4_SYNC_WORDS, b, h * w, c, groups, float(eps),
+            int(x.dtype == bf16), res_kind, int(out_dtype == bf16),
+            plan.threads, plan.cpi, plan.ipw, plan.run_pix, plan.tile_pix,
+            int(plan.refill), plan.buf_bytes, plan.smem,
+            _k4_stamps(stamps, plan, x),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "groupnorm_silu")
     LAUNCHES["groupnorm_silu"] += 1
     return y
+
+
+def groupnorm_silu_sync_probe(rounds: int, cpi: int, ipw: int,
+                              device) -> None:
+    """Launches K4's exchange alone, ``rounds`` times: the per-image barrier
+    words of ``ipw`` images of ``cpi`` CTAs; its cost, measured apart
+    (``chip_smoke.py``). Counts no launch."""
+    dev = torch.device(device)
+    lib = _build.groupnorm_silu_lib()
+    with torch.cuda.device(dev):
+        err = lib.vgd_groupnorm_silu_sync_probe(
+            int(rounds), int(cpi), int(ipw),
+            _k4_sync(dev).data_ptr(), _K4_SYNC_WORDS,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "groupnorm_silu_sync_probe")
 
 
 # ---------------------------------------------------------------------------
