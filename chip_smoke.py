@@ -24,10 +24,13 @@ Run from the root of a checkout on a machine with one CUDA card:
    over two calls, timed against its bound; the f32 form also against
    ``F.group_norm`` + ``F.silu`` on the NCHW view and on an NCHW copy),
    ragged and streamed shapes checked; K1 (Conv4x4 stride 2 + batch statistics) at the 256x256,
-   batch-64 VAE-GAN's nine shapes in bf16 (each with its plan, bit-equal
+   batch-64 VAE-GAN's nine shapes, the 64x64 batch-64 VAE's four and
+   the 64x64 batch-128 DCGAN's three in bf16 (each with its plan, bit-equal
    over two calls, its kernels' times by stage and other plans timed
-   beside it; then the decision at the odd 127x127 enc1, which the
-   reference's gate sends to XLA), one f32 shape and two ragged ones; K5
+   beside it; then a decision line at the odd 127x127 enc1, which the
+   reference's gate sends to XLA, and at each 64x64 shape: the port has no
+   K1 size gate while K1 is no slower than cuDNN + var_mean), one f32
+   shape and two ragged ones; K5
    (step 7); K6 (step 8); ``--only`` runs one kernel's checks alone;
 3. DDPM: holds the fused UNet forward and one training-form train step
    (loss and every gradient) against the same weights run with no kernel at
@@ -48,8 +51,8 @@ Run from the root of a checkout on a machine with one CUDA card:
    ``fused_conv=True``): the first D step's and the G step's losses and
    gradients with K1 against the same state and draws with no kernel (in
    f32 at the DDPM step's bounds; in bf16 against the measured noise floor
-   of the no-kernel step itself, measured over three perturbation seeds of
-   which the first sets the bound), the shapes K1 sees against its table,
+   of the no-kernel step itself, the median over three perturbation
+   seeds), the shapes K1 sees against its table,
    one train step profiled; then
    ``run_vaegan`` on 640 synthetic faces (576 train / 64 val), 2 epochs of
    9 steps, a resume that must restore params, BN buffers, the three Adam
@@ -85,7 +88,23 @@ Run from the root of a checkout on a machine with one CUDA card:
    forwards per ``init_step`` and per ``reverse``; then the checkpoint's
    likelihood (``GlowTrainer.forward``: 4 no-save launches, bits/dim
    against no kernel) and ``sample_from_dir("glow")``;
-9. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+9. the denoising VAE (64x64, batch 64, latent 100, ngf 64, bf16,
+   ``fused_conv=True``): one train step's losses and every gradient with
+   K1 against no kernel (f32 and bf16 bounds as in step 6), with the
+   fixed-std noise and with occlusion corruption, one step timed and
+   profiled; ``run_vae`` on 640 synthetic faces, 2 epochs of 9 steps, an
+   exact resume and a third epoch, with exactly 4 K1 launches per train
+   step and none in validation, ``denoise`` or ``generate``; then on that
+   checkpoint ``evaluate_vae_checkpoints``, ``evaluate_vae_occlusion``,
+   ``sample_from_dir("vae")`` and ``denoise_images`` on 16 images;
+10. DCGAN and WGAN (64x64, batch 128, ngf = ndf = 64, bf16,
+   ``fused_conv=True``): each step's first D step and G step against no
+   kernel as in step 9, a whole step timed and profiled (K1 9 launches a
+   DCGAN step, 33 a WGAN step; after a WGAN step every D parameter within
+   +-0.01); ``run_gan`` for DCGAN (2 epochs of 4 steps, an exact resume, a
+   third) and WGAN (1 epoch of 2 steps, an exact resume, a second); then
+   ``evaluate_gan_checkpoints`` and ``sample_from_dir`` for both;
+11. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -169,6 +188,26 @@ K1_SHAPES = [("enc0", 64, 256, 256, 3, 32, 0, 2),
              ("dis4", 64, 16, 16, 128, 256, 1, 5),
              ("dis5", 64, 8, 8, 256, 512, 1, 5)]
 K1_PER_STEP = sum(s[-1] for s in K1_SHAPES)          # 33
+# K1 at the denoising VAE (64x64, B=64, latent 100): its encoder's four
+# layers, each once per train step (the train forward; validation, denoise
+# and generate run in eval mode)
+K1_VAE_SHAPES = [("enc0", 64, 64, 64, 3, 32, 0, 1),
+                 ("enc1", 64, 31, 31, 32, 64, 0, 1),
+                 ("enc2", 64, 14, 14, 64, 128, 0, 1),
+                 ("enc3", 64, 6, 6, 128, 256, 0, 1)]
+# K1 at DCGAN / WGAN (64x64, B=128, ndf 64): the discriminator's stages
+# i > 0, each in a DCGAN step's three D forwards (real, fake, the G step's);
+# a WGAN step runs each in 2 x critic_iters + 1 = 11
+K1_GAN_SHAPES = [("dis1", 128, 32, 32, 16, 32, 1, 3),
+                 ("dis2", 128, 16, 16, 32, 64, 1, 3),
+                 ("dis3", 128, 8, 8, 64, 128, 1, 3)]
+K1_VAE_PER_STEP = sum(s[-1] for s in K1_VAE_SHAPES)  # 4
+K1_GAN_PER_STEP = sum(s[-1] for s in K1_GAN_SHAPES)  # 9
+K1_WGAN_PER_STEP = 11 * len(K1_GAN_SHAPES)           # 33
+# the main-path shapes of each family: (family, shapes, what one step is)
+K1_FAMILIES = (("vaegan", K1_SHAPES, "one 256x256 batch-64 VAE-GAN step"),
+               ("vae", K1_VAE_SHAPES, "one 64x64 batch-64 VAE step"),
+               ("gan", K1_GAN_SHAPES, "one 64x64 batch-128 DCGAN step"))
 # checked, not timed: one f32 shape and two ragged ones (odd sizes, Cin and K
 # that no 16-byte vector divides)
 K1_EXTRA = [("f32", 8, 64, 64, 32, 64, 1, "float32"),
@@ -811,15 +850,13 @@ def k4_sync_probe(K, dev):
     return out
 
 
-def k1_alternatives(K, site, plan, sm_count):
+def k1_alternatives(K, site, shape, plan, sm_count):
     """Other plans timed beside K1's own at a main-path shape (label ->
-    plan): enc0's 3 channels gathered element by element instead of padded
-    to 4; where K <= 32 the 128 x 64 wgmma tile (half its columns idle)
-    instead of 128 x 32 on mma.sync; where K > 64 the 128 x 64 tile, and
-    the chosen tile with no split (or, unsplit, 2 splits)."""
-    b, h, w, cin, k, pad = next(
-        (b_, h_, w_, c_, k_, p_) for n_, b_, h_, w_, c_, k_, p_, _ in K1_SHAPES
-        if n_ == site)
+    plan): the 3 input channels of an enc0 gathered element by element
+    instead of padded to 4; where K <= 32 the 128 x 64 wgmma tile (half its
+    columns idle) instead of 128 x 32 on mma.sync; where K > 64 the 128 x
+    64 tile, and the chosen tile with no split (or, unsplit, 2 splits)."""
+    b, h, w, cin, k, pad = shape
 
     def other(**kw):
         return K.conv_stats_plan(b, h, w, cin, k, pad, sm_count=sm_count,
@@ -834,6 +871,32 @@ def k1_alternatives(K, site, plan, sm_count):
         n = 1 if plan.splits > 1 else 2
         alts[f"splits {n}"] = other(tile=plan.tile, splits=n)
     return alts
+
+
+def k1_slower(row):
+    """K1 loses to the stock chain (cuDNN conv + var_mean) beyond both
+    p90s: its median above the stock p90 and its p90 above the stock
+    median."""
+    return row["ms"] > row["library_ms_p90"] and \
+        row["ms_p90"] > row["library_ms"]
+
+
+def k1_decision(row):
+    """The printed decision at one main-path shape. The port has no size
+    gate for K1: it runs K1 at every shape, which holds while K1 is no
+    slower than the stock chain at each (else the line says so)."""
+    b, h, w, cin, k, pad = row["shape"]
+    ho, wo = (h + 2 * pad - 4) // 2 + 1, (w + 2 * pad - 4) // 2 + 1
+    slower = k1_slower(row)
+    row["k1_slower"] = slower
+    print(f"[kernel] K1 decision {row['family']} {row['site']} ({b}x{h}x{w}"
+          f"x{cin} -> {k}, padding {pad}, {b * ho * wo} output rows): K1 "
+          f"{row['ms']:.4f} ms (p90 {row['ms_p90']:.4f}) vs stock (cuDNN "
+          f"conv + var_mean) {row['library_ms']:.4f} ms (p90 "
+          f"{row['library_ms_p90']:.4f}): K1 is "
+          f"{'slower' if slower else 'no slower'}; the port runs K1 there"
+          + (" (the decision no longer matches this measurement)"
+             if slower else ""), flush=True)
 
 
 def plan_text(plan):
@@ -854,10 +917,11 @@ def check_k1(K, gen, dev, failures):
     import torch.nn.functional as F
     from vgd_tpu_torch.ops.fused_conv import bn_lrelu
     rows = []
-    extra = [(n, b, h, w, ci, k, p, 0, dt) for n, b, h, w, ci, k, p, dt
-             in K1_EXTRA]
-    for site, b, h, w, cin, k, pad, calls, *dt in \
-            [s_ + ("bfloat16",) for s_ in K1_SHAPES] + extra:
+    extra = [("extra", (n, b, h, w, ci, k, p, 0, dt)) for n, b, h, w, ci, k,
+             p, dt in K1_EXTRA]
+    for family, (site, b, h, w, cin, k, pad, calls, *dt) in \
+            [(fam, s_ + ("bfloat16",)) for fam, shapes, _ in K1_FAMILIES
+             for s_ in shapes] + extra:
         dtype = getattr(torch, dt[0])
         x = torch.randn(b, h, w, cin, device=dev, generator=gen).to(dtype)
         wt = (torch.randn(k, cin, 4, 4, device=dev, generator=gen)
@@ -889,11 +953,13 @@ def check_k1(K, gen, dev, failures):
               and errs["y"] <= K1_Y_REL * float(ry.abs().max()) + K1_Y_ATOL)
         shape = [b, h, w, cin, k, pad]
         if not ok:
-            failures.append(f"K1 {site} {shape} {dt[0]}: errors {errs}")
+            failures.append(f"K1 {family} {site} {shape} {dt[0]}: errors "
+                            f"{errs}")
         if not same:
-            failures.append(f"K1 {site} {shape} {dt[0]}: not bit-equal over "
-                            f"two calls")
-        row = {"shape": shape, "site": site, "dtype": dt[0],
+            failures.append(f"K1 {family} {site} {shape} {dt[0]}: not "
+                            f"bit-equal over two calls")
+        row = {"shape": shape, "site": site, "family": family,
+               "dtype": dt[0],
                "plan": plan._asdict(), "bit_equal_over_two_calls": same,
                "max_abs_err": max(errs.values()),
                "max_rel_err": errs["c"] / float(rc.abs().max()),
@@ -913,7 +979,7 @@ def check_k1(K, gen, dev, failures):
             def library():
                 o = F.conv2d(xc, wt, stride=2, padding=pad)
                 return torch.var_mean(o, dim=(0, 2, 3), correction=0)
-            alts = k1_alternatives(K, site, plan, sms)
+            alts = k1_alternatives(K, site, tuple(shape), plan, sms)
             # each other plan computes the same function (to the same bound)
             for a, p_ in alts.items():
                 ac, am, av = K.conv_stats(x, wt, pad, p_)
@@ -922,7 +988,8 @@ def check_k1(K, gen, dev, failures):
                         and torch.allclose(am, rm, K1_STAT_RTOL, K1_STAT_ATOL)
                         and torch.allclose(av, rv, K1_STAT_RTOL,
                                            K1_STAT_ATOL)):
-                    failures.append(f"K1 {site} other plan {a}: c err {err}")
+                    failures.append(f"K1 {family} {site} other plan {a}: c "
+                                    f"err {err}")
                 del ac, am, av
             stages, launches = profile_stages(
                 lambda: K.conv_stats(x, wt, pad), k1_stage)
@@ -943,37 +1010,37 @@ def check_k1(K, gen, dev, failures):
                 for a, p_ in alts.items())
         del rc, rm, rv
         rows.append(row)
-        print(f"[kernel] K1 {site} {shape} {dt[0]} plan: {plan_text(plan)}; "
+        print(f"[kernel] K1 {family} {site} {shape} {dt[0]} plan: "
+              f"{plan_text(plan)}; "
               + " ".join(f"{n}_err={e:.3g}" for n, e in errs.items())
               + f" bit-equal over two calls {same} " + row_times(row)
               + (f" library_p90={row['library_ms_p90']:.4f}"
                  if calls else "") + alt_text
               + ("" if ok else " FAIL"), flush=True)
         del x, wt
-    timed = [r for r in rows if "ms" in r]
-    print(f"[kernel] K1 per train step ({K1_PER_STEP} launches): kernel "
-          f"{sum(r['ms'] * r['calls'] for r in timed):.3f} ms (p90 "
-          f"{sum(r['ms_p90'] * r['calls'] for r in timed):.3f}, call time "
-          f"{sum(r['call_ms'] * r['calls'] for r in timed):.3f}), plain "
-          f"{sum(r['plain_ms'] * r['calls'] for r in timed):.3f} ms, library "
-          f"(cuDNN conv2d bf16 channels_last + torch.var_mean) "
-          f"{sum(r['library_ms'] * r['calls'] for r in timed):.3f} ms, bound "
-          f"{sum(max(r['flop_ms'], r['byte_ms']) * r['calls'] for r in timed):.3f}"
-          f" ms (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
-    # the reference's gate sends enc1's odd 127x127 input to XLA
-    # (vgd_tpu/ops/fused_conv.py:309-313); the port runs K1 there unless K1
-    # loses to the stock path beyond both p90s
-    enc1 = next(r for r in rows if r["site"] == "enc1")
-    slower = enc1["ms"] > enc1["library_ms_p90"] and \
-        enc1["ms_p90"] > enc1["library_ms"]
-    print(f"[kernel] K1 at enc1 (64x127x127x32 -> 64, padding 0): K1 "
-          f"{enc1['ms']:.4f} ms (p90 {enc1['ms_p90']:.4f}) vs stock (cuDNN "
-          f"conv + var_mean) {enc1['library_ms']:.4f} ms (p90 "
-          f"{enc1['library_ms_p90']:.4f}): K1 is "
-          f"{'slower' if slower else 'no slower'}; the port runs K1 there"
-          + (" (the decision no longer matches this measurement)"
-             if slower else ""), flush=True)
+    for family, shapes, per in K1_FAMILIES:
+        timed = [r for r in rows if "ms" in r and r["family"] == family]
+        bound = sum(max(r["flop_ms"], r["byte_ms"]) * r["calls"]
+                    for r in timed)
+        print(f"[kernel] K1 per {per} "
+              f"({sum(s_[-1] for s_ in shapes)} launches): kernel "
+              f"{sum(r['ms'] * r['calls'] for r in timed):.3f} ms (p90 "
+              f"{sum(r['ms_p90'] * r['calls'] for r in timed):.3f}, call "
+              f"time {sum(r['call_ms'] * r['calls'] for r in timed):.3f}), "
+              f"plain {sum(r['plain_ms'] * r['calls'] for r in timed):.3f} "
+              f"ms, library (cuDNN conv2d bf16 channels_last + "
+              f"torch.var_mean) "
+              f"{sum(r['library_ms'] * r['calls'] for r in timed):.3f} ms, "
+              f"bound {bound:.3f} ms (bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+    # the reference's gate sends odd padded sizes (the VAE-GAN's 127x127
+    # enc1, the VAE's 31x31 enc1) to XLA (vgd_tpu/ops/fused_conv.py:308-313);
+    # the port decides each shape by measurement: K1 unless it loses to the
+    # stock chain beyond both p90s
+    for row in rows:
+        if "ms" in row and (row["family"] != "vaegan"
+                            or row["site"] == "enc1"):
+            k1_decision(row)
     return rows
 
 
@@ -1014,6 +1081,36 @@ def kernel_entry(name, source, replaces, rows, launches, per):
     if "f32_flop_ms" in timed[0]:
         # the same operations at the 67 TFLOP/s CUDA-core f32 rate
         entry["f32_bound_ms"] = total("f32_flop_ms")
+    return entry
+
+
+def k1_entry(rows, report):
+    """K1's line entry: its times per VAE-GAN step, as before the 64²
+    families ran K1 (``per_family`` has each family's sums per step of that
+    family); its launches over every main-path run (VAE-GAN, VAE, DCGAN and
+    WGAN training; ``launches_by_path`` splits them); its errors over every
+    checked shape."""
+    launches = {"vaegan": report["vaegan"]["train"]["k1_launches"],
+                "vae": report["vae"]["train"]["k1_launches"],
+                "gan": report["gan"]["train"]["k1_launches"],
+                "wgan": report["gan"]["wgan_train"]["k1_launches"]}
+
+    def family_entry(family, per, source="", replaces=""):
+        return kernel_entry("conv_bn_stats", source, replaces, [
+            r for r in rows if r["family"] in (family, "extra")],
+            launches[family], per)
+    family, _, per = K1_FAMILIES[0]
+    entry = family_entry(family, per, "vgd_tpu_torch/csrc/conv_bn_stats.cu",
+                         "vgd_tpu/ops/fused_conv.py:125")
+    entry.update(launches=sum(launches.values()), launches_by_path=launches,
+                 max_abs_err=max(r["max_abs_err"] for r in rows),
+                 max_rel_err=max(r["max_rel_err"] for r in rows),
+                 shapes=rows, per_family={})
+    for family, _, per in K1_FAMILIES:
+        sub = family_entry(family, per)
+        entry["per_family"][family] = {k: sub[k] for k in (
+            "ms", "ms_p90", "call_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "per")}
     return entry
 
 
@@ -1476,8 +1573,9 @@ def main_path(K, gen, failures):
 # draw.
 VAEGAN_GRAD_REL, VAEGAN_GRAD_FLOOR, VAEGAN_LOSS_REL = 5e-2, 1e-4, 1e-3
 VAEGAN_FLOOR_X = 3.0
-# perturbation seeds of the bf16 noise floor: their median sets the VAE-GAN
-# bound, the first one's the Glow bounds; all are printed to show the spread
+# perturbation seeds of the bf16 noise floor: their median sets every bf16
+# step's bound (VAE-GAN, VAE, DCGAN, WGAN, both Glow steps); all are printed
+# to show the spread
 FLOOR_SEEDS = (123, 124, 125)
 # the seed of the VAE-GAN phase's own generator (its data and draws)
 VAEGAN_SEED = 9
@@ -1504,12 +1602,14 @@ def vaegan_config():
                       fused_conv=True))
 
 
-def vaegan_step_grads(trainer, x, eps, nr, nf):
+def vaegan_step_grads(trainer, batch, eps, nr, nf):
     """Losses and gradients of the first D step and of the G step of one
     train step (as ``train_step`` computes them, without the Adam
     updates)."""
     import torch
     from vgd_tpu_torch.models.blocks import frozen_running_stats
+    from vgd_tpu_torch.ops.image import to_signed
+    x = to_signed(batch)
     cfg = trainer.cfg
     noise_real, noise_fake = cfg.instance_noise * nr, cfg.instance_noise * nf
     with torch.no_grad(), frozen_running_stats(trainer.encoder,
@@ -1532,19 +1632,25 @@ def vaegan_step_grads(trainer, x, eps, nr, nf):
     return losses, d_grads, g_grads
 
 
-def compare_step(got, ref):
+def compare_step(got, ref, loss_scale=None):
     """(worst gradient error over its bound, that gradient's name, largest
-    relative loss difference) of two ``vaegan_step_grads`` results."""
-    (lk, dk, gk), (lr, dr, gr) = got, ref
+    loss difference) of two step results (losses, grads, grads, ...): the
+    loss difference relative to the reference loss, or to
+    ``loss_scale[k]`` where that is larger (a WGAN critic loss, a
+    difference of two means of probabilities, is near 0 and measured
+    against their range, 1)."""
+    (lk, *gk), (lr, *gr) = got, ref
     worst = (0.0, "")
-    for g_all, r_all in ((dk, dr), (gk, gr)):
+    for g_all, r_all in zip(gk, gr):
         top = max(float(g.abs().max()) for g in r_all.values())
         for name, r in r_all.items():
             err = float((g_all[name] - r).abs().max())
             bound = VAEGAN_GRAD_REL * float(r.abs().max()) + \
                 VAEGAN_GRAD_FLOOR * top
             worst = max(worst, (err / bound, name))
-    loss_rel = max(abs(lk[k] - lr[k]) / abs(lr[k]) for k in lr)
+    scale = loss_scale or {}
+    loss_rel = max(abs(lk[k] - lr[k]) / max(abs(lr[k]), scale.get(k, 0.0))
+                   for k in lr)
     return worst[0], worst[1], loss_rel
 
 
@@ -1568,47 +1674,97 @@ def floor_line(spread):
             f"{lo[1]:.3g} max {lo[2]:.3g}")
 
 
-def check_vaegan_step(K, cfg, gen, failures):
-    """The first D step's and the G step's losses and gradients with K1
-    against the same state and draws with no kernel
-    (``kernels.plain_reference``): in f32 at the DDPM step's bounds, in
-    bf16 against the measured noise floor; the shapes K1 sees in one bf16
-    step against K1_SHAPES; then one whole bf16 train step timed and
-    profiled."""
-    import dataclasses
+def k1_shapes(shapes):
+    """What K1 sees at each entry of a K1 shape table: (x's shape, (K,
+    Cin), padding)."""
+    return {((b, h, w, ci), (k, ci), p)
+            for _, b, h, w, ci, k, p, _ in shapes}
+
+
+def perturbed_by(fn, seed):
+    """``fn`` with its output (the first of a tuple) perturbed by one f32
+    ulp, the noise drawn from ``seed``."""
     import torch
-    from vgd_tpu_torch.ops.image import to_signed
-    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
-    (h, w), b = cfg.data.image_size, cfg.data.batch_size
+
+    def perturbed(*args):
+        out = fn(*args)
+        first = out[0] if isinstance(out, tuple) else out
+        g = torch.Generator(device=first.device).manual_seed(seed)
+        first = first * (1 + 2.0 ** -23 * torch.randn(
+            first.shape, device=first.device, generator=g))
+        return (first,) + out[1:] if isinstance(out, tuple) else first
+    return perturbed
+
+
+def no_kernel_runs(K, plain_name, dtype, run, tag, failures):
+    """``run()`` with no kernel (``kernels.plain_reference``) as "plain";
+    in bf16 once more for each seed of FLOOR_SEEDS with ``K.<plain_name>``
+    perturbed by one f32 ulp (``perturbed_by``) as "perturbed_<seed>". A
+    no-kernel run that launches a kernel fails."""
+    plain = getattr(K, plain_name)
+    runs = {}
+    for name, fn in [("plain", plain)] + [
+            (f"perturbed_{seed}", perturbed_by(plain, seed))
+            for seed in FLOOR_SEEDS if dtype == "bfloat16"]:
+        K.LAUNCHES.clear()
+        setattr(K, plain_name, fn)
+        try:
+            with K.plain_reference():
+                runs[name] = run()
+        finally:
+            setattr(K, plain_name, plain)
+        if sum(K.LAUNCHES.values()):
+            failures.append(f"{tag}: the no-kernel reference launched "
+                            f"{dict(K.LAUNCHES)}")
+    return runs
+
+
+def hold_to_floor(tag, dtype, kern, runs, compare, loss_bound, failures):
+    """Hold a step with kernels (``kern``) to the no-kernel step
+    (``runs["plain"]``, from ``no_kernel_runs``); ``compare(got, ref)``
+    gives (worst gradient err/bound, its tensor, loss difference). f32:
+    worst <= 1 and loss <= ``loss_bound``; bf16: the larger of those and
+    VAEGAN_FLOOR_X times the median over FLOOR_SEEDS of the perturbed runs'
+    own noise floor. Returns (row, text for the log line)."""
+    worst, wname, loss_rel = compare(kern, runs["plain"])
+    row = {"worst_err_over_bound": worst, "worst_tensor": wname,
+           "loss_rel": loss_rel}
+    text = (f"worst err/bound {worst:.3f} ({wname}), largest loss "
+            f"difference {loss_rel:.3g}")
+    worst_max, loss_max = 1.0, loss_bound
+    if dtype == "bfloat16":
+        spread = floor_spread({
+            seed: compare(runs[f"perturbed_{seed}"], runs["plain"])
+            for seed in FLOOR_SEEDS})
+        fworst = spread["worst_min_median_max"][1]
+        floss = spread["loss_min_median_max"][1]
+        row.update(floor_worst_err_over_bound=fworst, floor_loss_rel=floss,
+                   floors=spread)
+        text += (f"; held at the f32 bounds or {VAEGAN_FLOOR_X} x the "
+                 f"median floor (worst {fworst:.3f}, loss {floss:.3g}), "
+                 f"whichever is larger; " + floor_line(spread))
+        worst_max = max(worst_max, VAEGAN_FLOOR_X * fworst)
+        loss_max = max(loss_max, VAEGAN_FLOOR_X * floss)
+    if not (worst <= worst_max and loss_rel <= loss_max):
+        failures.append(f"{tag} {dtype}: kernels vs no-kernel reference "
+                        f"{row}")
+    return row, text
+
+
+def held_step(K, tag, make, draws, grads_fn, shapes, launches, failures,
+              loss_scale=None):
+    """``grads_fn(trainer, *draws(trainer))`` (losses and gradients of one
+    step) with K1 against the same state and inputs with no kernel, held
+    by ``hold_to_floor`` at VAEGAN_LOSS_REL (the bf16 floor from K1's
+    plain conv output perturbed). ``make(dtype)`` builds and inits a
+    trainer; K1 must see exactly ``shapes`` ((B, H, W, Cin), (K, Cin),
+    padding) in ``launches`` launches. Returns (stats, the bf16 trainer
+    with its state restored, its inputs)."""
+    import torch
     stats = {}
-    plain = K.conv_stats_plain
-
-    def perturbed_by(seed):
-        def perturbed(xx, ww, pad):
-            c, m, v = plain(xx, ww, pad)
-            g = torch.Generator(device=c.device).manual_seed(seed)
-            return c * (1 + 2.0 ** -23 * torch.randn(
-                c.shape, device=c.device, generator=g)), m, v
-        return perturbed
-
     for dtype in ("float32", "bfloat16"):
-        dcfg = dataclasses.replace(cfg, run=dataclasses.replace(
-            cfg.run, compute_dtype=dtype))
-        trainer = VAEGANTrainer(dcfg, (h, w, 3), device="cuda")
-        dev = trainer.device
-        trainer.init(torch.Generator(device=dev).manual_seed(cfg.run.seed))
-        if dtype == "float32":
-            n_params = {n: sum(p.numel() for p in net.parameters())
-                        for n, net in trainer.nets().items()}
-            print(f"[vaegan-init] {h}x{w} B={b} latent {cfg.latent_dim} ngf "
-                  f"{cfg.ngf} ndf {cfg.ndf} fused_conv {cfg.run.fused_conv};"
-                  f" parameters {n_params}", flush=True)
-        batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
-                              device=dev, generator=gen)
-        x = to_signed(batch)
-        eps = torch.randn(b, cfg.latent_dim, device=dev, generator=gen)
-        nr = torch.randn(b, h, w, 3, device=dev, generator=gen)
-        nf = torch.randn(b, h, w, 3, device=dev, generator=gen)
+        trainer = make(dtype)
+        inputs = draws(trainer)
         state = {k: v.clone() for k, v in trainer.state_dict().items()}
         seen = []
         conv_stats = K.conv_stats
@@ -1619,106 +1775,136 @@ def check_vaegan_step(K, cfg, gen, failures):
         K.conv_stats = recording
         try:
             K.LAUNCHES.clear()
-            kern = vaegan_step_grads(trainer, x, eps, nr, nf)
-            launches = K.LAUNCHES["conv_bn_stats"]
+            kern = grads_fn(trainer, *inputs)
+            got = K.LAUNCHES["conv_bn_stats"]
         finally:
             K.conv_stats = conv_stats
-        runs = {}
-        for name, fn in [("plain", plain)] + [
-                (f"perturbed_{seed}", perturbed_by(seed))
-                for seed in FLOOR_SEEDS if dtype == "bfloat16"]:
+
+        def run():
             trainer.load(state)
-            K.LAUNCHES.clear()
-            K.conv_stats_plain = fn
-            try:
-                with K.plain_reference():
-                    runs[name] = vaegan_step_grads(trainer, x, eps, nr, nf)
-            finally:
-                K.conv_stats_plain = plain
-            if sum(K.LAUNCHES.values()):
-                failures.append(f"vaegan step: the no-kernel reference "
-                                f"launched {dict(K.LAUNCHES)}")
-        want = {((bb, hh, ww, ci), (kk, ci), p) for _, bb, hh, ww, ci, kk,
-                p, _ in K1_SHAPES}
-        if set(seen) != want or launches != 23:
-            failures.append(f"vaegan step {dtype}: K1 saw "
-                            f"{sorted(set(seen))} in {launches} launches, want"
-                            f" the K1_SHAPES in 23 (first D step 10, recon0 "
-                            f"4, G step 9)")
-        worst, wname, loss_rel = compare_step(kern, runs["plain"])
-        row = {"worst_err_over_bound": worst, "worst_tensor": wname,
-               "loss_rel": loss_rel, "k1_launches": launches,
-               "losses": kern[0], "losses_ref": runs["plain"][0]}
-        line = (f"[vaegan-step] {dtype} K1 vs no-kernel reference, B={b} "
-                f"{h}x{w}: losses " + " ".join(
-                    f"{k} {kern[0][k]:.6f}/{runs['plain'][0][k]:.6f}"
-                    for k in kern[0]) + f"; worst gradient err/bound "
-                f"{worst:.3f} ({wname}), largest loss difference "
-                f"{loss_rel:.3g} relative; K1 launches {launches} at "
-                f"{len(set(seen))} shapes")
-        if dtype == "float32":
-            if not (worst <= 1.0 and loss_rel <= VAEGAN_LOSS_REL):
-                failures.append(f"vaegan step f32: K1 vs reference {row}")
-        else:
-            floors = {seed: compare_step(runs[f"perturbed_{seed}"],
-                                         runs["plain"])
-                      for seed in FLOOR_SEEDS}
-            spread = floor_spread(floors)
-            fworst = spread["worst_min_median_max"][1]
-            floss = spread["loss_min_median_max"][1]
-            row.update(floor_worst_err_over_bound=fworst,
-                       floor_loss_rel=floss, floors=spread)
-            line += (f"; noise floor (reference vs itself, c perturbed by "
-                     f"one f32 ulp, median over seeds {FLOOR_SEEDS}): worst "
-                     f"{fworst:.3f}, loss {floss:.3g}; held at the f32 bounds"
-                     f" or {VAEGAN_FLOOR_X} x the floor, whichever is "
-                     f"larger; " + floor_line(spread))
-            # the f32 bounds, widened to VAEGAN_FLOOR_X x the floor where
-            # the floor itself exceeds them
-            if not (worst <= max(1.0, VAEGAN_FLOOR_X * fworst)
-                    and loss_rel <= max(VAEGAN_LOSS_REL,
-                                        VAEGAN_FLOOR_X * floss)):
-                failures.append(f"vaegan step bf16: K1 vs reference {row}")
-        print(line, flush=True)
+            return grads_fn(trainer, *inputs)
+        runs = no_kernel_runs(K, "conv_stats_plain", dtype, run, tag,
+                              failures)
+        trainer.load(state)
+        if set(seen) != set(shapes) or got != launches:
+            failures.append(f"{tag} {dtype}: K1 saw {sorted(set(seen))} in "
+                            f"{got} launches, want {sorted(shapes)} in "
+                            f"{launches}")
+        row, text = hold_to_floor(
+            tag, dtype, kern, runs,
+            lambda a, b: compare_step(a, b, loss_scale), VAEGAN_LOSS_REL,
+            failures)
+        row.update(k1_launches=got, losses=kern[0],
+                   losses_ref=runs["plain"][0])
+        print(f"[{tag}] {dtype} K1 vs no-kernel reference: losses " +
+              " ".join(f"{k} {kern[0][k]:.6f}/{runs['plain'][0][k]:.6f}"
+                       for k in kern[0]) +
+              f"; {sum(len(g) for g in kern[1:])} gradients, {text}; K1 "
+              f"launches {got} at {len(set(seen))} shapes", flush=True)
         stats[f"step_{dtype}"] = row
         del kern, runs
         if dtype == "float32":
             del trainer
             torch.cuda.empty_cache()
-    trainer.load(state)
+    return stats, trainer, inputs
 
-    def step():
-        trainer.train_step(batch, 1.0, eps=eps, noise_real=nr, noise_fake=nf)
+
+def timed_step(K, tag, step, batch_size, failures, launches=None):
+    """One whole bf16 train step: CUDA-event time with K1 and with no
+    kernel, images/s, its profile by kernel group (device busy share), and
+    the K1 launches of one step against ``launches``."""
+    import torch
 
     def plain_step():
         with K.plain_reference():
             step()
-    stats.update(train_step_ms=cuda_ms(step, 2, 5),
-                 train_step_plain_ms=cuda_ms(plain_step, 2, 5))
+    torch.cuda.reset_peak_memory_stats()
+    stats = {"train_step_ms": cuda_ms(step, 2, 5),
+             "train_step_plain_ms": cuda_ms(plain_step, 2, 5)}
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     stats["train_step_profile"] = profile_fn(
-        step, stats["train_step_ms"], VAEGAN_GROUPS, "profile-vaegan")
-    print(f"[vaegan-step] whole bf16 train step B={b} {h}x{w}: K1 "
-          f"{stats['train_step_ms']:.3f} ms, no-kernel reference "
-          f"{stats['train_step_plain_ms']:.3f} ms", flush=True)
+        step, stats["train_step_ms"], VAEGAN_GROUPS, f"profile-{tag}")
+    busy = stats["train_step_profile"]["kernel_ms"] / stats["train_step_ms"]
+    stats["busy_share"] = busy
+    K.LAUNCHES.clear()
+    step()
+    stats["k1_launches"] = K.LAUNCHES["conv_bn_stats"]
+    if launches is not None and stats["k1_launches"] != launches:
+        failures.append(f"{tag}: a train step launched K1 "
+                        f"{stats['k1_launches']} times, want {launches}")
+    print(f"[{tag}] whole bf16 train step: K1 {stats['train_step_ms']:.3f} ms"
+          f" = {batch_size / stats['train_step_ms'] * 1e3:.1f} images/s, "
+          f"no-kernel reference {stats['train_step_plain_ms']:.3f} ms; busy "
+          f"share {busy:.3f}; peak memory {stats['peak_mem_gb']:.3f} GB; K1 "
+          f"launches {stats['k1_launches']}", flush=True)
     return stats
 
 
-def vaegan_train_path(K, cfg, failures):
-    """``run_vaegan`` for VAEGAN_EPOCHS epochs of VAEGAN_STEPS steps, a
-    resume that runs no epoch (it must restore exactly what was saved), and
-    a resume that trains one more epoch. Launch counts are read from zero
-    around each run and per train step, validation pass and generate."""
+def check_vaegan_step(K, cfg, gen, failures):
+    """The first D step's and the G step's losses and gradients with K1
+    against the same state and draws with no kernel (``held_step``; the
+    shapes K1 sees in one bf16 step against K1_SHAPES, 23 launches: first D
+    step 10, recon0 4, G step 9); then one whole bf16 train step timed and
+    profiled (``timed_step``)."""
+    import dataclasses
+    import torch
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    (h, w), b = cfg.data.image_size, cfg.data.batch_size
+
+    def make(dtype):
+        tr = VAEGANTrainer(dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, compute_dtype=dtype)), (h, w, 3), device="cuda")
+        tr.init(torch.Generator(device=tr.device).manual_seed(cfg.run.seed))
+        return tr
+
+    def draws(tr):
+        batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                              device=tr.device, generator=gen)
+        return (batch,) + tuple(
+            torch.randn(shape, device=tr.device, generator=gen)
+            for shape in ((b, cfg.latent_dim), (b, h, w, 3), (b, h, w, 3)))
+    stats, trainer, (batch, eps, nr, nf) = held_step(
+        K, "vaegan-step", make, draws, vaegan_step_grads,
+        k1_shapes(K1_SHAPES), 23, failures)
+    n_params = {n: sum(p.numel() for p in net.parameters())
+                for n, net in trainer.nets().items()}
+    print(f"[vaegan-init] {h}x{w} B={b} latent {cfg.latent_dim} ngf "
+          f"{cfg.ngf} ndf {cfg.ndf} fused_conv {cfg.run.fused_conv}; "
+          f"parameters {n_params}", flush=True)
+    stats.update(timed_step(
+        K, "vaegan-step", lambda: trainer.train_step(
+            batch, 1.0, eps=eps, noise_real=nr, noise_fake=nf),
+        b, failures, K1_PER_STEP))
+    return stats
+
+
+def opt_states(trainer):
+    """Every optimizer's state_dict of a trainer, by name."""
+    opts = getattr(trainer, "opts", None) or {"adam": trainer.opt}
+    return {name: opt.state_dict() for name, opt in opts.items()}
+
+
+def family_train_path(K, tag, cls, run, cfg, steps_per_epoch, epochs,
+                      per_step, counted, keys, failures):
+    """``run(cfg)`` (``run_vaegan``, ``run_vae``, ``run_gan``) for
+    ``epochs`` epochs of ``steps_per_epoch`` steps, a resume that runs no
+    epoch (it must restore exactly what was saved: parameters, BN buffers,
+    every Adam state, the optimizer step), and a resume that trains one
+    more epoch. The trainer class ``cls``'s ``counted`` methods (the train
+    step first) are wrapped to count K1 launches and time each call with
+    CUDA events: exactly ``per_step`` K1 launches per train step, none in
+    the others, and no other kernel. ``keys`` are the log's metrics, which
+    must be finite."""
     import torch
     from vgd_tpu_torch.io.checkpoint import Checkpointer
-    from vgd_tpu_torch.train import loop as L
-    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
-    calls = {"train_step": [], "eval_step": [], "generate": []}
-    originals = {n: getattr(VAEGANTrainer, n) for n in calls}
+    step_name = counted[0]
+    calls = {n: [] for n in counted}
+    originals = {n: getattr(cls, n) for n in calls}
 
     def wrap(name):
         fn = originals[name]
 
-        def counted(self, *args, **kwargs):
+        def counted_call(self, *args, **kwargs):
             before = K.LAUNCHES["conv_bn_stats"]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1728,71 +1914,67 @@ def vaegan_train_path(K, cfg, failures):
             calls[name].append((K.LAUNCHES["conv_bn_stats"] - before,
                                 start, end, out))
             return out
-        return counted
+        return counted_call
 
     for n in calls:
-        setattr(VAEGANTrainer, n, wrap(n))
+        setattr(cls, n, wrap(n))
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.LAUNCHES.clear()
         t0 = time.perf_counter()
-        res = L.run_vaegan(cfg, epochs=VAEGAN_EPOCHS,
-                           max_steps_per_epoch=VAEGAN_STEPS, device="cuda")
+        res = run(cfg, epochs=epochs, max_steps_per_epoch=steps_per_epoch,
+                  device="cuda")
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         total = K.LAUNCHES["conv_bn_stats"]
         trainer = res["trainer"]
         per = {n: [c[0] for c in v] for n, v in calls.items()}
-        steps = len(per["train_step"])
-        step_ms = sorted(s.elapsed_time(e) for _, s, e, _ in
-                         calls["train_step"][1:])
-        bad = [i for i, (*_, m) in enumerate(calls["train_step"])
+        steps = len(per[step_name])
+        step_ms = sorted(s_.elapsed_time(e) for _, s_, e, _ in
+                         calls[step_name][1:])
+        bad = [i for i, (*_, m) in enumerate(calls[step_name])
                if not all(math.isfinite(float(v)) for v in m.values())]
         if bad:
-            failures.append(f"vaegan-train: non-finite losses from step "
-                            f"{bad[0]}: {calls['train_step'][bad[0]][3]}")
+            failures.append(f"{tag}: non-finite losses from step {bad[0]}: "
+                            f"{calls[step_name][bad[0]][3]}")
+        others = {n: sum(v) for n, v in per.items() if n != step_name}
+        median = step_ms[len(step_ms) // 2]
         stats = {"train_steps": steps, "train_run_s": train_s,
                  "k1_launches": total,
-                 "k1_per_step": sorted(set(per["train_step"])),
-                 "k1_in_eval": sum(per["eval_step"]),
-                 "k1_in_generate": sum(per["generate"]),
-                 "step_ms_median": step_ms[len(step_ms) // 2],
-                 "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+                 "k1_per_step": sorted(set(per[step_name])),
+                 "k1_in": others, "calls": {n: len(v) for n, v in
+                                            per.items()},
+                 "step_ms_median": median, "step_ms_min": step_ms[0],
+                 "step_ms_max": step_ms[-1],
                  "images_per_sec_median_step":
-                     cfg.data.batch_size / step_ms[len(step_ms) // 2] * 1e3,
-                 "log": res["log"], "val_rows": res["val_rows"],
+                     cfg.data.batch_size / median * 1e3,
+                 "log": res["log"],
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        print(f"[vaegan-train] launches: K1 {total} in {steps} train steps "
-              f"(per step {stats['k1_per_step']}), {len(per['eval_step'])} "
-              f"validation batches {stats['k1_in_eval']}, "
-              f"{len(per['generate'])} generate calls "
-              f"{stats['k1_in_generate']}; all launches "
-              f"{dict(K.LAUNCHES)}", flush=True)
-        if (steps != VAEGAN_EPOCHS * VAEGAN_STEPS
-                or stats["k1_per_step"] != [K1_PER_STEP]
-                or stats["k1_in_eval"] or stats["k1_in_generate"]
-                or total != K1_PER_STEP * steps
+        print(f"[{tag}] launches: K1 {total} in {steps} train steps (per "
+              f"step {stats['k1_per_step']}), " + ", ".join(
+                  f"{len(per[n])} {n} calls {others[n]}" for n in others)
+              + f"; all launches {dict(K.LAUNCHES)}", flush=True)
+        if (steps != epochs * steps_per_epoch
+                or stats["k1_per_step"] != [per_step] or any(others.values())
+                or total != per_step * steps
                 or set(K.LAUNCHES) - {"conv_bn_stats"}):
-            failures.append(f"vaegan-train: {steps} steps, K1 per step "
-                            f"{stats['k1_per_step']}, eval "
-                            f"{stats['k1_in_eval']}, generate "
-                            f"{stats['k1_in_generate']}, all "
-                            f"{dict(K.LAUNCHES)}")
-        keys = ("train_recon", "train_kl", "train_adv", "train_d_loss",
-                "val_loss", "ssim", "psnr")
+            failures.append(f"{tag}: {steps} steps, K1 per step "
+                            f"{stats['k1_per_step']} (want {per_step}), "
+                            f"elsewhere {others}, all {dict(K.LAUNCHES)}")
         if not all(math.isfinite(r[k]) for r in res["log"] for k in keys):
-            failures.append(f"vaegan-train: non-finite metrics {res['log']}")
-        if res["val_rows"] != res["val"].num_examples:
-            failures.append(f"vaegan-train: val rows {res['val_rows']} of "
-                            f"{res['val'].num_examples}")
+            failures.append(f"{tag}: non-finite metrics {res['log']}")
+        if "val_rows" in res:
+            stats["val_rows"] = res["val_rows"]
+            if res["val_rows"] != res["val"].num_examples:
+                failures.append(f"{tag}: val rows {res['val_rows']} of "
+                                f"{res['val'].num_examples}")
         for r in res["log"]:
-            print(f"[vaegan-train] epoch {int(r['epoch']) + 1}: " + " ".join(
+            print(f"[{tag}] epoch {int(r['epoch']) + 1}: " + " ".join(
                 f"{k} {r[k]:.5f}" for k in keys) +
                 f" images/s {r['images_per_sec']:.1f}", flush=True)
-        print(f"[vaegan-train] {steps} steps; step ms median "
-              f"{stats['step_ms_median']:.3f} (min {step_ms[0]:.3f}, max "
-              f"{step_ms[-1]:.3f}) after the first = "
+        print(f"[{tag}] {steps} steps; step ms median {median:.3f} (min "
+              f"{step_ms[0]:.3f}, max {step_ms[-1]:.3f}) after the first = "
               f"{stats['images_per_sec_median_step']:.1f} images/s; peak "
               f"memory {stats['peak_mem_gb']:.3f} GB", flush=True)
 
@@ -1800,54 +1982,66 @@ def vaegan_train_path(K, cfg, failures):
         final = {k: v.clone() for k, v in trainer.state_dict().items()}
         payload = Checkpointer(f"{cfg.run.out_dir}/ckpt").load()
         K.LAUNCHES.clear()
-        back = L.run_vaegan(cfg, epochs=VAEGAN_EPOCHS, resume=True,
-                            device="cuda")["trainer"]
+        back = run(cfg, epochs=epochs, resume=True, device="cuda")["trainer"]
         same_params = all(torch.equal(final[k], v) and
                           torch.equal(payload["params"][k], v.cpu())
                           for k, v in back.state_dict().items())
         same_opt = True
-        for name in ("encoder", "decoder", "disc"):
-            sa = trainer.opts[name].state_dict()["state"]
-            sb = back.opts[name].state_dict()["state"]
+        oa, ob = opt_states(trainer), opt_states(back)
+        for name in oa:
+            sa, sb = oa[name]["state"], ob[name]["state"]
             same_opt &= sa.keys() == sb.keys() and all(
                 torch.equal(sa[i][x].cpu(), sb[i][x].cpu())
                 for i in sa for x in ("step", "exp_avg", "exp_avg_sq"))
-        ok = (same_params and same_opt and payload["step"] == VAEGAN_EPOCHS
+        ok = (same_params and same_opt and payload["step"] == epochs
               and back.step == steps == payload["opt_step"]
               and sum(K.LAUNCHES.values()) == 0)
-        print(f"[vaegan-resume] checkpoint epoch {payload['step']}, optimizer"
-              f" steps {back.step}: params and BN buffers equal "
-              f"{same_params}, three Adam states equal {same_opt}",
-              flush=True)
+        print(f"[{tag.split('-')[0]}-resume] checkpoint epoch "
+              f"{payload['step']}, optimizer steps {back.step}: params and "
+              f"BN buffers equal {same_params}, {len(oa)} Adam state(s) "
+              f"equal {same_opt}", flush=True)
         if not ok:
-            failures.append("vaegan resume did not restore what was saved")
+            failures.append(f"{tag}: resume did not restore what was saved")
         del back, trainer, res, final
         torch.cuda.empty_cache()
 
         for v in calls.values():
             v.clear()
         K.LAUNCHES.clear()
-        res = L.run_vaegan(cfg, epochs=VAEGAN_EPOCHS + 1,
-                           max_steps_per_epoch=VAEGAN_STEPS, resume=True,
-                           device="cuda")
-        steps3 = len(calls["train_step"])
+        res = run(cfg, epochs=epochs + 1, max_steps_per_epoch=steps_per_epoch,
+                  resume=True, device="cuda")
+        steps3 = len(calls[step_name])
         got = K.LAUNCHES["conv_bn_stats"]
         row = res["log"][-1]
-        print(f"[vaegan-train] resumed epoch {int(row['epoch']) + 1}: " +
+        print(f"[{tag}] resumed epoch {int(row['epoch']) + 1}: " +
               " ".join(f"{k} {row[k]:.5f}" for k in keys) +
               f"; K1 launches {got} in {steps3} steps", flush=True)
-        if not (res["trainer"].step == steps + steps3 == 3 * VAEGAN_STEPS
-                and got == K1_PER_STEP * steps3
-                and int(row["epoch"]) == VAEGAN_EPOCHS
+        if not (res["trainer"].step == steps + steps3
+                == (epochs + 1) * steps_per_epoch
+                and got == per_step * steps3
+                and int(row["epoch"]) == epochs
                 and all(math.isfinite(row[k]) for k in keys)):
-            failures.append(f"vaegan resumed epoch: {res['log']}, step "
+            failures.append(f"{tag} resumed epoch: {res['log']}, step "
                             f"{res['trainer'].step}, K1 launches {got}")
         stats["resumed_log"] = res["log"]
         stats["k1_launches"] = total + got
     finally:
         for n, fn in originals.items():
-            setattr(VAEGANTrainer, n, fn)
+            setattr(cls, n, fn)
     return stats
+
+
+def vaegan_train_path(K, cfg, failures):
+    """``family_train_path`` of ``run_vaegan``: VAEGAN_EPOCHS epochs of
+    VAEGAN_STEPS steps, K1_PER_STEP launches a step, none in validation or
+    ``generate``."""
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    return family_train_path(
+        K, "vaegan-train", VAEGANTrainer, L.run_vaegan, cfg, VAEGAN_STEPS,
+        VAEGAN_EPOCHS, K1_PER_STEP, ("train_step", "eval_step", "generate"),
+        ("train_recon", "train_kl", "train_adv", "train_d_loss", "val_loss",
+         "ssim", "psnr"), failures)
 
 
 def vaegan_serve_path(K, cfg, failures):
@@ -1889,6 +2083,317 @@ def vaegan_path(K, gen, failures):
     stats = check_vaegan_step(K, cfg, gen, failures)
     stats["train"] = vaegan_train_path(K, cfg, failures)
     stats["serve"] = vaegan_serve_path(K, cfg, failures)
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# The denoising VAE and DCGAN / WGAN: K1 at their 64x64 shapes
+# ---------------------------------------------------------------------------
+
+# the denoising VAE at the reference's scale (main_vae.py: 64x64, batch 64,
+# latent 100, ngf 64, one joint Adam at 1e-3), bf16 convs, fused_conv: 640
+# synthetic faces -> 576 train (9 batches) / 64 val; 2 epochs, a resume, a
+# third
+VAE_DATASET, VAE_STEPS, VAE_EPOCHS = 640, 9, 2
+# DCGAN / WGAN at the reference's scale (gan_code.py: 64x64, batch 128,
+# ngf = ndf = 64, latent 100), bf16, fused_conv: 640 faces -> 576 train
+# (4 batches of 128); DCGAN 2 epochs of 4 steps, a resume, a third; WGAN 1
+# epoch of 2 steps, a resume, a second
+GAN_DATASET, GAN_STEPS, GAN_EPOCHS = 640, 4, 2
+WGAN_STEPS, WGAN_EPOCHS = 2, 1
+# each phase's own generator (its data and draws)
+VAE_SEED, GAN_SEED = 10, 11
+
+
+def vae_config():
+    """The denoising VAE at the reference's training scale: 64x64, batch
+    64, latent 100, ngf 64, noise std 0.5, bf16, ``fused_conv=True``."""
+    from vgd_tpu_torch.core.config import DataConfig, RunConfig, VAEConfig
+    return VAEConfig(
+        data=DataConfig(batch_size=64, image_size=(64, 64),
+                        dataset_size=VAE_DATASET, noise_max_std=0.5,
+                        occlusion=False),
+        run=RunConfig(out_dir=str(OUT_DIR / "vae"), seed=42,
+                      fused_conv=True))
+
+
+def gan_config(wgan=False):
+    """DCGAN (or WGAN) at the reference's training scale: 64x64, batch 128,
+    latent 100, ngf = ndf = 64, bf16, ``fused_conv=True``."""
+    from vgd_tpu_torch.core.config import DataConfig, GANConfig, RunConfig
+    return GANConfig(
+        data=DataConfig(batch_size=128, image_size=(64, 64),
+                        dataset_size=GAN_DATASET),
+        run=RunConfig(out_dir=str(OUT_DIR / ("wgan" if wgan else "gan")),
+                      seed=42, fused_conv=True), wgan=wgan)
+
+
+def vae_step_grads(trainer, batch, noise, eps):
+    """The loss parts and every gradient of one VAE train step (its
+    ``corrupt_batch`` and ``loss`` at ramp 1, without the Adam update)."""
+    import torch
+    from vgd_tpu_torch.ops.image import to_signed
+    img = to_signed(batch)
+    total, parts = trainer.loss(img, trainer.corrupt_batch(img, noise), eps,
+                                1.0)
+    names = [(f"{net}.{n}", p) for net, m in trainer.nets().items()
+             for n, p in m.named_parameters()]
+    grads = dict(zip([n for n, _ in names], torch.autograd.grad(
+        total, [p for _, p in names])))
+    return {"total": total.item(),
+            **{k: v.item() for k, v in parts.items()}}, grads
+
+
+def gan_step_grads(trainer, batch, z):
+    """The losses and gradients of a GAN step's first D step and of its G
+    step (its ``d_loss`` and ``g_loss``, without the Adam updates; the G
+    step through the D before its update): DCGAN z (B, latent), WGAN z
+    (critic_iters + 1, B, latent)."""
+    import torch
+    from vgd_tpu_torch.models.blocks import frozen_running_stats
+    from vgd_tpu_torch.models.vae import latent_to_spatial
+    from vgd_tpu_torch.ops.image import to_signed
+    wgan = trainer.cfg.wgan
+    x = to_signed(batch)
+    zd, zg = (z[0], z[-1]) if wgan else (z, z)
+    with torch.no_grad(), frozen_running_stats(trainer.gen):
+        fake = trainer.gen(latent_to_spatial(zd), train=True)
+    trainer.disc.zero_grad(set_to_none=True)
+    d_loss = trainer.d_loss(x, fake, wgan)
+    d_loss.backward()
+    d_grads = {f"disc.{n}": p.grad.clone()
+               for n, p in trainer.disc.named_parameters()}
+    trainer.disc.zero_grad(set_to_none=True)
+    g_loss = trainer.g_loss(zg, wgan)
+    names = list(trainer.gen.named_parameters())
+    g_grads = dict(zip([f"gen.{n}" for n, _ in names], torch.autograd.grad(
+        g_loss, [p for _, p in names])))
+    return {"d_loss": d_loss.item(), "g_loss": g_loss.item()}, d_grads, \
+        g_grads
+
+
+def check_vae_steps(K, cfg, gen, failures):
+    """One VAE train step with K1 against no kernel (``held_step``), with
+    the fixed-std noise and with occlusion corruption; one whole bf16 step
+    timed and profiled."""
+    import dataclasses
+    import torch
+    from vgd_tpu_torch.data.corrupt import corrupt_draws
+    from vgd_tpu_torch.train.vae import VAETrainer
+    (h, w), b = cfg.data.image_size, cfg.data.batch_size
+    stats = {}
+    for occlusion in (False, True):
+        ocfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, occlusion=occlusion))
+
+        def make(dtype):
+            tr = VAETrainer(dataclasses.replace(ocfg, run=dataclasses.replace(
+                ocfg.run, compute_dtype=dtype)), (h, w, 3), device="cuda")
+            tr.init(torch.Generator(device=tr.device).manual_seed(
+                ocfg.run.seed))
+            return tr
+
+        def draws(tr):
+            batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                                  device=tr.device, generator=gen)
+            noise = corrupt_draws(batch.shape, gen, tr.device) if occlusion \
+                else torch.randn(batch.shape, device=tr.device,
+                                 generator=gen)
+            eps = torch.randn(b, ocfg.latent_dim, device=tr.device,
+                              generator=gen)
+            return batch, noise, eps
+        tag = "vae-step" + (" occlusion" if occlusion else "")
+        row, trainer, inputs = held_step(
+            K, tag, make, draws, vae_step_grads, k1_shapes(K1_VAE_SHAPES),
+            K1_VAE_PER_STEP, failures)
+        stats["occlusion" if occlusion else "noise"] = row
+    batch, noise, eps = inputs
+    stats.update(timed_step(
+        K, "vae-step", lambda: trainer.train_step(batch, 1.0, noise=noise,
+                                                  eps=eps),
+        b, failures, K1_VAE_PER_STEP))
+    return stats
+
+
+def vae_serve_path(K, cfg, failures):
+    """On the trained checkpoint, on the card: ``evaluate_vae_checkpoints``
+    (the latest checkpoint, 1 encode batch of each split, 1 eval batch),
+    ``evaluate_vae_occlusion`` (1 batch, re-noise cycles, traversals),
+    ``sample_from_dir("vae", n=64)`` and ``denoise_images`` on 16 uint8
+    images: finite outputs of the right shapes, no K1 launch, each
+    request's wall time."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data.celeba import synthetic_faces
+    from vgd_tpu_torch.train import loop as L
+    (h, w) = cfg.data.image_size
+    stats = {}
+
+    def request(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stats[f"{name}_s"] = time.perf_counter() - t0
+        return out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.clear()
+    sweep = request("sweep", lambda: L.evaluate_vae_checkpoints(
+        cfg, max_checkpoints=1, max_encode_batches=1, max_eval_batches=1,
+        device="cuda"))
+    occl = request("occlusion", lambda: L.evaluate_vae_occlusion(
+        cfg, max_batches=1, device="cuda"))
+    path = request("sample", lambda: L.sample_from_dir("vae", cfg, n=64,
+                                                       device="cuda"))
+    check_images(np.load(path), (64, h, w, 3), "vae-serve sample", failures)
+    imgs = synthetic_faces(16, (h, w), 3, seed=3)
+    out = request("denoise", lambda: L.denoise_images(
+        cfg, f"{cfg.run.out_dir}/ckpt", imgs, seed=5, device="cuda"))
+    launches = dict(K.LAUNCHES)
+    if not (len(sweep) == 1 and 0 < sweep[0]["ssim"] <= 1
+            and all(math.isfinite(v) for v in occl.values())
+            and out.shape == imgs.shape and out.dtype == np.uint8
+            and not sum(launches.values())):
+        failures.append(f"vae-serve: sweep {sweep}, occlusion {occl}, "
+                        f"denoise {out.shape} {out.dtype}, launches "
+                        f"{launches}")
+    for name in ("triplets", "renoise_cycles", "traversal_mu",
+                 "traversal_logvar"):
+        arr = np.load(f"{cfg.run.out_dir}/occlusion_{name}.npy")
+        if not np.isfinite(arr).all():
+            failures.append(f"vae-serve: occlusion_{name} not finite")
+    stats.update(sweep=sweep, occlusion=occl, launches=launches,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[vae-serve] requests (checkpoint restore included): sweep "
+          f"{stats['sweep_s']:.3f} s (ssim {sweep[0]['ssim']:.4f}), "
+          f"occlusion test {stats['occlusion_s']:.3f} s (" + " ".join(
+              f"{k} {v:.4f}" for k, v in occl.items()) + f"), 64-image "
+          f"sample {stats['sample_s']:.3f} s, 16-image denoise "
+          f"{stats['denoise_s']:.3f} s; launches {launches}; peak memory "
+          f"{stats['peak_mem_gb']:.3f} GB", flush=True)
+    return stats
+
+
+def vae_path(K, gen, failures):
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.vae import VAETrainer
+    cfg = vae_config()
+    shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    stats = check_vae_steps(K, cfg, gen, failures)
+    stats["train"] = family_train_path(
+        K, "vae-train", VAETrainer, L.run_vae, cfg, VAE_STEPS, VAE_EPOCHS,
+        K1_VAE_PER_STEP, ("train_step", "eval_step", "generate", "denoise"),
+        ("train_loss", "val_loss", "mse", "psnr", "ssim"), failures)
+    stats["serve"] = vae_serve_path(K, cfg, failures)
+    stats["phase_s"] = time.perf_counter() - t0
+    print(f"[vae] phase {stats['phase_s']:.1f} s", flush=True)
+    return stats
+
+
+def check_gan_step(K, cfg, gen, failures):
+    """One DCGAN (or WGAN) step's first D step and G step with K1 against
+    no kernel (``held_step``); one whole bf16 train step timed and
+    profiled; after a WGAN step every D parameter within +-clip_value."""
+    import dataclasses
+    import torch
+    from vgd_tpu_torch.train.gan import GANTrainer
+    (h, w), b = cfg.data.image_size, cfg.data.batch_size
+    tag = "wgan-step" if cfg.wgan else "gan-step"
+
+    def make(dtype):
+        tr = GANTrainer(dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, compute_dtype=dtype)), (h, w, 3), device="cuda")
+        tr.init(torch.Generator(device=tr.device).manual_seed(cfg.run.seed))
+        return tr
+
+    def draws(tr):
+        batch = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                              device=tr.device, generator=gen)
+        shape = ((cfg.critic_iters + 1,) if cfg.wgan else ()) + \
+            (b, cfg.latent_dim)
+        return batch, torch.randn(shape, device=tr.device, generator=gen)
+    # the gradients' forwards: three D forwards (real, fake, the G step's)
+    stats, trainer, (batch, z) = held_step(
+        K, tag, make, draws, gan_step_grads, k1_shapes(K1_GAN_SHAPES),
+        K1_GAN_PER_STEP, failures,
+        loss_scale={"d_loss": 1.0} if cfg.wgan else None)
+    fn = trainer.train_step_wgan if cfg.wgan else trainer.train_step
+    stats.update(timed_step(
+        K, tag, lambda: fn(batch, z=z), b, failures,
+        K1_WGAN_PER_STEP if cfg.wgan else K1_GAN_PER_STEP))
+    if cfg.wgan:
+        top = max(float(p.detach().abs().max())
+                  for p in trainer.disc.parameters())
+        stats["disc_param_max_abs"] = top
+        print(f"[{tag}] after the step every D parameter within "
+              f"+-{cfg.clip_value}: max |p| {top:.6f}", flush=True)
+        if top > cfg.clip_value:
+            failures.append(f"{tag}: a D parameter at {top} after clipping")
+    return stats
+
+
+def gan_serve_path(K, cfgs, failures):
+    """On each trained checkpoint (DCGAN, WGAN), on the card:
+    ``evaluate_gan_checkpoints`` (the latest checkpoint, every val batch)
+    and ``sample_from_dir`` (64 images): SSIM in (0, 1], finite images in
+    [-1, 1], no K1 launch, each request's wall time."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    stats = {}
+    for cfg in cfgs:
+        name = "wgan" if cfg.wgan else "gan"
+        torch.cuda.empty_cache()
+        K.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep = L.evaluate_gan_checkpoints(cfg, max_checkpoints=1,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = L.sample_from_dir(name, cfg, n=64, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check_images(np.load(path), (64,) + tuple(cfg.data.image_size) + (3,),
+                     f"gan-serve {name}", failures)
+        launches = dict(K.LAUNCHES)
+        if not (len(sweep) == 1 and 0 < sweep[0]["ssim"] <= 1
+                and not sum(launches.values())):
+            failures.append(f"gan-serve {name}: sweep {sweep}, launches "
+                            f"{launches}")
+        stats[name] = {"sweep": sweep, "sweep_s": t1 - t0,
+                       "sample_s": t2 - t1, "launches": launches}
+        print(f"[gan-serve] {name}: checkpoint sweep {t1 - t0:.3f} s (ssim "
+              f"{sweep[0]['ssim']:.4f}), 64-image sample {t2 - t1:.3f} s "
+              f"(checkpoint restore included); launches {launches}",
+              flush=True)
+    return stats
+
+
+def gan_path(K, gen, failures):
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.gan import GANTrainer
+    t0 = time.perf_counter()
+    stats = {}
+    cfgs = (gan_config(), gan_config(wgan=True))
+    for cfg in cfgs:
+        shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+        stats["wgan_step" if cfg.wgan else "step"] = check_gan_step(
+            K, cfg, gen, failures)
+    counted = ("train_step", "generate")
+    keys = ("d_loss", "g_loss")
+    stats["train"] = family_train_path(
+        K, "gan-train", GANTrainer, L.run_gan, cfgs[0], GAN_STEPS,
+        GAN_EPOCHS, K1_GAN_PER_STEP, counted, keys, failures)
+    stats["wgan_train"] = family_train_path(
+        K, "gan-train wgan", GANTrainer, L.run_gan, cfgs[1], WGAN_STEPS,
+        WGAN_EPOCHS, K1_WGAN_PER_STEP, ("train_step_wgan", "generate"), keys,
+        failures)
+    stats["serve"] = gan_serve_path(K, cfgs, failures)
+    stats["phase_s"] = time.perf_counter() - t0
+    print(f"[gan] phase {stats['phase_s']:.1f} s", flush=True)
     return stats
 
 
@@ -2285,9 +2790,8 @@ def check_glow_step(K, cfg, gen, failures, tag, init_want, step_want,
                     compare=()):
     """One full-width train step with the kernels against the same state,
     batch and noise with no kernel (``kernels.plain_reference``): the loss
-    and every gradient, in f32 at the DDPM step's bounds and in bf16 at the
-    larger of those and VAEGAN_FLOOR_X times the no-kernel step's own noise
-    floor (its coupling outputs perturbed by one f32 ulp), measured here.
+    and every gradient, held by ``hold_to_floor`` at STEP_LOSS_REL (the
+    bf16 floor from the plain coupling outputs perturbed).
     The state: the seeded init, the ActNorm init on the batch, and
     ZeroConvs set to 0.01 N(0, 1) (at init they are zero and the conv1 /
     conv2 gradients with them). The K5 / K6 launches of the ActNorm init
@@ -2300,16 +2804,6 @@ def check_glow_step(K, cfg, gen, failures, tag, init_want, step_want,
     from vgd_tpu_torch.train.glow import GlowTrainer
     (h, w), b = cfg.data.image_size, cfg.data.batch_size
     stats = {}
-    plain = K.glow_coupling_fwd_plain
-
-    def perturbed_by(seed):
-        def perturbed(*args):
-            out = plain(*args)
-            g = torch.Generator(device=out.device).manual_seed(seed)
-            return out * (1 + 2.0 ** -23 * torch.randn(
-                out.shape, device=out.device, generator=g))
-        return perturbed
-
     for dtype in ("float32", "bfloat16"):
         dcfg = dataclasses.replace(cfg, run=dataclasses.replace(
             cfg.run, compute_dtype=dtype))
@@ -2343,49 +2837,17 @@ def check_glow_step(K, cfg, gen, failures, tag, init_want, step_want,
         if launches != step_want or set(K.LAUNCHES) - set(GLOW_NAMES):
             failures.append(f"{tag} {dtype}: launches {dict(K.LAUNCHES)}, "
                             f"want {step_want}")
-        runs = {}
-        for name, fn in [("plain", plain)] + [
-                (f"perturbed_{seed}", perturbed_by(seed))
-                for seed in FLOOR_SEEDS if dtype == "bfloat16"]:
-            K.LAUNCHES.clear()
-            K.glow_coupling_fwd_plain = fn
-            try:
-                with K.plain_reference():
-                    runs[name] = glow_step_grads(trainer, batch, noise)
-            finally:
-                K.glow_coupling_fwd_plain = plain
-            if sum(K.LAUNCHES.values()):
-                failures.append(f"{tag}: the no-kernel reference "
-                                f"launched {dict(K.LAUNCHES)}")
-        worst, wname, loss_rel = compare_glow_step(kern, runs["plain"])
-        row = {"worst_err_over_bound": worst, "worst_tensor": wname,
-               "loss_rel": loss_rel, "launches": launches,
-               "loss": kern[0], "loss_ref": runs["plain"][0]}
+        runs = no_kernel_runs(
+            K, "glow_coupling_fwd_plain", dtype,
+            lambda: glow_step_grads(trainer, batch, noise), tag, failures)
+        row, text = hold_to_floor(tag, dtype, kern, runs, compare_glow_step,
+                                  STEP_LOSS_REL, failures)
+        row.update(launches=launches, loss=kern[0],
+                   loss_ref=runs["plain"][0])
         line = (f"[{tag}] {dtype} kernels vs no-kernel reference, B={b} "
                 f"{h}x{w}: loss {kern[0]:.6f} / {runs['plain'][0]:.6f}; "
-                f"{len(kern[1])} gradients, worst err/bound {worst:.3f} "
-                f"({wname}), loss difference {loss_rel:.3g} relative; "
-                f"launches {launches}")
-        if dtype == "float32":
-            if not (worst <= 1.0 and loss_rel <= STEP_LOSS_REL):
-                failures.append(f"{tag} f32: kernels vs reference {row}")
-        else:
-            floors = {seed: compare_glow_step(runs[f"perturbed_{seed}"],
-                                              runs["plain"])
-                      for seed in FLOOR_SEEDS}
-            fworst, fname, floss = floors[FLOOR_SEEDS[0]]
-            row.update(floor_worst_err_over_bound=fworst,
-                       floor_worst_tensor=fname, floor_loss_rel=floss,
-                       floors=floor_spread(floors))
-            line += (f"; noise floor (reference vs itself, coupling outputs "
-                     f"perturbed by one f32 ulp, seed {FLOOR_SEEDS[0]}): "
-                     f"worst {fworst:.3f} ({fname}), loss {floss:.3g}; held "
-                     f"at the f32 bounds or {VAEGAN_FLOOR_X} x the floor, "
-                     f"whichever is larger; " + floor_line(row["floors"]))
-            if not (worst <= max(1.0, VAEGAN_FLOOR_X * fworst)
-                    and loss_rel <= max(STEP_LOSS_REL,
-                                        VAEGAN_FLOOR_X * floss)):
-                failures.append(f"{tag} bf16: kernels vs reference {row}")
+                f"{len(kern[1])} gradients, {text} (relative); launches "
+                f"{launches}")
         print(line, flush=True)
         stats[f"step_{dtype}"] = row
         del kern, runs
@@ -3188,6 +3650,10 @@ def main(argv=None) -> int:
               f" forwards, checkpoint restore included)", flush=True)
         report["vaegan"] = vaegan_path(
             K, torch.Generator(device=dev).manual_seed(VAEGAN_SEED), failures)
+        report["vae"] = vae_path(
+            K, torch.Generator(device=dev).manual_seed(VAE_SEED), failures)
+        report["gan"] = gan_path(
+            K, torch.Generator(device=dev).manual_seed(GAN_SEED), failures)
         report["glow"] = glow_path(
             K, torch.Generator(device=dev).manual_seed(6), failures)
         report["glow_stack"] = glow_stack_path(
@@ -3218,11 +3684,7 @@ def main(argv=None) -> int:
                               serve_l["groupnorm_silu"], per_fwd),
                  form="f32 in and out (the TPU kernel's function)",
                  main_path_forms=report["k4_main_path"]),
-            kernel_entry("conv_bn_stats",
-                         "vgd_tpu_torch/csrc/conv_bn_stats.cu",
-                         "vgd_tpu/ops/fused_conv.py:125", k1_rows,
-                         report["vaegan"]["train"]["k1_launches"],
-                         "one 256x256 batch-64 VAE-GAN train step")] + [
+            k1_entry(k1_rows, report)] + [
             kernel_entry(name, "vgd_tpu_torch/csrc/glow_coupling.cu",
                          f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
                          report["glow"]["train"]["launches_total"][name],

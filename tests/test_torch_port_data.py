@@ -27,7 +27,7 @@ def test_synthetic_faces_byte_equal():
 
 @pytest.mark.parametrize("name", ["DataConfig", "RunConfig",
                                   "DiffusionConfig", "VAEGANConfig",
-                                  "GlowConfig"])
+                                  "GlowConfig", "VAEConfig", "GANConfig"])
 def test_config_defaults_equal_jax(name):
     """Every field the port keeps has the JAX package's default."""
     port, ref = getattr(PC, name)(), getattr(JC, name)()

@@ -542,6 +542,52 @@ def test_vaegan_step_fused_matches_stock_on_the_card(cuda):
         assert abs(float(mf[k]) - float(ms[k])) <= 1e-4 * abs(float(ms[k])), k
 
 
+def test_vae_and_gan_steps_fused_match_stock_on_the_card(cuda):
+    """Small f32 VAE, DCGAN and WGAN train steps with K1 (fused_conv) and
+    the same weights and draws through the stock layers: the losses agree,
+    and a step launches K1 once per fused layer and train-mode forward (VAE
+    4 encoder layers x 1; at 32x32 the discriminator's 2 fused stages x 3
+    DCGAN forwards, x 11 WGAN forwards)."""
+    import dataclasses
+    from vgd_tpu_torch.core import config as C
+    from vgd_tpu_torch.train.gan import GANTrainer
+    from vgd_tpu_torch.train.vae import VAETrainer
+    g = torch.Generator(device=cuda).manual_seed(8)
+    run = C.RunConfig(compute_dtype="float32", fused_conv=True)
+    vcfg = C.VAEConfig(data=C.DataConfig(image_size=(64, 64), batch_size=4,
+                                         noise_max_std=0.5, occlusion=False),
+                       run=run, latent_dim=16, ngf=8)
+    gcfg = C.GANConfig(data=C.DataConfig(image_size=(32, 32), batch_size=4),
+                       run=run, latent_dim=16, ngf=8, ndf=8)
+    cases = [(VAETrainer, vcfg, 64, 4, lambda t, b: t.train_step(
+                 b, 0.5, noise=torch.randn(4, 64, 64, 3, device=cuda,
+                                           generator=g),
+                 eps=torch.randn(4, 16, device=cuda, generator=g))),
+             (GANTrainer, gcfg, 32, 6, lambda t, b: t.train_step(
+                 b, z=torch.randn(4, 16, device=cuda, generator=g))),
+             (GANTrainer, dataclasses.replace(gcfg, wgan=True), 32, 22,
+              lambda t, b: t.train_step_wgan(
+                  b, z=torch.randn(6, 4, 16, device=cuda, generator=g)))]
+    for cls, cfg, hw, per_step, step in cases:
+        batch = torch.randint(0, 256, (4, hw, hw, 3), dtype=torch.uint8,
+                              device=cuda, generator=g)
+        fused = cls(cfg, (hw, hw, 3), device="cuda")
+        fused.init(torch.Generator(device=cuda).manual_seed(0))
+        stock = cls(dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, fused_conv=False)), (hw, hw, 3), device="cuda")
+        stock.load(fused.state_dict())
+        state = g.get_state()
+        K.LAUNCHES.clear()
+        mf = step(fused, batch)
+        assert K.LAUNCHES["conv_bn_stats"] == per_step, cls
+        g.set_state(state)
+        ms = step(stock, batch)
+        assert K.LAUNCHES["conv_bn_stats"] == per_step, cls
+        for k in mf:
+            assert abs(float(mf[k]) - float(ms[k])) <= \
+                1e-4 * abs(float(ms[k])) + 1e-6, (cls, k)
+
+
 # K5 at the reference Glow's four coupling shapes (B=16, f=512; ya has half
 # the squeezed channels) and two ragged ones (odd sizes, channels no tile
 # divides)
@@ -956,7 +1002,9 @@ def test_glow_step_flow_stack_matches_kernel_free_reference(cuda):
 K1_MAIN_AND_RAGGED = (
     [tuple(s[1:7]) for s in chip_smoke.K1_SHAPES]
     + [(2, 16, 16, 3, 32, 1), (2, 32, 32, 3, 32, 0), (3, 31, 29, 5, 7, 0),
-       (2, 9, 13, 12, 20, 1)])
+       (2, 9, 13, 12, 20, 1)]
+    + [tuple(s[1:7]) for s in chip_smoke.K1_VAE_SHAPES
+       + chip_smoke.K1_GAN_SHAPES])
 
 
 @pytest.mark.parametrize("b,h,w,cin,k,pad", K1_MAIN_AND_RAGGED)

@@ -4,7 +4,8 @@ The plan picks K1's tile, its reduction splits and its scratch size for a
 shape; the C entry point of ``csrc/conv_bn_stats.cu`` checks and runs it.
 These tests hold the plan to what the kernel needs (whole 64-deep stages,
 every one in exactly one split, at least about one wave of resident blocks
-on an H100's 132 SMs at the VAE-GAN's shapes, the scratch the kernel
+on an H100's 132 SMs at the VAE-GAN's shapes, splits as deep as the
+reduction allows at the VAE's and DCGAN's 64x64 ones, the scratch the kernel
 writes), and emulate the kernel's arithmetic (bf16 operands, f32 products
 summed over the plan's splits in their fixed order, per-tile two-pass
 statistics over two row halves, Chan's combine in the combine kernel's
@@ -15,8 +16,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (K1_C_REL, K1_EXTRA, K1_SHAPES, K1_STAT_ATOL,
-                        K1_STAT_RTOL)
+from chip_smoke import (K1_C_REL, K1_EXTRA, K1_GAN_SHAPES, K1_SHAPES,
+                        K1_STAT_ATOL, K1_STAT_RTOL, K1_VAE_SHAPES)
 from vgd_tpu_torch.ops import kernels as K
 
 SMS = 132
@@ -35,8 +36,12 @@ def _m(shape):
     return b * ((h + 2 * pad - 4) // 2 + 1) * ((w + 2 * pad - 4) // 2 + 1)
 
 
+# the denoising VAE's and DCGAN's 64x64 shapes (sites prefixed by family)
+SMALL = ([(f"vae-{s[0]}", tuple(s[1:7])) for s in K1_VAE_SHAPES]
+         + [(f"gan-{s[0]}", tuple(s[1:7])) for s in K1_GAN_SHAPES])
 ALL = ([(s[0], tuple(s[1:7]), "bfloat16") for s in K1_SHAPES]
-       + [(s[0], tuple(s[1:7]), s[7]) for s in K1_EXTRA])
+       + [(s[0], tuple(s[1:7]), s[7]) for s in K1_EXTRA]
+       + [(site, shape, "bfloat16") for site, shape in SMALL])
 
 
 @pytest.mark.parametrize("site,shape", [(s[0], tuple(s[1:7]))
@@ -54,6 +59,26 @@ def test_plan_fills_the_card_at_the_main_path_shapes(site, shape):
         assert plan.splits == 1, (site, plan)
     else:
         assert plan.splits > 1 and blocks <= resident, (site, plan)
+
+
+@pytest.mark.parametrize("site,shape", SMALL)
+def test_plan_uses_the_card_at_the_64px_shapes(site, shape):
+    """At the VAE's and DCGAN's 64x64 shapes (too few output rows for a
+    wave at some): no split while the output tiles occupy at least half
+    the SMs; else splits up to a wave of resident blocks, or until each
+    split is _K1_MIN_SPLIT stages deep, whichever comes first."""
+    plan = _plan(shape)
+    tiles = plan.m_tiles * plan.n_tiles
+    blocks = tiles * plan.splits
+    resident = SMS * {1: 5, 2: 3, 3: 2}[plan.tile]
+    depth = 16 * plan.cin
+    if 2 * tiles >= SMS:
+        assert plan.splits == 1, (site, plan)
+        return
+    least = K._K1_MIN_SPLIT * STAGE
+    assert plan.splits > 1 and blocks <= resident, (site, plan)
+    assert least <= plan.k_split < depth, (site, plan)
+    assert blocks >= 0.9 * SMS or plan.k_split == least, (site, plan)
 
 
 @pytest.mark.parametrize("site,shape,dtype", ALL)

@@ -1,4 +1,5 @@
-"""Command line of the port (``vgd_tpu/cli.py``), DDPM, VAE-GAN and Glow:
+"""Command line of the port (``vgd_tpu/cli.py``), DDPM, VAE-GAN, the
+denoising VAE, DCGAN / WGAN and Glow:
 
   python -m vgd_tpu_torch.cli diffusion --epochs 100 --out-dir runs/diffusion \\
       [--steps-per-epoch 8] [--resume] [--profile-dir runs/diffusion/trace]
@@ -17,11 +18,26 @@
       [--resume] [--profile-dir runs/glow/trace]
   python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow [-n 20]
   python -m vgd_tpu_torch.cli eval-glow --out-dir runs/glow [--max-batches 1]
+  python -m vgd_tpu_torch.cli vae --epochs 100 [--noise-std 0.5] [--occlusion] \
+      [--fused-conv] [--steps-per-epoch 9] [--resume]
+  python -m vgd_tpu_torch.cli eval-vae --out-dir runs/vae [--occlusion] \
+      [--max-checkpoints 1] [--max-batches 1] [--step 3]
+  python -m vgd_tpu_torch.cli sample --family vae --out-dir runs/vae [-n 64]
+  python -m vgd_tpu_torch.cli denoise --ckpt runs/vae/ckpt --input img.jpg \
+      [--output denoised.png] [--image-size 64]
+  python -m vgd_tpu_torch.cli gan|wgan [--epochs N] [--fused-conv] [--resume]
+  python -m vgd_tpu_torch.cli eval-gan --out-dir runs/gan [--wgan] \
+      [--max-checkpoints 1]
+  python -m vgd_tpu_torch.cli sample --family gan|wgan --out-dir runs/gan
 
-``diffusion``, ``vaegan`` and ``glow`` train (``train.loop.run_diffusion``
-/ ``run_vaegan`` / ``run_glow``) and write ``<out-dir>/ckpt``; ``sample``,
-``eval-diffusion`` and ``eval-glow`` restore it. All run on ``--device
-cuda`` unless ``--device cpu`` is given.
+``diffusion``, ``vaegan``, ``vae``, ``gan``, ``wgan`` and ``glow`` train
+(``train.loop.run_diffusion`` / ``run_vaegan`` / ``run_vae`` / ``run_gan``
+/ ``run_glow``) and write ``<out-dir>/ckpt``; ``sample``, the ``eval-*``
+commands and ``denoise`` restore it. ``wgan`` trains 1500 epochs unless
+``--epochs`` says otherwise (the reference's scale). ``denoise`` reads an
+image file or every ``*.jpg`` of a folder with PIL (imported there only)
+and writes the restorations as images. All run on ``--device cuda`` unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -69,6 +85,11 @@ def _add_glow(p):
                    "squeezed h*w <= N")
 
 
+def _add_vae(p):
+    p.add_argument("--noise-std", type=float, default=None,
+                   help="VAE: corruption noise std (default 0.5)")
+
+
 def _add_training(p):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--steps-per-epoch", type=int, default=None,
@@ -114,6 +135,55 @@ def _vaegan_cfg(a) -> C.VAEGANConfig:
                       fused_conv=bool(getattr(a, "fused_conv", False)))
 
 
+def _vae_cfg(a) -> C.VAEConfig:
+    cfg = _with_args(C.VAEConfig(), a,
+                     fused_conv=bool(getattr(a, "fused_conv", False)))
+    data = {"occlusion": bool(getattr(a, "occlusion", False))}
+    if getattr(a, "noise_std", None) is not None:
+        data["noise_max_std"] = a.noise_std
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                             **data))
+
+
+def _gan_cfg(a, wgan: bool) -> C.GANConfig:
+    cfg = C.GANConfig(wgan=wgan)
+    if wgan:
+        cfg = dataclasses.replace(cfg, epochs=1500,
+                                  run=dataclasses.replace(cfg.run,
+                                                          out_dir="runs/wgan"))
+    return _with_args(cfg, a, fused_conv=bool(getattr(a, "fused_conv",
+                                                      False)))
+
+
+def _denoise(a) -> None:
+    """``denoise``: decode the inputs with PIL, restore them through
+    ``train.loop.denoise_images``, write each as an image."""
+    import glob
+    import os
+
+    import numpy as np
+    from PIL import Image
+    from vgd_tpu_torch.train import loop as L
+
+    size = (a.image_size, a.image_size)
+    cfg = dataclasses.replace(C.VAEConfig(), data=C.DataConfig(
+        image_size=size), run=dataclasses.replace(
+            C.VAEConfig().run, compute_dtype=a.compute_dtype or "bfloat16"))
+    paths = ([a.input] if os.path.isfile(a.input)
+             else sorted(glob.glob(os.path.join(a.input, "*.jpg"))))
+    if not paths:
+        raise SystemExit(f"no image at {a.input}")
+    imgs = np.stack([np.asarray(Image.open(p).convert("RGB").resize(size))
+                     for p in paths])
+    out = L.denoise_images(cfg, a.ckpt, imgs, seed=a.seed, device=a.device)
+    for p, img in zip(paths, out):
+        dst = (a.output if len(paths) == 1 else
+               os.path.join(os.path.dirname(a.output) or ".",
+                            f"denoised_{os.path.basename(p)}"))
+        Image.fromarray(img).save(dst)
+        print(f"{p} -> {dst}")
+
+
 def _glow_cfg(a) -> C.GlowConfig:
     run = {k: getattr(a, arg) for k, arg in (
         ("sample_every_iters", "sample_every"),
@@ -152,6 +222,59 @@ def main(argv=None):
                    help="encoder/discriminator Conv+BN+LeakyReLU through "
                    "the fused K1 kernel")
 
+    p = sub.add_parser("vae", help="train the denoising VAE (checkpoints "
+                       "under <out-dir>/ckpt, loss log vae_loss.jsonl)")
+    _add_common(p, serving=False)
+    _add_training(p)
+    _add_optim(p)
+    _add_vae(p)
+    p.add_argument("--occlusion", action="store_true",
+                   help="train with the occlusion rectangle + per-sample "
+                   "noise corruption")
+    p.add_argument("--fused-conv", action="store_true",
+                   help="encoder Conv+BN+LeakyReLU through the fused K1 "
+                   "kernel")
+
+    p = sub.add_parser("eval-vae", help="aggregated-posterior SSIM sweep "
+                       "over the checkpoints; with --occlusion the occlusion "
+                       "test of one checkpoint instead")
+    _add_common(p)
+    _add_vae(p)
+    p.add_argument("--occlusion", action="store_true",
+                   help="occlusion test-set evaluation (test loss, MSE, "
+                   "PSNR, SSIM, re-noise cycles, latent traversals)")
+    p.add_argument("--max-checkpoints", type=int, default=None)
+    p.add_argument("--max-batches", type=int, default=None)
+
+    p = sub.add_parser("denoise", help="encode -> decode restoration of an "
+                       "image file or a folder of *.jpg with a VAE "
+                       "checkpoint")
+    p.add_argument("--ckpt", required=True, help="checkpoint directory")
+    p.add_argument("--input", required=True, help="image file or folder")
+    p.add_argument("--output", default="denoised.png")
+    p.add_argument("--image-size", type=int, default=64)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--compute-dtype", type=str, default=None,
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
+
+    for name in ("gan", "wgan"):
+        p = sub.add_parser(name, help=f"train {name.upper()} (checkpoints "
+                           f"under <out-dir>/ckpt, loss log gan_loss.jsonl)")
+        _add_common(p, serving=False)
+        _add_training(p)
+        _add_optim(p)
+        p.add_argument("--fused-conv", action="store_true",
+                       help="discriminator Conv+BN+LeakyReLU through the "
+                       "fused K1 kernel")
+
+    p = sub.add_parser("eval-gan", help="prior-sample SSIM sweep over the "
+                       "checkpoints")
+    _add_common(p)
+    p.add_argument("--wgan", action="store_true")
+    p.add_argument("--max-checkpoints", type=int, default=None)
+
     p = sub.add_parser("glow", help="train Glow (checkpoints under "
                        "<out-dir>/ckpt, loss log glow_loss.jsonl)")
     _add_common(p, serving=False)
@@ -176,8 +299,10 @@ def main(argv=None):
     _add_common(p)
     _add_diffusion(p)
     _add_glow(p)
+    _add_vae(p)
     p.add_argument("--family", required=True,
-                   choices=["diffusion", "vaegan", "glow"])
+                   choices=["diffusion", "vaegan", "vae", "gan", "wgan",
+                            "glow"])
     p.add_argument("-n", "--num-samples", type=int, default=64)
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--ddim-steps", type=int, default=0,
@@ -193,6 +318,43 @@ def main(argv=None):
 
     a = ap.parse_args(argv)
     from vgd_tpu_torch.train import loop as L
+
+    if a.cmd == "denoise":
+        _denoise(a)
+        return 0
+    if a.cmd == "vae":
+        L.run_vae(_vae_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
+                  resume=a.resume, device=a.device)
+        return 0
+    if a.cmd == "eval-vae":
+        # --occlusion runs the occlusion test, else the checkpoint sweep
+        cfg, res = _vae_cfg(a), {}
+        if a.occlusion:
+            res["occlusion"] = L.evaluate_vae_occlusion(
+                cfg, max_batches=a.max_batches, step=a.step, device=a.device)
+        else:
+            res["sweep"] = L.evaluate_vae_checkpoints(
+                cfg, max_checkpoints=a.max_checkpoints,
+                max_eval_batches=a.max_batches, device=a.device)
+        print(json.dumps(res))
+        return 0
+    if a.cmd in ("gan", "wgan"):
+        L.run_gan(_gan_cfg(a, a.cmd == "wgan"),
+                  max_steps_per_epoch=a.steps_per_epoch, resume=a.resume,
+                  device=a.device)
+        return 0
+    if a.cmd == "eval-gan":
+        res = L.evaluate_gan_checkpoints(
+            _gan_cfg(a, a.wgan), max_checkpoints=a.max_checkpoints,
+            device=a.device)
+        print(json.dumps(res))
+        return 0
+    if a.cmd == "sample" and a.family in ("vae", "gan", "wgan"):
+        cfg = _vae_cfg(a) if a.family == "vae" else \
+            _gan_cfg(a, a.family == "wgan")
+        L.sample_from_dir(a.family, cfg, n=a.num_samples, out_path=a.out,
+                          step=a.step, seed=a.seed, device=a.device)
+        return 0
 
     if a.cmd == "glow":
         L.run_glow(_glow_cfg(a), n_iter=a.iters, resume=a.resume,

@@ -1,8 +1,8 @@
 """Typed configuration for the ported workloads.
 
 Own copies of ``vgd_tpu/core/config.py``'s ``DataConfig``, ``RunConfig``,
-``VAEGANConfig``, ``GlowConfig`` and ``DiffusionConfig`` with the same
-defaults (a test pins them field by field). ``RunConfig`` keeps only the
+``VAEGANConfig``, ``GANConfig``, ``VAEConfig``, ``GlowConfig`` and
+``DiffusionConfig`` with the same defaults (a test pins them field by field). ``RunConfig`` keeps only the
 fields the ported paths read; ``compute_dtype``/``param_dtype`` keep their
 meaning: convs and dense layers compute in ``compute_dtype``, parameters
 are stored in ``param_dtype``.
@@ -68,6 +68,41 @@ class VAEGANConfig:
     ndf: int = 64
     recon_loss: str = "pixel"           # "pixel" | "disl" (D-feature MSE)
     val_noise_std: float = 0.05
+
+
+@dataclass(frozen=True)
+class GANConfig:
+    """DCGAN / WGAN (reference gan_code.py scale: batch 128, Adam at lr
+    2e-4 with betas (0.5, 0.999), 150 epochs; WGAN: 5 critic iterations,
+    critic weights clipped to +-0.01)."""
+    data: DataConfig = field(default_factory=lambda: DataConfig(batch_size=128))
+    run: RunConfig = field(default_factory=lambda: RunConfig(out_dir="runs/gan"))
+    latent_dim: int = 100
+    # the CLI's `wgan` command defaults to the reference's 1500 epochs
+    epochs: int = 150
+    lr: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    ngf: int = 64
+    ndf: int = 64
+    wgan: bool = False
+    clip_value: float = 0.01
+    critic_iters: int = 5
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """The denoising VAE (reference main_vae.py: one joint Adam at lr 1e-3,
+    KL weight 1e-5 on a 50-epoch ramp, training noise std 0.5)."""
+    data: DataConfig = field(default_factory=lambda: DataConfig(
+        noise_max_std=0.5, occlusion=False))
+    run: RunConfig = field(default_factory=lambda: RunConfig(out_dir="runs/vae"))
+    latent_dim: int = 100
+    epochs: int = 100
+    lr: float = 1e-3
+    kl_weight: float = 1e-5
+    kl_warmup_epochs: int = 50
+    ngf: int = 64
 
 
 def check_flow_stack(flow_stack) -> None:

@@ -1,8 +1,10 @@
 """Weight bridge: a JAX params tree (as numpy arrays) to the state_dict of
-the port's counterpart module (the DDPM ``UNet``; the VAE-GAN ``Encoder``,
-``Generator`` and ``Discriminator``, with their ``batch_stats``; ``Glow``),
-and an optax Adam state (``opt_state``) to a ``torch.optim.Adam`` state, so
-a JAX run can continue in the port.
+the port's counterpart module (the DDPM ``UNet``; the VAE-GAN, VAE and
+DCGAN ``Encoder``, ``Generator`` and ``Discriminator``, with their
+``batch_stats``; ``Glow``), and an optax Adam state (``opt_state``) to a
+``torch.optim.Adam`` state, so a JAX run can continue in the port (the
+trainers' states: ``load_jax_vaegan_state``, ``load_jax_vae_state``,
+``load_jax_gan_state``, ``load_jax_glow_state``).
 
 Glow has its own converter (``from_jax_glow_params``): its tree is plain
 (not Flax), its leaf names (``w``, ``P``, ``L``, ``U``, ``log_s``,
@@ -171,6 +173,46 @@ def load_jax_vaegan_state(trainer, state):
         st = getattr(state, name)
         load_jax_params(net, st.params, st.batch_stats)
         load_jax_adam_state(trainer.opts[name], net, st.opt_state)
+    trainer.step = int(np.asarray(state.step))
+    return trainer
+
+
+def load_jax_gan_state(trainer, state):
+    """Load a JAX ``GANState`` (``gen`` / ``disc`` each with ``params``,
+    ``batch_stats`` and ``opt_state``, and ``step``) into a
+    ``train.gan.GANTrainer``: weights, BN running stats and both Adam
+    states, strictly."""
+    for name, net in trainer.nets().items():
+        st = getattr(state, name)
+        load_jax_params(net, st.params, st.batch_stats)
+        load_jax_adam_state(trainer.opts[name], net, st.opt_state)
+    trainer.step = int(np.asarray(state.step))
+    return trainer
+
+
+def load_jax_vae_state(trainer, state):
+    """Load a JAX ``VAEState`` into a ``train.vae.VAETrainer``: both
+    networks' weights and BN running stats, and the joint optax Adam state
+    (held by ``state.decoder.opt_state``, its moments a ``{"enc", "dec"}``
+    tree) as the joint Adam over the encoder's parameters, then the
+    decoder's; strictly."""
+    nets = {"enc": trainer.encoder, "dec": trainer.decoder}
+    for tree, net in zip((state.encoder, state.decoder), nets.values()):
+        load_jax_params(net, tree.params, tree.batch_stats)
+    count, mu, nu = _adam_leaves(state.decoder.opt_state)
+    for what, tree in (("mu", mu), ("nu", nu)):
+        if set(tree) != set(nets):
+            raise ValueError(f"JAX Adam {what} holds {sorted(tree)}, want "
+                             f"{sorted(nets)}")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    moments = []
+    for k, net in nets.items():
+        m, v = from_jax_params(mu[k], net), from_jax_params(nu[k], net)
+        moments += [(m[name], v[name]) for name, _ in net.named_parameters()]
+    sd = trainer.opt.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": m, "exp_avg_sq": v}
+                   for i, (m, v) in enumerate(moments)}
+    trainer.opt.load_state_dict(sd)
     trainer.step = int(np.asarray(state.step))
     return trainer
 

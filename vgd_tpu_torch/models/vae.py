@@ -83,11 +83,13 @@ class Encoder(nn.Module):
         return self.fc_mu(h), self.fc_logvar(h)
 
 
-def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor,
+                   clamp: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """z = mu + exp(0.5 * clamp(logvar, -10, 10)) * eps, with the standard
-    normal draw ``eps`` from the caller. Returns (z, clamped logvar)."""
-    logvar = torch.clamp(logvar, -10.0, 10.0)
+    normal draw ``eps`` from the caller (no clamp with ``clamp=False``, as
+    the latent traversal takes it). Returns (z, the logvar used)."""
+    if clamp:
+        logvar = torch.clamp(logvar, -10.0, 10.0)
     std = torch.exp(0.5 * logvar)
     return mu + std * eps.to(std.dtype), logvar
 

@@ -1,6 +1,7 @@
 """Fused Conv(4x4, stride 2) + train-mode BatchNorm + LeakyReLU
-(``vgd_tpu/ops/fused_conv.py``): the encoder (padding 0, slope 0.01) and
-discriminator (padding 1, slope 0.2) hot stack as one differentiable op.
+(``vgd_tpu/ops/fused_conv.py``): the encoder (padding 0, slope 0.01; the
+VAE-GAN's and the VAE's) and discriminator (padding 1, slope 0.2; the
+VAE-GAN's and DCGAN / WGAN's) hot stack as one differentiable op.
 
 * Forward: K1 (``kernels.conv_stats``, CUDA ``csrc/conv_bn_stats.cu``)
   computes the conv with f32 accumulation and the per-channel batch mean
@@ -123,8 +124,10 @@ def conv_bn_lrelu(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     compute dtype, w (K, Cin, 4, 4) in the same dtype, gamma / beta / bias
     (K,) f32. Returns (y f32, batch mean (+ bias), biased batch var). On a
     CUDA tensor the forward runs K1 (or raises); on the CPU its plain
-    version. No size gate: odd inputs (the 127x127 second encoder layer,
-    which the TPU's space-to-depth gate sends to XLA) run K1 too, which
-    measures faster there than the stock conv + statistics (``chip_smoke.py``
-    prints that decision each run)."""
+    version. No size gate: odd inputs (the VAE-GAN's 127x127 and the VAE's
+    31x31 second encoder layer, which the TPU's space-to-depth gate sends
+    to XLA) and the VAE's and DCGAN's small 64x64-model layers run K1 too,
+    which measures no slower at each of those shapes than the stock conv +
+    statistics (``chip_smoke.py`` prints that decision at each shape every
+    run)."""
     return _ConvBnLRelu.apply(x, w, gamma, beta, bias, padding, slope, eps)

@@ -1,15 +1,17 @@
 """Loss and optimizer primitives (``vgd_tpu/train/common.py``).
 
 ``scan_epoch`` has no counterpart: it is a compiled ``lax.scan`` over an
-epoch, and the port loops over steps in Python. ``clamp_params`` (WGAN)
-comes with the GAN slice.
+epoch, and the port loops over steps in Python.
 """
 from __future__ import annotations
 
-from typing import Iterable
+import contextlib
+from typing import Iterable, Iterator
 
 import torch
 import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def mse(a: torch.Tensor, b: torch.Tensor,
@@ -35,3 +37,27 @@ def adam(params: Iterable[torch.nn.Parameter], lr: float, b1: float = 0.9,
     and second moments and add eps outside the square root, so the update
     is the same (up to f32 rounding order)."""
     return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+
+
+@torch.no_grad()
+def clamp_params(module: torch.nn.Module, clip_value: float) -> None:
+    """WGAN weight clipping: every ``nn.Parameter`` of ``module`` clamped to
+    [-clip_value, clip_value] in place (BatchNorm's scale and shift too;
+    its running statistics are buffers and stay as they are)."""
+    for p in module.parameters():
+        p.clamp_(-clip_value, clip_value)
+
+
+@contextlib.contextmanager
+def frozen_parameters(module: torch.nn.Module) -> Iterator[None]:
+    """Forwards inside the block record no gradient for ``module``'s
+    parameters (a G step's discriminator: its input gradient still flows,
+    and no weight gradient is computed at all)."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)

@@ -32,9 +32,8 @@ from vgd_tpu_torch.core.config import DiffusionConfig
 from vgd_tpu_torch.core.rng import resolve_device
 from vgd_tpu_torch.models.unet import UNet
 from vgd_tpu_torch.ops.image import to_signed
-from vgd_tpu_torch.train.common import adam, mse
+from vgd_tpu_torch.train.common import DTYPES, adam, mse
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class Schedule(NamedTuple):

@@ -17,8 +17,7 @@ from vgd_tpu_torch.core.config import GlowConfig
 from vgd_tpu_torch.core.rng import resolve_device
 from vgd_tpu_torch.models.glow import Glow, calc_loss, calc_z_shapes
 from vgd_tpu_torch.ops.image import quantize_bits, to_unit
-from vgd_tpu_torch.train.common import adam
-from vgd_tpu_torch.train.vaegan import DTYPES
+from vgd_tpu_torch.train.common import DTYPES, adam
 
 
 class GlowTrainer:

@@ -1,6 +1,10 @@
 """Entry points of the port (``vgd_tpu/train/loop.py``): DDPM training
-(``run_diffusion``), VAE-GAN training (``run_vaegan``), Glow training
-(``run_glow``) and its temperature-sampled SSIM evaluation
+(``run_diffusion``), VAE-GAN training (``run_vaegan``), denoising-VAE
+training (``run_vae``) with its aggregated-posterior checkpoint sweep
+(``evaluate_vae_checkpoints``), occlusion test (``evaluate_vae_occlusion``)
+and image restoration (``denoise_images``), DCGAN / WGAN training
+(``run_gan``) and its checkpoint sweep (``evaluate_gan_checkpoints``), Glow
+training (``run_glow``) and its temperature-sampled SSIM evaluation
 (``evaluate_glow``), sample grids from a checkpoint of any of them and
 partial-noise restoration evaluation.
 
@@ -19,17 +23,26 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vgd_tpu_torch.core.config import (DiffusionConfig, GlowConfig,
-                                       VAEGANConfig, to_dict)
+from vgd_tpu_torch.core.config import (DiffusionConfig, GANConfig,
+                                       GlowConfig, VAEConfig, VAEGANConfig,
+                                       to_dict)
 from vgd_tpu_torch.core.rng import resolve_device, seed_all
 from vgd_tpu_torch.data.celeba import make_image_datasets
-from vgd_tpu_torch.eval.metrics import MetricAccumulator, mse_metric, psnr
+from vgd_tpu_torch.data.corrupt import corrupt, corrupt_draws
+from vgd_tpu_torch.eval.metrics import (MetricAccumulator, mse_metric, psnr,
+                                        ssim)
+from vgd_tpu_torch.eval.sampling import aggregated_posterior_sampler
+from vgd_tpu_torch.eval.vae_analysis import (denoise_test_loss,
+                                             latent_traversal, renoise_cycle)
 from vgd_tpu_torch.io.artifacts import MetricLog, save_grid, save_triplets
 from vgd_tpu_torch.io.checkpoint import Checkpointer
+from vgd_tpu_torch.models.vae import reparameterize
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
+from vgd_tpu_torch.train.gan import GANTrainer
 from vgd_tpu_torch.train.glow import GlowTrainer
+from vgd_tpu_torch.train.vae import VAETrainer
 from vgd_tpu_torch.train.vaegan import VAEGANTrainer
 from vgd_tpu_torch.utils.prefetch import device_prefetch
 
@@ -41,6 +54,8 @@ VAL_SEED_OFFSET = 30_000
 # fixed offsets (the JAX loop folds 7 and 10_000 + j into its key)
 FIXED_Z_SEED_OFFSET = 7
 VAEGAN_VAL_SEED_OFFSET = 10_000
+# the VAE loop's validation draws (the JAX loop folds 20_000 + j)
+VAE_VAL_SEED_OFFSET = 20_000
 
 
 class _Profiler:
@@ -237,16 +252,22 @@ def evaluate_diffusion_from_dir(cfg: DiffusionConfig,
     return out
 
 
-def restore_vaegan(cfg: VAEGANConfig, step: Optional[int] = None,
-                   device="cuda") -> VAEGANTrainer:
-    """A VAE-GAN trainer on ``device`` with the latest (or given) checkpoint
-    of ``<out_dir>/ckpt`` loaded (weights and BN running stats)."""
-    trainer = VAEGANTrainer(cfg, _image_shape(cfg), device=device)
-    params, s, _ = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt")).restore(
+def _restored(trainer, directory: str, step: Optional[int] = None):
+    """``trainer`` with the latest (or given) checkpoint under
+    ``directory`` loaded (weights and buffers)."""
+    params, s, _ = Checkpointer(directory).restore(
         step, map_location=trainer.device)
     trainer.load(params)
     print(f"[checkpoint] restored step {s}")
     return trainer
+
+
+def restore_vaegan(cfg: VAEGANConfig, step: Optional[int] = None,
+                   device="cuda") -> VAEGANTrainer:
+    """A VAE-GAN trainer on ``device`` with the latest (or given) checkpoint
+    of ``<out_dir>/ckpt`` loaded (weights and BN running stats)."""
+    return _restored(VAEGANTrainer(cfg, _image_shape(cfg), device=device),
+                     os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
 def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
@@ -353,16 +374,361 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
             "val_rows": n_val}
 
 
+def restore_vae(cfg: VAEConfig, step: Optional[int] = None,
+                device="cuda") -> VAETrainer:
+    """A VAE trainer on ``device`` with the latest (or given) checkpoint of
+    ``<out_dir>/ckpt`` loaded (weights and BN running stats)."""
+    return _restored(VAETrainer(cfg, _image_shape(cfg), device=device),
+                     os.path.join(cfg.run.out_dir, "ckpt"), step)
+
+
+def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
+            max_steps_per_epoch: Optional[int] = None, resume: bool = False,
+            device="cuda") -> Dict:
+    """Train the denoising VAE: per epoch, ``train_step`` over
+    ``device_prefetch``ed batches with the KL ramp of the epoch (the loss
+    summed on the device and read once), then the random-std denoising
+    validation over the true rows of every val batch (val loss = mean(
+    per_mse[:n]) + sum(per_kl[:n]), weighted by n; MSE, PSNR and SSIM of
+    the [0, 1] reconstructions, each weighted by n), a ``MetricLog`` row,
+    the noisy / clean / reconstruction panel and the fixed-z grid
+    (``.npy``), and every ``checkpoint_every_epochs`` a checkpoint of both
+    networks (BN buffers included), the Adam state, the optimizer step and
+    the generator state at step = epochs done. ``resume`` continues from
+    the latest checkpoint exactly."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = VAETrainer(cfg, img_shape, device=device)
+    trainer.init(gen)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
+                        keep=cfg.run.keep_checkpoints)
+    start_epoch = 0
+    if resume and ckpt.latest_step() is not None:
+        payload = ckpt.load(map_location=device)
+        trainer.load(payload["params"], payload["opt_state"],
+                     payload["opt_step"])
+        gen.set_state(payload["rng_state"])
+        start_epoch = payload["step"]
+        train.set_epoch(start_epoch)
+        print(f"[checkpoint] resumed at epoch {start_epoch}")
+    log = MetricLog(cfg.run.out_dir, "vae_loss")
+    prof = _Profiler(cfg.run, device)
+    fixed_z = torch.randn(
+        (64, cfg.latent_dim), device=device, generator=torch.Generator(
+            device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
+    epochs = cfg.epochs if epochs is None else epochs
+    gstep, n_val = trainer.step, 0
+    od = cfg.run.out_dir
+    for epoch in range(start_epoch, epochs):
+        ramp = trainer.kl_ramp(epoch)
+        t0 = time.perf_counter()
+        total_dev, count = None, 0
+        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
+                                  device=device)
+        for i, batch in enumerate(batches):
+            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                break
+            prof.step(gstep)
+            m = trainer.train_step(batch, ramp, generator=gen)
+            gstep += 1
+            count += 1
+            total_dev = m["total"] if total_dev is None \
+                else total_dev + m["total"]
+        total = float(total_dev) if count else 0.0
+        ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
+                                                1e-9)
+
+        vgen = torch.Generator(device=device).manual_seed(
+            cfg.run.seed + VAE_VAL_SEED_OFFSET)
+        rows, ns, panel = [], [], None
+        for vbatch, n in val.epoch():
+            vb = torch.from_numpy(vbatch).to(device)
+            ev = trainer.eval_step(vb, vgen)
+            img = to_signed(vb)
+            # only the true rows of a padded final batch count
+            ru, iu = signed_to_unit(ev["recon"][:n]), signed_to_unit(img[:n])
+            rows.append(torch.stack([ev["per_mse"][:n].mean(),
+                                     ev["per_kl"][:n].sum(),
+                                     mse_metric(ru, iu), psnr(ru, iu),
+                                     ssim(ru, iu)]))
+            ns.append(n)
+            if panel is None:
+                panel = (ev["noisy"], img, ev["recon"])
+        n_val = sum(ns)
+        vals = torch.stack(rows).double().cpu().tolist() if rows else []
+        n_b = max(n_val, 1)
+
+        def weighted(j):
+            return sum(v[j] * n for v, n in zip(vals, ns)) / n_b
+        row = dict(train_loss=total / max(count, 1),
+                   val_loss=sum((v[0] + v[1]) * n for v, n in zip(vals, ns))
+                   / n_b, images_per_sec=ips, mse=weighted(2),
+                   psnr=weighted(3), ssim=weighted(4))
+        log.append(epoch=epoch, **row)
+        print(f"[vae] epoch {epoch + 1}/{epochs} train={row['train_loss']:.4f}"
+              f" val={row['val_loss']:.4f} psnr={row['psnr']:.2f} "
+              f"ssim={row['ssim']:.4f} {ips:.0f} img/s")
+        if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
+            ckpt.save(epoch + 1, trainer.state_dict(), to_dict(cfg),
+                      opt_state=trainer.opt.state_dict(),
+                      rng_state=gen.get_state(), opt_step=trainer.step)
+        if panel is not None:     # the val split can be empty on tiny data
+            save_triplets(*panel, os.path.join(
+                od, f"vae_valimg_epoch_{epoch + 1:04d}.npy"))
+        save_grid(trainer.generate(fixed_z), os.path.join(
+            od, f"vae_fake_epoch_{epoch + 1:04d}.npy"))
+    prof.close()
+    log.save()
+    return {"trainer": trainer, "log": log.history, "val": val,
+            "val_rows": n_val}
+
+
+def evaluate_vae_checkpoints(cfg: VAEConfig,
+                             max_checkpoints: Optional[int] = None,
+                             max_encode_batches: Optional[int] = None,
+                             max_eval_batches: Optional[int] = None,
+                             device="cuda") -> list:
+    """Aggregated-posterior sweep: for every saved checkpoint (the last
+    ``max_checkpoints``), encode the train and val splits (at most
+    ``max_encode_batches`` batches of each), build per-dimension empirical
+    CDFs of (mu, logvar), inverse-transform sample one batch per val batch,
+    reparameterize (eps from a generator seeded from the run seed, the same
+    draws for every checkpoint), decode, and score SSIM against the val
+    batch over its true rows. Saves one grid per checkpoint
+    (``vae_aggpost_step_<s>.npy``) and ``vae_eval_metrics.npz``."""
+    device = resolve_device(device)
+    train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = VAETrainer(cfg, img_shape, device=device)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"))
+    steps = ckpt.all_steps()
+    if max_checkpoints:
+        steps = steps[-max_checkpoints:]
+
+    @torch.no_grad()
+    def encode(batch_uint8):      # raw (mu, logvar), as the JAX sweep's
+        return trainer.encoder(to_signed(torch.from_numpy(batch_uint8).to(
+            device)), train=False)
+    results = []
+    for s in steps:
+        _restored(trainer, ckpt.directory, s)
+        sampler = aggregated_posterior_sampler(
+            encode, [train, val], seed=cfg.run.seed,
+            max_batches=max_encode_batches)
+        gen = torch.Generator(device=device).manual_seed(cfg.run.seed)
+        acc, grid = MetricAccumulator(), None
+        for j, (vbatch, n_valid) in enumerate(val.epoch()):
+            if max_eval_batches is not None and j >= max_eval_batches:
+                break
+            mu, logvar = (torch.from_numpy(a).to(device)
+                          for a in sampler(len(vbatch)))
+            z, _ = reparameterize(mu, logvar, torch.randn(
+                mu.shape, generator=gen, device=device))
+            fake = trainer.generate(z)
+            real = to_signed(torch.from_numpy(vbatch).to(device))
+            acc.update(signed_to_unit(fake), signed_to_unit(real),
+                       n_valid=n_valid)
+            if grid is None:
+                grid = fake
+        row = {"step": s, **acc.compute()}
+        results.append(row)
+        if grid is not None:
+            save_grid(grid, os.path.join(cfg.run.out_dir,
+                                         f"vae_aggpost_step_{s:06d}.npy"))
+        print(f"[eval-vae] ckpt {s}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in row.items() if k != "step"))
+    np.savez(os.path.join(cfg.run.out_dir, "vae_eval_metrics.npz"),
+             results=np.array([list(r.values()) for r in results]),
+             columns=np.array(list(results[0].keys()) if results else []))
+    return results
+
+
+def evaluate_vae_occlusion(cfg: VAEConfig, max_batches: Optional[int] = None,
+                           renoise_cycles: int = 2, step: Optional[int] = None,
+                           device="cuda") -> Dict[str, float]:
+    """Occlusion test: per val batch (true rows only), (occluded + noisy,
+    clean) pairs from ``corrupt``, then the latest (or given) checkpoint's
+    sum-reduction test loss (averaged over batches) and MSE / PSNR / SSIM
+    (weighted by rows); the first batch's noisy / clean / reconstruction
+    triplets, re-noise cycles and mu / logvar traversal strips as ``.npy``
+    and the metrics as ``occlusion_metrics.npz``. Every draw comes, in
+    that order, from the generator seeded with the run seed."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    _, val, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = restore_vae(cfg, step, device)
+    sums: Dict[str, float] = {}
+    n_b, n_s, first = 0, 0, None
+    for j, (vbatch, n_valid) in enumerate(val.epoch()):
+        if max_batches is not None and j >= max_batches:
+            break
+        # the padded repeats go before the corruption
+        clean = to_signed(torch.from_numpy(vbatch).to(device))[:n_valid]
+        noisy = corrupt(clean, trainer.noise_std,
+                        corrupt_draws(clean.shape, gen, device))
+        m = denoise_test_loss(trainer, noisy, clean, generator=gen)
+        recon = m.pop("recon")
+        sums["test_loss"] = sums.get("test_loss", 0.0) + m.pop("test_loss")
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + v * n_valid
+        n_b += 1
+        n_s += n_valid
+        if first is None:
+            first = (noisy, clean, recon)
+    out = {"test_loss": sums.pop("test_loss", 0.0) / max(n_b, 1)}
+    out.update({k: v / max(n_s, 1) for k, v in sums.items()})
+    if first is None:           # empty val split (tiny datasets)
+        return out
+    od = cfg.run.out_dir
+    save_triplets(*first, os.path.join(od, "occlusion_triplets.npy"))
+    cycles = renoise_cycle(trainer, first[0], cycles=renoise_cycles,
+                           generator=gen)
+    save_triplets(first[0], cycles[0], cycles[-1],
+                  os.path.join(od, "occlusion_renoise_cycles.npy"))
+    for target in ("mu", "logvar"):
+        frames = latent_traversal(trainer, first[0][:1], target=target,
+                                  generator=gen)
+        save_grid(frames, os.path.join(od,
+                                       f"occlusion_traversal_{target}.npy"))
+    np.savez(os.path.join(od, "occlusion_metrics.npz"), **out)
+    print("[eval-vae --occlusion] " +
+          " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    return out
+
+
+def denoise_images(cfg: VAEConfig, ckpt_dir: str, images_uint8: np.ndarray,
+                   seed: int = 42, device="cuda") -> np.ndarray:
+    """Restore uint8 images (N, H, W, 3) at ``cfg.data.image_size`` with the
+    latest VAE checkpoint under ``ckpt_dir``: encode -> reparameterize with
+    one eps (1, latent) drawn from ``seed`` and shared by every image ->
+    decode, eval mode. Returns uint8 (N, H, W, 3)."""
+    trainer = _restored(VAETrainer(cfg, _image_shape(cfg), device=device),
+                        ckpt_dir)
+    dev = trainer.device
+    eps = torch.randn((1, cfg.latent_dim), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(seed))
+    out = trainer.denoise(to_signed(torch.from_numpy(
+        np.ascontiguousarray(images_uint8)).to(dev)), eps)
+    return torch.clamp((out + 1.0) * 127.5, 0, 255).to(torch.uint8).cpu() \
+        .numpy()
+
+
+def restore_gan(cfg: GANConfig, step: Optional[int] = None,
+                device="cuda") -> GANTrainer:
+    """A DCGAN / WGAN trainer on ``device`` with the latest (or given)
+    checkpoint of ``<out_dir>/ckpt`` loaded (weights and BN running
+    stats)."""
+    return _restored(GANTrainer(cfg, _image_shape(cfg), device=device),
+                     os.path.join(cfg.run.out_dir, "ckpt"), step)
+
+
+def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
+            max_steps_per_epoch: Optional[int] = None, resume: bool = False,
+            device="cuda") -> Dict:
+    """Train DCGAN (or WGAN with ``cfg.wgan``): per epoch, ``train_step``
+    (``train_step_wgan``) over ``device_prefetch``ed batches (both losses
+    summed on the device and read once), a ``MetricLog`` row (d_loss,
+    g_loss, images_per_sec), every ``checkpoint_every_epochs`` a checkpoint
+    of both networks (BN buffers included), both Adam states, the
+    optimizer step and the generator state at step = epochs done, and the
+    fixed-z grid (``.npy``). ``resume`` continues from the latest
+    checkpoint exactly."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = GANTrainer(cfg, img_shape, device=device)
+    trainer.init(gen)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
+                        keep=cfg.run.keep_checkpoints)
+    start_epoch = 0
+    if resume and ckpt.latest_step() is not None:
+        payload = ckpt.load(map_location=device)
+        trainer.load(payload["params"], payload["opt_state"],
+                     payload["opt_step"])
+        gen.set_state(payload["rng_state"])
+        start_epoch = payload["step"]
+        train.set_epoch(start_epoch)
+        print(f"[checkpoint] resumed at epoch {start_epoch}")
+    name = "wgan" if cfg.wgan else "gan"
+    log = MetricLog(cfg.run.out_dir, "gan_loss")
+    prof = _Profiler(cfg.run, device)
+    fixed_z = torch.randn(
+        (64, cfg.latent_dim), device=device, generator=torch.Generator(
+            device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
+    step_fn = trainer.train_step_wgan if cfg.wgan else trainer.train_step
+    epochs = cfg.epochs if epochs is None else epochs
+    gstep = trainer.step
+    for epoch in range(start_epoch, epochs):
+        t0 = time.perf_counter()
+        sums, count = {}, 0
+        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
+                                  device=device)
+        for i, batch in enumerate(batches):
+            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                break
+            prof.step(gstep)
+            m = step_fn(batch, gen)
+            gstep += 1
+            count += 1
+            sums = {k: v + sums[k] if k in sums else v for k, v in m.items()}
+        means = {k: float(v) / max(count, 1) for k, v in sums.items()}
+        ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
+                                                1e-9)
+        log.append(epoch=epoch, **means, images_per_sec=ips)
+        print(f"[{name}] epoch {epoch + 1}/{epochs} "
+              f"D={means.get('d_loss', 0.0):.4f} "
+              f"G={means.get('g_loss', 0.0):.4f} {ips:.0f} img/s")
+        if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
+            ckpt.save(epoch + 1, trainer.state_dict(), to_dict(cfg),
+                      opt_state=trainer.opt_state(),
+                      rng_state=gen.get_state(), opt_step=trainer.step)
+        save_grid(trainer.generate(fixed_z), os.path.join(
+            cfg.run.out_dir, f"{name}_fake_epoch_{epoch + 1:04d}.npy"))
+    prof.close()
+    log.save()
+    return {"trainer": trainer, "log": log.history, "val": val}
+
+
+def evaluate_gan_checkpoints(cfg: GANConfig,
+                             max_checkpoints: Optional[int] = None,
+                             device="cuda") -> list:
+    """For every saved checkpoint (the last ``max_checkpoints``), one batch
+    of prior samples per val batch (z from a generator seeded from the run
+    seed, the same draws for every checkpoint) scored by SSIM against it
+    over its true rows; ``metrics.npz``. IS / FID wait for the eval
+    slice."""
+    device = resolve_device(device)
+    _, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
+    trainer = GANTrainer(cfg, img_shape, device=device)
+    ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"))
+    steps = ckpt.all_steps()
+    if max_checkpoints:
+        steps = steps[-max_checkpoints:]
+    results = []
+    for s in steps:
+        _restored(trainer, ckpt.directory, s)
+        gen = torch.Generator(device=device).manual_seed(cfg.run.seed)
+        acc = MetricAccumulator()
+        for vbatch, n_valid in val.epoch():
+            fake = trainer.generate(torch.randn(
+                (len(vbatch), cfg.latent_dim), generator=gen, device=device))
+            real = to_signed(torch.from_numpy(vbatch).to(device))
+            acc.update(signed_to_unit(fake), signed_to_unit(real),
+                       n_valid=n_valid)
+        results.append({"step": s, **acc.compute()})
+        print(f"[eval-gan] ckpt {s}: ssim={results[-1]['ssim']:.4f}")
+    np.savez(os.path.join(cfg.run.out_dir, "metrics.npz"),
+             results=np.array([list(r.values()) for r in results]),
+             columns=np.array(list(results[0].keys()) if results else []))
+    return results
+
+
 def restore_glow(cfg: GlowConfig, step: Optional[int] = None,
                  device="cuda") -> GlowTrainer:
     """A Glow trainer on ``device`` with the latest (or given) checkpoint of
     ``<out_dir>/ckpt`` loaded."""
-    trainer = GlowTrainer(cfg, _image_shape(cfg), device=device)
-    params, s, _ = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt")).restore(
-        step, map_location=trainer.device)
-    trainer.load(params)
-    print(f"[checkpoint] restored step {s}")
-    return trainer
+    return _restored(GlowTrainer(cfg, _image_shape(cfg), device=device),
+                     os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
 def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
@@ -470,17 +836,20 @@ def sample_from_dir(family: str, cfg, n: int = 64,
     """Generate a sample grid from a trained checkpoint; writes an
     (n, H, W, C) ``.npy`` in [-1, 1] and returns its path. ``diffusion``:
     the DDIM chain (``ddim_steps > 0``) or the full ancestral chain from
-    noise drawn from ``seed``; ``vaegan``: the decoder in eval mode on z
-    (n, latent) drawn from ``seed``; ``glow``: the reverse flow on
-    temperature z drawn from ``seed``, times 2 (images in [-1, 1])."""
-    if family not in ("diffusion", "vaegan", "glow"):
+    noise drawn from ``seed``; ``glow``: the reverse flow on
+    temperature z drawn from ``seed``, times 2 (images in [-1, 1]);
+    ``vaegan``, ``vae``, ``gan``, ``wgan``: the decoder / generator in eval
+    mode on z (n, latent) drawn from ``seed``."""
+    restore = {"vaegan": restore_vaegan, "vae": restore_vae,
+               "gan": restore_gan, "wgan": restore_gan}
+    if family not in ("diffusion", "glow", *restore):
         raise NotImplementedError(f"family {family!r} is not ported yet")
     od = cfg.run.out_dir
     out_path = out_path or os.path.join(od, f"{family}_samples.npy")
     if not out_path.endswith(".npy"):
         out_path += ".npy"
-    if family == "vaegan":
-        trainer = restore_vaegan(cfg, step, device)
+    if family in restore:
+        trainer = restore[family](cfg, step, device)
         gen = seed_all(seed, trainer.device)
         z = torch.randn((n, cfg.latent_dim), generator=gen,
                         device=trainer.device)

@@ -29,8 +29,7 @@ Conv4x4s2 + BN + LeakyReLU through K1; eval and ``generate`` never do.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,25 +40,10 @@ from vgd_tpu_torch.models.gan import Discriminator, Generator
 from vgd_tpu_torch.models.vae import (Encoder, kl_divergence,
                                       latent_to_spatial, reparameterize)
 from vgd_tpu_torch.ops.image import to_signed
-from vgd_tpu_torch.train.common import adam, bce, mse
+from vgd_tpu_torch.train.common import (DTYPES, adam, bce, frozen_parameters,
+                                         mse)
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NETS = ("encoder", "decoder", "disc")
-
-
-@contextlib.contextmanager
-def _frozen_parameters(module: torch.nn.Module) -> Iterator[None]:
-    """Forwards inside the block record no gradient for ``module``'s
-    parameters (the G step's D: its input gradient still flows, and no
-    weight gradient is computed at all)."""
-    params = [p for p in module.parameters() if p.requires_grad]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p in params:
-            p.requires_grad_(True)
 
 
 class VAEGANTrainer:
@@ -152,7 +136,7 @@ class VAEGANTrainer:
         D's input."""
         cfg = self.cfg
         mu, logvar, recon = self.encode_decode(x, eps)
-        with _frozen_parameters(self.disc):
+        with frozen_parameters(self.disc):
             if cfg.recon_loss == "disl":
                 fake_out, fake_feat = self.disc(recon + noise_fake,
                                                 train=True,
