@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--report PATH] [--only k1|attn|k4|k5|k6]
+    python3 chip_smoke.py [--report PATH] [--only k1|attn|k4|k5|k6|eeg|fid]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -104,7 +104,27 @@ Run from the root of a checkout on a machine with one CUDA card:
    +-0.01); ``run_gan`` for DCGAN (2 epochs of 4 steps, an exact resume, a
    third) and WGAN (1 epoch of 2 steps, an exact resume, a second); then
    ``evaluate_gan_checkpoints`` and ``sample_from_dir`` for both;
-11. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+11. EEG Glow (22 channels x 160 samples, batch 16, K=32, L=4, width 512,
+   f32, synthetic trials; no kernel, as the reference's EEG trainer sets
+   neither ``fused_coupling`` nor ``flow_stack``): one train step's loss
+   and every gradient on the card against the same step of the port on
+   the CPU (same weights, batch and noise; the DDPM step's f32 bounds), the
+   step timed and profiled; ``run_glow_eeg`` for both event types, 10
+   iterations with a dump and a checkpoint every 5, an exact resume and 5
+   more from the right stream batch; ``eeg_psd_and_gif`` (the mu-band power
+   of the real and generated central PSD), ``sample_from_dir("glow-eeg")``
+   and the ``tstr`` command for every regime (the real regime's test
+   accuracy in (0.5, 1]); no kernel launch in the phase;
+12. InceptionV3 (the FID variant, 299x299, f32, seeded weights): every tap
+   on the card within 1e-3 of its max against the CPU on 8 images, the FID
+   of two fixed 72-image feature sets card vs CPU, a batch of 64 timed
+   (with TF32 beside it, time and error); then ``evaluate_diffusion_from_dir``
+   (K3 / K4), ``evaluate_glow_from_dir`` (K5 forward),
+   ``evaluate_gan_checkpoints`` and ``evaluate_vae_checkpoints`` with the
+   Inception ``feature_fn`` on their phases' checkpoints, one val batch
+   each, their kernel launches exactly those of the same evaluation
+   without it;
+13. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -3546,16 +3566,527 @@ def glow_stack_path(K, gen, failures):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# EEG Glow: the 1-D flow on EEG trials. No kernel runs here: the reference's
+# EEG trainer sets neither fused_coupling nor flow_stack
+# ---------------------------------------------------------------------------
+
+# the reference EEG flow (flow_eeg.py: 22 channels x 160 samples, batch 16,
+# K=32, L=4, width 512, Adam at 1e-3, f32) on the synthetic T session (288
+# trials a class): run_glow_eeg per event type for EEG_ITERS iterations with
+# a dump and a checkpoint every EEG_EVERY, a resume, EEG_EVERY more; the
+# reference trains 6000
+EEG_ITERS, EEG_EVERY = 10, 5
+# the EEG phase's own generator (dequantisation noise, ZeroConv weights)
+EEG_SEED = 12
+# the TSTR regimes, each on subjects 01 and 02 of the synthetic sessions
+TSTR_METHODS = ("synt", "real", "sr", "other_sub")
+EEG_GROUPS = [("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad",
+                                        "nchw", "nhwc", "winograd")),
+              ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
+              ("triangular solves and small matmuls (cuBLAS)",
+               ("trsm", "gemm", "gemv", "cutlass", "xmma")),
+              ("reductions", ("reduce",)),
+              ("dtype casts and copies", ("copy",))]
+
+
+def eeg_config(event_type="mi"):
+    """The reference EEG flow at full width: ``GlowEEGConfig()`` writing
+    under OUT_DIR, a dump and a checkpoint every EEG_EVERY iterations."""
+    from vgd_tpu_torch.core.config import GlowEEGConfig, RunConfig
+    return GlowEEGConfig(
+        run=RunConfig(out_dir=str(OUT_DIR / "glow_eeg"), seed=42,
+                      compute_dtype="float32", sample_every_iters=EEG_EVERY,
+                      checkpoint_every_iters=EEG_EVERY),
+        event_type=event_type)
+
+
+def eeg_step_grads(trainer, batch, noise):
+    """Loss and every parameter's gradient of one EEG train step (as
+    ``train_step`` computes them, without the Adam update), on the
+    trainer's device."""
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    log_p, logdet, _ = model(trainer._prep(batch, None, noise))
+    loss = trainer._loss(log_p, logdet)[0]
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def check_eeg_step(K, cfg, failures):
+    """One full-width EEG train step on the card against the same step of
+    the port on the CPU: the same weights (the seeded init, the ActNorm
+    init on the first stream batch, ZeroConvs set to 0.01 N(0, 1)) and the
+    same batch and dequantisation noise; the loss within STEP_LOSS_REL and
+    every gradient within STEP_GRAD_REL x its tensor's max |g| +
+    STEP_GRAD_FLOOR x the largest (``compare_glow_step``). Then the step
+    timed, profiled (device busy share) and its peak memory."""
+    import torch
+    from vgd_tpu_torch.data.eeg import EEGDataset, eeg_batches
+    from vgd_tpu_torch.train.glow import GlowEEGTrainer
+    ds = EEGDataset(None, "T", cfg.event_type, seed=cfg.run.seed)
+    batch = torch.from_numpy(next(eeg_batches(ds, cfg.batch_size,
+                                              seed=cfg.run.seed)))
+    gen = torch.Generator().manual_seed(EEG_SEED)
+    noise0, noise = (torch.rand(batch.shape, generator=gen)
+                     for _ in range(2))
+    card = GlowEEGTrainer(cfg, device="cuda")
+    dev = card.device
+    card.init(torch.Generator(device=dev).manual_seed(cfg.run.seed))
+    card.init_step(batch, noise=noise0)
+    with torch.no_grad():
+        for blk in card.model.blocks():
+            zw = blk.flows.coupling.zero.w
+            zw.copy_(0.01 * torch.randn(zw.shape, generator=gen).to(dev))
+    host = GlowEEGTrainer(cfg, device="cpu")
+    host.load({k: v.cpu() for k, v in card.model.state_dict().items()})
+    n_params = sum(p.numel() for p in card.model.parameters())
+    t0 = time.perf_counter()
+    got = eeg_step_grads(card, batch, noise)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_h, grads_h = eeg_step_grads(host, batch, noise)
+    cpu_s = time.perf_counter() - t1
+    worst, name, loss_rel = compare_glow_step(
+        got, (loss_h, {k: v.to(dev) for k, v in grads_h.items()}))
+    print(f"[eeg-step] init: {cfg.num_channels}x{cfg.num_samples} B="
+          f"{cfg.batch_size} K={cfg.n_flows} L={cfg.n_blocks} width "
+          f"{cfg.filter_size} f32: {n_params} parameters", flush=True)
+    print(f"[eeg-step] card vs CPU, same weights / batch / noise: loss "
+          f"{got[0]:.6f} / {loss_h:.6f} ({loss_rel:.2e} relative); "
+          f"{len(grads_h)} gradients, worst {worst:.3f} of the bound at "
+          f"{name} (first card call {1e3 * (t1 - t0):.1f} ms, CPU "
+          f"{cpu_s:.2f} s)", flush=True)
+    if not (worst <= 1.0 and loss_rel <= STEP_LOSS_REL):
+        failures.append(f"eeg-step: card vs CPU worst {worst:.3f} at {name},"
+                        f" loss {loss_rel:.2e}")
+    stats = {"n_params": n_params, "loss": got[0], "loss_cpu": loss_h,
+             "loss_rel": loss_rel, "grad_worst": worst, "grad_worst_at": name,
+             "cpu_grad_s": cpu_s}
+    del host, grads_h, got
+    bd, nd = batch.to(dev), noise.to(dev)
+
+    def step():
+        card.train_step(bd, noise=nd)
+    torch.cuda.reset_peak_memory_stats()
+    stats["train_step_ms"] = ms = cuda_ms(step, 2, 5)
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = stats["train_step_profile"] = profile_fn(
+        step, ms, EEG_GROUPS, "profile-eeg-step")
+    stats["busy_share"] = prof["kernel_ms"] / ms
+    print(f"[eeg-step] whole f32 train step B={cfg.batch_size}: {ms:.3f} ms "
+          f"= {cfg.batch_size / ms * 1e3:.1f} trials/s; busy share "
+          f"{stats['busy_share']:.3f}; peak memory {stats['peak_mem_gb']:.3f}"
+          f" GB", flush=True)
+    return stats
+
+
+def eeg_train_path(K, cfg, failures):
+    """``run_glow_eeg`` for EEG_ITERS iterations, a resume that runs no
+    iteration (it must restore exactly what was saved) and a resume that
+    trains EEG_EVERY more from the right stream batch; the dumps (N, C, T),
+    trace PNGs only where matplotlib imports, finite losses, each step's
+    CUDA-event time."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data.eeg import EEGDataset, eeg_batches
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.glow import GlowEEGTrainer
+    draws_png = importlib.util.find_spec("matplotlib") is not None
+    et, od = cfg.event_type, Path(cfg.run.out_dir)
+    original = GlowEEGTrainer.train_step
+    calls, fed = [], []
+
+    def counted(self, batch, *args, **kwargs):
+        fed.append(batch.clone())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(self, batch, *args, **kwargs)
+        end.record()
+        calls.append((start, end, out))
+        return out
+    GlowEEGTrainer.train_step = counted
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = L.run_glow_eeg(cfg, n_iter=EEG_ITERS, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        trainer = res["trainer"]
+        losses = [float(c[2]["loss"]) for c in calls]
+        step_ms = sorted(s.elapsed_time(e) for s, e, _ in calls[1:])
+        med = step_ms[len(step_ms) // 2]
+        stats = {"train_steps": len(losses), "run_s": run_s,
+                 "losses": losses, "log": res["log"],
+                 "step_ms_median": med, "step_ms_min": step_ms[0],
+                 "step_ms_max": step_ms[-1],
+                 "trials_per_sec_median_step": cfg.batch_size / med * 1e3,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        dumps = sorted((od / "sample").glob(f"fake_eeg_{et}_training_*.npz"))
+        pngs = sorted((od / "sample").glob(f"fake_eeg_{et}_training_*.png"))
+        arr = np.load(dumps[-1])["arr_0"] if dumps else np.zeros(0)
+        if not (len(losses) == EEG_ITERS
+                and all(math.isfinite(v) for v in losses)
+                and len(dumps) == EEG_ITERS // EEG_EVERY
+                and len(pngs) == (len(dumps) if draws_png else 0)
+                and arr.shape == (cfg.n_samples, cfg.num_channels,
+                                  cfg.num_samples)
+                and np.isfinite(arr).all()
+                and (od / f"psd_{et}.npz").exists()):
+            failures.append(f"eeg-train {et}: losses {losses}, dumps "
+                            f"{[d.name for d in dumps]} {arr.shape}, "
+                            f"{len(pngs)} PNGs")
+        print(f"[eeg-train] {et}: loss by step " + " ".join(
+            f"{v:.4f}" for v in losses), flush=True)
+        print(f"[eeg-train] {et}: {len(losses)} steps; step ms median "
+              f"{med:.3f} (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}) "
+              f"after the first = {stats['trials_per_sec_median_step']:.1f} "
+              f"trials/s; run {run_s:.1f} s with the ActNorm init, "
+              f"{len(dumps)} dumps, {len(pngs)} PNGs and the PSD; peak "
+              f"memory {stats['peak_mem_gb']:.3f} GB", flush=True)
+
+        final = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        opt_a = trainer.opt.state_dict()["state"]
+        payload = Checkpointer(f"{od}/ckpt_{et}").load()
+        back = L.run_glow_eeg(cfg, n_iter=EEG_ITERS, resume=True,
+                              device="cuda")["trainer"]
+        same_params = all(torch.equal(final[k], v) and
+                          torch.equal(payload["params"][k], v.cpu())
+                          for k, v in back.model.state_dict().items())
+        opt_b = back.opt.state_dict()["state"]
+        same_opt = opt_a.keys() == opt_b.keys() and all(
+            torch.equal(opt_a[i][x].cpu(), opt_b[i][x].cpu())
+            for i in opt_a for x in ("step", "exp_avg", "exp_avg_sq"))
+        ok = (same_params and same_opt and payload["step"] == EEG_ITERS
+              and back.step == EEG_ITERS == payload["opt_step"])
+        print(f"[eeg-train] {et} resume: checkpoint iteration "
+              f"{payload['step']}, optimizer steps {back.step}: params equal "
+              f"{same_params}, Adam state equal {same_opt}", flush=True)
+        if not ok:
+            failures.append(f"eeg-train {et}: resume did not restore what "
+                            f"was saved")
+        del back, trainer, res, final, opt_a, opt_b
+        calls.clear()
+        fed.clear()
+        res = L.run_glow_eeg(cfg, n_iter=EEG_ITERS + EEG_EVERY, resume=True,
+                             device="cuda")
+        ds = EEGDataset(None, "T", et, seed=cfg.run.seed)
+        want = torch.from_numpy(next(eeg_batches(
+            ds, cfg.batch_size, seed=cfg.run.seed, skip=EEG_ITERS + 1)))
+        same_stream = bool(fed) and torch.equal(fed[0].cpu(), want)
+        losses3 = [float(c[2]["loss"]) for c in calls]
+        print(f"[eeg-train] {et} resumed: {len(losses3)} steps from "
+              f"iteration {EEG_ITERS}, first batch is stream batch "
+              f"{EEG_ITERS + 1}: {same_stream}; loss " + " ".join(
+                  f"{v:.4f}" for v in losses3), flush=True)
+        if not (res["trainer"].step == EEG_ITERS + EEG_EVERY and same_stream
+                and len(losses3) == EEG_EVERY
+                and all(math.isfinite(v) for v in losses3)):
+            failures.append(f"eeg-train {et} resumed run: step "
+                            f"{res['trainer'].step}, stream {same_stream}, "
+                            f"losses {losses3}")
+        stats["resumed_losses"] = losses3
+    finally:
+        GlowEEGTrainer.train_step = original
+    return stats
+
+
+def mu_power(freq, psd):
+    """Power of a PSD over the mu band, 8-13 Hz (rectangle rule)."""
+    band = (freq >= 8.0) & (freq <= 13.0)
+    return float(psd[band].sum() * (freq[1] - freq[0]))
+
+
+def eeg_serve_path(K, cfg, failures):
+    """On the trained checkpoints: ``eeg_psd_and_gif`` (restore, 64
+    generated trials, the central PSD against the real trials'),
+    ``sample_from_dir("glow-eeg")`` and the ``tstr`` command for every
+    regime on subjects 01 and 02; the real regime's test accuracy within
+    (0.5, 1]; the other regimes printed (a few-iteration flow sits near
+    chance)."""
+    import contextlib
+    import dataclasses
+    import io
+    import numpy as np
+    import torch
+    from vgd_tpu_torch import cli
+    from vgd_tpu_torch.train import loop as L
+    stats = {}
+    t0 = time.perf_counter()
+    L.eeg_psd_and_gif(cfg, n_fake=64, device="cuda")
+    stats["psd_s"] = time.perf_counter() - t0
+    for et in ("mi", "baseline"):
+        psd = np.load(f"{cfg.run.out_dir}/psd_{et}.npz")
+        real, fake = (mu_power(psd["freq"], psd[k]) for k in ("real", "fake"))
+        stats[f"mu_power_{et}"] = {"real": real, "fake": fake,
+                                   "n_fake": int(psd["n_fake"])}
+        print(f"[eeg-psd] {et}: 8-13 Hz power of the C3/Cz/C4 average: real "
+              f"{real:.4f}, generated {fake:.4f} ({int(psd['n_fake'])} finite"
+              f" of 64)", flush=True)
+        if not (math.isfinite(real) and real > 0):
+            failures.append(f"eeg-psd {et}: real power {real}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = L.sample_from_dir("glow-eeg", dataclasses.replace(
+        cfg, event_type="baseline"), n=cfg.n_samples, device="cuda")
+    torch.cuda.synchronize()
+    stats["sample_s"] = time.perf_counter() - t0
+    arr = np.load(path)
+    print(f"[eeg-serve] sample request ({cfg.n_samples} trials, checkpoint "
+          f"restore included) {stats['sample_s']:.3f} s; {arr.shape} finite "
+          f"{bool(np.isfinite(arr).all())}", flush=True)
+    if not (arr.shape == (cfg.n_samples, cfg.num_channels, cfg.num_samples)
+            and np.isfinite(arr).all()):
+        failures.append(f"eeg-serve: bad samples {arr.shape}")
+    stats["tstr"] = {}
+    for method in TSTR_METHODS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["tstr", "--method", method, "--ckpt-dir",
+                      cfg.run.out_dir, "--subjects", "01", "02",
+                      "--flows", str(cfg.n_flows), "--blocks",
+                      str(cfg.n_blocks), "--filter-size",
+                      str(cfg.filter_size), "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        stats["tstr"][method] = dict(res, seconds=secs)
+        print(f"[eeg-tstr] {method} ({secs:.2f} s): " + "; ".join(
+            f"subject {s}: train acc {r['train']['acc']:.4f}, test acc "
+            f"{r['test']['acc']:.4f} f1 {r['test']['f1']:.4f} kappa "
+            f"{r['test']['k']:.4f}" for s, r in res.items()), flush=True)
+        if method == "real" and not all(
+                0.5 < r["test"]["acc"] <= 1.0 for r in res.values()):
+            failures.append(f"eeg-tstr real: test accuracy outside (0.5, 1]:"
+                            f" {res}")
+    return stats
+
+
+def eeg_path(K, failures):
+    """The EEG phase: the step against the CPU, both event types'
+    training, the PSD, a sample request and TSTR; no kernel launched."""
+    import dataclasses
+    t0 = time.perf_counter()
+    cfg = eeg_config()
+    shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+    K.LAUNCHES.clear()
+    stats = {"step": check_eeg_step(K, cfg, failures)}
+    for et in ("mi", "baseline"):
+        stats[f"train_{et}"] = eeg_train_path(
+            K, dataclasses.replace(cfg, event_type=et), failures)
+    stats["serve"] = eeg_serve_path(K, cfg, failures)
+    stats["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+    if stats["launches"]:
+        failures.append(f"eeg: kernels launched {stats['launches']}")
+    stats["phase_s"] = time.perf_counter() - t0
+    print(f"[eeg] phase {stats['phase_s']:.1f} s; kernel launches "
+          f"{stats['launches']}", flush=True)
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# Inception metrics: FID, IS and manifold P/R behind --fid (no kernel of its
+# own; the evaluations it rides on run K3 / K4 (DDPM) and K5 (Glow))
+# ---------------------------------------------------------------------------
+
+# InceptionV3 at 299x299 in f32, the port's seeded weights (random-init:
+# the surrogate keys): card vs CPU on FID_CHECK_IMAGES 64x64 faces, each tap
+# within INCEPTION_REL of its max |value| (f32 both sides, 94 layers summed
+# in other orders); the FID of two fixed sets of FID_SET images, card vs
+# CPU, within FID_REL (more images than the 64 feature dimensions, so the
+# covariances are full rank); timed at FID_BATCH images a call
+FID_CHECK_IMAGES, FID_SET, FID_BATCH = 8, 72, 64
+INCEPTION_REL, FID_REL = 1e-3, 1e-3
+
+
+def inception_flops(model, x):
+    """Multiply-adds x 2 of one forward of ``model`` on ``x`` (every
+    convolution and the fc, from the shapes a forward hook sees)."""
+    import torch
+    total = [0]
+
+    def hook(mod, inp, out):
+        w = mod.weight
+        total[0] += 2 * out.numel() * w[0].numel()
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def check_inception(failures):
+    """The seeded InceptionV3 on the card against the same weights on the
+    CPU (every tap; the FID of two fixed feature sets), then a batch of
+    FID_BATCH timed in f32 and, to show what keeping f32 costs, with TF32
+    convolutions (time and error), with its bound and peak memory."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data.celeba import synthetic_faces
+    from vgd_tpu_torch.eval.inception import TAPS, build_inception
+    from vgd_tpu_torch.eval.metrics import frechet_distance
+    card, tag = build_inception(None, "cuda")
+    host, _ = build_inception(None, "cpu")
+    dev = next(card.parameters()).device
+    x = torch.from_numpy(synthetic_faces(FID_CHECK_IMAGES, (64, 64), 3,
+                                         seed=21)).float() / 255.0
+    got, want = card(x.to(dev)), host(x)
+    errs = {k: float((got[k].cpu() - want[k]).abs().max())
+            / float(want[k].abs().max()) for k in TAPS}
+    print(f"[inception] card vs CPU, {FID_CHECK_IMAGES} images, weights "
+          f"{tag}: max error / max |tap| " + " ".join(
+              f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    if max(errs.values()) > INCEPTION_REL:
+        failures.append(f"inception: card vs CPU {errs}")
+
+    rng = np.random.default_rng(23)
+    real = synthetic_faces(FID_SET, (64, 64), 3, seed=22)
+    fake = np.clip(real + rng.normal(0, 40, real.shape), 0, 255).astype(
+        np.uint8)
+
+    def feats(model, u8):
+        at = next(model.parameters()).device
+        out = []
+        for i in range(0, len(u8), 24):
+            t = torch.from_numpy(u8[i:i + 24]).to(at).float() / 255.0
+            out.append(model(t)["64"].cpu())
+        return torch.cat(out).numpy()
+    t0 = time.perf_counter()
+    fid_card = frechet_distance(feats(card, real), feats(card, fake))
+    t1 = time.perf_counter()
+    fid_cpu = frechet_distance(feats(host, real), feats(host, fake))
+    cpu_s = time.perf_counter() - t1
+    fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+    print(f"[inception] FID of {FID_SET} faces against {FID_SET} noisy "
+          f"copies, feature 64: card {fid_card:.6f}, CPU {fid_cpu:.6f} "
+          f"({fid_rel:.2e} relative; card {t1 - t0:.2f} s, CPU {cpu_s:.2f} "
+          f"s)", flush=True)
+    if not (math.isfinite(fid_card) and fid_rel <= FID_REL):
+        failures.append(f"inception: FID card {fid_card} vs CPU {fid_cpu}")
+    del host
+
+    xb = torch.from_numpy(synthetic_faces(FID_BATCH, (64, 64), 3, seed=24)
+                          ).to(dev).float() / 255.0
+
+    def f32():
+        card(xb)
+
+    def tf32():
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return card(xb)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = card(xb)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    low = tf32()
+    tf32_err = {k: float((low[k] - ref[k]).abs().max())
+                / float(ref[k].abs().max()) for k in TAPS}
+    times = device_ms({"f32": f32, "tf32": tf32})
+    flops = inception_flops(card, xb)
+    stats = {"weights": tag, "card_vs_cpu": errs, "fid_card": fid_card,
+             "fid_cpu": fid_cpu, "fid_rel": fid_rel, "batch": FID_BATCH,
+             "ms": times["f32"]["median"], "ms_p90": times["f32"]["p90"],
+             "tf32_ms": times["tf32"]["median"], "tf32_rel_err": tf32_err,
+             "timing": times["f32"]["how"], "gflop": flops / 1e9,
+             "bound_ms": flops / F32_FLOPS * 1e3,
+             "tf32_bound_ms": flops / TF32_FLOPS * 1e3, "peak_mem_gb": peak}
+    stats["images_per_sec"] = FID_BATCH / stats["ms"] * 1e3
+    print(f"[inception] batch {FID_BATCH} (64x64 resized to 299x299), f32: "
+          f"{stats['ms']:.3f} ms (p90 {stats['ms_p90']:.3f}, device time) = "
+          f"{stats['images_per_sec']:.1f} images/s; {stats['gflop']:.1f} "
+          f"GFLOP, bound {stats['bound_ms']:.3f} ms at 67 TFLOP/s f32; "
+          f"peak memory {peak:.3f} GB", flush=True)
+    print(f"[inception] the same batch with TF32 convolutions: "
+          f"{stats['tf32_ms']:.3f} ms (bound {stats['tf32_bound_ms']:.3f} "
+          f"ms), taps off by " + " ".join(
+              f"{k} {v:.2e}" for k, v in tf32_err.items()) + " of max: the "
+          f"port keeps f32", flush=True)
+    return stats
+
+
+def fid_eval_path(K, report, failures):
+    """Each evaluation entry point once with the seeded Inception
+    ``feature_fn`` on the checkpoint its phase trained, one val batch:
+    DDPM restoration (K3 / K4 launches exactly those of the serve phase's
+    same evaluation without it), Glow on the fused-coupling checkpoint
+    (128 K5 forwards, one reverse, as without it), the DCGAN and VAE
+    checkpoint sweeps (no launch); the surrogate keys present, FID
+    finite."""
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    feature_fn, tag = L.load_feature_fn(True, device="cuda")
+    no_kernel = {}
+    runs = [
+        ("diffusion", lambda: L.evaluate_diffusion_from_dir(
+            smoke_config(), feature_fn=feature_fn, max_batches=1,
+            device="cuda"),
+         serving_launches(report["main_path"]["serve"]["restore_forwards"])),
+        ("glow", lambda: L.evaluate_glow_from_dir(
+            glow_config(), feature_fn=feature_fn, max_batches=1,
+            device="cuda"),
+         {"glow_coupling_fwd": K5_PER_STEP, "glow_coupling_bwd1": 0,
+          "glow_coupling_bwd2": 0}),
+        ("gan", lambda: L.evaluate_gan_checkpoints(
+            gan_config(), feature_fn=feature_fn, max_checkpoints=1,
+            device="cuda")[0], no_kernel),
+        ("vae", lambda: L.evaluate_vae_checkpoints(
+            vae_config(), feature_fn=feature_fn, max_checkpoints=1,
+            max_encode_batches=1, max_eval_batches=1, device="cuda")[0],
+         no_kernel)]
+    stats = {"weights": tag}
+    for name, run, want in runs:
+        K.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        keys = ("fid_surrogate", "precision_surrogate", "recall_surrogate")
+        print(f"[fid-eval] {name}: {secs:.3f} s (checkpoint restore and one "
+              f"val batch included): " + " ".join(
+                  f"{k} {res.get(k, float('nan')):.6f}" for k in keys)
+              + f" ssim {res['ssim']:.4f}; launches {got}", flush=True)
+        if got != {k: v for k, v in want.items() if v} or not (
+                all(k in res for k in keys) and "inception_score" not in res
+                and math.isfinite(res["fid_surrogate"])):
+            failures.append(f"fid-eval {name}: {res}, launches {got}, want "
+                            f"{want}")
+        stats[name] = {"seconds": secs, "launches": got, **res}
+    return stats
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
 
-# ``--only`` choices and the sources each builds
+# ``--only`` choices and the sources each builds (the EEG phase and the
+# Inception checks build none; ``fid`` has no trained checkpoint to
+# evaluate, so it checks and times the network alone)
 ONLY = {"k1": ("conv_bn_stats.cu",),
         "attn": ("flash_attention.cu", "flash_attention_bwd.cu"),
         "k4": ("groupnorm_silu.cu",),
         "k5": ("glow_coupling.cu",),
-        "k6": ("glow_flow_stack.cu", "glow_coupling.cu")}
+        "k6": ("glow_flow_stack.cu", "glow_coupling.cu"),
+        "eeg": (),
+        "fid": ()}
+# optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
+# figure need matplotlib; the port computes without any of them)
+OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
 
 
 def main(argv=None) -> int:
@@ -3566,8 +4097,9 @@ def main(argv=None) -> int:
                     help="build, then check and time only this kernel "
                     "(k1; attn: K2 fwd, dq, dk/dv and K3; k4, with its plan, "
                     "phases and the exchange probe; k5; k6, with the "
-                    "per-flow K5 path it is timed against) with no main "
-                    "path and no result line; exit 0 if it passed")
+                    "per-flow K5 path it is timed against; eeg: the EEG "
+                    "phase; fid: the Inception checks and timing) with no "
+                    "main path and no result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3583,12 +4115,17 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     card = card_line()
     print(card, flush=True)
+    import importlib.util
+    present = {m: importlib.util.find_spec(m) is not None
+               for m in OPTIONAL_PACKAGES}
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} tf32 conv "
           f"{torch.backends.cudnn.allow_tf32} matmul "
-          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+          f"{torch.backends.cuda.matmul.allow_tf32}; optional packages "
+          + " ".join(f"{m} {'yes' if ok else 'no'}"
+                     for m, ok in present.items()), flush=True)
     failures = []
-    report = {}
+    report = {"optional_packages": present}
     t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -3626,6 +4163,10 @@ def main(argv=None) -> int:
             gen = torch.Generator(device=dev).manual_seed(0)
             report["k2"] = check_k2(K, gen, dev, failures)
             report["k3"] = check_attention(K, gen, dev, failures)
+        elif args.only == "eeg":
+            report["eeg"] = eeg_path(K, failures)
+        elif args.only == "fid":
+            report["inception"] = check_inception(failures)
         if args.only:
             raise _PartialRun
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -3658,6 +4199,13 @@ def main(argv=None) -> int:
             K, torch.Generator(device=dev).manual_seed(6), failures)
         report["glow_stack"] = glow_stack_path(
             K, torch.Generator(device=dev).manual_seed(8), failures)
+        report["eeg"] = eeg_path(K, failures)
+        report["inception"] = check_inception(failures)
+        report["fid_eval"] = fid_eval_path(K, report, failures)
+        fid_l = {name: sum(r["launches"].get(name, 0) for r in
+                           report["fid_eval"].values() if isinstance(r, dict))
+                 for name in ("flash_attention", "groupnorm_silu",
+                              "glow_coupling_fwd")}
         per_step = "one 256x256 batch-16 train step"
         per_fwd = "one 256x256 batch-16 UNet forward"
         fwd_src = "vgd_tpu_torch/csrc/flash_attention.cu"
@@ -3675,20 +4223,33 @@ def main(argv=None) -> int:
                          "vgd_tpu/ops/pallas_kernels.py:280",
                          k2_rows["attention_dkv"], train_l["attention_dkv"],
                          per_step),
-            kernel_entry("flash_attention", fwd_src,
-                         "vgd_tpu/ops/pallas_kernels.py:63", attn_rows,
-                         serve_l["flash_attention"], per_fwd),
+            dict(kernel_entry("flash_attention", fwd_src,
+                              "vgd_tpu/ops/pallas_kernels.py:63", attn_rows,
+                              serve_l["flash_attention"]
+                              + fid_l["flash_attention"], per_fwd),
+                 launches_by_path={
+                     "serve": serve_l["flash_attention"],
+                     "fid_eval": fid_l["flash_attention"]}),
             dict(kernel_entry("groupnorm_silu",
                               "vgd_tpu_torch/csrc/groupnorm_silu.cu",
                               "vgd_tpu/ops/pallas_kernels.py:193", gn_rows,
-                              serve_l["groupnorm_silu"], per_fwd),
+                              serve_l["groupnorm_silu"]
+                              + fid_l["groupnorm_silu"], per_fwd),
                  form="f32 in and out (the TPU kernel's function)",
-                 main_path_forms=report["k4_main_path"]),
+                 main_path_forms=report["k4_main_path"],
+                 launches_by_path={
+                     "serve": serve_l["groupnorm_silu"],
+                     "fid_eval": fid_l["groupnorm_silu"]}),
             k1_entry(k1_rows, report)] + [
-            kernel_entry(name, "vgd_tpu_torch/csrc/glow_coupling.cu",
-                         f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
-                         report["glow"]["train"]["launches_total"][name],
-                         "one 64x64 batch-16 Glow train step (K=32, L=4)")
+            dict(kernel_entry(
+                name, "vgd_tpu_torch/csrc/glow_coupling.cu",
+                f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
+                report["glow"]["train"]["launches_total"][name]
+                + fid_l.get(name, 0),
+                "one 64x64 batch-16 Glow train step (K=32, L=4)"),
+                launches_by_path={
+                    "train": report["glow"]["train"]["launches_total"][name],
+                    "fid_eval": fid_l.get(name, 0)})
             for name, line in zip(K5_NAMES, (164, 206, 266))]
         # K6's forward and backward run on the training path, its no-save
         # forward on the likelihood path (the serve phase)

@@ -370,8 +370,16 @@ def test_ssim_and_accumulator_match_jax():
         acc_j.update(jnp.asarray(a), jnp.asarray(b), n_valid=n)
     np.testing.assert_allclose(acc_p.compute()["ssim"],
                                acc_j.compute()["ssim"], rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        PM.MetricAccumulator(feature_fn=lambda x: x)
+    # a feature_fn adds the feature statistics and leaves SSIM as it is
+    # (held to JAX's in tests/test_torch_port_fid.py)
+    acc_f = PM.MetricAccumulator(feature_fn=lambda u8: (
+        u8.float().flatten(1)[:, :8], u8.float().flatten(1)[:, :5]))
+    acc_f.update(ta, tb)
+    got = acc_f.compute()
+    assert set(got) == {"ssim", "fid", "inception_score",
+                        "inception_score_std", "precision", "recall", "f1"}
+    np.testing.assert_allclose(got["ssim"], float(PM.ssim(ta, tb)),
+                               rtol=1e-6)
 
 
 def test_artifacts(tmp_path):

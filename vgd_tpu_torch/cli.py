@@ -29,15 +29,31 @@ denoising VAE, DCGAN / WGAN and Glow:
   python -m vgd_tpu_torch.cli eval-gan --out-dir runs/gan [--wgan] \
       [--max-checkpoints 1]
   python -m vgd_tpu_torch.cli sample --family gan|wgan --out-dir runs/gan
+  python -m vgd_tpu_torch.cli glow-eeg --event-type mi|baseline \
+      [--iters 6000] [--eeg-path data/bci] [--flows 32 --blocks 4 \
+      --filter-size 512] [--resume]
+  python -m vgd_tpu_torch.cli eval-eeg --event-type mi [--n-fake 64] [--step N]
+  python -m vgd_tpu_torch.cli sample --family glow-eeg --event-type mi [-n 16]
+  python -m vgd_tpu_torch.cli tstr --method synt|real|sr|other_sub \
+      [--ckpt-dir runs/glow_eeg] [--subjects 01 02] [--n-samples 288]
+  python -m vgd_tpu_torch.cli eval-gan|eval-vae|eval-glow|eval-diffusion \
+      --fid [--inception-weights pt_inception.pth]
 
 ``diffusion``, ``vaegan``, ``vae``, ``gan``, ``wgan`` and ``glow`` train
 (``train.loop.run_diffusion`` / ``run_vaegan`` / ``run_vae`` / ``run_gan``
 / ``run_glow``) and write ``<out-dir>/ckpt``; ``sample``, the ``eval-*``
-commands and ``denoise`` restore it. ``wgan`` trains 1500 epochs unless
-``--epochs`` says otherwise (the reference's scale). ``denoise`` reads an
-image file or every ``*.jpg`` of a folder with PIL (imported there only)
-and writes the restorations as images. All run on ``--device cuda`` unless
-``--device cpu`` is given.
+commands and ``denoise`` restore it. ``glow-eeg`` trains one event type's
+EEG flow (``run_glow_eeg``) into ``<out-dir>/ckpt_<event-type>``;
+``eval-eeg`` compares its samples' PSD with the real trials', and ``tstr``
+trains CSP + LDA on generated (``synt``), real, both (``sr``) or another
+subject's trials and tests on the real E session. ``--fid`` adds FID and
+manifold precision / recall (and IS with ``--inception-weights``, a torch
+InceptionV3 state_dict; without it the seeded surrogate's keys end in
+``_surrogate``) to ``vaegan``'s validation and the ``eval-*`` commands.
+``wgan`` trains 1500 epochs unless ``--epochs`` says otherwise (the
+reference's scale). ``denoise`` reads an image file or every ``*.jpg`` of
+a folder with PIL (imported there only) and writes the restorations as
+images. All run on ``--device cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -88,6 +104,132 @@ def _add_glow(p):
 def _add_vae(p):
     p.add_argument("--noise-std", type=float, default=None,
                    help="VAE: corruption noise std (default 0.5)")
+
+
+def _add_fid(p):
+    p.add_argument("--fid", action="store_true",
+                   help="FID, IS and manifold precision / recall on "
+                   "InceptionV3 features (per epoch for vaegan)")
+    p.add_argument("--inception-weights", type=str, default=None,
+                   help="torch InceptionV3 state_dict (pytorch-fid "
+                   "pt_inception) for real FID / IS (implies --fid); "
+                   "without it a seeded surrogate, keys tagged _surrogate")
+
+
+def _feature_fn(a):
+    from vgd_tpu_torch.train import loop as L
+    return L.load_feature_fn(a.fid, a.inception_weights, device=a.device)[0]
+
+
+def _add_eeg(p, sizes=True):
+    p.add_argument("--event-type", default="mi", choices=["mi", "baseline"])
+    p.add_argument("--eeg-path", type=str, default=None,
+                   help="folder of BCI-IV-2a *.npz (default: synthetic "
+                   "trials)")
+    if sizes:
+        p.add_argument("--flows", dest="n_flows", type=int, default=None,
+                       help="K (32)")
+        p.add_argument("--blocks", dest="n_blocks", type=int, default=None,
+                       help="L (4)")
+        p.add_argument("--filter-size", type=int, default=None,
+                       help="coupling width (512)")
+
+
+def _eeg_cfg(a) -> C.GlowEEGConfig:
+    """``GlowEEGConfig`` with the values given on the command line."""
+    top = {k: getattr(a, k) for k in (
+        "n_flows", "n_blocks", "filter_size", "batch_size", "lr")
+        if getattr(a, k, None) is not None}
+    run = {"seed": a.seed}
+    for k in ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints"):
+        if getattr(a, k, None) is not None:
+            run[k] = getattr(a, k)
+    cfg = C.GlowEEGConfig(event_type=a.event_type, eeg_path=a.eeg_path)
+    return dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, **run),
+                               **top)
+
+
+def _tstr(a) -> None:
+    """The TSTR protocol: for each subject, CSP + LDA trained on the chosen
+    regime's trials and tested on the real E session (motor imagery 1,
+    baseline 0)."""
+    import numpy as np
+    from vgd_tpu_torch.data.eeg import EEGDataset
+    from vgd_tpu_torch.eval.eeg_downstream import tstr_evaluate
+    from vgd_tpu_torch.io.checkpoint import has_checkpoint
+
+    if a.method in ("synt", "sr"):
+        # stop before any work when a per-class flow is missing
+        missing = [f"{a.ckpt_dir}/ckpt_{e}" for e in ("mi", "baseline")
+                   if not has_checkpoint(f"{a.ckpt_dir}/ckpt_{e}")]
+        if missing:
+            raise SystemExit(
+                f"tstr --method {a.method} samples trained per-class EEG "
+                f"flows, but no checkpoint exists under: "
+                f"{', '.join(missing)}.\nTrain them first:\n"
+                f"  python -m vgd_tpu_torch.cli glow-eeg --iters 6000 "
+                f"--event-type mi --out-dir {a.ckpt_dir}\n"
+                f"  python -m vgd_tpu_torch.cli glow-eeg --iters 6000 "
+                f"--event-type baseline --out-dir {a.ckpt_dir}")
+    # the flows' samples are the same for every subject: drawn once
+    generated = generate_synthetic_eeg(a) if a.method in ("synt", "sr") \
+        else None
+    results = {}
+    for i, subject in enumerate(a.subjects):
+        te_mi = EEGDataset(a.eeg_path, "E", "mi", subject).as_ncT()
+        te_bl = EEGDataset(a.eeg_path, "E", "baseline", subject).as_ncT()
+        X_test = np.concatenate([te_mi, te_bl]).astype(np.float64)
+        y_test = np.concatenate([np.ones(len(te_mi)), np.zeros(len(te_bl))])
+        X_parts, y_parts = [], []
+        if generated is not None:
+            X_mi, X_bl = generated
+            X_parts += [X_mi, X_bl]
+            y_parts += [np.ones(len(X_mi)), np.zeros(len(X_bl))]
+        if a.method in ("real", "sr", "other_sub"):
+            src = a.subjects[i - 1] if a.method == "other_sub" else subject
+            tr_mi = EEGDataset(a.eeg_path, "T", "mi", src).as_ncT()
+            tr_bl = EEGDataset(a.eeg_path, "T", "baseline", src).as_ncT()
+            X_parts += [tr_mi, tr_bl]
+            y_parts += [np.ones(len(tr_mi)), np.zeros(len(tr_bl))]
+        train_scores, test_scores = tstr_evaluate(
+            np.concatenate(X_parts).astype(np.float64),
+            np.concatenate(y_parts), X_test, y_test)
+        results[subject] = {"train": train_scores, "test": test_scores}
+        print(f"subject {subject} method {a.method}: "
+              f"train {train_scores} | test {test_scores}")
+    print(json.dumps(results))
+
+
+def generate_synthetic_eeg(a):
+    """(motor imagery, baseline) trials (N, C, T) sampled at temperature
+    0.7 from the per-class flows under ``a.ckpt_dir`` (z drawn from seed
+    42), ``a.n_samples`` each; non-finite trials are dropped, and a class
+    with none left raises."""
+    import numpy as np
+    from vgd_tpu_torch.train import loop as L
+
+    sizes = {k: getattr(a, k) for k in ("n_flows", "n_blocks", "filter_size")
+             if getattr(a, k) is not None}
+    out = []
+    for etype in ("mi", "baseline"):
+        cfg = C.GlowEEGConfig(
+            event_type=etype, run=dataclasses.replace(
+                C.GlowEEGConfig().run, out_dir=a.ckpt_dir), **sizes)
+        trainer = L.restore_glow_eeg(cfg, device=a.device)
+        arr = L.sample_eeg(trainer, a.n_samples, seed=42)
+        finite = np.isfinite(arr).all(axis=(1, 2))
+        if not finite.all():
+            print(f"warning: dropping {int((~finite).sum())}/{len(arr)} "
+                  f"non-finite generated '{etype}' trials (an undertrained "
+                  f"flow's reverse can overflow)")
+            arr = arr[finite]
+        if len(arr) == 0:
+            raise RuntimeError(
+                f"all generated '{etype}' trials are non-finite: train the "
+                f"flow longer before TSTR (the reference trains 6000 "
+                f"iterations)")
+        out.append(arr)
+    return out[0], out[1]
 
 
 def _add_training(p):
@@ -221,6 +363,7 @@ def main(argv=None):
     p.add_argument("--fused-conv", action="store_true",
                    help="encoder/discriminator Conv+BN+LeakyReLU through "
                    "the fused K1 kernel")
+    _add_fid(p)
 
     p = sub.add_parser("vae", help="train the denoising VAE (checkpoints "
                        "under <out-dir>/ckpt, loss log vae_loss.jsonl)")
@@ -237,9 +380,10 @@ def main(argv=None):
 
     p = sub.add_parser("eval-vae", help="aggregated-posterior SSIM sweep "
                        "over the checkpoints; with --occlusion the occlusion "
-                       "test of one checkpoint instead")
+                       "test of one checkpoint instead (with --fid both)")
     _add_common(p)
     _add_vae(p)
+    _add_fid(p)
     p.add_argument("--occlusion", action="store_true",
                    help="occlusion test-set evaluation (test loss, MSE, "
                    "PSNR, SSIM, re-noise cycles, latent traversals)")
@@ -272,6 +416,7 @@ def main(argv=None):
     p = sub.add_parser("eval-gan", help="prior-sample SSIM sweep over the "
                        "checkpoints")
     _add_common(p)
+    _add_fid(p)
     p.add_argument("--wgan", action="store_true")
     p.add_argument("--max-checkpoints", type=int, default=None)
 
@@ -293,6 +438,7 @@ def main(argv=None):
                        "Glow checkpoint against the val split")
     _add_common(p)
     _add_glow(p)
+    _add_fid(p)
     p.add_argument("--max-batches", type=int, default=None)
 
     p = sub.add_parser("sample", help="sample grid from a checkpoint")
@@ -300,9 +446,10 @@ def main(argv=None):
     _add_diffusion(p)
     _add_glow(p)
     _add_vae(p)
+    _add_eeg(p, sizes=False)
     p.add_argument("--family", required=True,
                    choices=["diffusion", "vaegan", "vae", "gan", "wgan",
-                            "glow"])
+                            "glow", "glow-eeg"])
     p.add_argument("-n", "--num-samples", type=int, default=64)
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--ddim-steps", type=int, default=0,
@@ -314,11 +461,63 @@ def main(argv=None):
                        "evaluation (SSIM, PSNR, MSE) of a checkpoint")
     _add_common(p)
     _add_diffusion(p)
+    _add_fid(p)
     p.add_argument("--max-batches", type=int, default=None)
+
+    p = sub.add_parser("glow-eeg", help="train one event type's EEG Glow "
+                       "(checkpoints under <out-dir>/ckpt_<event-type>, "
+                       "loss log eeg_<event-type>.jsonl)")
+    _add_common(p, serving=False)
+    _add_eeg(p)
+    p.add_argument("--iters", type=int, default=None,
+                   help="iterations (default: the config's 6000)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="torch.profiler trace of train steps 10-20 here")
+    _add_optim(p)
+
+    p = sub.add_parser("eval-eeg", help="real-vs-generated central PSD "
+                       "(psd_<event-type>.npz; figure and training GIF "
+                       "where matplotlib is installed)")
+    _add_common(p)
+    _add_eeg(p)
+    p.add_argument("--n-fake", type=int, default=64)
+
+    p = sub.add_parser("tstr", help="EEG downstream evaluation: CSP + LDA "
+                       "trained on generated / real trials, tested on the "
+                       "real E session")
+    _add_eeg(p)
+    p.add_argument("--method", default="synt",
+                   choices=["synt", "real", "sr", "other_sub"])
+    p.add_argument("--ckpt-dir", type=str, default="runs/glow_eeg",
+                   help="the glow-eeg --out-dir holding ckpt_mi and "
+                   "ckpt_baseline")
+    p.add_argument("--subjects", nargs="*", default=["01"])
+    p.add_argument("--n-samples", type=int, default=288,
+                   help="generated trials per class (synt, sr)")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
 
     a = ap.parse_args(argv)
     from vgd_tpu_torch.train import loop as L
 
+    if a.cmd == "tstr":
+        _tstr(a)
+        return 0
+    if a.cmd == "glow-eeg":
+        L.run_glow_eeg(_eeg_cfg(a), n_iter=a.iters, resume=a.resume,
+                       device=a.device)
+        return 0
+    if a.cmd == "eval-eeg":
+        print(json.dumps(L.eeg_psd_and_gif(_eeg_cfg(a), n_fake=a.n_fake,
+                                           step=a.step, device=a.device)))
+        return 0
+    if a.cmd == "sample" and a.family == "glow-eeg":
+        L.sample_from_dir("glow-eeg", _eeg_cfg(a), n=a.num_samples,
+                          out_path=a.out, step=a.step, seed=a.seed,
+                          device=a.device)
+        return 0
     if a.cmd == "denoise":
         _denoise(a)
         return 0
@@ -327,14 +526,16 @@ def main(argv=None):
                   resume=a.resume, device=a.device)
         return 0
     if a.cmd == "eval-vae":
-        # --occlusion runs the occlusion test, else the checkpoint sweep
+        # --occlusion runs the occlusion test, alone or, with --fid, beside
+        # the checkpoint sweep; no flag runs the sweep
         cfg, res = _vae_cfg(a), {}
         if a.occlusion:
             res["occlusion"] = L.evaluate_vae_occlusion(
                 cfg, max_batches=a.max_batches, step=a.step, device=a.device)
-        else:
+        if a.fid or a.inception_weights or not a.occlusion:
             res["sweep"] = L.evaluate_vae_checkpoints(
-                cfg, max_checkpoints=a.max_checkpoints,
+                cfg, feature_fn=_feature_fn(a),
+                max_checkpoints=a.max_checkpoints,
                 max_eval_batches=a.max_batches, device=a.device)
         print(json.dumps(res))
         return 0
@@ -345,8 +546,8 @@ def main(argv=None):
         return 0
     if a.cmd == "eval-gan":
         res = L.evaluate_gan_checkpoints(
-            _gan_cfg(a, a.wgan), max_checkpoints=a.max_checkpoints,
-            device=a.device)
+            _gan_cfg(a, a.wgan), feature_fn=_feature_fn(a),
+            max_checkpoints=a.max_checkpoints, device=a.device)
         print(json.dumps(res))
         return 0
     if a.cmd == "sample" and a.family in ("vae", "gan", "wgan"):
@@ -361,8 +562,9 @@ def main(argv=None):
                    device=a.device)
         return 0
     if a.cmd == "eval-glow":
-        res = L.evaluate_glow_from_dir(_glow_cfg(a), max_batches=a.max_batches,
-                                       step=a.step, device=a.device)
+        res = L.evaluate_glow_from_dir(
+            _glow_cfg(a), feature_fn=_feature_fn(a),
+            max_batches=a.max_batches, step=a.step, device=a.device)
         print(json.dumps(res))
         return 0
     if a.cmd == "sample" and a.family == "glow":
@@ -372,7 +574,8 @@ def main(argv=None):
         return 0
     if a.cmd == "vaegan":
         L.run_vaegan(_vaegan_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
-                     resume=a.resume, device=a.device)
+                     feature_fn=_feature_fn(a), resume=a.resume,
+                     device=a.device)
         return 0
     if a.cmd == "sample" and a.family == "vaegan":
         L.sample_from_dir("vaegan", _vaegan_cfg(a), n=a.num_samples,
@@ -388,7 +591,8 @@ def main(argv=None):
                           step=a.step, seed=a.seed, ddim_steps=a.ddim_steps,
                           ddim_eta=a.ddim_eta, device=a.device)
     else:
-        res = L.evaluate_diffusion_from_dir(cfg, max_batches=a.max_batches,
+        res = L.evaluate_diffusion_from_dir(cfg, feature_fn=_feature_fn(a),
+                                            max_batches=a.max_batches,
                                             step=a.step, device=a.device)
         print(json.dumps(res))
     return 0

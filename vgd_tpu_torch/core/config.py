@@ -1,8 +1,8 @@
 """Typed configuration for the ported workloads.
 
 Own copies of ``vgd_tpu/core/config.py``'s ``DataConfig``, ``RunConfig``,
-``VAEGANConfig``, ``GANConfig``, ``VAEConfig``, ``GlowConfig`` and
-``DiffusionConfig`` with the same defaults (a test pins them field by field). ``RunConfig`` keeps only the
+``VAEGANConfig``, ``GANConfig``, ``VAEConfig``, ``GlowConfig``,
+``GlowEEGConfig`` and ``DiffusionConfig`` with the same defaults (a test pins them field by field). ``RunConfig`` keeps only the
 fields the ported paths read; ``compute_dtype``/``param_dtype`` keep their
 meaning: convs and dense layers compute in ``compute_dtype``, parameters
 are stored in ``param_dtype``.
@@ -143,6 +143,29 @@ class GlowConfig:
 
     def __post_init__(self):
         check_flow_stack(self.flow_stack)
+
+
+@dataclass(frozen=True)
+class GlowEEGConfig:
+    """1-D Glow on EEG trials at the reference's scale (flow_eeg.py: 22
+    channels x 160 samples, batch 16, K=32, L=4, width 512, Adam at 1e-3,
+    6000 iterations, temperature 0.7), f32 couplings. As in the JAX
+    package it has no ``fused_coupling`` or ``flow_stack`` option."""
+    run: RunConfig = field(default_factory=lambda: RunConfig(
+        out_dir="runs/glow_eeg", compute_dtype="float32"))
+    # folder of BCI-IV-2a .npz; None => synthetic trials
+    eeg_path: Optional[str] = None
+    num_channels: int = 22
+    num_samples: int = 160              # 640 samples decimated x4
+    batch_size: int = 16
+    n_flows: int = 32
+    n_blocks: int = 4
+    filter_size: int = 512
+    n_iter: int = 6000
+    lr: float = 1e-3
+    temperature: float = 0.7
+    event_type: str = "mi"              # "mi" | "baseline"
+    n_samples: int = 16
 
 
 @dataclass(frozen=True)

@@ -26,6 +26,12 @@ import torch
 _NAME = re.compile(r"^(\d{8})\.pt$")
 
 
+def has_checkpoint(directory: str) -> bool:
+    """Whether ``directory`` holds a checkpoint file (creates nothing)."""
+    return os.path.isdir(directory) and any(
+        map(_NAME.match, os.listdir(directory)))
+
+
 class Checkpointer:
     """Save/restore ``(params, step, config)`` under ``directory``."""
 

@@ -4,7 +4,10 @@ DCGAN ``Encoder``, ``Generator`` and ``Discriminator``, with their
 ``batch_stats``; ``Glow``), and an optax Adam state (``opt_state``) to a
 ``torch.optim.Adam`` state, so a JAX run can continue in the port (the
 trainers' states: ``load_jax_vaegan_state``, ``load_jax_vae_state``,
-``load_jax_gan_state``, ``load_jax_glow_state``).
+``load_jax_gan_state``, ``load_jax_glow_state`` for the image and the EEG
+Glow trainers). ``from_jax_inception_params`` maps the Flax InceptionV3's
+``params`` and ``batch_stats`` onto the port's ``eval.inception``
+module.
 
 Glow has its own converter (``from_jax_glow_params``): its tree is plain
 (not Flax), its leaf names (``w``, ``P``, ``L``, ``U``, ``log_s``,
@@ -257,7 +260,7 @@ def from_jax_glow_params(params: Mapping, model: nn.Module
 def load_jax_glow_state(trainer, state):
     """Load a JAX ``GlowState`` (``params``, the optax Adam ``opt_state``,
     ``step``; leaves as numpy or array-likes) into a
-    ``train.glow.GlowTrainer``: parameters, the P / s_sign buffers, Adam's
+    ``train.glow.GlowTrainer`` or ``GlowEEGTrainer``: parameters, the P / s_sign buffers, Adam's
     moments and count, the iteration. The optax state also holds moments
     for P and s_sign, which never get a gradient: they must be zero and are
     dropped (the port's Adam holds the trainable leaves only)."""
@@ -288,3 +291,20 @@ def load_jax_glow_state(trainer, state):
     trainer.opt.load_state_dict(sd)
     trainer.step = int(np.asarray(state.step))
     return trainer
+
+
+def from_jax_inception_params(params: Mapping, batch_stats: Mapping,
+                              model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The Flax InceptionV3's ``params`` and ``batch_stats`` (module paths
+    ``Conv2d_1a_3x3/conv/kernel``, ``Mixed_5b/branch1x1/bn/scale``,
+    ``fc/kernel``, ...) as the state_dict of the port's
+    ``eval.inception.InceptionV3``: the leaf conversions of
+    ``from_jax_params``, each BatchNorm's ``num_batches_tracked`` 0.
+    Strict, as ``from_jax_params`` with a model."""
+    sd = from_jax_params(params, None, batch_stats)
+    for name, buf in model.named_buffers():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = torch.zeros_like(buf, device="cpu")
+    _strict(sd, {k: tuple(v.shape) for k, v in model.state_dict().items()},
+            "JAX Inception variables")
+    return sd

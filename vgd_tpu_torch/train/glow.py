@@ -1,11 +1,15 @@
-"""Glow trainer on images (``vgd_tpu/train/glow.py``, ``GlowTrainer``).
+"""Glow trainers on images and on EEG (``vgd_tpu/train/glow.py``,
+``GlowTrainer`` and ``GlowEEGTrainer``).
 
-5-bit quantisation plus U(0, 1/n_bins) dequantisation noise, a first pass
-without gradient that performs the data-dependent ActNorm init (after which
-Adam starts afresh), the bits/dim loss and Adam. The noise comes from the
-caller (``noise``, a U(0, 1) draw of the batch's shape) or from an explicit
-``torch.Generator``; metrics stay 0-d device tensors. The EEG trainer waits
-for the EEG slice.
+Images: 5-bit quantisation plus U(0, 1/n_bins) dequantisation noise, a
+first pass without gradient that performs the data-dependent ActNorm init
+(after which Adam starts afresh), the bits/dim loss and Adam. EEG: the same
+skeleton on float trials (B, T, 1, C) with U(0, 1) dequantisation noise and
+the reference's loss normalisation, ``calc_loss(log_p, mean(logdet), T,
+1.0, n_channels=3)`` (its image formula with n_pixel = T * T * 3), kept
+verbatim. The noise comes from the caller (``noise``, a U(0, 1) draw of the
+batch's shape) or from an explicit ``torch.Generator``; metrics stay 0-d
+device tensors.
 """
 from __future__ import annotations
 
@@ -13,33 +17,30 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from vgd_tpu_torch.core.config import GlowConfig
+from vgd_tpu_torch.core.config import GlowConfig, GlowEEGConfig
 from vgd_tpu_torch.core.rng import resolve_device
-from vgd_tpu_torch.models.glow import Glow, calc_loss, calc_z_shapes
+from vgd_tpu_torch.models.glow import (Glow, calc_loss, calc_z_shapes,
+                                       calc_z_shapes_eeg)
 from vgd_tpu_torch.ops.image import quantize_bits, to_unit
 from vgd_tpu_torch.train.common import DTYPES, adam
 
 
-class GlowTrainer:
-    """The model, its Adam and the step on ``device``."""
+class _GlowTrainerBase:
+    """The model, its Adam and the step on ``device``; a subclass calls
+    ``_setup`` and sets ``z_shapes``, ``_prep`` (batch -> dequantised
+    input) and ``_loss``."""
 
-    def __init__(self, cfg: GlowConfig, img_shape: Tuple[int, int, int],
-                 device="cuda"):
+    model: Glow
+    z_shapes: List[Tuple[int, int, int]]
+
+    def _setup(self, cfg, device, **model_kw) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
-        h, w, c = img_shape
-        if h != w:
-            raise ValueError(f"square images expected, got {h}x{w}")
-        self.img_shape = tuple(img_shape)
         with torch.device(self.device):
-            self.model = Glow(in_channels=c, n_flows=cfg.n_flows,
-                              n_blocks=cfg.n_blocks, variant="image",
+            self.model = Glow(n_flows=cfg.n_flows, n_blocks=cfg.n_blocks,
                               filter_size=cfg.filter_size,
                               compute_dtype=DTYPES[cfg.run.compute_dtype],
-                              fused_coupling=cfg.fused_coupling,
-                              flow_stack=cfg.flow_stack)
-        self.n_bins = 2.0 ** cfg.n_bits
-        self.z_shapes = calc_z_shapes(c, h, cfg.n_blocks)
+                              **model_kw)
         self.opt: Optional[torch.optim.Optimizer] = None
         self.step = 0
 
@@ -62,34 +63,31 @@ class GlowTrainer:
             self.opt.load_state_dict(opt_state)
         self.step = int(step)
 
-    def _prep(self, batch_uint8: torch.Tensor,
-              generator: Optional[torch.Generator],
-              noise: Optional[torch.Tensor]) -> torch.Tensor:
-        """n-bit quantisation + U(0, 1/n_bins) dequantisation noise."""
-        x = quantize_bits(to_unit(batch_uint8.to(self.device)),
-                          self.cfg.n_bits)
+    def _noise(self, x: torch.Tensor, generator: Optional[torch.Generator],
+               noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """The U(0, 1) dequantisation draw: ``noise`` or from
+        ``generator``."""
         if noise is None:
-            noise = torch.rand(x.shape, generator=generator,
-                               device=self.device)
-        return x + noise.to(self.device, torch.float32) / self.n_bins
+            return torch.rand(x.shape, generator=generator,
+                              device=self.device)
+        return noise.to(self.device, torch.float32)
 
-    def init_step(self, batch_uint8: torch.Tensor,
+    def init_step(self, batch: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None) -> None:
         """ActNorm's data-dependent init on this batch, then a fresh Adam."""
-        self.model.init_actnorm(self._prep(batch_uint8, generator, noise))
+        self.model.init_actnorm(self._prep(batch, generator, noise))
         self._fresh_optimizer()
 
-    def train_step(self, batch_uint8: torch.Tensor,
+    def train_step(self, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
-        """One Adam step on the bits/dim loss; returns loss, log_p and
-        logdet (per dimension, in bits) as 0-d device tensors."""
-        x = self._prep(batch_uint8, generator, noise)
+        """One Adam step on the loss; returns loss, log_p and logdet (per
+        dimension, in bits) as 0-d device tensors."""
+        x = self._prep(batch, generator, noise)
         log_p, logdet, _ = self.model(x)
-        loss, lp, ld = calc_loss(log_p, logdet.mean(), self.img_shape[0],
-                                 self.n_bins, n_channels=self.img_shape[2])
+        loss, lp, ld = self._loss(log_p, logdet)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
@@ -99,7 +97,7 @@ class GlowTrainer:
                 "logdet": ld.detach()}
 
     def reverse(self, z_list: List[torch.Tensor]) -> torch.Tensor:
-        """z -> sample (images in [-0.5, 0.5] up to the flow's error)."""
+        """z -> sample."""
         return self.model.reverse([z.to(self.device) for z in z_list])
 
     @torch.no_grad()
@@ -115,3 +113,56 @@ class GlowTrainer:
         return [torch.randn((n,) + s, generator=generator,
                             device=self.device) * temp
                 for s in self.z_shapes]
+
+
+class GlowTrainer(_GlowTrainerBase):
+    """Glow on square uint8 images (B, H, W, C)."""
+
+    def __init__(self, cfg: GlowConfig, img_shape: Tuple[int, int, int],
+                 device="cuda"):
+        h, w, c = img_shape
+        if h != w:
+            raise ValueError(f"square images expected, got {h}x{w}")
+        self._setup(cfg, device, in_channels=c, variant="image",
+                    fused_coupling=cfg.fused_coupling,
+                    flow_stack=cfg.flow_stack)
+        self.img_shape = tuple(img_shape)
+        self.n_bins = 2.0 ** cfg.n_bits
+        self.z_shapes = calc_z_shapes(c, h, cfg.n_blocks)
+
+    def _prep(self, batch_uint8: torch.Tensor,
+              generator: Optional[torch.Generator],
+              noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """n-bit quantisation + U(0, 1/n_bins) dequantisation noise."""
+        x = quantize_bits(to_unit(batch_uint8.to(self.device)),
+                          self.cfg.n_bits)
+        return x + self._noise(x, generator, noise) / self.n_bins
+
+    def _loss(self, log_p, logdet):
+        return calc_loss(log_p, logdet.mean(), self.img_shape[0],
+                         self.n_bins, n_channels=self.img_shape[2])
+
+
+class GlowEEGTrainer(_GlowTrainerBase):
+    """The 1-D Glow on float EEG trials (B, T, 1, C): (3, 1) convs, time
+    squeezes, f32 by default; never a kernel (the JAX trainer sets neither
+    ``fused_coupling`` nor ``flow_stack``)."""
+
+    def __init__(self, cfg: GlowEEGConfig, device="cuda"):
+        self._setup(cfg, device, in_channels=cfg.num_channels,
+                    variant="eeg")
+        self.z_shapes = calc_z_shapes_eeg(cfg.num_channels, cfg.num_samples,
+                                          cfg.n_blocks)
+
+    def _prep(self, batch: torch.Tensor,
+              generator: Optional[torch.Generator],
+              noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """batch + U(0, 1) dequantisation noise."""
+        x = batch.to(self.device, torch.float32)
+        return x + self._noise(x, generator, noise)
+
+    def _loss(self, log_p, logdet):
+        # the reference's normalisation, verbatim: calc_loss with T as the
+        # image size, n_bins 1 and 3 channels
+        return calc_loss(log_p, logdet.mean(), self.cfg.num_samples, 1.0,
+                         n_channels=3)

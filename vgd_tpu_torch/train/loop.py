@@ -4,15 +4,19 @@ training (``run_vae``) with its aggregated-posterior checkpoint sweep
 (``evaluate_vae_checkpoints``), occlusion test (``evaluate_vae_occlusion``)
 and image restoration (``denoise_images``), DCGAN / WGAN training
 (``run_gan``) and its checkpoint sweep (``evaluate_gan_checkpoints``), Glow
-training (``run_glow``) and its temperature-sampled SSIM evaluation
-(``evaluate_glow``), sample grids from a checkpoint of any of them and
-partial-noise restoration evaluation.
+training (``run_glow``) and its temperature-sampled evaluation
+(``evaluate_glow``), EEG Glow training per event type (``run_glow_eeg``)
+with its PSD comparison (``eeg_psd_and_gif``), sample grids from a
+checkpoint of any of them and partial-noise restoration evaluation. Every
+evaluation takes an Inception ``feature_fn`` (``load_feature_fn``) for FID,
+IS and manifold precision / recall beside SSIM.
 
 Grids and panels are written as ``.npy`` arrays in [-1, 1] (the JAX
 package's image writer needs matplotlib/PIL, which the port does not
-depend on). The JAX loop's mesh, sequence-parallel and epoch-scan options
-have no counterpart here: the port runs one device and loops over steps
-in Python.
+depend on); EEG samples as ``.npz`` / ``.npy`` arrays (N, C, T), with trace
+plots and the PSD figure drawn only where matplotlib is installed. The JAX
+loop's mesh, sequence-parallel and epoch-scan options have no counterpart
+here: the port runs one device and loops over steps in Python.
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ import numpy as np
 import torch
 
 from vgd_tpu_torch.core.config import (DiffusionConfig, GANConfig,
-                                       GlowConfig, VAEConfig, VAEGANConfig,
-                                       to_dict)
+                                       GlowConfig, GlowEEGConfig, VAEConfig,
+                                       VAEGANConfig, to_dict)
 from vgd_tpu_torch.core.rng import resolve_device, seed_all
 from vgd_tpu_torch.data.celeba import make_image_datasets
 from vgd_tpu_torch.data.corrupt import corrupt, corrupt_draws
+from vgd_tpu_torch.data.eeg import CHANNEL_NAMES, EEGDataset, eeg_batches
+from vgd_tpu_torch.eval.eeg_downstream import mean_central_psd
 from vgd_tpu_torch.eval.metrics import (MetricAccumulator, mse_metric, psnr,
                                         ssim)
 from vgd_tpu_torch.eval.sampling import aggregated_posterior_sampler
@@ -41,10 +47,12 @@ from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
 from vgd_tpu_torch.train.gan import GANTrainer
-from vgd_tpu_torch.train.glow import GlowTrainer
+from vgd_tpu_torch.train.glow import GlowEEGTrainer, GlowTrainer
 from vgd_tpu_torch.train.vae import VAETrainer
 from vgd_tpu_torch.train.vaegan import VAEGANTrainer
 from vgd_tpu_torch.utils.prefetch import device_prefetch
+from vgd_tpu_torch.utils.viz import have_matplotlib, plot_eeg_signals, \
+    save_gif
 
 # offset of the validation generator's seed from the run seed: every epoch
 # scores the same t and noise draws, as the JAX loop folds a fixed
@@ -56,6 +64,8 @@ FIXED_Z_SEED_OFFSET = 7
 VAEGAN_VAL_SEED_OFFSET = 10_000
 # the VAE loop's validation draws (the JAX loop folds 20_000 + j)
 VAE_VAL_SEED_OFFSET = 20_000
+# the EEG PSD comparison's temperature z (the JAX function folds 3)
+EEG_PSD_SEED_OFFSET = 3
 
 
 class _Profiler:
@@ -190,18 +200,19 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
 
 
 def evaluate_diffusion(cfg: DiffusionConfig, trainer: DiffusionTrainer, val,
-                       max_batches: Optional[int] = None,
+                       feature_fn=None, max_batches: Optional[int] = None,
                        save_panels: bool = True) -> Dict[str, float]:
     """Restoration evaluation: noise each val batch to a seeded random
     start step, run the ancestral chain back, and score on [0, 1] images
     over the true rows (padded repeats of the last batch excluded): SSIM
-    through ``MetricAccumulator`` and PSNR, as the reference returns them,
-    and MSE beside them. With
+    (and, with ``feature_fn``, FID / IS / P-R) through
+    ``MetricAccumulator`` and PSNR, as the reference returns them, and MSE
+    beside them. With
     ``save_panels`` the first batch's original / noisy / multi-step /
     one-step panel is saved as ``diffusion_restore_panel.npy``."""
     gen = seed_all(cfg.run.seed, trainer.device)
     dev = trainer.device
-    acc = MetricAccumulator()
+    acc = MetricAccumulator(feature_fn=feature_fn)
     psnr_sum, mse_sum, n_b = 0.0, 0.0, 0
     for j, (vbatch, n_valid) in enumerate(val.epoch()):
         if max_batches is not None and j >= max_batches:
@@ -235,7 +246,7 @@ def evaluate_diffusion(cfg: DiffusionConfig, trainer: DiffusionTrainer, val,
     return out
 
 
-def evaluate_diffusion_from_dir(cfg: DiffusionConfig,
+def evaluate_diffusion_from_dir(cfg: DiffusionConfig, feature_fn=None,
                                 max_batches: Optional[int] = None,
                                 step: Optional[int] = None,
                                 device="cuda") -> Dict[str, float]:
@@ -244,7 +255,8 @@ def evaluate_diffusion_from_dir(cfg: DiffusionConfig,
     device = resolve_device(device)
     _, val, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
     trainer = restore_trainer(cfg, step, device)
-    out = evaluate_diffusion(cfg, trainer, val, max_batches=max_batches)
+    out = evaluate_diffusion(cfg, trainer, val, feature_fn=feature_fn,
+                             max_batches=max_batches)
     np.savez(os.path.join(cfg.run.out_dir, "diffusion_eval_metrics.npz"),
              **out)
     print("[eval-diffusion] " +
@@ -272,13 +284,14 @@ def restore_vaegan(cfg: VAEGANConfig, step: Optional[int] = None,
 
 def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                max_steps_per_epoch: Optional[int] = None,
-               resume: bool = False, device="cuda") -> Dict:
+               feature_fn=None, resume: bool = False, device="cuda") -> Dict:
     """Train the VAE-GAN: per epoch, ``train_step`` over
     ``device_prefetch``ed batches with the KL ramp of the epoch (the losses
     summed on the device and read once: epoch metrics are means over every
     step), then the denoising validation pass over the true rows of every
     val batch (val loss = mean(per_mse[:n]) + alpha_kl * sum(per_kl[:n]),
-    weighted by n; PSNR; SSIM through ``MetricAccumulator``), a
+    weighted by n; PSNR; SSIM, and with ``feature_fn`` FID / IS / P-R,
+    through ``MetricAccumulator``), a
     ``MetricLog`` row, the noisy / clean / reconstruction panel and the
     fixed-z sample grid (``.npy``), and every ``checkpoint_every_epochs`` a
     checkpoint of the three networks (BN buffers included), the three Adam
@@ -327,7 +340,7 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                                                 1e-9)
 
         tv0 = time.perf_counter()
-        acc = MetricAccumulator()
+        acc = MetricAccumulator(feature_fn=feature_fn)
         vgen = torch.Generator(device=device).manual_seed(
             cfg.run.seed + VAEGAN_VAL_SEED_OFFSET)
         rows, ns, panel = [], [], None
@@ -484,7 +497,7 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
             "val_rows": n_val}
 
 
-def evaluate_vae_checkpoints(cfg: VAEConfig,
+def evaluate_vae_checkpoints(cfg: VAEConfig, feature_fn=None,
                              max_checkpoints: Optional[int] = None,
                              max_encode_batches: Optional[int] = None,
                              max_eval_batches: Optional[int] = None,
@@ -494,8 +507,9 @@ def evaluate_vae_checkpoints(cfg: VAEConfig,
     ``max_encode_batches`` batches of each), build per-dimension empirical
     CDFs of (mu, logvar), inverse-transform sample one batch per val batch,
     reparameterize (eps from a generator seeded from the run seed, the same
-    draws for every checkpoint), decode, and score SSIM against the val
-    batch over its true rows. Saves one grid per checkpoint
+    draws for every checkpoint), decode, and score SSIM (and, with
+    ``feature_fn``, FID / IS / P-R) against the val batch over its true
+    rows. Saves one grid per checkpoint
     (``vae_aggpost_step_<s>.npy``) and ``vae_eval_metrics.npz``."""
     device = resolve_device(device)
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
@@ -516,7 +530,7 @@ def evaluate_vae_checkpoints(cfg: VAEConfig,
             encode, [train, val], seed=cfg.run.seed,
             max_batches=max_encode_batches)
         gen = torch.Generator(device=device).manual_seed(cfg.run.seed)
-        acc, grid = MetricAccumulator(), None
+        acc, grid = MetricAccumulator(feature_fn=feature_fn), None
         for j, (vbatch, n_valid) in enumerate(val.epoch()):
             if max_eval_batches is not None and j >= max_eval_batches:
                 break
@@ -689,14 +703,14 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
     return {"trainer": trainer, "log": log.history, "val": val}
 
 
-def evaluate_gan_checkpoints(cfg: GANConfig,
+def evaluate_gan_checkpoints(cfg: GANConfig, feature_fn=None,
                              max_checkpoints: Optional[int] = None,
                              device="cuda") -> list:
     """For every saved checkpoint (the last ``max_checkpoints``), one batch
     of prior samples per val batch (z from a generator seeded from the run
-    seed, the same draws for every checkpoint) scored by SSIM against it
-    over its true rows; ``metrics.npz``. IS / FID wait for the eval
-    slice."""
+    seed, the same draws for every checkpoint) scored by SSIM (and, with
+    ``feature_fn``, FID / IS / P-R) against it over its true rows;
+    ``metrics.npz``."""
     device = resolve_device(device)
     _, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
     trainer = GANTrainer(cfg, img_shape, device=device)
@@ -708,7 +722,7 @@ def evaluate_gan_checkpoints(cfg: GANConfig,
     for s in steps:
         _restored(trainer, ckpt.directory, s)
         gen = torch.Generator(device=device).manual_seed(cfg.run.seed)
-        acc = MetricAccumulator()
+        acc = MetricAccumulator(feature_fn=feature_fn)
         for vbatch, n_valid in val.epoch():
             fake = trainer.generate(torch.randn(
                 (len(vbatch), cfg.latent_dim), generator=gen, device=device))
@@ -716,7 +730,8 @@ def evaluate_gan_checkpoints(cfg: GANConfig,
             acc.update(signed_to_unit(fake), signed_to_unit(real),
                        n_valid=n_valid)
         results.append({"step": s, **acc.compute()})
-        print(f"[eval-gan] ckpt {s}: ssim={results[-1]['ssim']:.4f}")
+        print(f"[eval-gan] ckpt {s}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in results[-1].items() if k != "step"))
     np.savez(os.path.join(cfg.run.out_dir, "metrics.npz"),
              results=np.array([list(r.values()) for r in results]),
              columns=np.array(list(results[0].keys()) if results else []))
@@ -799,12 +814,13 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
 
 
 def evaluate_glow(cfg: GlowConfig, trainer: GlowTrainer, val,
-                  max_batches: Optional[int] = None) -> Dict[str, float]:
-    """Temperature samples, one batch per val batch, scored by SSIM against
-    it: fake in [-0.5, 0.5] mapped to clip(fake + 0.5, 0, 1), real uint8 /
-    255, true rows only. IS / FID wait for the eval slice."""
+                  feature_fn=None, max_batches: Optional[int] = None
+                  ) -> Dict[str, float]:
+    """Temperature samples, one batch per val batch, scored by SSIM (and,
+    with ``feature_fn``, FID / IS / P-R) against it: fake in [-0.5, 0.5]
+    mapped to clip(fake + 0.5, 0, 1), real uint8 / 255, true rows only."""
     gen = seed_all(cfg.run.seed, trainer.device)
-    acc = MetricAccumulator()
+    acc = MetricAccumulator(feature_fn=feature_fn)
     for j, (vbatch, n_valid) in enumerate(val.epoch()):
         if max_batches is not None and j >= max_batches:
             break
@@ -814,7 +830,8 @@ def evaluate_glow(cfg: GlowConfig, trainer: GlowTrainer, val,
     return acc.compute()
 
 
-def evaluate_glow_from_dir(cfg: GlowConfig, max_batches: Optional[int] = None,
+def evaluate_glow_from_dir(cfg: GlowConfig, feature_fn=None,
+                           max_batches: Optional[int] = None,
                            step: Optional[int] = None,
                            device="cuda") -> Dict[str, float]:
     """Restore the latest (or given) Glow checkpoint and run
@@ -822,9 +839,187 @@ def evaluate_glow_from_dir(cfg: GlowConfig, max_batches: Optional[int] = None,
     device = resolve_device(device)
     _, val, _ = make_image_datasets(cfg.data, seed=cfg.run.seed)
     trainer = restore_glow(cfg, step, device)
-    out = evaluate_glow(cfg, trainer, val, max_batches=max_batches)
+    out = evaluate_glow(cfg, trainer, val, feature_fn=feature_fn,
+                        max_batches=max_batches)
     np.savez(os.path.join(cfg.run.out_dir, "glow_eval_metrics.npz"), **out)
     print("[eval-glow] " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    return out
+
+
+def load_feature_fn(enabled: bool, weights_path: Optional[str] = None,
+                    feature: str = "64", device="cuda"):
+    """(feature_fn, tag) of ``eval.inception.load_inception`` on
+    ``device`` for FID / IS / P-R, or (None, None) when neither asked for
+    nor given weights."""
+    if not enabled and weights_path is None:
+        return None, None
+    from vgd_tpu_torch.eval.inception import load_inception
+    return load_inception(weights_path, feature=feature, device=device)
+
+
+def _eeg_ckpt_dir(cfg: GlowEEGConfig) -> str:
+    return os.path.join(cfg.run.out_dir, f"ckpt_{cfg.event_type}")
+
+
+def restore_glow_eeg(cfg: GlowEEGConfig, step: Optional[int] = None,
+                     device="cuda") -> GlowEEGTrainer:
+    """An EEG Glow trainer on ``device`` with the latest (or given)
+    checkpoint of ``<out_dir>/ckpt_<event_type>`` loaded."""
+    return _restored(GlowEEGTrainer(cfg, device=device), _eeg_ckpt_dir(cfg),
+                     step)
+
+
+def _eeg_trials(x: torch.Tensor) -> np.ndarray:
+    """(N, T, 1, C) flow samples as (N, C, T) numpy, the reference's dump
+    layout."""
+    return x[:, :, 0, :].permute(0, 2, 1).float().cpu().numpy()
+
+
+def sample_eeg(trainer: GlowEEGTrainer, n: int, seed: int = 42
+               ) -> np.ndarray:
+    """``n`` trials (N, C, T) of the flow at its temperature, z drawn from
+    ``seed``."""
+    z = trainer.sample_z(seed_all(seed, trainer.device), n)
+    return _eeg_trials(trainer.reverse(z))
+
+
+def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
+                 resume: bool = False, device="cuda") -> Dict:
+    """Train the EEG Glow of one event type for ``n_iter`` iterations
+    (default ``cfg.n_iter``) on an endless shuffled stream of the T
+    session's trials: the ActNorm init on batch 0, then iteration i on batch
+    i + 1; every ``sample_every_iters`` the fixed temperature z's trials as
+    ``sample/fake_eeg_<event>_training_<iter>.npz`` (N, C, T), a trace PNG
+    of the first where matplotlib is installed, and a ``MetricLog`` row;
+    every ``checkpoint_every_iters`` and at the end a checkpoint under
+    ``ckpt_<event>`` of the model, Adam, the generator and the iteration.
+    ``resume`` continues from the latest checkpoint exactly (parameters,
+    moments, draws, stream position). Then ``eeg_psd_and_gif``; a failure
+    there is printed and does not undo the finished run."""
+    device = resolve_device(device)
+    gen = seed_all(cfg.run.seed, device)
+    ds = EEGDataset(path=cfg.eeg_path, dataset_type="T",
+                    event_type=cfg.event_type, seed=cfg.run.seed)
+    trainer = GlowEEGTrainer(cfg, device=device)
+    trainer.init(gen)
+    ckpt = Checkpointer(_eeg_ckpt_dir(cfg), keep=cfg.run.keep_checkpoints)
+    log = MetricLog(cfg.run.out_dir, f"eeg_{cfg.event_type}")
+    prof = _Profiler(cfg.run, device)
+    z_sample = trainer.sample_z(torch.Generator(device=device).manual_seed(
+        cfg.run.seed + FIXED_Z_SEED_OFFSET), cfg.n_samples)
+    n_iter = cfg.n_iter if n_iter is None else n_iter
+    sample_dir = os.path.join(cfg.run.out_dir, "sample")
+    os.makedirs(sample_dir, exist_ok=True)
+    start = 0
+    if resume and ckpt.latest_step() is not None:
+        payload = ckpt.load(map_location=device)
+        trainer.load(payload["params"], payload["opt_state"],
+                     payload["opt_step"])
+        gen.set_state(payload["rng_state"])
+        start = payload["step"]
+        print(f"[checkpoint] resumed at iteration {start}")
+    # batch 0 goes to the ActNorm init and batch i + 1 to iteration i
+    batches = device_prefetch(eeg_batches(
+        ds, cfg.batch_size, seed=cfg.run.seed,
+        skip=start + 1 if start > 0 else 0), size=2, device=device)
+    if start == 0:
+        trainer.init_step(next(batches), gen)
+    draw = have_matplotlib()
+    if not draw:
+        print(f"[glow-eeg:{cfg.event_type}] matplotlib is not installed: "
+              f"samples are written as .npz only, no trace PNG")
+
+    def save(step):
+        ckpt.save(step, trainer.model.state_dict(), to_dict(cfg),
+                  opt_state=trainer.opt.state_dict(),
+                  rng_state=gen.get_state(), opt_step=trainer.step)
+    t0 = time.perf_counter()
+    for i in range(start, n_iter):
+        prof.step(i)
+        m = trainer.train_step(next(batches), gen)
+        if (i + 1) % cfg.run.sample_every_iters == 0:
+            arr = _eeg_trials(trainer.reverse(z_sample))
+            name = f"fake_eeg_{cfg.event_type}_training_{i + 1}"
+            np.savez(os.path.join(sample_dir, f"{name}.npz"), arr)
+            if draw:
+                plot_eeg_signals(arr, os.path.join(sample_dir, f"{name}.png"),
+                                 channel_names=CHANNEL_NAMES)
+            tps = cfg.run.sample_every_iters * cfg.batch_size / \
+                max(time.perf_counter() - t0, 1e-9)
+            t0 = time.perf_counter()
+            log.append(iter=i + 1, loss=float(m["loss"]),
+                       trials_per_sec=tps)
+            print(f"[glow-eeg:{cfg.event_type}] iter {i + 1}/{n_iter} "
+                  f"loss={float(m['loss']):.4f} {tps:.0f} trials/s")
+        if (i + 1) % cfg.run.checkpoint_every_iters == 0:
+            save(i + 1)
+    if ckpt.latest_step() != n_iter:      # always leave a final checkpoint
+        save(n_iter)
+    prof.close()
+    log.save()
+    try:
+        eeg_psd_and_gif(cfg, trainer=trainer, dataset=ds)
+    except Exception as e:  # noqa: BLE001 - artifacts, not the run
+        print(f"[glow-eeg] post-training artifacts failed: "
+              f"{type(e).__name__}: {e}")
+    return {"trainer": trainer, "log": log.history}
+
+
+def eeg_psd_and_gif(cfg: GlowEEGConfig, trainer: Optional[GlowEEGTrainer]
+                    = None, dataset: Optional[EEGDataset] = None,
+                    n_fake: int = 64, step: Optional[int] = None,
+                    device="cuda") -> Dict[str, str]:
+    """The real-vs-generated PSD comparison: ``n_fake`` temperature samples
+    (z from seed + EEG_PSD_SEED_OFFSET; non-finite trials dropped) against
+    the T session's trials, the welch PSD of their C3 / Cz / C4 average as
+    ``psd_<event>.npz`` (freq, real, fake, n_real, n_fake) and, where
+    matplotlib is installed, ``psd_comparison_<event>.jpg``; and the
+    training-evolution GIF of the trace PNGs, where there are any. Restores
+    the latest (or given) checkpoint when no trainer is given. Returns the
+    paths ("" for what was not drawn)."""
+    import glob
+
+    if trainer is None:
+        trainer = restore_glow_eeg(cfg, step, device)
+    if dataset is None:
+        dataset = EEGDataset(path=cfg.eeg_path, dataset_type="T",
+                             event_type=cfg.event_type, seed=cfg.run.seed)
+    z = trainer.sample_z(torch.Generator(device=trainer.device).manual_seed(
+        cfg.run.seed + EEG_PSD_SEED_OFFSET), n_fake)
+    fake = _eeg_trials(trainer.reverse(z))
+    fake = fake[np.isfinite(fake).all(axis=(1, 2))]
+    real = dataset.as_ncT()
+    fx, psd_r = mean_central_psd(real)
+    _, psd_f = mean_central_psd(fake)
+    od, et = cfg.run.out_dir, cfg.event_type
+    out = {"psd_npz": os.path.join(od, f"psd_{et}.npz"), "psd": "",
+           "gif": ""}
+    np.savez(out["psd_npz"], freq=fx, real=psd_r, fake=psd_f,
+             n_real=len(real), n_fake=len(fake))
+    if have_matplotlib():
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(figsize=(7, 4))
+        ax.semilogy(fx, psd_r, label=f"real (n={len(real)})")
+        ax.semilogy(fx, psd_f, label=f"generated (n={len(fake)})")
+        ax.set_xlabel("frequency [Hz]")
+        ax.set_ylabel("PSD")
+        ax.set_title(f"central-channel PSD, event '{et}'")
+        ax.grid(True, alpha=0.3)
+        ax.legend()
+        out["psd"] = os.path.join(od, f"psd_comparison_{et}.jpg")
+        fig.savefig(out["psd"], bbox_inches="tight", dpi=90)
+        plt.close(fig)
+    frames = sorted(
+        glob.glob(os.path.join(od, "sample",
+                               f"fake_eeg_{et}_training_*.png")),
+        key=lambda p: int(p.rsplit("_", 1)[1].split(".")[0]))
+    if frames:
+        out["gif"] = os.path.join(od, f"training_evolution_{et}.gif")
+        save_gif(frames, out["gif"])
+    print(f"[eval-eeg] psd={out['psd_npz']} figure={out['psd'] or '(none)'} "
+          f"gif={out['gif'] or '(no frames)'}")
     return out
 
 
@@ -833,17 +1028,20 @@ def sample_from_dir(family: str, cfg, n: int = 64,
                     step: Optional[int] = None, seed: int = 42,
                     ddim_steps: int = 0, ddim_eta: float = 0.0,
                     device="cuda") -> str:
-    """Generate a sample grid from a trained checkpoint; writes an
-    (n, H, W, C) ``.npy`` in [-1, 1] and returns its path. ``diffusion``:
-    the DDIM chain (``ddim_steps > 0``) or the full ancestral chain from
-    noise drawn from ``seed``; ``glow``: the reverse flow on
-    temperature z drawn from ``seed``, times 2 (images in [-1, 1]);
-    ``vaegan``, ``vae``, ``gan``, ``wgan``: the decoder / generator in eval
-    mode on z (n, latent) drawn from ``seed``."""
+    """Generate samples from a trained checkpoint; writes an (n, H, W, C)
+    ``.npy`` in [-1, 1] (EEG: (n, C, T) trials, and a trace PNG of the
+    first where matplotlib is installed) and returns its path.
+    ``diffusion``: the DDIM chain (``ddim_steps > 0``) or the full
+    ancestral chain from noise drawn from ``seed``; ``glow``: the reverse
+    flow on temperature z drawn from ``seed``, times 2 (images in
+    [-1, 1]); ``glow-eeg``: the reverse flow of ``ckpt_<event_type>`` on
+    temperature z drawn from ``seed``; ``vaegan``, ``vae``, ``gan``,
+    ``wgan``: the decoder / generator in eval mode on z (n, latent) drawn
+    from ``seed``."""
     restore = {"vaegan": restore_vaegan, "vae": restore_vae,
                "gan": restore_gan, "wgan": restore_gan}
-    if family not in ("diffusion", "glow", *restore):
-        raise NotImplementedError(f"family {family!r} is not ported yet")
+    if family not in ("diffusion", "glow", "glow-eeg", *restore):
+        raise ValueError(f"unknown family {family!r}")
     od = cfg.run.out_dir
     out_path = out_path or os.path.join(od, f"{family}_samples.npy")
     if not out_path.endswith(".npy"):
@@ -860,6 +1058,11 @@ def sample_from_dir(family: str, cfg, n: int = 64,
         z = trainer.sample_z(seed_all(seed, trainer.device), n)
         t0 = time.perf_counter()
         imgs = trainer.reverse(z) * 2.0
+    elif family == "glow-eeg":
+        trainer = restore_glow_eeg(cfg, step, device)
+        z = trainer.sample_z(seed_all(seed, trainer.device), n)
+        t0 = time.perf_counter()
+        imgs = trainer.reverse(z)[:, :, 0, :].permute(0, 2, 1)
     else:
         trainer = restore_trainer(cfg, step, device)
         gen = seed_all(seed, trainer.device)
@@ -875,6 +1078,9 @@ def sample_from_dir(family: str, cfg, n: int = 64,
     imgs = imgs.cpu().numpy()
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     np.save(out_path, imgs)
+    if family == "glow-eeg" and have_matplotlib():
+        plot_eeg_signals(imgs, out_path[:-len(".npy")] + ".png",
+                         channel_names=CHANNEL_NAMES)
     print(f"[sample] {family} checkpoint -> {out_path} "
           f"({time.perf_counter() - t0:.3f} s for {n} images)")
     return out_path
