@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--report PATH] [--only k1|attn|k4|k5|k6|eeg|fid]
+    python3 chip_smoke.py [--report PATH]
+                          [--only k1|attn|k4|k5|k6|eeg|fid|export]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -124,7 +125,22 @@ Run from the root of a checkout on a machine with one CUDA card:
    Inception ``feature_fn`` on their phases' checkpoints, one val batch
    each, their kernel launches exactly those of the same evaluation
    without it;
-13. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+13. the serving export (``io/export.py``) and the real-image data path:
+   (a) the trained DDPM checkpoint exported as ``diffusion`` DDIM-50,
+   n=16, loaded afresh on the card and served with exactly 3 K3 and 14 K4
+   launches a step forward (150 / 700 a request) and no K2, held against
+   the eager ``ddim_sample`` on the same draws; (b) the fused-coupling Glow
+   checkpoint as ``sample``, n=16: 128 K5 forwards a request, held against
+   the eager ``reverse``; (c) the VAE checkpoint as ``denoise`` with a
+   symbolic batch: B=3 and B=64 from one file, and the same file loaded on
+   the CPU held against the card (CANARY_ATOL, CANARY_MEAN); each with
+   export seconds, artifact MB, load seconds and the request time against
+   eager (median of EXPORT_REPEATS); (d) 640 JPEGs of synthetic faces at
+   CelebA's aligned 178x218, ``run_vaegan`` at 256x256, B=64 from that
+   folder (decode rate, step ms), and a second run that must open the
+   cache and decode nothing.
+   ``--only export`` seeds the three checkpoints where none exist;
+14. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -133,8 +149,10 @@ port cannot be imported, or when any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -4070,6 +4088,311 @@ def fid_eval_path(K, report, failures):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Serving export (io/export.py) and the real-image data path
+# ---------------------------------------------------------------------------
+
+# the export phase's request seed, requests and repeats of each timing
+EXPORT_SEED, EXPORT_N, EXPORT_DDIM, EXPORT_REPEATS = 0, 16, 50, 3
+# the artifact against the eager path on the card, the same draws and the
+# same kernels: the difference seen is printed (expected 0); a fault shows
+# far above this bound (images in [-1, 1])
+EXPORT_ATOL = 1e-3
+# the VAE denoiser's CPU canary (the same file loaded on the CPU) against
+# the card: its convs take bf16 operands on both sides, summed in f32 in
+# another order, and every layer rounds its output to bf16, so an
+# activation may flip by a bf16 ulp (2^-8 relative) and carry it to the
+# reconstruction in [-1, 1]. The largest difference is held at 2^-5 (8
+# bf16 ulps of an output near 1), the mean at 1e-3, which a systematic
+# fault would pass (on an H100 the trained checkpoint measured 5.9e-3 and
+# 1.4e-4, a seeded one 1.2e-4 and 1.6e-5)
+CANARY_ATOL, CANARY_MEAN = 2.0 ** -5, 1e-3
+# the data path: CelebA's aligned crops (178 x 218) written as JPEGs, then
+# run_vaegan at 256x256, batch 64, short epochs
+DATA_JPEGS, DATA_STEPS, DATA_EPOCHS = 640, 3, 2
+DATA_JPEG_HW = (218, 178)
+
+
+def request_ms(fn, repeats=EXPORT_REPEATS):
+    """Median host time (ms) of ``repeats`` calls after one warm-up, each
+    ended by a synchronise (a request's time, host work included)."""
+    import statistics
+    import torch
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def seeded_checkpoints():
+    """``--only export``: a seeded checkpoint of the DDPM, Glow and VAE
+    configurations where the full run's training phases left none."""
+    import torch
+    from vgd_tpu_torch.core.config import to_dict
+    from vgd_tpu_torch.core.rng import seed_all
+    from vgd_tpu_torch.io.checkpoint import Checkpointer, has_checkpoint
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    from vgd_tpu_torch.train.vae import VAETrainer
+    cfg = smoke_config()
+    if not has_checkpoint(f"{cfg.run.out_dir}/ckpt"):
+        tr = DiffusionTrainer(cfg, (256, 256, 3), device="cuda")
+        tr.init(seed_all(42, "cuda"))
+        L.save_checkpoint(cfg, tr, 1)
+    for cfg, make in ((glow_config(), lambda c: GlowTrainer(
+            c, (64, 64, 3), device="cuda")), (vae_config(), lambda c:
+            VAETrainer(c, (64, 64, 3), device="cuda"))):
+        if not has_checkpoint(f"{cfg.run.out_dir}/ckpt"):
+            tr = make(cfg)
+            tr.init(seed_all(42, "cuda"))
+            params = (tr.model if hasattr(tr, "model") else tr).state_dict()
+            Checkpointer(f"{cfg.run.out_dir}/ckpt").save(1, params,
+                                                         to_dict(cfg))
+    torch.cuda.empty_cache()
+
+
+def export_one(K, tag, family, cfg, failures, want, eager, **kw):
+    """Export ``family``'s checkpoint, load it with a fresh
+    ``load_artifact`` on the card, serve one request from EXPORT_SEED with
+    exactly the ``want`` launches, hold it against ``eager(meta, draws)``
+    (the same draws through the eager path), and time both (median of
+    EXPORT_REPEATS, draws made beforehand)."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.io.export import (export_serving, load_artifact,
+                                         run_artifact, serving_draws)
+    path = str(OUT_DIR / f"serving_{family}_{kw.get('mode', 'sample')}.pt2")
+    t0 = time.perf_counter()
+    export_serving(family, cfg, n=EXPORT_N, artifact_path=path, **kw)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call, meta = load_artifact(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    draws = serving_draws(meta, EXPORT_SEED)
+    K.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    out = run_artifact(seed=EXPORT_SEED, loaded=(call, meta))
+    torch.cuda.synchronize()
+    launches = check_launches(K, want, tag, failures)
+    ref = eager(meta, draws)
+    err = float(np.abs(out - ref).max())
+    print(f"[{tag}] artifact vs eager (same draws, same kernels): max abs "
+          f"diff {err:.3e} (bound {EXPORT_ATOL})", flush=True)
+    if not (np.isfinite(out).all() and err <= EXPORT_ATOL):
+        failures.append(f"{tag}: artifact vs eager {err}")
+    art_ms = request_ms(lambda: run_artifact(seed=EXPORT_SEED,
+                                             loaded=(call, meta),
+                                             draws=draws))
+    eager_ms = request_ms(lambda: eager(meta, draws))
+    mb = os.path.getsize(path) / 1e6
+    print(f"[{tag}] export {export_s:.2f} s, artifact {mb:.1f} MB, load "
+          f"{load_s:.2f} s; request (n={EXPORT_N}) artifact {art_ms:.3f} ms "
+          f"vs eager {eager_ms:.3f} ms (median of {EXPORT_REPEATS})",
+          flush=True)
+    return {"export_s": export_s, "artifact_mb": mb, "load_s": load_s,
+            "request_ms": art_ms, "eager_ms": eager_ms, "max_abs_diff": err,
+            "launches": launches, "in_specs": meta["in_specs"]}
+
+
+def export_ddpm(K, failures):
+    """(a) The DDPM checkpoint as ``diffusion`` DDIM-50, n=16: 3 K3 and 14
+    K4 per step forward, no K2; against ``ddim_sample`` on the same
+    xt."""
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.diffusion import ddim_timesteps
+    cfg = smoke_config()
+    trainer = L.restore_trainer(cfg, device="cuda")
+    forwards = len(ddim_timesteps(cfg.timesteps, EXPORT_DDIM))
+
+    def eager(meta, draws):
+        return trainer.ddim_sample(draws["xt"].to(trainer.device),
+                                   EXPORT_DDIM, eta=0.0).cpu().numpy()
+    stats = export_one(K, "export-ddpm", "diffusion", cfg, failures,
+                       serving_launches(forwards), eager,
+                       ddim_steps=EXPORT_DDIM)
+    del trainer
+    torch.cuda.empty_cache()
+    return stats
+
+
+def export_glow(K, failures):
+    """(b) The fused-coupling Glow checkpoint as ``sample``, n=16: 128 K5
+    forwards a request; against ``reverse`` on the same z."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    cfg = glow_config()
+    trainer = L.restore_glow(cfg, device="cuda")
+    sizes = [int(np.prod(s)) for s in trainer.z_shapes]
+
+    def eager(meta, draws):
+        z = draws["z"].to(trainer.device)
+        zs = [part.reshape((z.shape[0],) + tuple(s)) * cfg.temperature
+              for part, s in zip(z.split(sizes, 1), trainer.z_shapes)]
+        return (trainer.reverse(zs) * 2.0).float().cpu().numpy()
+    stats = export_one(K, "export-glow", "glow", cfg, failures,
+                       {"glow_coupling_fwd": K5_PER_STEP,
+                        "glow_coupling_bwd1": 0, "glow_coupling_bwd2": 0},
+                       eager)
+    del trainer
+    torch.cuda.empty_cache()
+    return stats
+
+
+def export_vae(K, failures):
+    """(c) The VAE checkpoint as ``denoise --poly-batch``: B=3 and B=64
+    from one file on the card (each against ``denoise`` on the same eps),
+    and the same file loaded on the CPU held against the card at B=3."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data.celeba import synthetic_faces
+    from vgd_tpu_torch.io.export import (export_serving, load_artifact,
+                                         run_artifact, serving_draws)
+    from vgd_tpu_torch.train import loop as L
+    cfg = vae_config()
+    path = str(OUT_DIR / "serving_vae_denoise.pt2")
+    t0 = time.perf_counter()
+    export_serving("vae", cfg, n=2, mode="denoise", poly_batch=True,
+                   artifact_path=path)
+    export_s = time.perf_counter() - t0
+    trainer = L.restore_vae(cfg, device="cuda")
+    card = load_artifact(path, device="cuda")
+    imgs = synthetic_faces(64, (64, 64), seed=EXPORT_SEED + 1)
+    x = imgs.astype(np.float32) / 127.5 - 1.0
+    stats = {"export_s": export_s,
+             "artifact_mb": os.path.getsize(path) / 1e6}
+    outs = {}
+    for b in (3, 64):
+        K.LAUNCHES.clear()
+        out = run_artifact(seed=EXPORT_SEED, inputs=x[:b], loaded=card)
+        eps = serving_draws(card[1], EXPORT_SEED, batch=b)["eps"]
+        ref = trainer.denoise(torch.from_numpy(x[:b]), eps).float().cpu() \
+            .numpy()
+        err = float(np.abs(out - ref).max())
+        ms = request_ms(lambda: run_artifact(seed=EXPORT_SEED, inputs=x[:b],
+                                             loaded=card))
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        print(f"[export-vae] B={b}: out {out.shape}, vs eager denoise max "
+              f"abs diff {err:.3e}, request {ms:.3f} ms, launches {got}",
+              flush=True)
+        if out.shape != x[:b].shape or not np.isfinite(out).all() or \
+                err > EXPORT_ATOL or got:
+            failures.append(f"export-vae B={b}: {out.shape} err {err} "
+                            f"launches {got}")
+        outs[b] = out
+        stats[f"b{b}"] = {"max_abs_diff": err, "request_ms": ms}
+    t0 = time.perf_counter()
+    cpu = load_artifact(path, device="cpu")
+    out_cpu = run_artifact(seed=EXPORT_SEED, inputs=x[:3], loaded=cpu)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(out_cpu - outs[3]).max())
+    mean = float(np.abs(out_cpu - outs[3]).mean())
+    print(f"[export-vae] CPU canary (the same file on the CPU, B=3): max abs "
+          f"diff {err:.3e}, mean {mean:.3e} vs the card (bounds "
+          f"{CANARY_ATOL}, {CANARY_MEAN}); load + request {cpu_s:.2f} s",
+          flush=True)
+    if not (err <= CANARY_ATOL and mean <= CANARY_MEAN):
+        failures.append(f"export-vae CPU canary: max {err}, mean {mean}")
+    stats["canary"] = {"max_abs_diff": err, "mean_abs_diff": mean,
+                       "seconds": cpu_s}
+    del trainer
+    torch.cuda.empty_cache()
+    return stats
+
+
+def data_path(K, failures):
+    """(d) DATA_JPEGS synthetic faces written at CelebA's aligned size as
+    JPEGs; ``run_vaegan`` at 256x256, batch 64, from that folder for
+    DATA_EPOCHS epochs of DATA_STEPS steps (the decode rate and the step
+    time printed); a second run opens the cache and decodes nothing."""
+    import numpy as np
+    from PIL import Image
+    from vgd_tpu_torch.data import celeba
+    from vgd_tpu_torch.train import loop as L
+    folder = OUT_DIR / "jpeg_faces"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    t0 = time.perf_counter()
+    for i, img in enumerate(celeba.synthetic_faces(DATA_JPEGS, DATA_JPEG_HW,
+                                                   seed=3)):
+        Image.fromarray(img).save(folder / f"{i:06d}.jpg", quality=95)
+    write_s = time.perf_counter() - t0
+    decoded, decode_s = [], []
+    decode_one, decode_folder = celeba._decode_one, celeba._decode_folder
+
+    def counting_one(*args):
+        decoded.append(1)
+        return decode_one(*args)
+
+    def timed_folder(*args, **kwargs):
+        t = time.perf_counter()
+        out = decode_folder(*args, **kwargs)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    base = vaegan_config()
+    stats = {"jpegs": DATA_JPEGS, "write_s": write_s, "runs": []}
+    celeba._decode_one, celeba._decode_folder = counting_one, timed_folder
+    try:
+        for run in range(2):
+            cfg = dataclasses.replace(
+                base, data=dataclasses.replace(base.data, path=str(folder)),
+                run=dataclasses.replace(base.run, out_dir=str(
+                    OUT_DIR / f"vaegan_data{run}")), epochs=DATA_EPOCHS)
+            shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+            decoded.clear()
+            decode_s.clear()
+            res = L.run_vaegan(cfg, max_steps_per_epoch=DATA_STEPS,
+                               device="cuda")
+            ips = [row["images_per_sec"] for row in res["log"]]
+            step_ms = [cfg.data.batch_size / v * 1e3 for v in ips]
+            rate = len(decoded) / decode_s[0] if decoded else 0.0
+            h, w = cfg.data.image_size
+            print(f"[data] run {run + 1}: decoded {len(decoded)} JPEGs in "
+                  f"{decode_s[0]:.3f} s ({rate:.1f} img/s); run_vaegan "
+                  f"{h}x{w} B={cfg.data.batch_size} step ms by epoch "
+                  + " ".join(f"{v:.3f}" for v in step_ms)
+                  + f" (logged images/s, host work included)", flush=True)
+            finite = all(np.isfinite(v) for row in res["log"]
+                         for v in row.values())
+            stats["runs"].append({"decoded": len(decoded),
+                                  "decode_s": decode_s[0],
+                                  "decode_img_per_s": rate,
+                                  "step_ms": step_ms})
+            want = DATA_JPEGS if run == 0 else 0
+            if len(decoded) != want or not finite:
+                failures.append(f"data run {run + 1}: decoded "
+                                f"{len(decoded)}, want {want}")
+    finally:
+        celeba._decode_one, celeba._decode_folder = decode_one, decode_folder
+    return stats
+
+
+def export_path(K, failures):
+    """The serving export and the data path (a)-(d); K3, K4 and K5 launches
+    by request in ``launches``."""
+    t0 = time.perf_counter()
+    stats = {"ddpm": export_ddpm(K, failures),
+             "glow": export_glow(K, failures),
+             "vae": export_vae(K, failures),
+             "data": data_path(K, failures)}
+    stats["launches"] = {
+        name: stats["ddpm"]["launches"].get(name, 0)
+        + stats["glow"]["launches"].get(name, 0)
+        for name in ("flash_attention", "groupnorm_silu",
+                     "glow_coupling_fwd")}
+    stats["phase_s"] = time.perf_counter() - t0
+    print(f"[export] phase {stats['phase_s']:.1f} s", flush=True)
+    return stats
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
@@ -4083,7 +4406,9 @@ ONLY = {"k1": ("conv_bn_stats.cu",),
         "k5": ("glow_coupling.cu",),
         "k6": ("glow_flow_stack.cu", "glow_coupling.cu"),
         "eeg": (),
-        "fid": ()}
+        "fid": (),
+        "export": ("flash_attention.cu", "groupnorm_silu.cu",
+                   "glow_coupling.cu")}
 # optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
 # figure need matplotlib; the port computes without any of them)
 OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
@@ -4098,8 +4423,10 @@ def main(argv=None) -> int:
                     "(k1; attn: K2 fwd, dq, dk/dv and K3; k4, with its plan, "
                     "phases and the exchange probe; k5; k6, with the "
                     "per-flow K5 path it is timed against; eeg: the EEG "
-                    "phase; fid: the Inception checks and timing) with no "
-                    "main path and no result line; exit 0 if it passed")
+                    "phase; fid: the Inception checks and timing; export: "
+                    "the serving export and data path on seeded "
+                    "checkpoints) with no main path and no result line; "
+                    "exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4167,6 +4494,9 @@ def main(argv=None) -> int:
             report["eeg"] = eeg_path(K, failures)
         elif args.only == "fid":
             report["inception"] = check_inception(failures)
+        elif args.only == "export":
+            seeded_checkpoints()
+            report["export"] = export_path(K, failures)
         if args.only:
             raise _PartialRun
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -4202,6 +4532,8 @@ def main(argv=None) -> int:
         report["eeg"] = eeg_path(K, failures)
         report["inception"] = check_inception(failures)
         report["fid_eval"] = fid_eval_path(K, report, failures)
+        report["export"] = export_path(K, failures)
+        exp_l = report["export"]["launches"]
         fid_l = {name: sum(r["launches"].get(name, 0) for r in
                            report["fid_eval"].values() if isinstance(r, dict))
                  for name in ("flash_attention", "groupnorm_silu",
@@ -4226,30 +4558,35 @@ def main(argv=None) -> int:
             dict(kernel_entry("flash_attention", fwd_src,
                               "vgd_tpu/ops/pallas_kernels.py:63", attn_rows,
                               serve_l["flash_attention"]
-                              + fid_l["flash_attention"], per_fwd),
+                              + fid_l["flash_attention"]
+                              + exp_l["flash_attention"], per_fwd),
                  launches_by_path={
                      "serve": serve_l["flash_attention"],
-                     "fid_eval": fid_l["flash_attention"]}),
+                     "fid_eval": fid_l["flash_attention"],
+                     "export": exp_l["flash_attention"]}),
             dict(kernel_entry("groupnorm_silu",
                               "vgd_tpu_torch/csrc/groupnorm_silu.cu",
                               "vgd_tpu/ops/pallas_kernels.py:193", gn_rows,
                               serve_l["groupnorm_silu"]
-                              + fid_l["groupnorm_silu"], per_fwd),
+                              + fid_l["groupnorm_silu"]
+                              + exp_l["groupnorm_silu"], per_fwd),
                  form="f32 in and out (the TPU kernel's function)",
                  main_path_forms=report["k4_main_path"],
                  launches_by_path={
                      "serve": serve_l["groupnorm_silu"],
-                     "fid_eval": fid_l["groupnorm_silu"]}),
+                     "fid_eval": fid_l["groupnorm_silu"],
+                     "export": exp_l["groupnorm_silu"]}),
             k1_entry(k1_rows, report)] + [
             dict(kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_coupling.cu",
                 f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
                 report["glow"]["train"]["launches_total"][name]
-                + fid_l.get(name, 0),
+                + fid_l.get(name, 0) + exp_l.get(name, 0),
                 "one 64x64 batch-16 Glow train step (K=32, L=4)"),
                 launches_by_path={
                     "train": report["glow"]["train"]["launches_total"][name],
-                    "fid_eval": fid_l.get(name, 0)})
+                    "fid_eval": fid_l.get(name, 0),
+                    "export": exp_l.get(name, 0)})
             for name, line in zip(K5_NAMES, (164, 206, 266))]
         # K6's forward and backward run on the training path, its no-save
         # forward on the likelihood path (the serve phase)

@@ -61,9 +61,19 @@ def test_loaders_match_jax():
         np.testing.assert_array_equal(bp, bj)
 
 
-def test_image_folder_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        PDATA.make_image_datasets(PC.DataConfig(path="faces"))
+def test_image_folder_not_ported_yet(tmp_path, capsys):
+    """A path that is not a folder falls back to synthetic faces, as in the
+    JAX package (the folder decode itself: tests/test_torch_port_io.py)."""
+    missing = str(tmp_path / "faces")
+    cfg_p = PC.DataConfig(path=missing, image_size=(8, 8), batch_size=4,
+                          dataset_size=10)
+    cfg_j = JC.DataConfig(path=missing, image_size=(8, 8), batch_size=4,
+                          dataset_size=10)
+    tp, _, shape = PDATA.make_image_datasets(cfg_p, seed=2)
+    tj, _, _ = JDATA.make_image_datasets(cfg_j, seed=2)
+    assert shape == (8, 8, 3)
+    np.testing.assert_array_equal(tp.ds.array, tj.ds.array)
+    assert f"{missing} is not a folder" in capsys.readouterr().out
 
 
 def test_image_ops_and_metrics_match_jax():

@@ -52,7 +52,7 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
         K.flash_attention(q.half(), q.half(), q.half())
     strided = torch.randn(1, 256, 64, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        K.flash_attention(strided, q, q)
+        K.flash_attention_cuda(strided, q, q, 0.0625)
     with pytest.raises(ValueError):
         K.flash_attention(q, q.cpu(), q)
 
@@ -116,7 +116,7 @@ def test_groupnorm_silu_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K.groupnorm_silu(x.half(), one, zero)
     with pytest.raises(ValueError, match="contiguous"):
-        K.groupnorm_silu(x.transpose(1, 2), one, zero)
+        K.groupnorm_silu_cuda(x.transpose(1, 2), one, zero)
     with pytest.raises(ValueError, match="multiple of 8"):
         K.groupnorm_silu(torch.randn(2, 8, 8, 12, device=cuda),
                          torch.ones(12, device=cuda),
@@ -680,9 +680,9 @@ def test_k5_is_deterministic_and_refuses_what_it_cannot_take(cuda):
                             v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
                             (1, 1))
     with pytest.raises(ValueError, match="contiguous"):
-        K.glow_coupling_fwd(p["ya"], p["w1f"], v["b1"], p["w2t"].t(),
-                            v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
-                            (1, 1))
+        K.glow_coupling_fwd_cuda(p["ya"], p["w1f"], v["b1"], p["w2t"].t(),
+                                 v["b2"], p["wz"], v["bz"], v["scale"],
+                                 (3, 3), (1, 1))
     with pytest.raises(ValueError):
         K.glow_coupling_fwd(p["ya"].cpu(), p["w1f"], v["b1"], p["w2"],
                             v["b2"], p["wz"], v["bz"], v["scale"], (3, 3),
@@ -1061,3 +1061,91 @@ def test_flash_forward_sites_match_plain_and_are_bit_equal(cuda, b, n, m, d,
     for a, a2, r in zip(got, again, ref):
         assert torch.equal(a, a2)
         assert float((a - r).abs().max()) <= chip_smoke.ATTN_ATOL
+
+
+# the registered ops (vgd::) against the direct kernel wrappers: the op's
+# CUDA implementation is the wrapper, so the outputs are bit-equal and each
+# call counts one launch
+def test_registered_ops_equal_the_direct_wrappers(cuda):
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (torch.randn(2, s, 64, device=cuda, generator=g)
+               for s in (129, 33, 33))
+    K.LAUNCHES.clear()
+    assert torch.equal(torch.ops.vgd.flash_attention(q, k, v, 0.125),
+                       K.flash_attention_cuda(q, k, v, 0.125))
+    x = torch.randn(2, 8, 8, 64, device=cuda, generator=g)
+    res = torch.randn(2, 8, 8, 64, device=cuda, generator=g).bfloat16()
+    w, b = torch.rand(64, device=cuda) + 0.5, torch.randn(64, device=cuda)
+    for kw in ({}, {"out_dtype": torch.bfloat16, "residual": res}):
+        op = torch.ops.vgd.groupnorm_silu(x.bfloat16(), w, b, 8, 1e-5,
+                                          kw.get("out_dtype"),
+                                          kw.get("residual"))
+        assert torch.equal(op, K.groupnorm_silu_cuda(x.bfloat16(), w, b, 8,
+                                                     1e-5, **kw))
+    p, vec = k5_inputs(cuda, 2, 8, 8, 6, 64, torch.bfloat16, 21)
+    args = (p["ya"], p["w1f"], vec["b1"], p["w2"], vec["b2"], p["wz"])
+    op = torch.ops.vgd.glow_coupling_fwd(*args, p["wzf"], vec["bz"],
+                                         vec["scale"], [3, 3], [1, 1])
+    assert torch.equal(op, K.glow_coupling_fwd_cuda(
+        *args, vec["bz"], vec["scale"], (3, 3), (1, 1), wzf=p["wzf"]))
+    assert dict(K.LAUNCHES) == {"flash_attention": 2, "groupnorm_silu": 4,
+                                "glow_coupling_fwd": 2}
+    # an exported program may hand an op a layout it was not traced with:
+    # the op copies to contiguous, the direct wrapper refuses
+    strided = torch.randn(2, 64, 129, device=cuda,
+                          generator=g).transpose(1, 2)
+    assert torch.equal(torch.ops.vgd.flash_attention(strided, k, v, 0.125),
+                       K.flash_attention_cuda(strided.contiguous(), k, v,
+                                              0.125))
+    xt = x.transpose(1, 2)
+    assert torch.equal(torch.ops.vgd.groupnorm_silu(xt, w, b, 8, 1e-5, None,
+                                                    None),
+                       K.groupnorm_silu_cuda(xt.contiguous(), w, b))
+
+
+def test_loaded_artifacts_count_their_launches(cuda, tmp_path):
+    """A DDIM-3 DDPM artifact (3 K3 and 14 K4 a step) and a fused-coupling
+    Glow artifact (one K5 a flow), exported from seeded checkpoints and
+    loaded on the card, launch exactly those kernels and agree with the
+    eager path on the same draws."""
+    import numpy as np
+    from vgd_tpu_torch.core.config import (DataConfig, DiffusionConfig,
+                                           GlowConfig, RunConfig, to_dict)
+    from vgd_tpu_torch.core.rng import seed_all
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.io.export import (export_serving, load_artifact,
+                                         run_artifact, serving_draws)
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    cfg = DiffusionConfig(data=DataConfig(image_size=(32, 32)), base_ch=16,
+                          time_emb_dim=32, timesteps=20,
+                          run=RunConfig(out_dir=str(tmp_path / "ddpm")))
+    tr = DiffusionTrainer(cfg, (32, 32, 3), device=cuda)
+    tr.init(seed_all(0, cuda))
+    L.save_checkpoint(cfg, tr, 1)
+    call, meta = load_artifact(export_serving(
+        "diffusion", cfg, n=2, ddim_steps=3,
+        artifact_path=str(tmp_path / "d.pt2")), device="cuda")
+    draws = serving_draws(meta, 1)
+    K.LAUNCHES.clear()
+    out = run_artifact(seed=1, loaded=(call, meta))
+    assert dict(K.LAUNCHES) == {"flash_attention": 9, "groupnorm_silu": 42}
+    want = tr.ddim_sample(draws["xt"].to(cuda), 3, eta=0.0).cpu().numpy()
+    assert np.array_equal(out, want)
+
+    gcfg = GlowConfig(data=DataConfig(image_size=(16, 16), normalize=False),
+                      n_flows=2, n_blocks=2, filter_size=64,
+                      fused_coupling=True,
+                      run=RunConfig(out_dir=str(tmp_path / "glow")))
+    gt = GlowTrainer(gcfg, (16, 16, 3), device=cuda)
+    gt.init(seed_all(0, cuda))
+    Checkpointer(str(tmp_path / "glow" / "ckpt")).save(
+        1, gt.model.state_dict(), to_dict(gcfg))
+    call, meta = load_artifact(export_serving(
+        "glow", gcfg, n=2, artifact_path=str(tmp_path / "g.pt2")),
+        device="cuda")
+    K.LAUNCHES.clear()
+    out = run_artifact(seed=1, loaded=(call, meta))
+    assert dict(K.LAUNCHES) == {"glow_coupling_fwd": 4}
+    assert np.isfinite(out).all() and out.shape == (2, 16, 16, 3)

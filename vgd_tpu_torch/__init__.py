@@ -7,7 +7,12 @@ The port trains DDPM (``train.loop.run_diffusion``, the ``diffusion`` CLI
 command), checkpoints and resumes it, and serves the result: sampling and
 partial-noise restoration (``train.loop.sample_from_dir`` /
 ``evaluate_diffusion``). It trains, evaluates and serves the VAE-GAN, the
-denoising VAE, DCGAN / WGAN and Glow the same way. Kernels written by
+denoising VAE, DCGAN / WGAN and Glow the same way, reads JPEG folders
+through a uint8 memmap cache (``data.celeba``), imports the reference's
+PyTorch checkpoints (``io.torch_import``), and exports any checkpoint's
+serving program as one ``torch.export`` artifact that runs without the
+model code (``io.export``, the ``export`` / ``infer`` commands; the serving
+kernels are registered ``vgd::`` ops). Kernels written by
 hand, all CUDA C++ (``csrc/``): the differentiable FlashAttention-2 of the
 DDPM train step (``flash_attention.cu`` forward, ``flash_attention_bwd.cu``
 dq and dk/dv), single-head flash attention for serving in the same forward

@@ -1,5 +1,6 @@
 """Command line of the port (``vgd_tpu/cli.py``), DDPM, VAE-GAN, the
-denoising VAE, DCGAN / WGAN and Glow:
+denoising VAE, DCGAN / WGAN, Glow and its EEG variant, and their serving
+export:
 
   python -m vgd_tpu_torch.cli diffusion --epochs 100 --out-dir runs/diffusion \\
       [--steps-per-epoch 8] [--resume] [--profile-dir runs/diffusion/trace]
@@ -38,6 +39,11 @@ denoising VAE, DCGAN / WGAN and Glow:
       [--ckpt-dir runs/glow_eeg] [--subjects 01 02] [--n-samples 288]
   python -m vgd_tpu_torch.cli eval-gan|eval-vae|eval-glow|eval-diffusion \
       --fid [--inception-weights pt_inception.pth]
+  python -m vgd_tpu_torch.cli export --family diffusion --out-dir runs/ddpm \
+      [-n 16] [--ddim-steps 50] [--mode denoise --poly-batch] \
+      [--platforms cuda,cpu] [--artifact serving.pt2]
+  python -m vgd_tpu_torch.cli infer --artifact serving.pt2 [--seed 0] \
+      [--out grid.jpg] [--input x.npy|img.jpg] [--device cpu]
 
 ``diffusion``, ``vaegan``, ``vae``, ``gan``, ``wgan`` and ``glow`` train
 (``train.loop.run_diffusion`` / ``run_vaegan`` / ``run_vae`` / ``run_gan``
@@ -53,7 +59,13 @@ InceptionV3 state_dict; without it the seeded surrogate's keys end in
 ``wgan`` trains 1500 epochs unless ``--epochs`` says otherwise (the
 reference's scale). ``denoise`` reads an image file or every ``*.jpg`` of
 a folder with PIL (imported there only) and writes the restorations as
-images. All run on ``--device cuda`` unless ``--device cpu`` is given.
+images. ``export`` traces a checkpoint's serving program into one ``.pt2``
+(``io/export.py``: the sampler, one diffusion step, or the denoiser, with
+the kernels as registered ops) and ``infer`` runs it with no model code.
+``--data`` names a folder of ``*.jpg`` (decoded once into a uint8 memmap
+cache; synthetic faces without it); ``--debug-nans`` trains under
+autograd's anomaly detection. All run on ``--device cuda`` unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -66,6 +78,10 @@ from vgd_tpu_torch.core import config as C
 
 
 def _add_common(p, serving=True):
+    p.add_argument("--data", type=str, default=None,
+                   help="folder of *.jpg, decoded once into a uint8 memmap "
+                   "cache beside them (default, or not a folder: synthetic "
+                   "faces)")
     p.add_argument("--out-dir", type=str, default=None,
                    help="default: the family's config (runs/<family>)")
     p.add_argument("--batch-size", type=int, default=None)
@@ -135,13 +151,19 @@ def _add_eeg(p, sizes=True):
                        help="coupling width (512)")
 
 
+# RunConfig fields a command line may set (a flag left out leaves the
+# config's value)
+_RUN_ARGS = ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints",
+             "debug_nans")
+
+
 def _eeg_cfg(a) -> C.GlowEEGConfig:
     """``GlowEEGConfig`` with the values given on the command line."""
     top = {k: getattr(a, k) for k in (
         "n_flows", "n_blocks", "filter_size", "batch_size", "lr")
         if getattr(a, k, None) is not None}
     run = {"seed": a.seed}
-    for k in ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints"):
+    for k in _RUN_ARGS:
         if getattr(a, k, None) is not None:
             run[k] = getattr(a, k)
     cfg = C.GlowEEGConfig(event_type=a.event_type, eeg_path=a.eeg_path)
@@ -244,11 +266,14 @@ def _add_training(p):
 
 def _add_optim(p):
     """The training commands' --lr and --keep-checkpoints (each command of
-    the reference takes both)."""
+    the reference takes both) and --debug-nans."""
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default: the config's)")
     p.add_argument("--keep-checkpoints", type=int, default=None,
                    help="checkpoint retention count (default 3)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="train under autograd anomaly detection: a "
+                   "backward that makes a NaN raises, naming its op")
 
 
 def _with_args(cfg, a, **run):
@@ -257,8 +282,10 @@ def _with_args(cfg, a, **run):
             if getattr(a, k) is not None}
     if a.image_size is not None:
         data["image_size"] = (a.image_size, a.image_size)
+    if getattr(a, "data", None) is not None:
+        data["path"] = a.data
     run["seed"] = a.seed
-    for k in ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints"):
+    for k in _RUN_ARGS:
         if getattr(a, k, None) is not None:
             run[k] = getattr(a, k)
     top = {k: getattr(a, k) for k in ("epochs", "lr")
@@ -337,6 +364,100 @@ def _glow_cfg(a) -> C.GlowConfig:
         fused_coupling=bool(getattr(a, "fused_coupling", False)),
         flow_stack=_flow_stack(getattr(a, "flow_stack", None)), **sizes), a,
         **run)
+
+
+def _add_family(p):
+    """``sample`` and ``export``: the family and its model flags."""
+    _add_common(p)
+    _add_diffusion(p)
+    _add_glow(p)
+    _add_vae(p)
+    _add_eeg(p, sizes=False)
+    p.add_argument("--family", required=True,
+                   choices=["diffusion", "vaegan", "vae", "gan", "wgan",
+                            "glow", "glow-eeg"])
+    p.add_argument("-n", "--num-samples", type=int, default=64)
+    p.add_argument("--ddim-steps", type=int, default=0,
+                   help=">0 samples through the strided DDIM chain instead "
+                   "of the full ancestral chain")
+    p.add_argument("--ddim-eta", type=float, default=0.0)
+
+
+def _family_cfg(a):
+    """The config of ``a.family`` with the values given on the command
+    line."""
+    if a.family == "glow-eeg":
+        cfg = _eeg_cfg(a)
+    elif a.family == "vae":
+        cfg = _vae_cfg(a)
+    elif a.family in ("gan", "wgan"):
+        cfg = _gan_cfg(a, a.family == "wgan")
+    elif a.family == "glow":
+        cfg = _glow_cfg(a)
+    elif a.family == "vaegan":
+        cfg = _vaegan_cfg(a)
+    else:
+        cfg = _diffusion_cfg(a)
+    if getattr(a, "temperature", None) is not None:
+        if a.family not in ("glow", "glow-eeg"):
+            raise SystemExit("--temperature applies to glow and glow-eeg")
+        cfg = dataclasses.replace(cfg, temperature=a.temperature)
+    return cfg
+
+
+def _infer(a) -> None:
+    """One serving call on an ``export`` artifact: no model code, config or
+    checkpoint is read, only the program. A static-batch denoise artifact
+    takes the request padded (by repetition) or cut to its n."""
+    import os
+
+    import numpy as np
+    from vgd_tpu_torch.io.export import load_artifact, run_artifact
+
+    call, meta = load_artifact(a.artifact, device=a.device)
+    inputs = None
+    if meta.get("mode") == "denoise":
+        if not a.input:
+            raise SystemExit("denoise artifact needs --input "
+                             "(.npy batch or image file)")
+        if a.input.endswith(".npy"):
+            inputs = np.load(a.input).astype(np.float32)
+            if inputs.ndim == 3:                 # a single (H, W, C) image
+                inputs = inputs[None]
+            if inputs.ndim != 4:
+                raise SystemExit(f"--input {a.input}: expected [H,W,C] or "
+                                 f"[N,H,W,C], got shape {inputs.shape}")
+        else:
+            from PIL import Image
+            h, w = meta["inputs"][0][1][1:3]
+            img = Image.open(a.input).convert("RGB").resize((w, h))
+            inputs = np.asarray(img, np.float32)[None] / 127.5 - 1.0
+        if not meta.get("poly_batch"):
+            n = int(meta["n"])
+            if inputs.shape[0] > n:
+                print(f"[infer] warning: --input batch {inputs.shape[0]} > "
+                      f"exported n={n}; only the first {n} rows are "
+                      f"processed (re-export with --poly-batch to serve "
+                      f"any batch size)")
+            reps = -(-n // inputs.shape[0])      # pad by repetition to n
+            inputs = np.tile(inputs, (reps, 1, 1, 1))[:n]
+    out = run_artifact(seed=a.seed, inputs=inputs, loaded=(call, meta))
+    base = a.out or a.artifact.rsplit(".", 1)[0]
+    if meta.get("family") == "glow-eeg":
+        from vgd_tpu_torch.data.eeg import CHANNEL_NAMES
+        from vgd_tpu_torch.utils.viz import have_matplotlib, plot_eeg_signals
+        stem = os.path.splitext(base)[0]
+        dst = stem + ".npz"
+        np.savez(dst, signals=out)
+        if have_matplotlib():
+            plot_eeg_signals(out[:, :, 0, :].transpose(0, 2, 1),
+                             stem + ".png", channel_names=CHANNEL_NAMES)
+    else:
+        from vgd_tpu_torch.io.artifacts import save_grid
+        dst = base if base.endswith((".jpg", ".png")) else base + ".jpg"
+        save_grid(out, dst)
+    print(f"[infer] {a.artifact} (mode={meta.get('mode', 'sample')}, "
+          f"{meta['device']}) -> {dst}  out shape {out.shape}")
 
 
 def _flow_stack(arg):
@@ -442,20 +563,43 @@ def main(argv=None):
     p.add_argument("--max-batches", type=int, default=None)
 
     p = sub.add_parser("sample", help="sample grid from a checkpoint")
-    _add_common(p)
-    _add_diffusion(p)
-    _add_glow(p)
-    _add_vae(p)
-    _add_eeg(p, sizes=False)
-    p.add_argument("--family", required=True,
-                   choices=["diffusion", "vaegan", "vae", "gan", "wgan",
-                            "glow", "glow-eeg"])
-    p.add_argument("-n", "--num-samples", type=int, default=64)
+    _add_family(p)
     p.add_argument("--out", type=str, default=None)
-    p.add_argument("--ddim-steps", type=int, default=0,
-                   help=">0 samples through the strided DDIM chain instead "
-                   "of the full ancestral chain")
-    p.add_argument("--ddim-eta", type=float, default=0.0)
+
+    p = sub.add_parser("export", help="serving export: trace a trained "
+                       "checkpoint's inference program (sampler, one "
+                       "diffusion step, or denoiser) with torch.export into "
+                       "one .pt2, parameters in it, for cuda and cpu "
+                       "(io/export.py; run it with `infer`)")
+    _add_family(p)
+    p.add_argument("--mode", default="sample", choices=["sample", "denoise"],
+                   help="sample: draws -> image batch; denoise: (images, "
+                   "draw) -> reconstructions (vae / vaegan)")
+    p.add_argument("--temperature", type=float, default=None,
+                   help="glow / glow-eeg: z temperature (default: the "
+                   "config's)")
+    p.add_argument("--platforms", type=str, default="cuda,cpu",
+                   help="comma-separated devices the artifact may be "
+                   "loaded on")
+    p.add_argument("--artifact", type=str, default=None,
+                   help="output path (default "
+                   "<out-dir>/serving_<family>_<mode>.pt2)")
+    p.add_argument("--poly-batch", action="store_true",
+                   help="denoise exports: a symbolic batch dimension, so one "
+                   "artifact serves any request batch size")
+
+    p = sub.add_parser("infer", help="load an `export` artifact and run one "
+                       "serving call (no model code, config or checkpoint)")
+    p.add_argument("--artifact", required=True)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", type=str, default=None,
+                   help="output grid .jpg / .png (glow-eeg: .npz, and a "
+                   "trace .png where matplotlib imports); default next to "
+                   "the artifact")
+    p.add_argument("--input", type=str, default=None,
+                   help="denoise artifacts: .npy batch or image file")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
 
     p = sub.add_parser("eval-diffusion", help="partial-noise restoration "
                        "evaluation (SSIM, PSNR, MSE) of a checkpoint")
@@ -513,10 +657,22 @@ def main(argv=None):
         print(json.dumps(L.eeg_psd_and_gif(_eeg_cfg(a), n_fake=a.n_fake,
                                            step=a.step, device=a.device)))
         return 0
-    if a.cmd == "sample" and a.family == "glow-eeg":
-        L.sample_from_dir("glow-eeg", _eeg_cfg(a), n=a.num_samples,
+    if a.cmd == "sample":
+        L.sample_from_dir(a.family, _family_cfg(a), n=a.num_samples,
                           out_path=a.out, step=a.step, seed=a.seed,
+                          ddim_steps=a.ddim_steps, ddim_eta=a.ddim_eta,
                           device=a.device)
+        return 0
+    if a.cmd == "export":
+        from vgd_tpu_torch.io.export import export_serving
+        export_serving(a.family, _family_cfg(a), n=a.num_samples,
+                       mode=a.mode, step=a.step, ddim_steps=a.ddim_steps,
+                       ddim_eta=a.ddim_eta,
+                       platforms=tuple(a.platforms.split(",")),
+                       artifact_path=a.artifact, poly_batch=a.poly_batch)
+        return 0
+    if a.cmd == "infer":
+        _infer(a)
         return 0
     if a.cmd == "denoise":
         _denoise(a)
@@ -550,12 +706,6 @@ def main(argv=None):
             max_checkpoints=a.max_checkpoints, device=a.device)
         print(json.dumps(res))
         return 0
-    if a.cmd == "sample" and a.family in ("vae", "gan", "wgan"):
-        cfg = _vae_cfg(a) if a.family == "vae" else \
-            _gan_cfg(a, a.family == "wgan")
-        L.sample_from_dir(a.family, cfg, n=a.num_samples, out_path=a.out,
-                          step=a.step, seed=a.seed, device=a.device)
-        return 0
 
     if a.cmd == "glow":
         L.run_glow(_glow_cfg(a), n_iter=a.iters, resume=a.resume,
@@ -567,29 +717,15 @@ def main(argv=None):
             max_batches=a.max_batches, step=a.step, device=a.device)
         print(json.dumps(res))
         return 0
-    if a.cmd == "sample" and a.family == "glow":
-        L.sample_from_dir("glow", _glow_cfg(a), n=a.num_samples,
-                          out_path=a.out, step=a.step, seed=a.seed,
-                          device=a.device)
-        return 0
     if a.cmd == "vaegan":
         L.run_vaegan(_vaegan_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
                      feature_fn=_feature_fn(a), resume=a.resume,
                      device=a.device)
         return 0
-    if a.cmd == "sample" and a.family == "vaegan":
-        L.sample_from_dir("vaegan", _vaegan_cfg(a), n=a.num_samples,
-                          out_path=a.out, step=a.step, seed=a.seed,
-                          device=a.device)
-        return 0
     cfg = _diffusion_cfg(a)
     if a.cmd == "diffusion":
         L.run_diffusion(cfg, max_steps_per_epoch=a.steps_per_epoch,
                         resume=a.resume, device=a.device)
-    elif a.cmd == "sample":
-        L.sample_from_dir(a.family, cfg, n=a.num_samples, out_path=a.out,
-                          step=a.step, seed=a.seed, ddim_steps=a.ddim_steps,
-                          ddim_eta=a.ddim_eta, device=a.device)
     else:
         res = L.evaluate_diffusion_from_dir(cfg, feature_fn=_feature_fn(a),
                                             max_batches=a.max_batches,

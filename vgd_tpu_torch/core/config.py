@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class DataConfig:
-    """CelebA(-HQ) pipeline. Only the synthetic source is ported so far."""
+    """CelebA(-HQ) pipeline."""
     path: Optional[str] = None          # folder of *.jpg; None => synthetic data
     image_size: Tuple[int, int] = (64, 64)
     channels: int = 3
@@ -46,6 +46,9 @@ class RunConfig:
     # fused Conv4x4s2 + BatchNorm + LeakyReLU (K1) in the encoder and
     # discriminator train paths; off by default, as in the JAX package
     fused_conv: bool = False
+    # the run_* loops under torch.autograd.set_detect_anomaly (the
+    # counterpart of jax_debug_nans): a backward that makes a NaN raises
+    debug_nans: bool = False
 
 
 @dataclass(frozen=True)

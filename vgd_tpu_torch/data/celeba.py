@@ -1,13 +1,27 @@
-"""Image datasets (``vgd_tpu/data/celeba.py``), synthetic source only.
+"""Image datasets (``vgd_tpu/data/celeba.py``): a folder of JPEGs decoded
+once into a uint8 memmap cache, or synthetic faces.
 
-``synthetic_faces`` is the same numpy code as the JAX package's, so both
-packages see the same bytes from a seed. Folder-of-JPEG decoding needs PIL
-and waits for the data slice: a ``path`` raises ``NotImplementedError``.
-Batches are uint8 host arrays; the consumer moves them to its device.
+``_decode_one`` and ``_decode_folder`` are the JAX package's decode: PIL
+resizes the short side (bilinear) and crops the centre, uint8; the decode
+runs on a thread pool (PIL releases the GIL in the JPEG decoder and the
+resampler) and the memmap is flushed in chunks. The cache is the same
+``.npy`` file under the same name (``.vgd_cache_{h}x{w}_{tag}.npy``, in the
+folder, or ``~/.cache/vgd_tpu_data`` when the folder is read-only), so
+either package opens the other's. A ``path`` that is not a folder falls
+back to synthetic faces, as in the JAX package; ``make_image_datasets``
+prints one ``[data]`` line naming the source. ``synthetic_faces`` is the
+same numpy code as the JAX package's, so both packages see the same bytes
+from a seed. Batches are uint8 host arrays; the consumer moves them to its
+device. PIL is imported where a JPEG is decoded, only.
 """
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import concurrent.futures
+import glob
+import hashlib
+import os
+import time
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +46,71 @@ class ArrayDataset:
 
     def __getitem__(self, idx):
         return self.array[idx]
+
+
+def _decode_one(p: str, h: int, w: int) -> np.ndarray:
+    """One JPEG: resize so the short side matches (bilinear), then crop the
+    centre, uint8 (h, w, 3)."""
+    from PIL import Image
+
+    img = Image.open(p).convert("RGB")
+    iw, ih = img.size
+    scale = max(h / ih, w / iw)
+    nw, nh = max(int(round(iw * scale)), w), max(int(round(ih * scale)), h)
+    img = img.resize((nw, nh), Image.BILINEAR)
+    left, top = (nw - w) // 2, (nh - h) // 2
+    img = img.crop((left, top, left + w, top + h))
+    return np.asarray(img, dtype=np.uint8)
+
+
+def cache_path(path: str, image_size: Tuple[int, int], count: int) -> str:
+    """The memmap cache of ``count`` images of ``path`` at ``image_size``
+    (the JAX package's name)."""
+    h, w = image_size
+    tag = hashlib.md5(f"{path}|{h}x{w}|{count}".encode()).hexdigest()[:12]
+    cache_dir = path if os.access(path, os.W_OK) else os.path.expanduser(
+        "~/.cache/vgd_tpu_data")
+    return os.path.join(cache_dir, f".vgd_cache_{h}x{w}_{tag}.npy")
+
+
+def _decode_folder(path: str, image_size: Tuple[int, int],
+                   dataset_size: Optional[int],
+                   workers: Optional[int] = None,
+                   progress: bool = True) -> np.ndarray:
+    """The sorted ``*.jpg`` of ``path`` (the first ``dataset_size``) as a
+    uint8 (N, h, w, 3) memmap: the cache when it exists, else decoded into
+    ``<cache>.tmp`` chunk by chunk on ``workers`` threads and renamed."""
+    paths = sorted(glob.glob(os.path.join(path, "*.jpg")))
+    if not paths:
+        raise FileNotFoundError(f"no *.jpg under {path}")
+    if dataset_size is not None:
+        paths = paths[:dataset_size]
+    h, w = image_size
+    cache = cache_path(path, image_size, len(paths))
+    if os.path.exists(cache):
+        return np.load(cache, mmap_mode="r")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    out = np.lib.format.open_memmap(cache + ".tmp", mode="w+",
+                                    dtype=np.uint8,
+                                    shape=(len(paths), h, w, 3))
+    workers = workers or min(32, (os.cpu_count() or 1) * 4)
+    chunk = 2048
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        for c0 in range(0, len(paths), chunk):
+            c1 = min(c0 + chunk, len(paths))
+            for i, arr in zip(range(c0, c1),
+                              ex.map(_decode_one, paths[c0:c1],
+                                     [h] * (c1 - c0), [w] * (c1 - c0))):
+                out[i] = arr
+            out.flush()
+            if progress and len(paths) > chunk:
+                rate = c1 / max(time.perf_counter() - t0, 1e-9)
+                print(f"[data] decode cache {c1}/{len(paths)} "
+                      f"({rate:.0f} img/s, {workers} threads)")
+    del out
+    os.replace(cache + ".tmp", cache)
+    return np.load(cache, mmap_mode="r")
 
 
 def synthetic_faces(n: int, image_size: Tuple[int, int], channels: int = 3,
@@ -131,14 +210,22 @@ class Loader:
 
 
 def make_image_datasets(cfg: DataConfig, seed: int = 42):
-    """(train_loader, val_loader, image_shape HWC) over synthetic faces."""
-    if cfg.path:
-        raise NotImplementedError(
-            "image folders are not ported yet; leave DataConfig.path unset "
-            "for the synthetic dataset")
-    n = cfg.dataset_size or 512
-    ds = ArrayDataset(synthetic_faces(n, cfg.image_size, cfg.channels,
-                                      seed=seed))
+    """(train_loader, val_loader, image_shape HWC) over the JPEG folder
+    ``cfg.path`` (decoded once into its memmap cache), or over synthetic
+    faces when ``cfg.path`` is unset or not a folder."""
+    if cfg.path and os.path.isdir(cfg.path):
+        t0 = time.perf_counter()
+        arr = _decode_folder(cfg.path, cfg.image_size, cfg.dataset_size)
+        cache = cache_path(cfg.path, cfg.image_size, len(arr))
+        print(f"[data] {len(arr)} images {arr.shape[1]}x{arr.shape[2]} from "
+              f"{cfg.path} (cache {cache}, {time.perf_counter() - t0:.2f} s)")
+    else:
+        n = cfg.dataset_size or 512
+        arr = synthetic_faces(n, cfg.image_size, cfg.channels, seed=seed)
+        print(f"[data] {n} synthetic faces {cfg.image_size[0]}x"
+              f"{cfg.image_size[1]} (seed {seed})" + (
+                  f": {cfg.path} is not a folder" if cfg.path else ""))
+    ds = ArrayDataset(arr)
     tr_idx, va_idx = split_dataset(ds, cfg.train_fraction, seed)
     train = Loader(ds, tr_idx, cfg.batch_size, shuffle=True, seed=seed)
     val = Loader(ds, va_idx, cfg.batch_size, shuffle=False, seed=seed,

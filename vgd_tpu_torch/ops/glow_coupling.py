@@ -15,6 +15,9 @@ f32 sums, h1 and h2 rounded to the compute dtype, the ZeroConv weights in
 the compute dtype too (the stock chain runs the ZeroConv in f32). On a CUDA
 tensor every call launches K5 or raises; on the CPU, and inside
 ``kernels.plain_reference()``, the same function runs the plain versions.
+The forward goes through the registered op ``vgd::glow_coupling_fwd``, so a
+traced Glow reverse (``io/export.py``) records the op and not its plain
+arithmetic.
 """
 from __future__ import annotations
 
@@ -26,10 +29,10 @@ from vgd_tpu_torch.ops import kernels as K
 
 
 def _operand(t: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """``t`` in ``cd``, contiguous and 16-byte aligned (a flow's slice of
-    a stacked f32 weight can start anywhere)."""
-    t = t.to(cd).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    """``t`` in ``cd``, contiguous. No data pointer is read here, so the
+    forward traces under ``torch.export``; the forward op and the backward
+    align their operands (``kernels.aligned16``)."""
+    return t.to(cd).contiguous()
 
 
 def prep(ya: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -68,11 +71,11 @@ class _GlowCoupling(torch.autograd.Function):
     def backward(ctx, g):
         ya, w1, b1, w2, b2, wz, bz, scale = ctx.saved_tensors
         khw, pad, cd = ctx.conf
-        p = prep(ya, w1, w2, wz, cd)
+        p = {k: K.aligned16(t) for k, t in prep(ya, w1, w2, wz, cd).items()}
         h1, dh2, dwz, dbz, db2, dscale = K.glow_coupling_bwd1(
             p["ya"], p["w1f"], b1.float(), p["w2"], b2.float(), p["wz"],
-            p["wzf"], bz.float(), scale.float(), _operand(g, torch.float32),
-            khw, pad)
+            p["wzf"], bz.float(), scale.float(),
+            K.aligned16(_operand(g, torch.float32)), khw, pad)
         dya, dw1, db1, dw2 = K.glow_coupling_bwd2(
             p["ya"], p["w1t"], p["w2t"], h1, dh2, khw, pad, w1f=p["w1f"])
         kh, kw, f, cout = wz.shape

@@ -28,6 +28,19 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
   ``csrc/glow_flow_stack.cu``; ``ops/glow_flow_stack.py`` packs the weights
   and binds them as a ``torch.autograd.Function``.
 
+K3, K4 and K5's forward, the kernels of the serving paths, are registered
+PyTorch ops (``torch.library.custom_op``): ``vgd::flash_attention``,
+``vgd::groupnorm_silu`` and ``vgd::glow_coupling_fwd``. Each op's CUDA
+implementation is the kernel's wrapper (``flash_attention_cuda``,
+``groupnorm_silu_cuda``, ``glow_coupling_fwd_cuda``, which read
+``LAUNCHES``, ``plain_reference()`` and K4's plan and barrier words at run
+time), its CPU implementation the plain version, and its fake
+implementation the output's shape and dtype; so ``torch.export``
+(``io/export.py``) records the op node on every device, never the plain
+arithmetic, and an eager call takes the same path. The public functions
+``flash_attention``, ``groupnorm_silu`` and ``glow_coupling_fwd`` call the
+ops after checking the devices.
+
 Each wrapper takes its plain version only for a tensor that lies on the CPU
 (the tests); for a CUDA tensor it launches the kernel or raises. There is
 no fallback; the one size gate is ``attention``'s (``MIN_FLASH_ELEMS``, set
@@ -47,7 +60,7 @@ import collections
 import contextlib
 import functools
 import math
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,19 +85,28 @@ def plain_reference() -> Iterator[None]:
         _PLAIN_REFERENCE = before
 
 
+def _check_devices(*tensors: torch.Tensor) -> None:
+    """Raises unless every tensor is on the CPU or all are on one CUDA
+    device. The registered ops' wrappers check before dispatch, so a meta
+    tensor or a mix of devices never reaches an implementation (under
+    ``torch.export`` the fake tensors report the device they stand for)."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"} or (types == {"cuda"}
+                            and len({t.device for t in tensors}) == 1):
+        return
+    raise ValueError(f"tensors must all be on the CPU or all on one CUDA "
+                     f"device, got {[str(t.device) for t in tensors]}")
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on the CPU (or inside ``plain_reference``),
     False when every one is on a CUDA device; raises on a mix or another
     device."""
-    types = {t.device.type for t in tensors}
-    if _PLAIN_REFERENCE and types <= {"cpu", "cuda"}:
+    if _PLAIN_REFERENCE and {t.device.type for t in tensors} <= {"cpu",
+                                                                 "cuda"}:
         return True
-    if types == {"cpu"}:
-        return True
-    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(f"tensors must all be on the CPU or all on one CUDA "
-                     f"device, got {[str(t.device) for t in tensors]}")
+    _check_devices(*tensors)
+    return tensors[0].device.type == "cpu"
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -113,12 +135,22 @@ FLASH_HEAD_DIMS = (64, 128, 256)
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v. On CUDA: f32, contiguous, head dim in
+    """softmax(q k^T * scale) v through the registered op
+    ``vgd::flash_attention``: K3 for CUDA tensors (``flash_attention_cuda``
+    on contiguous copies where the operands are not contiguous), the plain
+    version for CPU tensors, the output's shape under tracing."""
+    _check_devices(q, k, v)
+    scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else scale
+    return _flash_attention_op(q, k, v, float(scale))
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """K3, the op's CUDA implementation: f32, contiguous, head dim in
     ``FLASH_HEAD_DIMS``; ragged N and M are masked inside the kernel."""
     if _on_cpu(q, k, v):
         return attention_plain(q, k, v, scale)
     d = q.shape[-1]
-    scale = (1.0 / math.sqrt(d)) if scale is None else scale
     _require(q.ndim == 3 and k.ndim == 3 and v.ndim == 3,
              "flash_attention takes q (B, N, D), k/v (B, M, D)")
     b, n, _ = q.shape
@@ -145,6 +177,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            + lib.vgd_cuda_error_string(err).decode())
     LAUNCHES["flash_attention"] += 1
     return o
+
+
+@torch.library.custom_op("vgd::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    # an exported program runs on layouts it was not traced with (a
+    # .contiguous() that was a no-op at trace time is not in the graph)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), scale)
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, scale):
+    return attention_plain(q, k, v, scale)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, scale):
+    return q.new_empty(q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -547,13 +599,37 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused GroupNorm(groups) + SiLU of x (B, H, W, C) in f32, plus
     ``residual`` if given, cast to ``out_dtype`` (default x's dtype): the
-    function of ``groupnorm_silu_plain``. On CUDA: x and the residual f32
-    or bf16, contiguous and 16-byte aligned; scale and bias f32 (C,); C a
-    multiple of 8 and of ``groups``; ``plan`` defaults to
-    ``groupnorm_silu_plan`` of the shape on this card. ``stamps`` (an int64
-    tensor of K4_STAMPS x plan.waves) makes block 0 record the device clock
-    (ns) at each wave's phases: start, run loaded, statistics, barrier,
-    merge, apply (``chip_smoke.k4_phases``)."""
+    function of ``groupnorm_silu_plain``, through the registered op
+    ``vgd::groupnorm_silu`` (K4 for CUDA tensors, on contiguous copies where
+    they are not; the plain version for CPU tensors). ``plan`` and
+    ``stamps``, which only the kernel's own checks pass (``chip_smoke.py``),
+    call ``groupnorm_silu_cuda`` directly."""
+    operands = (x, scale, bias) + (() if residual is None else (residual,))
+    if plan is not None or stamps is not None:
+        return groupnorm_silu_cuda(x, scale, bias, groups, eps,
+                                   out_dtype=out_dtype, residual=residual,
+                                   plan=plan, stamps=stamps)
+    _check_devices(*operands)
+    return _groupnorm_silu_op(x, scale, bias, int(groups), float(eps),
+                              out_dtype, residual)
+
+
+def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, groups: int = 8,
+                        eps: float = 1e-5, *,
+                        out_dtype: Optional[torch.dtype] = None,
+                        residual: Optional[torch.Tensor] = None,
+                        plan: Optional[GroupNormPlan] = None,
+                        stamps: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K4, the op's CUDA implementation. x and the residual f32 or bf16,
+    contiguous and 16-byte aligned; scale and bias f32 (C,); C a multiple
+    of 8 and of ``groups``; ``plan`` defaults to ``groupnorm_silu_plan`` of
+    the shape on this card. ``stamps`` (an int64 tensor of K4_STAMPS x
+    plan.waves) makes block 0 record the device clock (ns) at each wave's
+    phases: start, run loaded, statistics, barrier, merge, apply
+    (``chip_smoke.k4_phases``). The plan cache and the barrier words
+    (``_k4_sync``) are touched here only."""
     operands = (x, scale, bias) + (() if residual is None else (residual,))
     if _on_cpu(*operands):
         return groupnorm_silu_plain(x, scale, bias, groups, eps,
@@ -602,6 +678,30 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _raise_on(lib, err, "groupnorm_silu")
     LAUNCHES["groupnorm_silu"] += 1
     return y
+
+
+@torch.library.custom_op("vgd::groupnorm_silu", mutates_args=(),
+                         device_types="cuda")
+def _groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, groups: int, eps: float,
+                       out_dtype: Optional[torch.dtype],
+                       residual: Optional[torch.Tensor]) -> torch.Tensor:
+    return groupnorm_silu_cuda(
+        x.contiguous(), scale.contiguous(), bias.contiguous(), groups, eps,
+        out_dtype=out_dtype,
+        residual=None if residual is None else residual.contiguous())
+
+
+@_groupnorm_silu_op.register_kernel("cpu")
+def _(x, scale, bias, groups, eps, out_dtype, residual):
+    return groupnorm_silu_plain(x, scale, bias, groups, eps,
+                                out_dtype=out_dtype, residual=residual)
+
+
+@_groupnorm_silu_op.register_fake
+def _(x, scale, bias, groups, eps, out_dtype, residual):
+    return x.new_empty(x.shape, dtype=x.dtype if out_dtype is None
+                       else out_dtype)
 
 
 def groupnorm_silu_sync_probe(rounds: int, cpi: int, ipw: int,
@@ -936,13 +1036,32 @@ def _repack(t: torch.Tensor, taps: int, rows: int, cols: int
         taps * cols, rows).contiguous()
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where a contiguous ``t`` does not start on 16 bytes
+    (a flow's slice of a stacked weight can start anywhere; K5 reads its
+    operands in 16-byte vectors)."""
+    return t if not t.is_contiguous() or t.data_ptr() % 16 == 0 \
+        else t.clone()
+
+
 def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad,
                       wzf=None) -> torch.Tensor:
-    """K5 forward: NN(ya) (B, H, W, cout) f32. On CUDA every operand is
-    contiguous, the weights in ya's dtype (bf16 or f32), in the packed
-    layouts above; ragged sizes are masked in the kernel. ``wzf``, the
-    ZeroConv weight in the wzf packing, is what the bf16 kernel reads (made
-    from wz where not given)."""
+    """K5 forward, NN(ya) (B, H, W, cout) f32, through the registered op
+    ``vgd::glow_coupling_fwd`` (K5 for CUDA tensors, its operands first
+    copied where they are not contiguous or not 16-byte aligned; the plain
+    version for CPU tensors)."""
+    _check_devices(ya, w1f, b1, w2, b2, wz, bz, scale)
+    return _glow_coupling_fwd_op(ya, w1f, b1, w2, b2, wz, wzf, bz, scale,
+                                 list(khw), list(pad))
+
+
+def glow_coupling_fwd_cuda(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad,
+                           wzf=None) -> torch.Tensor:
+    """K5 forward, the op's CUDA implementation: every operand contiguous
+    and 16-byte aligned, the weights in ya's dtype (bf16 or f32), in the
+    packed layouts above; ragged sizes are masked in the kernel. ``wzf``,
+    the ZeroConv weight in the wzf packing, is what the bf16 kernel reads
+    (made from wz where not given)."""
     if _on_cpu(ya, w1f, b1, w2, b2, wz, bz, scale):
         return glow_coupling_fwd_plain(ya, w1f, b1, w2, b2, wz, bz, scale,
                                        khw, pad)
@@ -972,6 +1091,33 @@ def glow_coupling_fwd(ya, w1f, b1, w2, b2, wz, bz, scale, khw, pad,
     _raise_on(lib, err, "glow_coupling_fwd")
     LAUNCHES["glow_coupling_fwd"] += 1
     return out
+
+
+@torch.library.custom_op("vgd::glow_coupling_fwd", mutates_args=(),
+                         device_types="cuda")
+def _glow_coupling_fwd_op(ya: torch.Tensor, w1f: torch.Tensor,
+                          b1: torch.Tensor, w2: torch.Tensor,
+                          b2: torch.Tensor, wz: torch.Tensor,
+                          wzf: Optional[torch.Tensor], bz: torch.Tensor,
+                          scale: torch.Tensor, khw: List[int],
+                          pad: List[int]) -> torch.Tensor:
+    return glow_coupling_fwd_cuda(
+        *(aligned16(t.contiguous())
+          for t in (ya, w1f, b1, w2, b2, wz, bz, scale)),
+        tuple(khw), tuple(pad),
+        wzf=None if wzf is None else aligned16(wzf.contiguous()))
+
+
+@_glow_coupling_fwd_op.register_kernel("cpu")
+def _(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, khw, pad):
+    return glow_coupling_fwd_plain(ya, w1f, b1, w2, b2, wz, bz, scale,
+                                   tuple(khw), tuple(pad))
+
+
+@_glow_coupling_fwd_op.register_fake
+def _(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, khw, pad):
+    return ya.new_empty(tuple(ya.shape[:3]) + (bz.shape[0],),
+                        dtype=torch.float32)
 
 
 def glow_coupling_bwd1(ya, w1f, b1, w2, b2, wz, wzf, bz, scale, g, khw, pad):

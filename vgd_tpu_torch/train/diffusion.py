@@ -49,19 +49,17 @@ class Schedule(NamedTuple):
 
 def make_schedule(timesteps: int, start: float = 1e-4, end: float = 0.02,
                   device="cpu") -> Schedule:
-    """Linear beta schedule and its derived quantities, in f32."""
-    betas = torch.linspace(start, end, timesteps, dtype=torch.float32,
-                           device=device)
+    """Linear beta schedule and its derived quantities, in f32, computed on
+    the CPU and then moved to ``device``: a cumulative product on the card
+    rounds in another order, and the table must be the same bits on every
+    device (an exported program bakes in the table its CPU trace made)."""
+    betas = torch.linspace(start, end, timesteps, dtype=torch.float32)
     alphas = 1.0 - betas
     acp = torch.cumprod(alphas, dim=0)
-    acp_prev = torch.cat([torch.ones(1, dtype=torch.float32, device=device),
-                          acp[:-1]])
-    return Schedule(
-        betas=betas, alphas=alphas, alphas_cumprod=acp,
-        alphas_cumprod_prev=acp_prev,
-        sqrt_alphas_cumprod=torch.sqrt(acp),
-        sqrt_one_minus_alphas_cumprod=torch.sqrt(1.0 - acp),
-        posterior_variance=betas * (1.0 - acp_prev) / (1.0 - acp))
+    acp_prev = torch.cat([torch.ones(1, dtype=torch.float32), acp[:-1]])
+    return Schedule(*(t.to(device) for t in (
+        betas, alphas, acp, acp_prev, torch.sqrt(acp), torch.sqrt(1.0 - acp),
+        betas * (1.0 - acp_prev) / (1.0 - acp))))
 
 
 def q_sample(sched: Schedule, x0: torch.Tensor, t: torch.Tensor,
@@ -118,6 +116,14 @@ def sample_timestep_beta(generator: Optional[torch.Generator],
     return (x / (x + y) * (t_max - 1)).to(torch.int32)
 
 
+def _entry(table: torch.Tensor, t) -> torch.Tensor:
+    """``table[t]`` as a 0-d tensor, for an int ``t`` or a 0-d integer
+    tensor (a gather, so an exported step holds no data-dependent index)."""
+    if isinstance(t, int):
+        return table[t]
+    return table.index_select(0, t.reshape(1).long()).reshape(())
+
+
 @dataclass
 class DiffusionState:
     """UNet parameters (a state_dict), the optimizer's ``state_dict`` (None
@@ -157,6 +163,10 @@ class DiffusionTrainer:
         self.step = 0
         self.sched = make_schedule(cfg.timesteps, cfg.beta_start,
                                    cfg.beta_end, device=self.device)
+        # abar with a last entry 1 at index T: the DDIM step after the last
+        # subsequence entry
+        self.acp_ext = torch.cat([self.sched.alphas_cumprod,
+                                  torch.ones(1, device=self.device)])
 
     def _optimizer(self) -> torch.optim.Optimizer:
         if self.opt is None:
@@ -245,10 +255,44 @@ class DiffusionTrainer:
                            device=like.device, dtype=like.dtype)
 
     # ---------------------------------------------------------------- sample
-    def _eps(self, x, t: int):
-        t_vec = torch.full((x.shape[0],), t, dtype=torch.int32,
-                           device=x.device)
+    def _eps(self, x, t):
+        """The fused UNet's noise prediction at timestep ``t``, an int or,
+        in an exported step (``io/export.py``), a 0-d integer tensor."""
+        if isinstance(t, int):
+            t_vec = torch.full((x.shape[0],), t, dtype=torch.int32,
+                               device=x.device)
+        else:
+            t_vec = t.to(torch.int32).reshape(1).expand(x.shape[0])
         return self.model_fused(x, t_vec)
+
+    def ancestral_step(self, x: torch.Tensor, t, noise: torch.Tensor
+                       ) -> torch.Tensor:
+        """One step of the reverse chain at timestep ``t`` (an int, or a
+        0-d integer tensor) with the Gaussian draw ``noise``: the update
+        that ``ancestral_sample`` repeats and an exported step runs."""
+        s = self.sched
+        eps = self._eps(x, t)
+        x_new = x - (1.0 - _entry(s.alphas, t)) / \
+            _entry(s.sqrt_one_minus_alphas_cumprod, t) * eps
+        x_new = x_new / torch.sqrt(_entry(s.alphas, t))
+        return x_new + noise * torch.sqrt(_entry(s.posterior_variance, t))
+
+    def ddim_step(self, x: torch.Tensor, tau, tau_prev,
+                  eta: torch.Tensor, noise: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+        """One DDIM step from ``tau`` to ``tau_prev`` (ints, or 0-d integer
+        tensors; ``tau_prev`` = T after the last entry, where abar = 1),
+        with ``sigma * noise`` added when ``noise`` is given: the update
+        that ``ddim_sample`` repeats and an exported step runs."""
+        at = _entry(self.acp_ext, tau)
+        ap = _entry(self.acp_ext, tau_prev)
+        eps = self._eps(x, tau)
+        x0 = (x - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
+        sigma = eta * torch.sqrt((1.0 - ap) / (1.0 - at)) * \
+            torch.sqrt(1.0 - at / ap)
+        dir_c = torch.sqrt(torch.clamp(1.0 - ap - sigma * sigma, min=0.0))
+        x = torch.sqrt(ap) * x0 + dir_c * eps
+        return x if noise is None else x + sigma * noise
 
     @torch.inference_mode()
     def ancestral_sample(self, xt: torch.Tensor, t_start: int,
@@ -262,15 +306,10 @@ class DiffusionTrainer:
         x unchanged, so skipping it gives the identical result, and eager
         PyTorch has no reason to pay for masked forwards. ``noise`` holds
         one tensor per executed step, for t = t_start, ..., 0."""
-        s = self.sched
         x = xt.to(self.device, torch.float32)
         for i, t in enumerate(range(int(t_start), -1, -1)):
-            eps = self._eps(x, t)
-            x_new = x - (1.0 - s.alphas[t]) / \
-                s.sqrt_one_minus_alphas_cumprod[t] * eps
-            x_new = x_new / torch.sqrt(s.alphas[t])
-            x = x_new + self._noise(noise, i, x, generator) * \
-                torch.sqrt(s.posterior_variance[t])
+            x = self.ancestral_step(x, t, self._noise(noise, i, x,
+                                                      generator))
         return torch.clamp(x, -1.0, 1.0)
 
     @torch.inference_mode()
@@ -285,27 +324,16 @@ class DiffusionTrainer:
         ``eta == 0`` the chain draws no noise. ``noise`` holds one tensor
         per executed step."""
         T = self.cfg.timesteps
-        acp = self.sched.alphas_cumprod
         t_start = T - 1 if t_start is None else int(t_start)
-        taus = ddim_timesteps(T, num_steps)[::-1]
-        taus_prev = list(taus[1:]) + [None]
-        one = torch.ones((), dtype=torch.float32, device=self.device)
+        taus = [int(t) for t in ddim_timesteps(T, num_steps)[::-1]]
         eta_t = torch.tensor(eta, dtype=torch.float32, device=self.device)
         x = xt.to(self.device, torch.float32)
         i = 0
-        for tau, tau_prev in zip(taus, taus_prev):
+        for tau, tau_prev in zip(taus, taus[1:] + [T]):
             if tau > t_start:
                 continue
-            at = acp[int(tau)]
-            ap = one if tau_prev is None else acp[int(tau_prev)]
-            eps = self._eps(x, int(tau))
-            x0 = (x - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
-            sigma = eta_t * torch.sqrt((1.0 - ap) / (1.0 - at)) * \
-                torch.sqrt(1.0 - at / ap)
-            dir_c = torch.sqrt(torch.clamp(1.0 - ap - sigma * sigma, min=0.0))
-            x = torch.sqrt(ap) * x0 + dir_c * eps
-            if eta != 0.0:
-                x = x + sigma * self._noise(noise, i, x, generator)
+            x = self.ddim_step(x, tau, tau_prev, eta_t, None if eta == 0.0
+                               else self._noise(noise, i, x, generator))
             i += 1
         return torch.clamp(x, -1.0, 1.0)
 

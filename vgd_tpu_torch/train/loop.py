@@ -11,15 +11,18 @@ checkpoint of any of them and partial-noise restoration evaluation. Every
 evaluation takes an Inception ``feature_fn`` (``load_feature_fn``) for FID,
 IS and manifold precision / recall beside SSIM.
 
-Grids and panels are written as ``.npy`` arrays in [-1, 1] (the JAX
-package's image writer needs matplotlib/PIL, which the port does not
-depend on); EEG samples as ``.npz`` / ``.npy`` arrays (N, C, T), with trace
-plots and the PSD figure drawn only where matplotlib is installed. The JAX
-loop's mesh, sequence-parallel and epoch-scan options have no counterpart
-here: the port runs one device and loops over steps in Python.
+Grids and panels are written as ``.npy`` arrays in [-1, 1] with a picture
+beside them where PIL imports, and each epoch's loss curves where
+matplotlib imports (``io/artifacts.py``); EEG samples as ``.npz`` /
+``.npy`` arrays (N, C, T), with trace plots and the PSD figure drawn only
+where matplotlib is installed. ``RunConfig.debug_nans`` runs a training
+loop under autograd's anomaly detection. The JAX loop's mesh,
+sequence-parallel and epoch-scan options have no counterpart here: the
+port runs one device and loops over steps in Python.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, Optional
@@ -40,7 +43,8 @@ from vgd_tpu_torch.eval.metrics import (MetricAccumulator, mse_metric, psnr,
 from vgd_tpu_torch.eval.sampling import aggregated_posterior_sampler
 from vgd_tpu_torch.eval.vae_analysis import (denoise_test_loss,
                                              latent_traversal, renoise_cycle)
-from vgd_tpu_torch.io.artifacts import MetricLog, save_grid, save_triplets
+from vgd_tpu_torch.io.artifacts import (MetricLog, epoch_metrics, save_grid,
+                                        save_triplets)
 from vgd_tpu_torch.io.checkpoint import Checkpointer
 from vgd_tpu_torch.models.vae import reparameterize
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
@@ -66,6 +70,20 @@ VAEGAN_VAL_SEED_OFFSET = 10_000
 VAE_VAL_SEED_OFFSET = 20_000
 # the EEG PSD comparison's temperature z (the JAX function folds 3)
 EEG_PSD_SEED_OFFSET = 3
+
+
+def _debug_nans(run):
+    """Runs ``run(cfg, ...)`` under ``torch.autograd.set_detect_anomaly``
+    when ``cfg.run.debug_nans`` is set (the counterpart of the JAX loop's
+    ``jax_debug_nans``: a backward that makes a NaN raises, naming the
+    forward op that made it)."""
+    @functools.wraps(run)
+    def wrapped(cfg, *args, **kwargs):
+        if not cfg.run.debug_nans:
+            return run(cfg, *args, **kwargs)
+        with torch.autograd.set_detect_anomaly(True):
+            return run(cfg, *args, **kwargs)
+    return wrapped
 
 
 class _Profiler:
@@ -127,6 +145,7 @@ def save_checkpoint(cfg: DiffusionConfig, trainer: DiffusionTrainer,
     return ckpt.save(step, trainer.model.state_dict(), to_dict(cfg))
 
 
+@_debug_nans
 def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
                   max_steps_per_epoch: Optional[int] = None,
                   resume: bool = False, device="cuda") -> Dict:
@@ -193,8 +212,8 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
             ckpt.save(epoch + 1, trainer.model.state_dict(), to_dict(cfg),
                       opt_state=trainer.opt.state_dict(),
                       rng_state=gen.get_state(), opt_step=trainer.step)
+        epoch_metrics(log, "diffusion_")
     prof.close()
-    log.save()
     return {"trainer": trainer, "log": log.history, "val": val,
             "val_rows": n_val}
 
@@ -282,6 +301,7 @@ def restore_vaegan(cfg: VAEGANConfig, step: Optional[int] = None,
                      os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
+@_debug_nans
 def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                max_steps_per_epoch: Optional[int] = None,
                feature_fn=None, resume: bool = False, device="cuda") -> Dict:
@@ -381,8 +401,8 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                 od, f"vaegan_decode_epoch_{epoch + 1:04d}.npy"))
         save_grid(trainer.generate(fixed_z), os.path.join(
             od, f"vaegan_fake_epoch_{epoch + 1:04d}.npy"))
+        epoch_metrics(log)
     prof.close()
-    log.save()
     return {"trainer": trainer, "log": log.history, "val": val,
             "val_rows": n_val}
 
@@ -395,6 +415,7 @@ def restore_vae(cfg: VAEConfig, step: Optional[int] = None,
                      os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
+@_debug_nans
 def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
             max_steps_per_epoch: Optional[int] = None, resume: bool = False,
             device="cuda") -> Dict:
@@ -491,8 +512,8 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
                 od, f"vae_valimg_epoch_{epoch + 1:04d}.npy"))
         save_grid(trainer.generate(fixed_z), os.path.join(
             od, f"vae_fake_epoch_{epoch + 1:04d}.npy"))
+        epoch_metrics(log, "vae_")
     prof.close()
-    log.save()
     return {"trainer": trainer, "log": log.history, "val": val,
             "val_rows": n_val}
 
@@ -636,6 +657,7 @@ def restore_gan(cfg: GANConfig, step: Optional[int] = None,
                      os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
+@_debug_nans
 def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
             max_steps_per_epoch: Optional[int] = None, resume: bool = False,
             device="cuda") -> Dict:
@@ -698,8 +720,8 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
                       rng_state=gen.get_state(), opt_step=trainer.step)
         save_grid(trainer.generate(fixed_z), os.path.join(
             cfg.run.out_dir, f"{name}_fake_epoch_{epoch + 1:04d}.npy"))
+        epoch_metrics(log, "gan_")
     prof.close()
-    log.save()
     return {"trainer": trainer, "log": log.history, "val": val}
 
 
@@ -746,6 +768,7 @@ def restore_glow(cfg: GlowConfig, step: Optional[int] = None,
                      os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
+@_debug_nans
 def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
              resume: bool = False, device="cuda") -> Dict:
     """Train Glow for ``n_iter`` iterations (default ``cfg.n_iter``) on an
@@ -809,7 +832,7 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
     if ckpt.latest_step() != n_iter:      # always leave a final checkpoint
         save(n_iter)
     prof.close()
-    log.save()
+    epoch_metrics(log, "glow_")
     return {"trainer": trainer, "log": log.history, "val": val}
 
 
@@ -883,6 +906,7 @@ def sample_eeg(trainer: GlowEEGTrainer, n: int, seed: int = 42
     return _eeg_trials(trainer.reverse(z))
 
 
+@_debug_nans
 def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
                  resume: bool = False, device="cuda") -> Dict:
     """Train the EEG Glow of one event type for ``n_iter`` iterations
@@ -956,7 +980,7 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
     if ckpt.latest_step() != n_iter:      # always leave a final checkpoint
         save(n_iter)
     prof.close()
-    log.save()
+    epoch_metrics(log, f"eeg_{cfg.event_type}_")
     try:
         eeg_psd_and_gif(cfg, trainer=trainer, dataset=ds)
     except Exception as e:  # noqa: BLE001 - artifacts, not the run
