@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--report PATH]
-                          [--only k1|attn|k4|k5|k6|eeg|fid|export]
+                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -140,7 +140,31 @@ Run from the root of a checkout on a machine with one CUDA card:
    folder (decode rate, step ms), and a second run that must open the
    cache and decode nothing.
    ``--only export`` seeds the three checkpoints where none exist;
-14. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+14. data and sequence parallelism across processes, and Glow ``remat``
+   (``--only dp``; in the full run right after the build, before the
+   phases above fill this process's share of the card): (a) ``run_diffusion`` at 256x256, B=16, 3 steps, twice
+   with no process group and once as a world of one process on NCCL (the
+   start-up of ``parallel/launch.py``): bit-equal, or (the card's backward
+   adds with atomics, so two runs need not agree) its first loss, made
+   before any backward, bit-equal and the rest within the DDPM step's
+   1e-3 or DP_SPREAD_X times the two no-group runs' own spread, with
+   3/3/3 K2 a step; (b)-(d) two rank processes on this one card over gloo
+   (collectives staged through host memory: this measures correctness and
+   collective overhead, not scaling): ``run_diffusion`` data-parallel,
+   ``run_diffusion`` sequence-parallel (data=1, model=2: the bottleneck on
+   the ring, 2/2/2 K2 a step), ``run_vaegan`` at 256x256, global B=64 with
+   K1 (33 a step a rank), ``run_glow`` at 64x64, global B=16 with K5 (128
+   of each a step a rank) and with ``flow_stack`` (4 + 4 K6 a step); after
+   every step both ranks bit-equal; the first step's losses against one
+   process at the same global batch (the DDPM step's 1e-3; JAX's 1e-4 for
+   the ring; the bf16 VAE-GAN also 3 x the median of its own one-ulp
+   floor); the sequence-parallel run's sampling forward (2 K3, 14 K4)
+   within UNET_REL_TOL of one process's on the same weights; (e) one Glow
+   step's gradients with and without ``remat``, on K5 (256 forwards a
+   remat step) and on the stock chain: bit-equal, or within DP_SPREAD_X
+   times the step's own spread or REMAT_GRAD_REL of the largest gradient;
+   each form's step time and peak memory;
+15. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -1126,12 +1150,14 @@ def k1_entry(rows, report):
     """K1's line entry: its times per VAE-GAN step, as before the 64²
     families ran K1 (``per_family`` has each family's sums per step of that
     family); its launches over every main-path run (VAE-GAN, VAE, DCGAN and
-    WGAN training; ``launches_by_path`` splits them); its errors over every
+    WGAN training, and the data-parallel VAE-GAN's ranks;
+    ``launches_by_path`` splits them); its errors over every
     checked shape."""
     launches = {"vaegan": report["vaegan"]["train"]["k1_launches"],
                 "vae": report["vae"]["train"]["k1_launches"],
                 "gan": report["gan"]["train"]["k1_launches"],
-                "wgan": report["gan"]["wgan_train"]["k1_launches"]}
+                "wgan": report["gan"]["wgan_train"]["k1_launches"],
+                "dp": report["dp"]["launches"]["conv_bn_stats"]}
 
     def family_entry(family, per, source="", replaces=""):
         return kernel_entry("conv_bn_stats", source, replaces, [
@@ -4393,6 +4419,430 @@ def export_path(K, failures):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Data and sequence parallelism across processes, and Glow remat
+# ---------------------------------------------------------------------------
+
+# DDPM: 5 train batches of 16 (DP_STEPS run) and 11 val rows in one padded
+# batch; VAE-GAN: 9 train batches of 64 (DP_VAEGAN_STEPS run), 64 val rows;
+# Glow: DP_GLOW_ITERS iterations after the ActNorm init
+DP_DATASET, DP_STEPS = 104, 5
+DP_VAEGAN_DATASET, DP_VAEGAN_STEPS = 640, 2
+DP_GLOW_DATASET, DP_GLOW_ITERS = 160, 2
+# a spawn's limit (process start, kernel libraries, every job)
+DP_TIMEOUT = 600
+# sequence parallelism against the unsharded run: JAX's own bound for its
+# ring (tests/test_tp_production.py)
+SP_LOSS_REL = 1e-4
+# a run that the card does not reproduce bit for bit is held to DP_SPREAD_X
+# times its own run-to-run spread (or the step bound, if larger)
+DP_SPREAD_X = 3.0
+# the phase's device (a CPU rehearsal of its control flow sets "cpu")
+DP_DEVICE = "cuda"
+# remat against no remat: the same function in the same order, so any
+# difference is the card's atomics (observed below 1e-9 on gradients of
+# order 1e-2 to 1)
+REMAT_GRAD_REL = 1e-6
+
+
+def dp_dir(tag):
+    return OUT_DIR / "dp" / tag
+
+
+def dp_ddpm_config(tag, mesh=None):
+    """``smoke_config`` on DP_DATASET faces, writing under dp/<tag>."""
+    from vgd_tpu_torch.core.config import MeshConfig
+    cfg = smoke_config()
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dataset_size=DP_DATASET),
+        run=dataclasses.replace(cfg.run, out_dir=str(dp_dir(tag)),
+                                mesh=mesh or MeshConfig()))
+
+
+def dp_vaegan_config(tag):
+    cfg = vaegan_config()
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data,
+                                      dataset_size=DP_VAEGAN_DATASET),
+        run=dataclasses.replace(cfg.run, out_dir=str(dp_dir(tag))))
+
+
+def dp_glow_config(tag, **kw):
+    """``glow_config`` with no sample grid inside the run (rank 0 alone
+    draws one, which would make the ranks' launch counts differ)."""
+    cfg = glow_config()
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dataset_size=DP_GLOW_DATASET),
+        run=dataclasses.replace(cfg.run, out_dir=str(dp_dir(tag)),
+                                sample_every_iters=10 ** 6,
+                                checkpoint_every_iters=10 ** 6), **kw)
+
+
+def dp_ddpm_job(tag, mesh=None, steps=DP_STEPS, **kw):
+    """A ``parallel.workers.train_loop`` job: ``run_diffusion`` for one
+    epoch of ``steps`` steps on ``dp_ddpm_config(tag, mesh)``."""
+    return dict(family="diffusion", device=DP_DEVICE, epochs=1,
+                max_steps_per_epoch=steps, state=False,
+                cfg=dp_ddpm_config(tag, mesh), **kw)
+
+
+def dp_jobs(x, t):
+    """The two-rank jobs (``parallel.workers.train_loop``), by tag."""
+    from vgd_tpu_torch.core.config import MeshConfig
+    glow = dict(family="glow", device=DP_DEVICE, n_iter=DP_GLOW_ITERS,
+                state=False)
+    return {"ddpm-dp": dp_ddpm_job("ddpm-dp"),
+            "ddpm-sp": dict(dp_ddpm_job("ddpm-sp", MeshConfig(
+                data=1, model=2), forward={"x": x, "t": t}), state=True),
+            "vaegan-dp": dict(family="vaegan", device=DP_DEVICE, epochs=1,
+                              max_steps_per_epoch=DP_VAEGAN_STEPS,
+                              cfg=dp_vaegan_config("vaegan-dp"),
+                              state=False),
+            "glow-dp": dict(cfg=dp_glow_config("glow-dp"), **glow),
+            "glow-stack-dp": dict(cfg=dp_glow_config(
+                "glow-stack-dp", flow_stack=True), **glow)}
+
+
+def step_losses(res):
+    return [r["metrics"] for r in res["steps"]]
+
+
+def loss_rel(got, ref, steps=None):
+    """Largest relative difference of the per-step losses (the first
+    ``steps`` steps)."""
+    pairs = list(zip(step_losses(got), step_losses(ref)))[:steps]
+    return max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-12)
+               for g, r in pairs for k in r)
+
+
+def median_ms(res):
+    ms = sorted(r["ms"] for r in res["steps"][1:]) or \
+        [r["ms"] for r in res["steps"]]
+    return ms[len(ms) // 2]
+
+
+def check_ranks(tag, ranks, failures):
+    """Both ranks bit-equal after every step and at the end."""
+    fps = [[r["fingerprint"] for r in res["steps"]] for res in ranks]
+    ok = all(f == fps[0] for f in fps) and len({res["fingerprint"] for res
+                                                in ranks}) == 1
+    if not ok:
+        failures.append(f"{tag}: the ranks' parameters differ")
+    return ok
+
+
+def want_launches(tag, res, want, failures):
+    got = {k: res["launches"].get(k, 0) for k in want}
+    if got != want:
+        failures.append(f"{tag}: launches {got} != {want}")
+    return got
+
+
+def dp_train_launches(sites, steps, forwards):
+    """K2 launches of a DDPM run of ``steps`` train steps and
+    ``forwards`` training-form forwards in all (validation included)."""
+    return {"attention_fwd": sites * forwards,
+            "attention_dq": sites * steps, "attention_dkv": sites * steps,
+            "flash_attention": 0, "groupnorm_silu": 0}
+
+
+def remat_path(K, failures):
+    """(e) Glow at 64x64, B=16, K=32, L=4, width 512, with K5 and with the
+    stock conv chain: one step's loss and gradients with and without
+    ``remat`` from the same state and draws (bit-equal where the card
+    repeats the step bit for bit, else within DP_SPREAD_X times its own
+    spread), the K5 launches of a remat step (each flow's forward twice),
+    and each form's train step timed with its peak memory over the state
+    it keeps resident."""
+    import torch
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    cuda = DP_DEVICE == "cuda"
+    out = {}
+    for fused in (True, False):
+        cfg = dp_glow_config("remat", fused_coupling=fused)
+        gen = torch.Generator(device=DP_DEVICE).manual_seed(21)
+        b, (h, w) = cfg.data.batch_size, cfg.data.image_size
+        shape = (b, h, w, 3)
+        batches = [torch.randint(0, 256, shape, dtype=torch.uint8,
+                                 device=DP_DEVICE, generator=gen)
+                   for _ in range(2)]
+        noises = [torch.rand(shape, device=DP_DEVICE, generator=gen)
+                  for _ in range(2)]
+        path = "k5" if fused else "stock"
+        grads, rows = {}, {}
+        for remat in (False, True):
+            tr = GlowTrainer(dataclasses.replace(cfg, remat=remat),
+                             (h, w, 3), device=DP_DEVICE)
+            tr.init(torch.Generator(device=DP_DEVICE).manual_seed(3))
+            tr.init_step(batches[0], noise=noises[0])
+            runs = []
+            for _ in range(1 if remat else 2):
+                K.LAUNCHES.clear()
+                loss, g = glow_step_grads(tr, batches[1], noises[1])
+                runs.append((loss, {k: v.cpu() for k, v in g.items()}))
+                del g
+            launches = {k: K.LAUNCHES[k] for k in K5_NAMES}
+            grads[remat] = runs
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            tr.train_step(batches[1], noise=noises[1])
+            if cuda:
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            base = base if cuda else 0
+            rows[remat] = {
+                "peak_mem_gb": peak / 1e9,
+                "step_peak_over_state_gb": (peak - base) / 1e9,
+                "train_step_ms": cuda_ms(lambda: tr.train_step(
+                    batches[1], noise=noises[1]), 1, 5),
+                "fwd_bwd_launches": launches}
+            del tr
+            if cuda:
+                torch.cuda.empty_cache()
+        (l0, g0), (l0b, g0b) = grads[False]
+        (l1, g1), = grads[True]
+        spread = max(float((g0b[k] - g0[k]).abs().max()) for k in g0)
+        err = max(float((g1[k] - g0[k]).abs().max()) for k in g0)
+        gmax = max(float(g.abs().max()) for g in g0.values())
+        same = spread == 0.0 and l0 == l0b
+        # bit-equal, or within the step's own run-to-run spread (the card
+        # adds its backward with atomics), and at most REMAT_GRAD_REL of
+        # the largest gradient when one pair happens to show no spread
+        ok = (err == 0.0 and l1 == l0) or \
+            err <= max(DP_SPREAD_X * spread, REMAT_GRAD_REL * gmax)
+        row = {"no_remat": rows[False], "remat": rows[True],
+               "grad_max_abs_err": err, "no_remat_spread": spread,
+               "grad_max": gmax,
+               "loss": l1, "loss_no_remat": l0, "bit_reproducible": same}
+        out[path] = row
+        if not ok:
+            failures.append(f"remat ({path}): gradients differ from no "
+                            f"remat by {err} (the step's own spread "
+                            f"{spread})")
+        want = {"glow_coupling_fwd": 2 * K5_PER_STEP,
+                "glow_coupling_bwd1": K5_PER_STEP,
+                "glow_coupling_bwd2": K5_PER_STEP} if fused else \
+            {k: 0 for k in K5_NAMES}
+        if rows[True]["fwd_bwd_launches"] != want:
+            failures.append(f"remat ({path}): K5 launches "
+                            f"{rows[True]['fwd_bwd_launches']} != {want}")
+        r, n = rows[True], rows[False]
+        print(f"[remat] Glow {h}x{w} B={b} ({path}): gradients remat vs "
+              f"none max abs {err:.3g} (the card's own spread "
+              f"{spread:.3g}, bit-reproducible {same}); K5 a fwd+bwd "
+              f"{r['fwd_bwd_launches']}; train step "
+              f"{n['train_step_ms']:.2f} -> {r['train_step_ms']:.2f} ms, "
+              f"peak memory {n['peak_mem_gb']:.3f} -> "
+              f"{r['peak_mem_gb']:.3f} GB (over the resident state "
+              f"{n['step_peak_over_state_gb']:.3f} -> "
+              f"{r['step_peak_over_state_gb']:.3f} GB)", flush=True)
+    return out
+
+
+def dp_path(K, failures):
+    """Data and sequence parallelism on the card (module docstring,
+    step 14). The one-process references run in this process; the ranks
+    are fresh processes (``parallel.launch.spawn``) that load the kernels
+    this process built."""
+    import torch
+    from vgd_tpu_torch.parallel import workers
+    from vgd_tpu_torch.parallel.launch import spawn
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    shutil.rmtree(OUT_DIR / "dp", ignore_errors=True)
+    t_phase = time.perf_counter()
+    sites = k2_sites(K)
+    report = {}
+    if DP_DEVICE == "cuda":
+        # the rank processes share this card: hand back what the earlier
+        # phases left in this process's cache
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["parent_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+        held = torch.cuda.memory_allocated() / 1e9
+        print(f"[dp] this process keeps {report['parent_reserved_gb']:.3f} "
+              f"GB reserved on the card ({held:.3f} GB allocated)",
+              flush=True)
+    gen = torch.Generator(device=DP_DEVICE).manual_seed(31)
+    h, w = smoke_config().data.image_size
+    x = torch.randn((2, h, w, 3), device=DP_DEVICE, generator=gen).cpu()
+    t = torch.tensor([999, 17], dtype=torch.int32)
+
+    # (a) no process group, twice, then NCCL at world size 1 (its process
+    # warmed by one step of a throwaway run first)
+    none = [workers.train_loop(**dp_ddpm_job(f"ddpm-none{i}"))
+            for i in range(2)]
+    nccl = spawn("vgd_tpu_torch.parallel.workers:train_loops", 1,
+                 [dp_ddpm_job("ddpm-warm", steps=1),
+                  dp_ddpm_job("ddpm-nccl")],
+                 timeout=DP_TIMEOUT, log_dir=str(dp_dir("logs-nccl")))[0][1]
+    fps = [[r["fingerprint"] for r in res["steps"]] for res in none]
+    same = fps[0] == fps[1]
+    # the first loss comes before any backward, which is where the card
+    # adds with atomics
+    first = [step_losses(r)[0] for r in (none[0], none[1], nccl)]
+    spread = loss_rel(none[1], none[0])
+    rel = loss_rel(nccl, none[0])
+    nccl_fp = [r["fingerprint"] for r in nccl["steps"]]
+    # bit-equal, or (the card rounding its atomics another way this time)
+    # the first loss bit-equal and the rest within the run's own spread
+    ok = nccl_fp == fps[0] or (
+        (first[2] == first[0] or first[1] != first[0])
+        and rel <= max(DP_SPREAD_X * spread, STEP_LOSS_REL))
+    if not ok:
+        failures.append(f"dp (a): NCCL world 1 vs no process group: "
+                        f"bit-equal {nccl_fp == fps[0]}, first loss "
+                        f"{first[2]} vs {first[0]}, loss rel {rel} (the "
+                        f"card's own spread {spread})")
+    evals = nccl["forwards"] - DP_STEPS
+    la = want_launches("dp (a) NCCL", nccl, dp_train_launches(
+        sites, DP_STEPS, DP_STEPS + evals), failures)
+    report["nccl_world1"] = {
+        "bit_reproducible": same, "bit_equal": nccl_fp == fps[0],
+        "first_loss_equal": first[2] == first[0], "loss_rel": rel,
+        "own_spread": spread, "launches": la,
+        "step_ms": median_ms(nccl), "no_group_step_ms": median_ms(none[1])}
+    print(f"[dp] (a) DDPM {h}x{w} B=16, NCCL world 1 vs no process group: "
+          f"bit-equal {nccl_fp == fps[0]} (no group twice bit-equal {same};"
+          f" first loss equal {first[2] == first[0]}; loss rel {rel:.3g}, "
+          f"own spread {spread:.3g}); step ms "
+          f"{report['nccl_world1']['step_ms']:.2f} vs "
+          f"{report['nccl_world1']['no_group_step_ms']:.2f}; launches {la}",
+          flush=True)
+
+    # (b)-(d): two ranks on this card over gloo, each warmed by one step of
+    # a throwaway DDPM run first
+    if DP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    jobs = dp_jobs(x, t)
+    t0 = time.perf_counter()
+    ranks = spawn("vgd_tpu_torch.parallel.workers:train_loops", 2,
+                  [dp_ddpm_job("ddpm-warm2", steps=1)] + list(jobs.values()),
+                  timeout=DP_TIMEOUT, log_dir=str(dp_dir("logs-2")))
+    report["two_rank_spawn_s"] = time.perf_counter() - t0
+    res = {tag: [r[i + 1] for r in ranks] for i, tag in enumerate(jobs)}
+    refs = {"vaegan-dp": workers.train_loop(
+        family="vaegan", device=DP_DEVICE, epochs=1,
+        max_steps_per_epoch=DP_VAEGAN_STEPS,
+        cfg=dp_vaegan_config("vaegan-one"), state=False),
+        "glow-dp": workers.train_loop(
+            family="glow", device=DP_DEVICE, n_iter=DP_GLOW_ITERS,
+            cfg=dp_glow_config("glow-one"), state=False),
+        "ddpm-dp": none[0], "ddpm-sp": none[0]}
+    # the bf16 VAE-GAN's first step is chaotic (its D step's Adam update
+    # and six BatchNorm backwards amplify roundings): its bound is also
+    # VAEGAN_FLOOR_X times the median over FLOOR_SEEDS of the one-process
+    # run against itself with K1's conv output perturbed by one f32 ulp
+    plain_stats = K.conv_stats
+    floors = []
+    for seed in FLOOR_SEEDS:
+        K.conv_stats = perturbed_by(plain_stats, seed)
+        try:
+            floors.append(loss_rel(workers.train_loop(
+                family="vaegan", device=DP_DEVICE, epochs=1,
+                max_steps_per_epoch=1, state=False,
+                cfg=dp_vaegan_config(f"vaegan-floor{seed}")),
+                refs["vaegan-dp"], 1))
+        finally:
+            K.conv_stats = plain_stats
+    floor = sorted(floors)[len(floors) // 2]
+    report["vaegan_floor"] = {"per_seed": dict(zip(FLOOR_SEEDS, floors)),
+                              "median": floor}
+    bounds = {"ddpm-dp": STEP_LOSS_REL, "ddpm-sp": SP_LOSS_REL,
+              "vaegan-dp": max(VAEGAN_LOSS_REL, VAEGAN_FLOOR_X * floor),
+              "glow-dp": STEP_LOSS_REL}
+    for tag, pair in res.items():
+        row = {"ranks_bit_equal": check_ranks(f"dp {tag}", pair, failures),
+               "step_ms_per_rank": [median_ms(p) for p in pair],
+               "launches_per_rank": [p["launches"] for p in pair]}
+        if tag in refs:
+            # the first step: the same init and draws, the global batch's
+            # statistics against one process's
+            first = loss_rel(pair[0], refs[tag], 1)
+            every = loss_rel(pair[0], refs[tag])
+            bound = bounds[tag]
+            row.update(first_step_loss_rel=first, loss_rel=every,
+                       bound=bound, one_process_step_ms=median_ms(refs[tag]))
+            if not first <= bound:
+                failures.append(f"dp {tag}: first-step losses {first} from "
+                                f"one process, bound {bound}")
+        report[tag] = row
+    sp = res["ddpm-sp"]
+    for p in res["ddpm-dp"]:
+        want_launches("dp (b) DDPM rank", p, dp_train_launches(
+            sites, DP_STEPS, p["forwards"]), failures)
+    for p in sp:
+        want_launches("dp (c) SP rank", p, dp_train_launches(
+            sites - 1, DP_STEPS, p["forwards"]), failures)
+        want_launches("dp (c) SP fused forward", p["forward"], {
+            "flash_attention": 2, "groupnorm_silu": 14, "attention_fwd": 0},
+            failures)
+    for p in res["vaegan-dp"]:
+        want_launches("dp (b) VAE-GAN rank", p,
+                      {"conv_bn_stats": K1_PER_STEP * DP_VAEGAN_STEPS},
+                      failures)
+    for p in res["glow-dp"]:
+        want_launches("dp (d) Glow rank", p, {
+            "glow_coupling_fwd": K5_PER_STEP * (DP_GLOW_ITERS + 1),
+            "glow_coupling_bwd1": K5_PER_STEP * DP_GLOW_ITERS,
+            "glow_coupling_bwd2": K5_PER_STEP * DP_GLOW_ITERS}, failures)
+    for p in res["glow-stack-dp"]:
+        want_launches("dp (d) Glow flow_stack rank", p, {
+            "glow_flow_stack_fwd": K6_PER_STEP * DP_GLOW_ITERS,
+            "glow_flow_stack_bwd": K6_PER_STEP * DP_GLOW_ITERS,
+            "glow_coupling_fwd": K5_PER_STEP, "glow_coupling_bwd1": 0},
+            failures)
+    # (c) the SP run's sampling forward against one process's, same weights
+    tr = DiffusionTrainer(dp_ddpm_config("ddpm-sp"), (h, w, 3),
+                          device=DP_DEVICE)
+    tr.model.load_state_dict({k: v.to(tr.device) for k, v in
+                              sp[0]["state"].items()})
+    with torch.inference_mode():
+        one = tr.model_fused(x.to(tr.device), t.to(tr.device)).float().cpu()
+    err = float((sp[0]["forward"]["out"] - one).abs().max())
+    scale = float(one.abs().max())
+    report["ddpm-sp"].update(forward_max_abs_err=err, forward_scale=scale,
+                             forward_launches=sp[0]["forward"]["launches"])
+    if not err <= UNET_REL_TOL * scale:
+        failures.append(f"dp (c) SP fused forward vs one process: {err} > "
+                        f"{UNET_REL_TOL} x {scale}")
+    del tr
+    if DP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    for tag, row in report.items():
+        if isinstance(row, dict) and "ranks_bit_equal" in row:
+            extra = (f"; first-step loss rel {row['first_step_loss_rel']:.3g}"
+                     f" (bound {row['bound']:.3g}), every step "
+                     f"{row['loss_rel']:.3g}; one-process step "
+                     f"{row['one_process_step_ms']:.2f} ms"
+                     if "bound" in row else "")
+            print(f"[dp] {tag}: ranks bit-equal {row['ranks_bit_equal']}; "
+                  f"step ms per rank "
+                  f"{[round(v, 2) for v in row['step_ms_per_rank']]} (two "
+                  f"ranks on one card over gloo: collective overhead, not "
+                  f"scaling){extra}; launches rank 0 "
+                  f"{row['launches_per_rank'][0]}", flush=True)
+    print(f"[dp] (c) SP fused forward B=2 vs one process: max abs err "
+          f"{err:.4g}, tol {UNET_REL_TOL} x {scale:.4g}; launches "
+          f"{sp[0]['forward']['launches']}", flush=True)
+    report["remat"] = remat_path(K, failures)
+    report["launches"] = {
+        name: sum(p["launches"].get(name, 0) for pair in res.values()
+                  for p in pair) + nccl["launches"].get(name, 0)
+        + sum(p["forward"]["launches"].get(name, 0) for p in sp)
+        for name in ("attention_fwd", "attention_dq", "attention_dkv",
+                     "flash_attention", "groupnorm_silu", "conv_bn_stats",
+                     *K5_NAMES, *K6_NAMES)}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[dp] phase {report['phase_s']:.1f} s (two-rank spawn "
+          f"{report['two_rank_spawn_s']:.1f} s); launches on its paths "
+          f"{report['launches']}", flush=True)
+    return report
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
@@ -4408,7 +4858,10 @@ ONLY = {"k1": ("conv_bn_stats.cu",),
         "eeg": (),
         "fid": (),
         "export": ("flash_attention.cu", "groupnorm_silu.cu",
-                   "glow_coupling.cu")}
+                   "glow_coupling.cu"),
+        "dp": ("flash_attention.cu", "flash_attention_bwd.cu",
+               "groupnorm_silu.cu", "conv_bn_stats.cu", "glow_coupling.cu",
+               "glow_flow_stack.cu")}
 # optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
 # figure need matplotlib; the port computes without any of them)
 OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
@@ -4425,8 +4878,9 @@ def main(argv=None) -> int:
                     "per-flow K5 path it is timed against; eeg: the EEG "
                     "phase; fid: the Inception checks and timing; export: "
                     "the serving export and data path on seeded "
-                    "checkpoints) with no main path and no result line; "
-                    "exit 0 if it passed")
+                    "checkpoints; dp: data and sequence parallelism across "
+                    "processes and Glow remat) with no main path and no "
+                    "result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4497,8 +4951,13 @@ def main(argv=None) -> int:
         elif args.only == "export":
             seeded_checkpoints()
             report["export"] = export_path(K, failures)
+        elif args.only == "dp":
+            report["dp"] = dp_path(K, failures)
         if args.only:
             raise _PartialRun
+        # the data-parallel phase first: its rank processes share this card,
+        # and the later phases leave tens of GB in this process's hands
+        report["dp"] = dp_path(K, failures)
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(
             K, gen, dev, failures)
@@ -4533,6 +4992,7 @@ def main(argv=None) -> int:
         report["inception"] = check_inception(failures)
         report["fid_eval"] = fid_eval_path(K, report, failures)
         report["export"] = export_path(K, failures)
+        dp_l = report["dp"]["launches"]
         exp_l = report["export"]["launches"]
         fid_l = {name: sum(r["launches"].get(name, 0) for r in
                            report["fid_eval"].values() if isinstance(r, dict))
@@ -4543,50 +5003,50 @@ def main(argv=None) -> int:
         fwd_src = "vgd_tpu_torch/csrc/flash_attention.cu"
         bwd_src = "vgd_tpu_torch/csrc/flash_attention_bwd.cu"
         report["kernels"] = [
-            kernel_entry("attention_fwd", fwd_src,
-                         "vgd_tpu/ops/pallas_kernels.py:218",
-                         k2_rows["attention_fwd"], train_l["attention_fwd"],
-                         per_step),
-            kernel_entry("attention_dq", bwd_src,
-                         "vgd_tpu/ops/pallas_kernels.py:251",
-                         k2_rows["attention_dq"], train_l["attention_dq"],
-                         per_step),
-            kernel_entry("attention_dkv", bwd_src,
-                         "vgd_tpu/ops/pallas_kernels.py:280",
-                         k2_rows["attention_dkv"], train_l["attention_dkv"],
-                         per_step),
+            dict(kernel_entry(name, src, f"vgd_tpu/ops/pallas_kernels.py:"
+                              f"{line}", k2_rows[name],
+                              train_l[name] + dp_l[name], per_step),
+                 launches_by_path={"train": train_l[name],
+                                   "dp": dp_l[name]})
+            for name, src, line in (("attention_fwd", fwd_src, 218),
+                                    ("attention_dq", bwd_src, 251),
+                                    ("attention_dkv", bwd_src, 280))] + [
             dict(kernel_entry("flash_attention", fwd_src,
                               "vgd_tpu/ops/pallas_kernels.py:63", attn_rows,
                               serve_l["flash_attention"]
                               + fid_l["flash_attention"]
-                              + exp_l["flash_attention"], per_fwd),
+                              + exp_l["flash_attention"]
+                              + dp_l["flash_attention"], per_fwd),
                  launches_by_path={
                      "serve": serve_l["flash_attention"],
                      "fid_eval": fid_l["flash_attention"],
-                     "export": exp_l["flash_attention"]}),
+                     "export": exp_l["flash_attention"],
+                     "dp": dp_l["flash_attention"]}),
             dict(kernel_entry("groupnorm_silu",
                               "vgd_tpu_torch/csrc/groupnorm_silu.cu",
                               "vgd_tpu/ops/pallas_kernels.py:193", gn_rows,
                               serve_l["groupnorm_silu"]
                               + fid_l["groupnorm_silu"]
-                              + exp_l["groupnorm_silu"], per_fwd),
+                              + exp_l["groupnorm_silu"]
+                              + dp_l["groupnorm_silu"], per_fwd),
                  form="f32 in and out (the TPU kernel's function)",
                  main_path_forms=report["k4_main_path"],
                  launches_by_path={
                      "serve": serve_l["groupnorm_silu"],
                      "fid_eval": fid_l["groupnorm_silu"],
-                     "export": exp_l["groupnorm_silu"]}),
+                     "export": exp_l["groupnorm_silu"],
+                     "dp": dp_l["groupnorm_silu"]}),
             k1_entry(k1_rows, report)] + [
             dict(kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_coupling.cu",
                 f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
                 report["glow"]["train"]["launches_total"][name]
-                + fid_l.get(name, 0) + exp_l.get(name, 0),
+                + fid_l.get(name, 0) + exp_l.get(name, 0) + dp_l[name],
                 "one 64x64 batch-16 Glow train step (K=32, L=4)"),
                 launches_by_path={
                     "train": report["glow"]["train"]["launches_total"][name],
                     "fid_eval": fid_l.get(name, 0),
-                    "export": exp_l.get(name, 0)})
+                    "export": exp_l.get(name, 0), "dp": dp_l[name]})
             for name, line in zip(K5_NAMES, (164, 206, 266))]
         # K6's forward and backward run on the training path, its no-save
         # forward on the likelihood path (the serve phase)
@@ -4597,15 +5057,16 @@ def main(argv=None) -> int:
             entry = kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_flow_stack.cu",
                 f"vgd_tpu/ops/glow_flow_stack.py:{line}", k6_rows[name],
-                k6_launches[name],
+                k6_launches[name] + dp_l[name],
                 "one 64x64 batch-16 Glow likelihood forward (K=32, L=4)"
                 if name == "glow_flow_stack_fwd_nosave" else
                 "one 64x64 batch-16 Glow train step (K=32, L=4, flow_stack)")
             # no one PyTorch call computes a flow stack: the per-flow path
             # of the same four blocks stands beside it
             timed = [r for r in k6_rows[name] if "ms" in r]
-            entry.update(library="none alone", **{k: sum(r[k] for r in timed)
-                                                  for k in K6_PER_FLOW_KEYS})
+            entry.update(library="none alone", launches_by_path={
+                "main": k6_launches[name], "dp": dp_l[name]},
+                **{k: sum(r[k] for r in timed) for k in K6_PER_FLOW_KEYS})
             report["kernels"].append(entry)
         idle = [e["name"] for e in report["kernels"] if not e["launches"]]
         if idle:

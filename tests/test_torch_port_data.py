@@ -25,22 +25,25 @@ def test_synthetic_faces_byte_equal():
             JDATA.synthetic_faces(5, size, 3, seed=seed))
 
 
-@pytest.mark.parametrize("name", ["DataConfig", "RunConfig",
+def _same_defaults(port, ref, path):
+    """Every field of ``port`` (nested configs field by field) equals
+    ``ref``'s."""
+    for f in dataclasses.fields(port):
+        got, want = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(got):
+            _same_defaults(got, want, f"{path}.{f.name}")
+        else:
+            assert got == want, f"{path}.{f.name}"
+
+
+@pytest.mark.parametrize("name", ["MeshConfig", "DataConfig", "RunConfig",
                                   "DiffusionConfig", "VAEGANConfig",
                                   "GlowConfig", "GlowEEGConfig", "VAEConfig",
                                   "GANConfig"])
 def test_config_defaults_equal_jax(name):
-    """Every field the port keeps has the JAX package's default."""
-    port, ref = getattr(PC, name)(), getattr(JC, name)()
-    for f in dataclasses.fields(port):
-        want = getattr(ref, f.name)
-        got = getattr(port, f.name)
-        if dataclasses.is_dataclass(got):
-            for g in dataclasses.fields(got):
-                assert getattr(got, g.name) == getattr(want, g.name), \
-                    f"{name}.{f.name}.{g.name}"
-        else:
-            assert got == want, f"{name}.{f.name}"
+    """Every field the port keeps has the JAX package's default, nested
+    configs (``RunConfig.mesh``) field by field."""
+    _same_defaults(getattr(PC, name)(), getattr(JC, name)(), name)
 
 
 def test_loaders_match_jax():

@@ -66,6 +66,19 @@ the kernels as registered ops) and ``infer`` runs it with no model code.
 cache; synthetic faces without it); ``--debug-nans`` trains under
 autograd's anomaly detection. All run on ``--device cuda`` unless
 ``--device cpu`` is given.
+
+The training commands run data-parallel on several cards, one process a
+card (``train.loop``; ``--batch-size`` is the global batch):
+
+  torchrun --nproc-per-node 8 -m vgd_tpu_torch.cli diffusion --mesh-data 8
+  VGD_COORDINATOR=host0:1234 VGD_NUM_PROCESSES=2 VGD_PROCESS_ID=<i> \
+      python -m vgd_tpu_torch.cli vae --multihost
+
+``--mesh-data`` sizes the data axis (-1: every process ``--mesh-model``
+leaves), ``--mesh-model`` > 1 shards the DDPM UNet's bottleneck tokens
+(ring attention; the other families refuse it), ``--multihost`` starts
+the process group from the ``VGD_*`` variables (or torchrun's), and
+``glow --remat`` recomputes each flow in the backward.
 """
 from __future__ import annotations
 
@@ -154,7 +167,7 @@ def _add_eeg(p, sizes=True):
 # RunConfig fields a command line may set (a flag left out leaves the
 # config's value)
 _RUN_ARGS = ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints",
-             "debug_nans")
+             "debug_nans", "multihost", "mesh")
 
 
 def _eeg_cfg(a) -> C.GlowEEGConfig:
@@ -163,6 +176,7 @@ def _eeg_cfg(a) -> C.GlowEEGConfig:
         "n_flows", "n_blocks", "filter_size", "batch_size", "lr")
         if getattr(a, k, None) is not None}
     run = {"seed": a.seed}
+    a.mesh = _mesh(a)
     for k in _RUN_ARGS:
         if getattr(a, k, None) is not None:
             run[k] = getattr(a, k)
@@ -264,9 +278,35 @@ def _add_training(p):
                    help="torch.profiler trace of train steps 10-20 here")
 
 
+def _add_parallel(p):
+    """The training commands' process mesh (``RunConfig.mesh``,
+    ``RunConfig.multihost``), with the JAX CLI's meanings."""
+    p.add_argument("--multihost", action="store_true", default=None,
+                   help="start torch.distributed from VGD_COORDINATOR=host:"
+                   "port, VGD_NUM_PROCESSES and VGD_PROCESS_ID (or from "
+                   "torchrun's variables) before the run")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis size (-1 = all processes "
+                   "not used by --mesh-model; default -1)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="model mesh axis size: >1 shards the UNet token "
+                   "axis (sequence parallel, diffusion only)")
+
+
+def _mesh(a):
+    """``MeshConfig`` of --mesh-data / --mesh-model (None when neither)."""
+    if getattr(a, "mesh_data", None) is None and \
+            getattr(a, "mesh_model", None) is None:
+        return None
+    return C.MeshConfig(
+        data=a.mesh_data if a.mesh_data is not None else -1,
+        model=a.mesh_model if a.mesh_model is not None else 1)
+
+
 def _add_optim(p):
     """The training commands' --lr and --keep-checkpoints (each command of
-    the reference takes both) and --debug-nans."""
+    the reference takes both), --debug-nans and the process mesh."""
+    _add_parallel(p)
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate (default: the config's)")
     p.add_argument("--keep-checkpoints", type=int, default=None,
@@ -285,6 +325,7 @@ def _with_args(cfg, a, **run):
     if getattr(a, "data", None) is not None:
         data["path"] = a.data
     run["seed"] = a.seed
+    a.mesh = _mesh(a)
     for k in _RUN_ARGS:
         if getattr(a, k, None) is not None:
             run[k] = getattr(a, k)
@@ -362,8 +403,8 @@ def _glow_cfg(a) -> C.GlowConfig:
              if getattr(a, k, None) is not None}
     return _with_args(C.GlowConfig(
         fused_coupling=bool(getattr(a, "fused_coupling", False)),
-        flow_stack=_flow_stack(getattr(a, "flow_stack", None)), **sizes), a,
-        **run)
+        flow_stack=_flow_stack(getattr(a, "flow_stack", None)),
+        remat=bool(getattr(a, "remat", False)), **sizes), a, **run)
 
 
 def _add_family(p):
@@ -553,6 +594,10 @@ def main(argv=None):
                    help="torch.profiler trace of train steps 10-20 here")
     p.add_argument("--sample-every", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each flow in the backward "
+                   "(torch.utils.checkpoint): activation memory O(K) -> "
+                   "O(1) a block, one more coupling forward a flow")
     _add_optim(p)
 
     p = sub.add_parser("eval-glow", help="temperature-sample SSIM of a "

@@ -1,17 +1,29 @@
 """Typed configuration for the ported workloads.
 
-Own copies of ``vgd_tpu/core/config.py``'s ``DataConfig``, ``RunConfig``,
-``VAEGANConfig``, ``GANConfig``, ``VAEConfig``, ``GlowConfig``,
-``GlowEEGConfig`` and ``DiffusionConfig`` with the same defaults (a test pins them field by field). ``RunConfig`` keeps only the
+Own copies of ``vgd_tpu/core/config.py``'s ``MeshConfig``, ``DataConfig``,
+``RunConfig``, ``VAEGANConfig``, ``GANConfig``, ``VAEConfig``,
+``GlowConfig``, ``GlowEEGConfig`` and ``DiffusionConfig`` with the same
+defaults (a test pins them field by field). ``RunConfig`` keeps only the
 fields the ported paths read; ``compute_dtype``/``param_dtype`` keep their
 meaning: convs and dense layers compute in ``compute_dtype``, parameters
-are stored in ``param_dtype``.
+are stored in ``param_dtype``. ``MeshConfig`` lays the (data, model) mesh
+over the processes of a ``torch.distributed`` world, one per card
+(``parallel/mesh.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) process mesh. ``data`` is the data-parallel axis
+    (-1: every process the model axis leaves); ``model`` > 1 shards the
+    DDPM UNet's bottleneck tokens (sequence parallelism)."""
+    data: int = -1
+    model: int = 1
 
 
 @dataclass(frozen=True)
@@ -49,6 +61,10 @@ class RunConfig:
     # the run_* loops under torch.autograd.set_detect_anomaly (the
     # counterpart of jax_debug_nans): a backward that makes a NaN raises
     debug_nans: bool = False
+    # start torch.distributed from VGD_COORDINATOR / VGD_NUM_PROCESSES /
+    # VGD_PROCESS_ID (or torchrun's variables) before the run
+    multihost: bool = False
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass(frozen=True)
@@ -121,9 +137,9 @@ def check_flow_stack(flow_stack) -> None:
 class GlowConfig:
     """Glow on images at the reference's training scale (64x64, batch 16,
     K=32 flows, L=4 blocks, coupling width 512, 5 bits, 30k iterations),
-    bf16 coupling convs. Left out: ``remat``, ``pp_stages`` /
-    ``pp_microbatches`` and ``scan_unroll`` (the last has no meaning without
-    ``lax.scan``)."""
+    bf16 coupling convs. Left out: ``pp_stages`` / ``pp_microbatches``
+    (pipeline parallelism is not ported yet) and ``scan_unroll`` (no
+    meaning without ``lax.scan``)."""
     data: DataConfig = field(default_factory=lambda: DataConfig(
         batch_size=16, normalize=False))
     run: RunConfig = field(default_factory=lambda: RunConfig(
@@ -136,6 +152,9 @@ class GlowConfig:
     lr: float = 1e-4
     temperature: float = 0.7
     n_samples: int = 20
+    # recompute each flow of the per-flow chain in the backward
+    # (torch.utils.checkpoint): a block's activation memory O(K) -> O(1)
+    remat: bool = False
     # the coupling network through K5 (ops/glow_coupling.py); off by
     # default, as in the JAX package
     fused_coupling: bool = False

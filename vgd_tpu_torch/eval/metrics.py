@@ -5,7 +5,10 @@ per-epoch ``MetricAccumulator``.
 SSIM, PSNR and MSE run on the device. The feature statistics (FID, IS,
 P/R) are host numpy / scipy, as in the JAX package, on features that an
 Inception ``feature_fn`` (``eval/inception.load_inception``) made on the
-device and ``MetricAccumulator.compute`` reads once.
+device and ``MetricAccumulator.compute`` reads once. Under data
+parallelism (``group``) each rank accumulates its rows of every batch, and
+``compute`` sums the SSIM weights over the ranks and puts the features of
+every rank back in the global batches' order before the statistics.
 """
 from __future__ import annotations
 
@@ -13,7 +16,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from vgd_tpu_torch.parallel.collectives import all_sum
 
 
 def mse_metric(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -175,7 +181,7 @@ class MetricAccumulator:
     features stay on the device until ``compute``, which reads them once."""
 
     def __init__(self, feature_fn=None, manifold_k: Optional[int] = 3,
-                 weights_tag: Optional[str] = None):
+                 weights_tag: Optional[str] = None, group=None):
         self.feature_fn = feature_fn
         self.manifold_k = manifold_k
         self.weights_tag = (weights_tag if weights_tag is not None
@@ -184,14 +190,22 @@ class MetricAccumulator:
         self._feat_real: List[torch.Tensor] = []
         self._feat_fake: List[torch.Tensor] = []
         self._logits_fake: List[torch.Tensor] = []
+        # the data-parallel group whose ranks hold the other rows
+        self.group = group
+        self._batch = 0
+        self._batch_of: List[int] = []
 
     def update(self, fake_unit: torch.Tensor, real_unit: torch.Tensor,
                n_valid: Optional[int] = None) -> None:
         """fake / real in [0, 1], NHWC; only the first ``n_valid`` rows (the
         rest pad a final batch) count."""
         n = fake_unit.shape[0] if n_valid is None else n_valid
+        self._batch += 1
+        if n == 0:              # another rank holds this batch's true rows
+            return
         fake_unit, real_unit = fake_unit[:n], real_unit[:n]
         self._ssim_vals.append((ssim(fake_unit, real_unit), n))
+        self._batch_of.append(self._batch)
         if self.feature_fn is not None:
             f_fake, l_fake = self.feature_fn(_to_uint8(fake_unit))
             f_real, _ = self.feature_fn(_to_uint8(real_unit))
@@ -199,25 +213,47 @@ class MetricAccumulator:
             self._feat_real.append(f_real)
             self._logits_fake.append(l_fake)
 
-    def compute(self) -> Dict[str, float]:
-        if not self._ssim_vals:
-            return {"ssim": 0.0}
-        vals = torch.stack([v for v, _ in self._ssim_vals]).double().cpu()
+    def _ssim(self) -> Dict[str, float]:
+        """SSIM weighted by the true rows (every rank's, under a group)."""
+        vals = torch.stack([v for v, _ in self._ssim_vals]).double().cpu() \
+            .tolist() if self._ssim_vals else []
         ns = [n for _, n in self._ssim_vals]
-        out = {"ssim": sum(float(v) * n for v, n in zip(vals, ns))
-               / max(sum(ns), 1)}
-        if self.feature_fn is None or not self._feat_fake:
-            return out
+        tot = [sum(v * n for v, n in zip(vals, ns)), float(sum(ns))]
+        if self.group is not None:
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if dist.get_backend(self.group) == "nccl" else "cpu")
+            tot = all_sum(torch.tensor(tot, dtype=torch.float64, device=dev),
+                          self.group).tolist()
+        return {"ssim": tot[0] / max(tot[1], 1.0)}
 
-        def host(parts):
-            return torch.cat(parts).float().cpu().numpy()
-        feat_fake, feat_real = host(self._feat_fake), host(self._feat_real)
+    def _features(self) -> Optional[List[np.ndarray]]:
+        """(fake, real, fake logits) features of the true rows on the host
+        (every rank's under a group, put back in the order of the global
+        batches: batch by batch, rank by rank); None without any."""
+        mine = [(b, *(t.float().cpu().numpy() for t in ts))
+                for b, *ts in zip(self._batch_of, self._feat_fake,
+                                  self._feat_real, self._logits_fake)]
+        every = [mine]
+        if self.group is not None:
+            every = [None] * dist.get_world_size(self.group)
+            dist.all_gather_object(every, mine, group=self.group)
+        rows = sorted(((b, r, *arrs) for r, part in enumerate(every)
+                       for b, *arrs in part), key=lambda e: e[:2])
+        if not rows:
+            return None
+        return [np.concatenate([e[2 + i] for e in rows]) for i in range(3)]
+
+    def compute(self) -> Dict[str, float]:
+        out = self._ssim()
+        feats = None if self.feature_fn is None else self._features()
+        if feats is None:
+            return out
+        feat_fake, feat_real, logits_fake = feats
         surrogate = self.weights_tag == "random-init"
         sfx = "_surrogate" if surrogate else ""
         out["fid" + sfx] = frechet_distance(feat_real, feat_fake)
         if not surrogate:
-            is_mean, is_std = inception_score_from_logits(
-                host(self._logits_fake))
+            is_mean, is_std = inception_score_from_logits(logits_fake)
             out["inception_score"] = is_mean
             out["inception_score_std"] = is_std
         if self.manifold_k is not None:

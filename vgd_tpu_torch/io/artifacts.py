@@ -8,6 +8,11 @@ package draws them with matplotlib. Loss curves are drawn with matplotlib
 where it imports (``utils.viz.have_matplotlib``), as the JAX package draws
 them; without it the ``.npz`` / ``.jsonl`` of ``MetricLog`` hold the same
 numbers.
+
+Only rank 0 of a started process group writes (``primary_host``), as the
+JAX package gates its artifacts to process 0: every rank runs the same
+loop, and the others' writes to one ``out_dir`` would race. Every rank
+keeps the metric history in memory.
 """
 from __future__ import annotations
 
@@ -17,8 +22,15 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from vgd_tpu_torch.utils.viz import have_matplotlib
+
+
+def primary_host() -> bool:
+    """True on rank 0 of a started process group, and in one process."""
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
 
 
 class MetricLog:
@@ -35,11 +47,13 @@ class MetricLog:
     def append(self, **metrics: float) -> None:
         row = {k: float(v) for k, v in metrics.items()}
         self.history.append(row)
+        if not primary_host():
+            return
         with open(os.path.join(self.out_dir, f"{self.name}.jsonl"), "a") as f:
             f.write(json.dumps(row) + "\n")
 
     def save(self) -> None:
-        if not self.history:
+        if not self.history or not primary_host():
             return
         keys = sorted({k for row in self.history for k in row})
         arr = np.full((len(self.history), len(keys)), np.nan)
@@ -87,6 +101,8 @@ def _tile(rows: Sequence[np.ndarray]) -> np.ndarray:
 
 def _write(arr: np.ndarray, npy_path: str, image_path: str,
            picture: Optional[np.ndarray]) -> str:
+    if not primary_host():
+        return npy_path
     os.makedirs(os.path.dirname(os.path.abspath(npy_path)), exist_ok=True)
     np.save(npy_path, arr)
     if picture is not None and importlib.util.find_spec("PIL") is not None:
@@ -121,7 +137,7 @@ def save_loss_curves(curves: Dict[str, Sequence[float]], path: str
                      ) -> Optional[str]:
     """Named loss curves over epochs (or iterations), drawn with matplotlib
     (Agg) where it imports; returns the path, or None without matplotlib."""
-    if not have_matplotlib() or not curves:
+    if not have_matplotlib() or not curves or not primary_host():
         return None
     import matplotlib
     matplotlib.use("Agg")

@@ -14,7 +14,14 @@ port keeps its own:
   0, computed in f32;
 * the module can run in train mode without touching its running stats
   (``frozen_running_stats``): the VAE-GAN step's discriminator-phase
-  forward of the encoder and decoder throws those updates away.
+  forward of the encoder and decoder throws those updates away;
+* under data parallelism (``group``, the mesh's data group) the batch
+  statistics are the global batch's, as under JAX's sharded-batch jit:
+  every rank's per-channel mean of x and of x^2 (Flax's two statistics)
+  are averaged in rank order (``parallel.collectives.AllMean``, the same
+  bits on every rank), and the backward averages their gradients over the
+  ranks. ``torch.nn.SyncBatchNorm`` is no substitute: its running variance
+  is the unbiased one.
 
 Parameter and buffer names map onto the Flax tree one to one: ``scale`` ->
 ``weight``, ``bias`` -> ``bias``, ``batch_stats`` ``mean`` / ``var`` ->
@@ -29,6 +36,8 @@ from typing import Iterator
 
 import torch
 from torch import nn
+
+from vgd_tpu_torch.parallel.collectives import AllMean
 
 F32 = torch.float32
 _DIMS = (0, 1, 2)          # NHWC: statistics over batch and space
@@ -46,6 +55,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.momentum, self.eps = momentum, eps
         self.update_stats = True
+        # the data-parallel group whose global batch the statistics cover
+        self.group = None
 
     def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Flax's momentum update of the running stats with batch (mean,
@@ -63,13 +74,25 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             mean = xf.mean(dim=_DIMS)
-            var = torch.clamp(torch.square(xf).mean(dim=_DIMS)
-                              - torch.square(mean), min=0.0)
+            mean2 = torch.square(xf).mean(dim=_DIMS)
+            if self.group is not None:
+                mean, mean2 = AllMean.apply(torch.stack([mean, mean2]),
+                                            self.group)
+            var = torch.clamp(mean2 - torch.square(mean), min=0.0)
             self.update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+
+
+def set_group(group, *modules: nn.Module) -> None:
+    """Every ``BatchNorm`` of ``modules`` takes its batch statistics over
+    ``group``'s global batch (None: this process's batch)."""
+    for mod in modules:
+        for m in mod.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
 
 
 @contextlib.contextmanager

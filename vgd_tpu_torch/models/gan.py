@@ -120,7 +120,8 @@ class Discriminator(nn.Module):
                 bn = getattr(self, f"bn{i}")
                 y, m, v = conv_bn_lrelu(h.contiguous(), conv.weight.to(dt),
                                         bn.weight, bn.bias, padding=1,
-                                        slope=0.2, eps=bn.eps)
+                                        slope=0.2, eps=bn.eps,
+                                        group=bn.group)
                 bn.update(m, v)
                 h = y.to(dt)
                 continue

@@ -29,9 +29,17 @@ flows run in a Python loop over k (the JAX package scans them); each
 forward unbinds the stacked leaves once, so their gradients are stacked
 once per block.
 
-Left out: ``remat`` (activation checkpointing), ``scan_unroll`` (an unroll
-factor of ``lax.scan``, math-identical by construction, meaningless without
-the scan) and pipeline parallelism.
+``remat`` recomputes each flow of the per-flow chain in the backward
+(``torch.utils.checkpoint``, non-reentrant), the one path JAX's
+``jax.checkpoint`` wraps: a block keeps one flow's activations instead of
+K. ``flow_stack`` blocks, the ActNorm init and the reverse are untouched;
+under ``fused_coupling`` the recomputation launches K5's forward a second
+time. Under data parallelism (``group``, the mesh's data group) the ActNorm
+init takes the global batch's mean and unbiased std, the ranks' moments
+merged in rank order (``parallel.collectives.merge_moments``).
+
+Left out: ``scan_unroll`` (an unroll factor of ``lax.scan``, math-identical
+by construction, meaningless without the scan) and pipeline parallelism.
 """
 from __future__ import annotations
 
@@ -41,10 +49,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vgd_tpu_torch.core.config import check_flow_stack
 from vgd_tpu_torch.ops.glow_coupling import glow_coupling_nn
 from vgd_tpu_torch.ops.glow_flow_stack import glow_flow_stack
+from vgd_tpu_torch.parallel.collectives import merge_moments, size
 
 
 def gaussian_log_p(x, mean, log_sd):
@@ -160,7 +170,7 @@ class Glow(nn.Module):
 
     def __init__(self, in_channels=3, n_flows=32, n_blocks=4, variant="image",
                  filter_size=512, compute_dtype=torch.float32,
-                 fused_coupling=False, flow_stack=False):
+                 fused_coupling=False, flow_stack=False, remat=False):
         super().__init__()
         check_flow_stack(flow_stack)
         if variant not in ("image", "eeg"):
@@ -171,6 +181,9 @@ class Glow(nn.Module):
         self.compute_dtype = compute_dtype
         self.fused_coupling = fused_coupling
         self.flow_stack = flow_stack
+        self.remat = remat
+        # the data-parallel group whose global batch the ActNorm init sees
+        self.group = None
         self.kernel = (3, 3) if variant == "image" else (3, 1)
         self.pad = (1, 1) if variant == "image" else (1, 0)
         self.squeeze_factor = 4 if variant == "image" else 2
@@ -286,8 +299,17 @@ class Glow(nn.Module):
         (b, s)); in init mode b and s come from x's statistics and the
         logdet is recomputed from them."""
         if init:
-            b = -torch.mean(x, dim=(0, 1, 2))
-            s = 1.0 / (torch.std(x, dim=(0, 1, 2), correction=1) + 1e-6)
+            if self.group is None:
+                mean = torch.mean(x, dim=(0, 1, 2))
+                std = torch.std(x, dim=(0, 1, 2), correction=1)
+            else:
+                var, mean = torch.var_mean(x, dim=(0, 1, 2), correction=0)
+                n = x.numel() // x.shape[-1]
+                mean, var = merge_moments(mean, var, n, self.group)
+                total = n * size(self.group)
+                std = torch.sqrt(var * (total / (total - 1)))
+            b = -mean
+            s = 1.0 / (std + 1e-6)
             logdet = hw * (torch.sum(torch.log(torch.abs(s)))
                            + torch.sum(p["invconv"]["log_s"]))
         else:
@@ -331,8 +353,15 @@ class Glow(nn.Module):
             return y, torch.sum(ld_all), log_p, z_new, []
         logdet = torch.zeros((), dtype=y.dtype, device=y.device)
         stats = []
+        remat = self.remat and not init and torch.is_grad_enabled()
         for k, p in enumerate(fl.per_flow()):
-            y, ld, st = self._flow_fwd(p, y, hw, init, w_all[k], ld_all[k])
+            if remat:
+                y, ld, st = checkpoint(self._flow_fwd, p, y, hw, init,
+                                       w_all[k], ld_all[k],
+                                       use_reentrant=False)
+            else:
+                y, ld, st = self._flow_fwd(p, y, hw, init, w_all[k],
+                                           ld_all[k])
             logdet = logdet + ld
             stats.append(st)
         y, log_p, z_new = self._block_tail(blk, y, bsz, split)

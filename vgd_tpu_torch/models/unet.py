@@ -13,7 +13,12 @@ conv run in f32, at the same places where ``unet.py`` casts to ``F32``.
 the port's kernels (``ops.kernels``), as the JAX package does on its
 inference paths. ``fused=False`` is the training form: attention runs the
 differentiable K2 kernels (``kernels.attention``), as the JAX train step's
-``attention`` does, and GroupNorm+SiLU stays stock PyTorch.
+``attention`` does, and GroupNorm+SiLU stays stock PyTorch. Under sequence
+parallelism (``UNet.sp_group``, the mesh's model group; JAX's ``sp_mesh``)
+the bottleneck self-attention runs the ring
+(``parallel.sequence_parallel.sp_self_attention``) in both forms, ahead of
+``fused``; the cross-attentions keep K2 / K3, and every other layer runs
+replicated over the model group.
 
 Parameter names mirror the Flax tree (``down1.conv1.weight`` for
 ``params['down1']['conv1']['kernel']``) so ``io.jax_params`` maps them one
@@ -33,6 +38,7 @@ from vgd_tpu_torch.ops.conv import nchw, nhwc
 from vgd_tpu_torch.ops.initializers import lecun_normal_
 from vgd_tpu_torch.ops.kernels import (attention, flash_attention,
                                        groupnorm_silu, groupnorm_silu_plain)
+from vgd_tpu_torch.parallel.sequence_parallel import sp_self_attention
 
 F32 = torch.float32
 
@@ -129,7 +135,8 @@ class ConvBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """Single-head self-attention over the HW tokens, with residual. The
-    1x1 qkv conv's channels split q | k | v."""
+    1x1 qkv conv's channels split q | k | v. With ``sp_group`` the tokens
+    ride the ring over that group (sequence parallelism)."""
 
     def __init__(self, channels: int, dtype: torch.dtype, fused: bool):
         super().__init__()
@@ -138,14 +145,20 @@ class AttentionBlock(nn.Module):
         self.proj = Conv(channels, channels, 1, dtype)
         self.dtype = dtype
         self.fused = fused
+        self.sp_group = None
 
     def forward(self, x):
         b, hh, ww, c = x.shape
         h = nhwc(self.norm(nchw(x.float())))
         qkv = self.qkv(h.to(self.dtype)).reshape(b, hh * ww, 3 * c)
         q, k, v = (t.float().contiguous() for t in qkv.split(c, dim=-1))
-        attend = flash_attention if self.fused else attention
-        out = attend(q, k, v, scale=1.0 / math.sqrt(c)).reshape(b, hh, ww, c)
+        if self.sp_group is not None:
+            out = sp_self_attention(q, k, v, self.sp_group,
+                                    scale=1.0 / math.sqrt(c))
+        else:
+            attend = flash_attention if self.fused else attention
+            out = attend(q, k, v, scale=1.0 / math.sqrt(c))
+        out = out.reshape(b, hh, ww, c)
         return self.proj(out.to(self.dtype)).float() + x.float()
 
 
@@ -229,6 +242,17 @@ class UNet(nn.Module):
         self.up1 = ConvBlock(c * 2, c, ted, dtype, fused)
         self.out_conv = Conv(c, out_ch, 1, F32)
         self.forwards = 0   # forward calls, read by serving metrics
+
+    @property
+    def sp_group(self):
+        """The model group the bottleneck self-attention's tokens are
+        sharded over (None: no sequence parallelism)."""
+        return self.attn_bottleneck.sp_group if self.attention else None
+
+    @sp_group.setter
+    def sp_group(self, group):
+        if self.attention:
+            self.attn_bottleneck.sp_group = group
 
     @torch.no_grad()
     def init_parameters(self, generator: Optional[torch.Generator] = None):

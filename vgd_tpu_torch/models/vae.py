@@ -74,7 +74,8 @@ class Encoder(nn.Module):
             if self.fused and train:
                 y, m, v = conv_bn_lrelu(h.contiguous(), conv.weight.to(dt),
                                         bn.weight, bn.bias, bias=conv.bias,
-                                        padding=0, slope=0.01, eps=bn.eps)
+                                        padding=0, slope=0.01, eps=bn.eps,
+                                        group=bn.group)
                 bn.update(m, v)
                 h = y.to(dt)
                 continue

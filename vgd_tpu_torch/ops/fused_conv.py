@@ -18,6 +18,15 @@ VAE-GAN's and DCGAN / WGAN's) hot stack as one differentiable op.
   (the running-stat input), and its gradient is an exact zero tensor, not
   None, so ``torch.optim.Adam`` keeps zero moments for it as optax does.
 
+Under data parallelism (``group``, the mesh's data group) the batch is the
+global one, as JAX's sharded-batch jit makes it (``vgd_tpu/models/gan.py``
+:18-21, the TPU's SyncBatchNorm): K1 still computes this rank's conv and
+statistics in one launch, the ranks' (mean, biased var) are merged by
+Chan's formula in rank order (``parallel.collectives.merge_moments``, the
+same bits on every rank), and the backward averages the two batch means of
+dxhat and dxhat * xhat over the ranks. Both are a few C-sized tensors and
+one collective each.
+
 ``mean`` and ``var`` are bookkeeping for the running statistics and carry no
 gradient. Inside ``kernels.plain_reference()`` the forward takes K1's plain
 version (``kernels.conv_stats_plain``) and the backward is the same: the
@@ -32,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from vgd_tpu_torch.ops import kernels as K
+from vgd_tpu_torch.parallel.collectives import all_mean, merge_moments
 
 _DIMS = (0, 1, 2)
 
@@ -63,12 +73,15 @@ def conv_bn_lrelu_plain(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
 class _ConvBnLRelu(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, bias, padding, slope, eps):
+    def forward(ctx, x, w, gamma, beta, bias, padding, slope, eps, group):
         c, mean, var = K.conv_stats(x, w, padding)
+        if group is not None:
+            mean, var = merge_moments(mean, var, c.numel() // c.shape[-1],
+                                      group)
         y = bn_lrelu(c, gamma, beta, mean, var, slope, eps)
         del c
         ctx.save_for_backward(x, w, gamma, beta, var, y)
-        ctx.conf = (padding, slope, eps)
+        ctx.conf = (padding, slope, eps, group)
         ctx.bias_like = None if bias is None else (bias.shape, bias.dtype,
                                                    bias.device)
         if bias is not None:
@@ -79,7 +92,7 @@ class _ConvBnLRelu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, w, gamma, beta, var, y = ctx.saved_tensors
-        padding, slope, eps = ctx.conf
+        padding, slope, eps, group = ctx.conf
         g = gy.float()
         y = y.float()
         pos = y > 0
@@ -97,6 +110,8 @@ class _ConvBnLRelu(torch.autograd.Function):
         dxhat = g1 * gamma
         m_d = torch.mean(dxhat, dim=_DIMS)
         m_dx = torch.mean(dxhat * xhat, dim=_DIMS)
+        if group is not None:        # the global batch's means
+            m_d, m_dx = all_mean(torch.stack([m_d, m_dx]), group)
         dc = (dxhat - m_d - xhat * m_dx) * r
         # the conv transposes in the compute dtype, by the stock backward
         cd = x.dtype
@@ -113,12 +128,13 @@ class _ConvBnLRelu(torch.autograd.Function):
             shape, dtype, device = ctx.bias_like
             dbias = torch.zeros(shape, dtype=dtype, device=device)
         return (dx, dw, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dbias,
-                None, None, None)
+                None, None, None, None)
 
 
 def conv_bn_lrelu(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                  padding: int = 0, slope: float = 0.01, eps: float = 1e-5
+                  padding: int = 0, slope: float = 0.01, eps: float = 1e-5,
+                  group=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Conv4x4s2 + train-BN + LeakyReLU: x (B, H, W, Cin) NHWC in the
     compute dtype, w (K, Cin, 4, 4) in the same dtype, gamma / beta / bias
@@ -129,5 +145,7 @@ def conv_bn_lrelu(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     to XLA) and the VAE's and DCGAN's small 64x64-model layers run K1 too,
     which measures no slower at each of those shapes than the stock conv +
     statistics (``chip_smoke.py`` prints that decision at each shape every
-    run)."""
-    return _ConvBnLRelu.apply(x, w, gamma, beta, bias, padding, slope, eps)
+    run). ``group``: the data-parallel group whose global batch the
+    statistics cover (module docstring)."""
+    return _ConvBnLRelu.apply(x, w, gamma, beta, bias, padding, slope, eps,
+                              group)

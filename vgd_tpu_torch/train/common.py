@@ -1,4 +1,7 @@
-"""Loss and optimizer primitives (``vgd_tpu/train/common.py``).
+"""Loss and optimizer primitives (``vgd_tpu/train/common.py``), and the
+data-parallel pieces every trainer shares: draws made for the global batch
+and sliced (``batch_draw``), and metrics reported as the global batch's
+(``mean_metrics``).
 
 ``scan_epoch`` has no counterpart: it is a compiled ``lax.scan`` over an
 epoch, and the port loops over steps in Python.
@@ -6,10 +9,13 @@ epoch, and the port loops over steps in Python.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterable, Iterator
+from typing import Callable, Dict, Iterable, Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from vgd_tpu_torch.parallel.collectives import all_mean
+from vgd_tpu_torch.parallel.mesh import Mesh
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -61,3 +67,27 @@ def frozen_parameters(module: torch.nn.Module) -> Iterator[None]:
     finally:
         for p in params:
             p.requires_grad_(True)
+
+
+def batch_draw(mesh: Mesh, make: Callable[[tuple], torch.Tensor],
+               shape: Sequence[int], axis: int = 0):
+    """This rank's rows of ``make(global shape)``: a draw for the global
+    batch, whose size is ``shape[axis]`` (this rank's rows) times the data
+    axis. Every rank draws the same from its generator, which stays in
+    step with a one-process run's; ``make`` may return a tuple of draws
+    (``CorruptDraws``)."""
+    glob = list(shape)
+    glob[axis] *= mesh.data
+    return mesh.rows(make(tuple(glob)), axis)
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh
+                 ) -> Dict[str, torch.Tensor]:
+    """0-d metrics averaged over ``mesh.grad_group`` in one collective (a
+    rank's loss estimates the global batch's, so their mean is the global
+    one)."""
+    if mesh.grad_group is None:
+        return metrics
+    vals = all_mean(torch.stack([metrics[k].detach().float()
+                                 for k in metrics]), mesh.grad_group)
+    return dict(zip(metrics, vals.unbind(0)))

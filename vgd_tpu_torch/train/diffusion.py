@@ -12,6 +12,17 @@ The train step draws its timesteps and noise from an explicit
 packages the same draws. Losses stay on the device; the caller decides
 when to read them.
 
+Under data parallelism (``mesh``) the trainer holds this rank's rows of
+the global batch: t and the noise are drawn for the global batch and
+sliced (given draws are the global batch's too), the gradients are
+averaged over the data axis before the Adam step, and the loss comes back
+as the global batch's. A model axis > 1 routes the bottleneck
+self-attention of both UNets through ring attention over the model group
+(sequence parallelism, ``parallel/sequence_parallel.py``), as JAX's
+``sp_mesh`` does; the ranks of one model group hold the same rows, and the
+gradients are averaged over the whole world (``Mesh.grad_group``), so that
+the replicas stay bit-equal on a card whose backward adds with atomics.
+
 The samplers run eagerly under ``torch.inference_mode()``, one UNet
 forward per step. Scalar schedule entries stay 0-d f32 tensors on the
 device, so the update arithmetic is f32 as in the JAX package and no step
@@ -32,8 +43,10 @@ from vgd_tpu_torch.core.config import DiffusionConfig
 from vgd_tpu_torch.core.rng import resolve_device
 from vgd_tpu_torch.models.unet import UNet
 from vgd_tpu_torch.ops.image import to_signed
-from vgd_tpu_torch.train.common import DTYPES, adam, mse
-
+from vgd_tpu_torch.parallel.collectives import average_grads
+from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw,
+                                         mean_metrics, mse)
 
 
 class Schedule(NamedTuple):
@@ -146,9 +159,10 @@ class DiffusionTrainer:
     ``device``."""
 
     def __init__(self, cfg: DiffusionConfig, img_shape: Tuple[int, int, int],
-                 device="cuda"):
+                 device="cuda", mesh: Mesh = LOCAL):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.img_shape = tuple(img_shape)
         c = img_shape[-1]
         kw = dict(in_ch=c, out_ch=c, base_ch=cfg.base_ch,
@@ -159,6 +173,9 @@ class DiffusionTrainer:
             self.model_fused = UNet(fused=True, **kw)
         _share_parameters(self.model_fused, self.model)
         self.model_fused.eval()
+        if mesh.model > 1:
+            self.model.sp_group = self.model_fused.sp_group = \
+                mesh.model_group
         self.opt: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.sched = make_schedule(cfg.timesteps, cfg.beta_start,
@@ -193,13 +210,21 @@ class DiffusionTrainer:
 
     # ------------------------------------------------------------------ train
     def _inputs(self, batch_uint8, generator, t, noise):
+        """x_t, t and the noise of this rank's rows; t and noise are the
+        global batch's, given or drawn in that order."""
         x0 = to_signed(batch_uint8.to(self.device))
+        mesh = self.mesh
         if t is None:
-            t = sample_timestep_uniform(generator, x0.shape[0],
-                                        self.cfg.timesteps, self.device)
+            t = batch_draw(mesh, lambda s: sample_timestep_uniform(
+                generator, s[0], self.cfg.timesteps, self.device),
+                (x0.shape[0],))
+        else:
+            t = mesh.rows(t)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator,
-                                device=self.device)
+            noise = batch_draw(mesh, lambda s: torch.randn(
+                s, generator=generator, device=self.device), x0.shape)
+        else:
+            noise = mesh.rows(noise)
         t = t.to(self.device)
         noise = noise.to(self.device, torch.float32)
         return q_sample(self.sched, x0, t, noise), t, noise
@@ -218,9 +243,10 @@ class DiffusionTrainer:
         opt = self._optimizer()
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        average_grads(self.model.parameters(), self.mesh.grad_group)
         opt.step()
         self.step += 1
-        return loss.detach()
+        return mean_metrics({"loss": loss.detach()}, self.mesh)["loss"]
 
     def train_epoch(self, batches: Iterable[torch.Tensor],
                     generator: Optional[torch.Generator] = None
@@ -241,9 +267,10 @@ class DiffusionTrainer:
                   generator: Optional[torch.Generator] = None,
                   t: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Per-sample validation epsilon-MSE (B,), through the training
-        form of the UNet, so the caller can drop a final batch's padded
-        rows (each row is independent: GroupNorm is per sample)."""
+        """Per-sample validation epsilon-MSE of this rank's rows, through
+        the training form of the UNet, so the caller can drop a final
+        batch's padded rows (each row is independent: GroupNorm is per
+        sample)."""
         xt, t, noise = self._inputs(batch_uint8, generator, t, noise)
         pred = self.model(xt, t)
         return torch.square(pred.float() - noise).mean(dim=(1, 2, 3))

@@ -28,6 +28,14 @@ critic step's under WGAN, and g_loss) stay 0-d device tensors.
 
 ``cfg.run.fused_conv`` runs the discriminator's train-mode stages i > 0
 through K1; ``generate`` never does.
+
+Under data parallelism (``mesh``) the trainer holds this rank's rows of
+the global batch: z is drawn for the global batch and sliced (a given z is
+the global batch's too), the BatchNorms take the global batch's
+statistics, the gradients are averaged over the data axis before every
+Adam step (each critic step's and the G step's; the clip follows on the
+same parameters on every rank), and the losses come back as the global
+batch's.
 """
 from __future__ import annotations
 
@@ -37,12 +45,15 @@ import torch
 
 from vgd_tpu_torch.core.config import GANConfig
 from vgd_tpu_torch.core.rng import resolve_device
-from vgd_tpu_torch.models.blocks import frozen_running_stats
+from vgd_tpu_torch.models.blocks import frozen_running_stats, set_group
 from vgd_tpu_torch.models.gan import Discriminator, Generator
 from vgd_tpu_torch.models.vae import latent_to_spatial
 from vgd_tpu_torch.ops.image import to_signed
-from vgd_tpu_torch.train.common import (DTYPES, adam, bce, clamp_params,
-                                         frozen_parameters)
+from vgd_tpu_torch.parallel.collectives import average_grads
+from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw, bce,
+                                         clamp_params, frozen_parameters,
+                                         mean_metrics)
 
 NETS = ("gen", "disc")
 
@@ -52,9 +63,10 @@ class GANTrainer:
     ``device``."""
 
     def __init__(self, cfg: GANConfig, img_shape: Tuple[int, int, int],
-                 device="cuda"):
+                 device="cuda", mesh: Mesh = LOCAL):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         h, w, c = img_shape
         if h != w:
             raise ValueError(f"square images expected, got {h}x{w}")
@@ -65,6 +77,7 @@ class GANTrainer:
                                  nc=c, dtype=dt)
             self.disc = Discriminator(img_size=h, ndf=cfg.ndf, nc=c,
                                       dtype=dt, fused=cfg.run.fused_conv)
+        set_group(mesh.data_group, self.gen, self.disc)
         self.opts: Dict[str, torch.optim.Optimizer] = {}
         self.step = 0
 
@@ -108,10 +121,15 @@ class GANTrainer:
     def opt_state(self) -> Dict[str, dict]:
         return {name: opt.state_dict() for name, opt in self.opts.items()}
 
-    def _z(self, given, shape, generator) -> torch.Tensor:
+    def _z(self, given, shape, generator, axis: int = 0) -> torch.Tensor:
+        """This rank's rows (batch ``axis``) of z for the global batch."""
         if given is not None:
-            return given.to(self.device, torch.float32).reshape(shape)
-        return torch.randn(shape, generator=generator, device=self.device)
+            glob = list(shape)
+            glob[axis] *= self.mesh.data
+            return self.mesh.rows(given.to(self.device, torch.float32)
+                                  .reshape(glob), axis)
+        return batch_draw(self.mesh, lambda s: torch.randn(
+            s, generator=generator, device=self.device), shape, axis)
 
     def _labels(self, value: float, b: int) -> torch.Tensor:
         return torch.full((b,), value, dtype=torch.float32,
@@ -146,6 +164,7 @@ class GANTrainer:
         opt_g.zero_grad(set_to_none=True)
         g_loss = self.g_loss(z, wgan)
         g_loss.backward()
+        average_grads(self.gen.parameters(), self.mesh.data_group)
         opt_g.step()
         opt_g.zero_grad(set_to_none=True)
         return g_loss
@@ -164,11 +183,13 @@ class GANTrainer:
         opt_d.zero_grad(set_to_none=True)
         d_loss = self.d_loss(x, fake)
         d_loss.backward()
+        average_grads(self.disc.parameters(), self.mesh.data_group)
         opt_d.step()
         opt_d.zero_grad(set_to_none=True)
         g_loss = self._g_step(z, wgan=False)
         self.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+        return mean_metrics({"d_loss": d_loss.detach(),
+                             "g_loss": g_loss.detach()}, self.mesh)
 
     # ------------------------------------------------------------------- WGAN
     def train_step_wgan(self, batch_uint8: torch.Tensor,
@@ -180,7 +201,7 @@ class GANTrainer:
         cfg = self.cfg
         x = to_signed(batch_uint8.to(self.device))
         z = self._z(z, (cfg.critic_iters + 1, x.shape[0], cfg.latent_dim),
-                    generator)
+                    generator, axis=1)
         opt_d = self.opts["disc"]
         for i in range(cfg.critic_iters):
             with torch.no_grad():
@@ -188,12 +209,14 @@ class GANTrainer:
             opt_d.zero_grad(set_to_none=True)
             d_loss = self.d_loss(x, fake, wgan=True)
             d_loss.backward()
+            average_grads(self.disc.parameters(), self.mesh.data_group)
             opt_d.step()
             clamp_params(self.disc, cfg.clip_value)
         opt_d.zero_grad(set_to_none=True)
         g_loss = self._g_step(z[-1], wgan=True)
         self.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+        return mean_metrics({"d_loss": d_loss.detach(),
+                             "g_loss": g_loss.detach()}, self.mesh)
 
     @torch.inference_mode()
     def generate(self, z: torch.Tensor) -> torch.Tensor:

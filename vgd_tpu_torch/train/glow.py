@@ -10,6 +10,13 @@ the reference's loss normalisation, ``calc_loss(log_p, mean(logdet), T,
 verbatim. The noise comes from the caller (``noise``, a U(0, 1) draw of the
 batch's shape) or from an explicit ``torch.Generator``; metrics stay 0-d
 device tensors.
+
+Under data parallelism (``mesh``) the trainer holds this rank's rows of
+the global batch: the dequantisation noise is drawn for the global batch
+and sliced (a given one is the global batch's too), the ActNorm init takes
+the global batch's statistics, the gradients are averaged over the data
+axis before the Adam step, and the losses come back as the global
+batch's. ``GlowConfig.remat`` recomputes each flow in the backward.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from vgd_tpu_torch.core.rng import resolve_device
 from vgd_tpu_torch.models.glow import (Glow, calc_loss, calc_z_shapes,
                                        calc_z_shapes_eeg)
 from vgd_tpu_torch.ops.image import quantize_bits, to_unit
-from vgd_tpu_torch.train.common import DTYPES, adam
+from vgd_tpu_torch.parallel.collectives import average_grads
+from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+from vgd_tpu_torch.train.common import DTYPES, adam, batch_draw, mean_metrics
 
 
 class _GlowTrainerBase:
@@ -33,14 +42,16 @@ class _GlowTrainerBase:
     model: Glow
     z_shapes: List[Tuple[int, int, int]]
 
-    def _setup(self, cfg, device, **model_kw) -> None:
+    def _setup(self, cfg, device, mesh: Mesh, **model_kw) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         with torch.device(self.device):
             self.model = Glow(n_flows=cfg.n_flows, n_blocks=cfg.n_blocks,
                               filter_size=cfg.filter_size,
                               compute_dtype=DTYPES[cfg.run.compute_dtype],
                               **model_kw)
+        self.model.group = mesh.data_group
         self.opt: Optional[torch.optim.Optimizer] = None
         self.step = 0
 
@@ -65,12 +76,12 @@ class _GlowTrainerBase:
 
     def _noise(self, x: torch.Tensor, generator: Optional[torch.Generator],
                noise: Optional[torch.Tensor]) -> torch.Tensor:
-        """The U(0, 1) dequantisation draw: ``noise`` or from
-        ``generator``."""
+        """This rank's rows of the U(0, 1) dequantisation draw for the
+        global batch: ``noise`` or from ``generator``."""
         if noise is None:
-            return torch.rand(x.shape, generator=generator,
-                              device=self.device)
-        return noise.to(self.device, torch.float32)
+            return batch_draw(self.mesh, lambda s: torch.rand(
+                s, generator=generator, device=self.device), x.shape)
+        return self.mesh.rows(noise).to(self.device, torch.float32)
 
     def init_step(self, batch: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
@@ -90,11 +101,12 @@ class _GlowTrainerBase:
         loss, lp, ld = self._loss(log_p, logdet)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        average_grads(self.model.parameters(), self.mesh.data_group)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
-        return {"loss": loss.detach(), "log_p": lp.detach(),
-                "logdet": ld.detach()}
+        return mean_metrics({"loss": loss.detach(), "log_p": lp.detach(),
+                             "logdet": ld.detach()}, self.mesh)
 
     def reverse(self, z_list: List[torch.Tensor]) -> torch.Tensor:
         """z -> sample."""
@@ -119,13 +131,13 @@ class GlowTrainer(_GlowTrainerBase):
     """Glow on square uint8 images (B, H, W, C)."""
 
     def __init__(self, cfg: GlowConfig, img_shape: Tuple[int, int, int],
-                 device="cuda"):
+                 device="cuda", mesh: Mesh = LOCAL):
         h, w, c = img_shape
         if h != w:
             raise ValueError(f"square images expected, got {h}x{w}")
-        self._setup(cfg, device, in_channels=c, variant="image",
+        self._setup(cfg, device, mesh, in_channels=c, variant="image",
                     fused_coupling=cfg.fused_coupling,
-                    flow_stack=cfg.flow_stack)
+                    flow_stack=cfg.flow_stack, remat=cfg.remat)
         self.img_shape = tuple(img_shape)
         self.n_bins = 2.0 ** cfg.n_bits
         self.z_shapes = calc_z_shapes(c, h, cfg.n_blocks)
@@ -148,8 +160,9 @@ class GlowEEGTrainer(_GlowTrainerBase):
     squeezes, f32 by default; never a kernel (the JAX trainer sets neither
     ``fused_coupling`` nor ``flow_stack``)."""
 
-    def __init__(self, cfg: GlowEEGConfig, device="cuda"):
-        self._setup(cfg, device, in_channels=cfg.num_channels,
+    def __init__(self, cfg: GlowEEGConfig, device="cuda",
+                 mesh: Mesh = LOCAL):
+        self._setup(cfg, device, mesh, in_channels=cfg.num_channels,
                     variant="eeg")
         self.z_shapes = calc_z_shapes_eeg(cfg.num_channels, cfg.num_samples,
                                           cfg.n_blocks)

@@ -16,9 +16,24 @@ beside them where PIL imports, and each epoch's loss curves where
 matplotlib imports (``io/artifacts.py``); EEG samples as ``.npz`` /
 ``.npy`` arrays (N, C, T), with trace plots and the PSD figure drawn only
 where matplotlib is installed. ``RunConfig.debug_nans`` runs a training
-loop under autograd's anomaly detection. The JAX loop's mesh,
-sequence-parallel and epoch-scan options have no counterpart here: the
-port runs one device and loops over steps in Python.
+loop under autograd's anomaly detection.
+
+Every ``run_*`` loop trains data-parallel across processes
+(``RunConfig.mesh``, ``RunConfig.multihost``; ``_start``): the process
+group starts from the environment (``parallel/launch.py``), the mesh is
+laid over the world and must cover it, every rank builds the same loader
+from the same seed and stages the same global batch, and moves only its
+rows (``Mesh.rows``) to its card; parameters are broadcast from rank 0
+after the init or the resume, validation sums each rank's true rows and
+all-reduces the sums, and only rank 0 writes the log, the grids, the
+profiler trace and the checkpoints (the others wait at a barrier after a
+save; every rank reads on resume). A checkpoint holds the same state
+whatever the world size, so a run resumes on any. ``run_diffusion`` takes
+a model axis (sequence parallelism); the other families refuse one, Glow
+naming its model-axis consumers (tensor and pipeline parallelism) as not
+ported yet. Evaluations and ``sample_from_dir`` run in one process, as in
+the JAX package. The JAX loop's epoch scan has no counterpart: the port
+loops over steps in Python.
 """
 from __future__ import annotations
 
@@ -48,6 +63,9 @@ from vgd_tpu_torch.io.artifacts import (MetricLog, epoch_metrics, save_grid,
 from vgd_tpu_torch.io.checkpoint import Checkpointer
 from vgd_tpu_torch.models.vae import reparameterize
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
+from vgd_tpu_torch.parallel.collectives import all_sum, barrier, broadcast_
+from vgd_tpu_torch.parallel.launch import init_distributed, rank_device
+from vgd_tpu_torch.parallel.mesh import Mesh, build_mesh
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
 from vgd_tpu_torch.train.gan import GANTrainer
@@ -86,12 +104,78 @@ def _debug_nans(run):
     return wrapped
 
 
+# --mesh-model on a family without a model-axis consumer (the JAX loop's
+# words)
+NO_MODEL_CONSUMER = (
+    "--mesh-model {} has no effect for this family: its parameters "
+    "replicate, so a model axis duplicates all compute without speedup. "
+    "Model-axis consumers are 'glow' / 'glow-eeg' (tensor-parallel coupling "
+    "filters) and 'diffusion' (ring-attention sequence parallelism); use "
+    "--mesh-data for data parallelism here.")
+GLOW_MODEL_AXIS = (
+    "--mesh-model {} on {}: Glow's model-axis consumers, tensor parallelism "
+    "(coupling filters sharded over the model axis) and pipeline "
+    "parallelism (--pp-stages), are not ported yet; use --mesh-data for "
+    "data parallelism")
+
+
+def _start(cfg, device, batch_size: int, family: str):
+    """(device, generator, mesh) of a training loop: refuses a model axis
+    the family cannot use (DDPM's sequence parallelism is the one
+    consumer), starts the process group the environment describes
+    (``parallel.launch.init_distributed``), puts this rank on its card,
+    lays the mesh over the world (it must cover it) and checks that the
+    data axis divides the global batch."""
+    run = cfg.run
+    if run.mesh.model > 1 and family != "diffusion":
+        if family in ("glow", "glow-eeg"):
+            raise ValueError(GLOW_MODEL_AXIS.format(run.mesh.model, family))
+        raise ValueError(NO_MODEL_CONSUMER.format(run.mesh.model))
+    device = resolve_device(device)
+    init_distributed(run.multihost, device)
+    device = rank_device(device)
+    mesh = build_mesh(run.mesh.data, run.mesh.model)
+    if batch_size % mesh.data:
+        raise ValueError(f"batch {batch_size} is not divisible by the data "
+                         f"axis ({mesh.data}): every rank takes batch / data "
+                         f"rows")
+    return device, seed_all(run.seed, device), mesh
+
+
+def _replicate(*modules: torch.nn.Module) -> None:
+    """Every parameter and buffer overwritten with rank 0's (no-op in one
+    process): the ranks start from one state whatever their inits did."""
+    broadcast_([t for mod in modules for t in mod.state_dict().values()])
+
+
+def _save(mesh: Mesh, ckpt: Checkpointer, *args, **kwargs) -> None:
+    """Rank 0 writes the checkpoint; every rank waits for it."""
+    if mesh.primary:
+        ckpt.save(*args, **kwargs)
+    barrier()
+
+
+def _global_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the data axis of each rank's sum over its true rows
+    (a model axis's replicas, which hold the same rows, averaged)."""
+    return all_sum(t, mesh.grad_group) / mesh.model
+
+
+def _val_sums(rows, mesh: Mesh):
+    """Per-batch sums over the true rows, summed over the data axis and
+    read to the host once: a list of float lists."""
+    if not rows:
+        return []
+    return _global_sum(torch.stack(rows), mesh).double().cpu().tolist()
+
+
 class _Profiler:
     """``torch.profiler`` trace of global train steps [start, stop) written
-    as a Chrome trace into ``RunConfig.profile_dir`` (no-op when unset)."""
+    as a Chrome trace into ``RunConfig.profile_dir`` (no-op when unset, and
+    on every rank but 0)."""
 
-    def __init__(self, run_cfg, device: torch.device):
-        self.dir = run_cfg.profile_dir
+    def __init__(self, run_cfg, device: torch.device, enabled: bool = True):
+        self.dir = run_cfg.profile_dir if enabled else None
         self.start_step, self.stop_step = run_cfg.profile_steps
         self.device = device
         self.prof = None
@@ -157,10 +241,10 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
     generator state at step = epochs done. ``resume`` continues from the
     latest checkpoint exactly: same parameters, moments, draws and batch
     order as a run that never stopped."""
-    device = resolve_device(device)
-    gen = seed_all(cfg.run.seed, device)
+    device, gen, mesh = _start(cfg, device, cfg.data.batch_size,
+                               "diffusion")
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
-    trainer = DiffusionTrainer(cfg, img_shape, device=device)
+    trainer = DiffusionTrainer(cfg, img_shape, device=device, mesh=mesh)
     trainer.init(gen)
     ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
                         keep=cfg.run.keep_checkpoints)
@@ -174,15 +258,16 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
         start_epoch = payload["step"]
         train.set_epoch(start_epoch)
         print(f"[checkpoint] resumed at epoch {start_epoch}")
+    _replicate(trainer.model)
     log = MetricLog(cfg.run.out_dir, "diffusion_loss")
-    prof = _Profiler(cfg.run, device)
+    prof = _Profiler(cfg.run, device, mesh.primary)
     epochs = cfg.epochs if epochs is None else epochs
     gstep, n_val = trainer.step, 0
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         total_dev, count = None, 0
-        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
-                                  device=device)
+        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
+                                  size=2, device=device)
         for i, batch in enumerate(batches):
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
@@ -198,20 +283,21 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
             cfg.run.seed + VAL_SEED_OFFSET)
         val_dev, n_val = torch.zeros((), device=device), 0
         for vbatch, n_valid in val.epoch():
-            vl = trainer.eval_loss(torch.from_numpy(vbatch), vgen)
+            vl = trainer.eval_loss(torch.from_numpy(mesh.rows(vbatch)), vgen)
             # the padded repeats of a final batch must not count
-            val_dev = val_dev + vl[:n_valid].sum()
+            val_dev = val_dev + vl[:mesh.valid_rows(n_valid,
+                                                    len(vbatch))].sum()
             n_val += n_valid
         train_loss = total / max(count, 1)
-        val_loss = float(val_dev) / max(n_val, 1)
+        val_loss = float(_global_sum(val_dev, mesh)) / max(n_val, 1)
         log.append(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
                    images_per_sec=ips)
         print(f"[diffusion] epoch {epoch + 1}/{epochs} train={train_loss:.4f}"
               f" val={val_loss:.4f} {ips:.0f} img/s")
         if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
-            ckpt.save(epoch + 1, trainer.model.state_dict(), to_dict(cfg),
-                      opt_state=trainer.opt.state_dict(),
-                      rng_state=gen.get_state(), opt_step=trainer.step)
+            _save(mesh, ckpt, epoch + 1, trainer.model.state_dict(),
+                  to_dict(cfg), opt_state=trainer.opt.state_dict(),
+                  rng_state=gen.get_state(), opt_step=trainer.step)
         epoch_metrics(log, "diffusion_")
     prof.close()
     return {"trainer": trainer, "log": log.history, "val": val,
@@ -317,10 +403,9 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
     checkpoint of the three networks (BN buffers included), the three Adam
     states, the optimizer step and the generator state at step = epochs
     done. ``resume`` continues from the latest checkpoint exactly."""
-    device = resolve_device(device)
-    gen = seed_all(cfg.run.seed, device)
+    device, gen, mesh = _start(cfg, device, cfg.data.batch_size, "vaegan")
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
-    trainer = VAEGANTrainer(cfg, img_shape, device=device)
+    trainer = VAEGANTrainer(cfg, img_shape, device=device, mesh=mesh)
     trainer.init(gen)
     ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
                         keep=cfg.run.keep_checkpoints)
@@ -333,8 +418,9 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
         start_epoch = payload["step"]
         train.set_epoch(start_epoch)
         print(f"[checkpoint] resumed at epoch {start_epoch}")
+    _replicate(*trainer.nets().values())
     log = MetricLog(cfg.run.out_dir, "vaegan_loss")
-    prof = _Profiler(cfg.run, device)
+    prof = _Profiler(cfg.run, device, mesh.primary)
     fixed_z = torch.randn(
         (64, cfg.latent_dim), device=device, generator=torch.Generator(
             device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
@@ -345,8 +431,8 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
         ramp = trainer.kl_ramp(epoch)
         t0 = time.perf_counter()
         sums, count = {}, 0
-        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
-                                  device=device)
+        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
+                                  size=2, device=device)
         for i, batch in enumerate(batches):
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
@@ -360,30 +446,31 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                                                 1e-9)
 
         tv0 = time.perf_counter()
-        acc = MetricAccumulator(feature_fn=feature_fn)
+        acc = MetricAccumulator(feature_fn=feature_fn, group=mesh.data_group)
         vgen = torch.Generator(device=device).manual_seed(
             cfg.run.seed + VAEGAN_VAL_SEED_OFFSET)
         rows, ns, panel = [], [], None
         for vbatch, n in val.epoch():
-            vb = torch.from_numpy(vbatch).to(device)
+            vb = torch.from_numpy(mesh.rows(vbatch)).to(device)
             ev = trainer.eval_step(vb, vgen)
             img = to_signed(vb)
             recon_u, img_u = signed_to_unit(ev["recon"]), signed_to_unit(img)
             # only the true rows of a padded final batch count
-            acc.update(recon_u, img_u, n_valid=n)
-            rows.append(torch.stack([ev["per_mse"][:n].mean(),
-                                     ev["per_kl"][:n].sum(),
-                                     psnr(recon_u[:n], img_u[:n])]))
+            k = mesh.valid_rows(n, len(vbatch))
+            acc.update(recon_u, img_u, n_valid=k)
+            rows.append(torch.stack([
+                ev["per_mse"][:k].sum(), ev["per_kl"][:k].sum(),
+                psnr(recon_u[:k], img_u[:k]) * k]) if k else
+                torch.zeros(3, device=device))
             ns.append(n)
             if panel is None:
                 panel = (ev["noisy"], img, ev["recon"])
         n_val = sum(ns)
-        vals = torch.stack(rows).double().cpu().tolist() if rows else []
-        val_loss = sum((mse_ + cfg.alpha_kl * kl_) * n
+        vals = _val_sums(rows, mesh)
+        val_loss = sum((mse_ / n + cfg.alpha_kl * kl_) * n
                        for (mse_, kl_, _), n in zip(vals, ns))
         metrics = acc.compute()
-        metrics["psnr"] = sum(p * n for (_, _, p), n in zip(vals, ns)) \
-            / max(n_val, 1)
+        metrics["psnr"] = sum(p for _, _, p in vals) / max(n_val, 1)
         row = dict(means, val_loss=val_loss / max(n_val, 1),
                    images_per_sec=ips, val_secs=time.perf_counter() - tv0,
                    **metrics)
@@ -393,14 +480,15 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
               f"val={row['val_loss']:.4f} ssim={metrics['ssim']:.4f} "
               f"psnr={metrics['psnr']:.2f} {ips:.0f} img/s")
         if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
-            ckpt.save(epoch + 1, trainer.state_dict(), to_dict(cfg),
-                      opt_state=trainer.opt_state(),
-                      rng_state=gen.get_state(), opt_step=trainer.step)
-        if panel is not None:     # the val split can be empty on tiny data
-            save_triplets(*panel, os.path.join(
-                od, f"vaegan_decode_epoch_{epoch + 1:04d}.npy"))
-        save_grid(trainer.generate(fixed_z), os.path.join(
-            od, f"vaegan_fake_epoch_{epoch + 1:04d}.npy"))
+            _save(mesh, ckpt, epoch + 1, trainer.state_dict(), to_dict(cfg),
+                  opt_state=trainer.opt_state(), rng_state=gen.get_state(),
+                  opt_step=trainer.step)
+        if mesh.primary:
+            if panel is not None:  # the val split can be empty on tiny data
+                save_triplets(*panel, os.path.join(
+                    od, f"vaegan_decode_epoch_{epoch + 1:04d}.npy"))
+            save_grid(trainer.generate(fixed_z), os.path.join(
+                od, f"vaegan_fake_epoch_{epoch + 1:04d}.npy"))
         epoch_metrics(log)
     prof.close()
     return {"trainer": trainer, "log": log.history, "val": val,
@@ -430,10 +518,9 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
     networks (BN buffers included), the Adam state, the optimizer step and
     the generator state at step = epochs done. ``resume`` continues from
     the latest checkpoint exactly."""
-    device = resolve_device(device)
-    gen = seed_all(cfg.run.seed, device)
+    device, gen, mesh = _start(cfg, device, cfg.data.batch_size, "vae")
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
-    trainer = VAETrainer(cfg, img_shape, device=device)
+    trainer = VAETrainer(cfg, img_shape, device=device, mesh=mesh)
     trainer.init(gen)
     ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
                         keep=cfg.run.keep_checkpoints)
@@ -446,8 +533,9 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
         start_epoch = payload["step"]
         train.set_epoch(start_epoch)
         print(f"[checkpoint] resumed at epoch {start_epoch}")
+    _replicate(*trainer.nets().values())
     log = MetricLog(cfg.run.out_dir, "vae_loss")
-    prof = _Profiler(cfg.run, device)
+    prof = _Profiler(cfg.run, device, mesh.primary)
     fixed_z = torch.randn(
         (64, cfg.latent_dim), device=device, generator=torch.Generator(
             device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
@@ -458,8 +546,8 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
         ramp = trainer.kl_ramp(epoch)
         t0 = time.perf_counter()
         total_dev, count = None, 0
-        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
-                                  device=device)
+        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
+                                  size=2, device=device)
         for i, batch in enumerate(batches):
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
@@ -477,41 +565,44 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
             cfg.run.seed + VAE_VAL_SEED_OFFSET)
         rows, ns, panel = [], [], None
         for vbatch, n in val.epoch():
-            vb = torch.from_numpy(vbatch).to(device)
+            vb = torch.from_numpy(mesh.rows(vbatch)).to(device)
             ev = trainer.eval_step(vb, vgen)
             img = to_signed(vb)
             # only the true rows of a padded final batch count
-            ru, iu = signed_to_unit(ev["recon"][:n]), signed_to_unit(img[:n])
-            rows.append(torch.stack([ev["per_mse"][:n].mean(),
-                                     ev["per_kl"][:n].sum(),
-                                     mse_metric(ru, iu), psnr(ru, iu),
-                                     ssim(ru, iu)]))
+            k = mesh.valid_rows(n, len(vbatch))
+            ru, iu = signed_to_unit(ev["recon"][:k]), signed_to_unit(img[:k])
+            rows.append(torch.stack([
+                ev["per_mse"][:k].sum(), ev["per_kl"][:k].sum(),
+                mse_metric(ru, iu) * k, psnr(ru, iu) * k, ssim(ru, iu) * k])
+                if k else torch.zeros(5, device=device))
             ns.append(n)
             if panel is None:
                 panel = (ev["noisy"], img, ev["recon"])
         n_val = sum(ns)
-        vals = torch.stack(rows).double().cpu().tolist() if rows else []
+        vals = _val_sums(rows, mesh)
         n_b = max(n_val, 1)
 
         def weighted(j):
-            return sum(v[j] * n for v, n in zip(vals, ns)) / n_b
+            return sum(v[j] for v in vals) / n_b
         row = dict(train_loss=total / max(count, 1),
-                   val_loss=sum((v[0] + v[1]) * n for v, n in zip(vals, ns))
-                   / n_b, images_per_sec=ips, mse=weighted(2),
-                   psnr=weighted(3), ssim=weighted(4))
+                   val_loss=sum((v[0] / n + v[1]) * n
+                                for v, n in zip(vals, ns)) / n_b,
+                   images_per_sec=ips, mse=weighted(2), psnr=weighted(3),
+                   ssim=weighted(4))
         log.append(epoch=epoch, **row)
         print(f"[vae] epoch {epoch + 1}/{epochs} train={row['train_loss']:.4f}"
               f" val={row['val_loss']:.4f} psnr={row['psnr']:.2f} "
               f"ssim={row['ssim']:.4f} {ips:.0f} img/s")
         if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
-            ckpt.save(epoch + 1, trainer.state_dict(), to_dict(cfg),
-                      opt_state=trainer.opt.state_dict(),
-                      rng_state=gen.get_state(), opt_step=trainer.step)
-        if panel is not None:     # the val split can be empty on tiny data
-            save_triplets(*panel, os.path.join(
-                od, f"vae_valimg_epoch_{epoch + 1:04d}.npy"))
-        save_grid(trainer.generate(fixed_z), os.path.join(
-            od, f"vae_fake_epoch_{epoch + 1:04d}.npy"))
+            _save(mesh, ckpt, epoch + 1, trainer.state_dict(), to_dict(cfg),
+                  opt_state=trainer.opt.state_dict(),
+                  rng_state=gen.get_state(), opt_step=trainer.step)
+        if mesh.primary:
+            if panel is not None:  # the val split can be empty on tiny data
+                save_triplets(*panel, os.path.join(
+                    od, f"vae_valimg_epoch_{epoch + 1:04d}.npy"))
+            save_grid(trainer.generate(fixed_z), os.path.join(
+                od, f"vae_fake_epoch_{epoch + 1:04d}.npy"))
         epoch_metrics(log, "vae_")
     prof.close()
     return {"trainer": trainer, "log": log.history, "val": val,
@@ -669,10 +760,10 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
     optimizer step and the generator state at step = epochs done, and the
     fixed-z grid (``.npy``). ``resume`` continues from the latest
     checkpoint exactly."""
-    device = resolve_device(device)
-    gen = seed_all(cfg.run.seed, device)
+    name = "wgan" if cfg.wgan else "gan"
+    device, gen, mesh = _start(cfg, device, cfg.data.batch_size, name)
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
-    trainer = GANTrainer(cfg, img_shape, device=device)
+    trainer = GANTrainer(cfg, img_shape, device=device, mesh=mesh)
     trainer.init(gen)
     ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
                         keep=cfg.run.keep_checkpoints)
@@ -685,9 +776,9 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
         start_epoch = payload["step"]
         train.set_epoch(start_epoch)
         print(f"[checkpoint] resumed at epoch {start_epoch}")
-    name = "wgan" if cfg.wgan else "gan"
+    _replicate(*trainer.nets().values())
     log = MetricLog(cfg.run.out_dir, "gan_loss")
-    prof = _Profiler(cfg.run, device)
+    prof = _Profiler(cfg.run, device, mesh.primary)
     fixed_z = torch.randn(
         (64, cfg.latent_dim), device=device, generator=torch.Generator(
             device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
@@ -697,8 +788,8 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         sums, count = {}, 0
-        batches = device_prefetch((b for b, _ in train.epoch()), size=2,
-                                  device=device)
+        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
+                                  size=2, device=device)
         for i, batch in enumerate(batches):
             if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                 break
@@ -715,11 +806,12 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
               f"D={means.get('d_loss', 0.0):.4f} "
               f"G={means.get('g_loss', 0.0):.4f} {ips:.0f} img/s")
         if (epoch + 1) % cfg.run.checkpoint_every_epochs == 0:
-            ckpt.save(epoch + 1, trainer.state_dict(), to_dict(cfg),
-                      opt_state=trainer.opt_state(),
-                      rng_state=gen.get_state(), opt_step=trainer.step)
-        save_grid(trainer.generate(fixed_z), os.path.join(
-            cfg.run.out_dir, f"{name}_fake_epoch_{epoch + 1:04d}.npy"))
+            _save(mesh, ckpt, epoch + 1, trainer.state_dict(), to_dict(cfg),
+                  opt_state=trainer.opt_state(), rng_state=gen.get_state(),
+                  opt_step=trainer.step)
+        if mesh.primary:
+            save_grid(trainer.generate(fixed_z), os.path.join(
+                cfg.run.out_dir, f"{name}_fake_epoch_{epoch + 1:04d}.npy"))
         epoch_metrics(log, "gan_")
     prof.close()
     return {"trainer": trainer, "log": log.history, "val": val}
@@ -780,15 +872,14 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
     end a checkpoint of the model (buffers included), Adam, the generator
     and the iteration. ``resume`` continues from the latest checkpoint
     exactly: same parameters, moments, draws and stream position."""
-    device = resolve_device(device)
-    gen = seed_all(cfg.run.seed, device)
+    device, gen, mesh = _start(cfg, device, cfg.data.batch_size, "glow")
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
-    trainer = GlowTrainer(cfg, img_shape, device=device)
+    trainer = GlowTrainer(cfg, img_shape, device=device, mesh=mesh)
     trainer.init(gen)
     ckpt = Checkpointer(os.path.join(cfg.run.out_dir, "ckpt"),
                         keep=cfg.run.keep_checkpoints)
     log = MetricLog(cfg.run.out_dir, "glow_loss")
-    prof = _Profiler(cfg.run, device)
+    prof = _Profiler(cfg.run, device, mesh.primary)
     z_sample = trainer.sample_z(torch.Generator(device=device).manual_seed(
         cfg.run.seed + FIXED_Z_SEED_OFFSET), cfg.n_samples)
     n_iter = cfg.n_iter if n_iter is None else n_iter
@@ -801,24 +892,26 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
         gen.set_state(payload["rng_state"])
         start = payload["step"]
         print(f"[checkpoint] resumed at iteration {start}")
+    _replicate(trainer.model)
     # batch 0 goes to the ActNorm init and batch i + 1 to iteration i, so a
     # run resumed at `start` continues from batch start + 1
-    batches = device_prefetch(train.stream(start + 1 if start else 0),
-                              size=2, device=device)
+    batches = device_prefetch(map(mesh.rows, train.stream(
+        start + 1 if start else 0)), size=2, device=device)
     if start == 0:
         trainer.init_step(next(batches), gen)
 
     def save(step):
-        ckpt.save(step, trainer.model.state_dict(), to_dict(cfg),
-                  opt_state=trainer.opt.state_dict(),
-                  rng_state=gen.get_state(), opt_step=trainer.step)
+        _save(mesh, ckpt, step, trainer.model.state_dict(), to_dict(cfg),
+              opt_state=trainer.opt.state_dict(), rng_state=gen.get_state(),
+              opt_step=trainer.step)
     t0 = time.perf_counter()
     for i in range(start, n_iter):
         prof.step(i)
         m = trainer.train_step(next(batches), gen)
         if (i + 1) % cfg.run.sample_every_iters == 0:
-            save_grid(trainer.reverse(z_sample) * 2.0, os.path.join(
-                sample_dir, f"{i + 1:06d}.npy"))
+            if mesh.primary:
+                save_grid(trainer.reverse(z_sample) * 2.0, os.path.join(
+                    sample_dir, f"{i + 1:06d}.npy"))
             ips = cfg.run.sample_every_iters * cfg.data.batch_size / \
                 max(time.perf_counter() - t0, 1e-9)
             t0 = time.perf_counter()
@@ -920,15 +1013,14 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
     ``resume`` continues from the latest checkpoint exactly (parameters,
     moments, draws, stream position). Then ``eeg_psd_and_gif``; a failure
     there is printed and does not undo the finished run."""
-    device = resolve_device(device)
-    gen = seed_all(cfg.run.seed, device)
+    device, gen, mesh = _start(cfg, device, cfg.batch_size, "glow-eeg")
     ds = EEGDataset(path=cfg.eeg_path, dataset_type="T",
                     event_type=cfg.event_type, seed=cfg.run.seed)
-    trainer = GlowEEGTrainer(cfg, device=device)
+    trainer = GlowEEGTrainer(cfg, device=device, mesh=mesh)
     trainer.init(gen)
     ckpt = Checkpointer(_eeg_ckpt_dir(cfg), keep=cfg.run.keep_checkpoints)
     log = MetricLog(cfg.run.out_dir, f"eeg_{cfg.event_type}")
-    prof = _Profiler(cfg.run, device)
+    prof = _Profiler(cfg.run, device, mesh.primary)
     z_sample = trainer.sample_z(torch.Generator(device=device).manual_seed(
         cfg.run.seed + FIXED_Z_SEED_OFFSET), cfg.n_samples)
     n_iter = cfg.n_iter if n_iter is None else n_iter
@@ -942,32 +1034,35 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
         gen.set_state(payload["rng_state"])
         start = payload["step"]
         print(f"[checkpoint] resumed at iteration {start}")
+    _replicate(trainer.model)
     # batch 0 goes to the ActNorm init and batch i + 1 to iteration i
-    batches = device_prefetch(eeg_batches(
+    batches = device_prefetch(map(mesh.rows, eeg_batches(
         ds, cfg.batch_size, seed=cfg.run.seed,
-        skip=start + 1 if start > 0 else 0), size=2, device=device)
+        skip=start + 1 if start > 0 else 0)), size=2, device=device)
     if start == 0:
         trainer.init_step(next(batches), gen)
     draw = have_matplotlib()
-    if not draw:
+    if not draw and mesh.primary:
         print(f"[glow-eeg:{cfg.event_type}] matplotlib is not installed: "
               f"samples are written as .npz only, no trace PNG")
 
     def save(step):
-        ckpt.save(step, trainer.model.state_dict(), to_dict(cfg),
-                  opt_state=trainer.opt.state_dict(),
-                  rng_state=gen.get_state(), opt_step=trainer.step)
+        _save(mesh, ckpt, step, trainer.model.state_dict(), to_dict(cfg),
+              opt_state=trainer.opt.state_dict(), rng_state=gen.get_state(),
+              opt_step=trainer.step)
     t0 = time.perf_counter()
     for i in range(start, n_iter):
         prof.step(i)
         m = trainer.train_step(next(batches), gen)
         if (i + 1) % cfg.run.sample_every_iters == 0:
-            arr = _eeg_trials(trainer.reverse(z_sample))
-            name = f"fake_eeg_{cfg.event_type}_training_{i + 1}"
-            np.savez(os.path.join(sample_dir, f"{name}.npz"), arr)
-            if draw:
-                plot_eeg_signals(arr, os.path.join(sample_dir, f"{name}.png"),
-                                 channel_names=CHANNEL_NAMES)
+            if mesh.primary:
+                arr = _eeg_trials(trainer.reverse(z_sample))
+                name = f"fake_eeg_{cfg.event_type}_training_{i + 1}"
+                np.savez(os.path.join(sample_dir, f"{name}.npz"), arr)
+                if draw:
+                    plot_eeg_signals(arr, os.path.join(sample_dir,
+                                                       f"{name}.png"),
+                                     channel_names=CHANNEL_NAMES)
             tps = cfg.run.sample_every_iters * cfg.batch_size / \
                 max(time.perf_counter() - t0, 1e-9)
             t0 = time.perf_counter()
@@ -982,7 +1077,8 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
     prof.close()
     epoch_metrics(log, f"eeg_{cfg.event_type}_")
     try:
-        eeg_psd_and_gif(cfg, trainer=trainer, dataset=ds)
+        if mesh.primary:
+            eeg_psd_and_gif(cfg, trainer=trainer, dataset=ds)
     except Exception as e:  # noqa: BLE001 - artifacts, not the run
         print(f"[glow-eeg] post-training artifacts failed: "
               f"{type(e).__name__}: {e}")

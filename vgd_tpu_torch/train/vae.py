@@ -21,6 +21,14 @@ The draws come from the caller or, in this order, from an explicit
 ``cfg.run.fused_conv`` runs the encoder's train-mode Conv4x4s2 + BN +
 LeakyReLU through K1; validation, ``denoise`` and ``generate`` run in
 eval mode and never do.
+
+Under data parallelism (``mesh``) the trainer holds this rank's rows of
+the global batch: every draw is made for the global batch and sliced
+(caller-given draws are the global batch's too), the BatchNorms take the
+global batch's statistics, the KL term (a sum over the batch) is this
+rank's sum times the data axis, so that each rank's loss estimates the
+global one, the gradients are averaged over the data axis before the Adam
+step, and the losses come back as the global batch's.
 """
 from __future__ import annotations
 
@@ -30,12 +38,16 @@ import torch
 
 from vgd_tpu_torch.core.config import VAEConfig
 from vgd_tpu_torch.core.rng import resolve_device
-from vgd_tpu_torch.data.corrupt import corrupt, corrupt_draws
+from vgd_tpu_torch.data.corrupt import CorruptDraws, corrupt, corrupt_draws
+from vgd_tpu_torch.models.blocks import set_group
 from vgd_tpu_torch.models.gan import Generator
 from vgd_tpu_torch.models.vae import (Encoder, kl_divergence,
                                       latent_to_spatial, reparameterize)
 from vgd_tpu_torch.ops.image import to_signed
-from vgd_tpu_torch.train.common import DTYPES, adam, mse
+from vgd_tpu_torch.parallel.collectives import average_grads
+from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw,
+                                         mean_metrics, mse)
 
 NETS = ("encoder", "decoder")
 
@@ -44,9 +56,10 @@ class VAETrainer:
     """Encoder, decoder, their joint Adam and the step on ``device``."""
 
     def __init__(self, cfg: VAEConfig, img_shape: Tuple[int, int, int],
-                 device="cuda"):
+                 device="cuda", mesh: Mesh = LOCAL):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         h, w, c = img_shape
         if h != w:
             raise ValueError(f"square images expected, got {h}x{w}")
@@ -57,6 +70,7 @@ class VAETrainer:
                                    fused=cfg.run.fused_conv)
             self.decoder = Generator(img_size=h, nz=cfg.latent_dim,
                                      ngf=cfg.ngf, nc=c, dtype=dt)
+        set_group(mesh.data_group, self.encoder, self.decoder)
         self.opt: Optional[torch.optim.Optimizer] = None
         self.step = 0
 
@@ -103,9 +117,12 @@ class VAETrainer:
         self.step = int(step)
 
     def _draw(self, given, shape, generator):
+        """This rank's rows of a standard normal draw for the global batch
+        (``given``, or from ``generator``)."""
         if given is not None:
-            return given.to(self.device, torch.float32)
-        return torch.randn(shape, generator=generator, device=self.device)
+            return self.mesh.rows(given).to(self.device, torch.float32)
+        return batch_draw(self.mesh, lambda s: torch.randn(
+            s, generator=generator, device=self.device), shape)
 
     def corrupt_batch(self, img: torch.Tensor, noise=None,
                       generator: Optional[torch.Generator] = None
@@ -114,11 +131,17 @@ class VAETrainer:
         normal of the image's shape, or ``CorruptDraws`` with
         ``cfg.data.occlusion``; drawn from ``generator`` when None)."""
         if self.cfg.data.occlusion:
-            if noise is None:
-                noise = corrupt_draws(img.shape, generator, self.device)
-            return corrupt(img, self.noise_std, noise)
+            return corrupt(img, self.noise_std,
+                           self._corrupt_draws(noise, img, generator))
         noise = self._draw(noise, img.shape, generator)
         return torch.clamp(img + self.noise_std * noise, -1.0, 1.0)
+
+    def _corrupt_draws(self, given, img, generator) -> CorruptDraws:
+        """This rank's rows of ``corrupt``'s draws for the global batch."""
+        if given is not None:
+            return self.mesh.rows(given)
+        return batch_draw(self.mesh, lambda s: corrupt_draws(
+            s, generator, self.device), img.shape)
 
     def loss(self, img: torch.Tensor, noisy: torch.Tensor, eps: torch.Tensor,
              kl_ramp: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -128,7 +151,8 @@ class VAETrainer:
         z, logvar = reparameterize(mu, logvar, eps)
         recon = self.decoder(latent_to_spatial(z), train=True)
         recon_loss = mse(recon, img)
-        kl = kl_divergence(mu, logvar, mean_over_batch=False)
+        # a sum over the batch: this rank's share, scaled to the global sum
+        kl = kl_divergence(mu, logvar, mean_over_batch=False) * self.mesh.data
         total = recon_loss + kl * kl_ramp * self.cfg.kl_weight
         return total, {"recon": recon_loss, "kl": kl}
 
@@ -146,11 +170,13 @@ class VAETrainer:
         total, parts = self.loss(img, noisy, eps, kl_ramp)
         self.opt.zero_grad(set_to_none=True)
         total.backward()
+        average_grads(self.parameters(), self.mesh.data_group)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
-        return {"total": total.detach(),
-                **{k: v.detach() for k, v in parts.items()}}
+        return mean_metrics({"total": total.detach(),
+                             **{k: v.detach() for k, v in parts.items()}},
+                            self.mesh)
 
     # ----------------------------------------------------------- evaluation
     @torch.no_grad()
@@ -187,9 +213,8 @@ class VAETrainer:
         cfg = self.cfg
         img = to_signed(batch_uint8.to(self.device))
         if cfg.data.occlusion:
-            if noise is None:
-                noise = corrupt_draws(img.shape, generator, self.device)
-            noisy = corrupt(img, self.noise_std, noise)
+            noisy = corrupt(img, self.noise_std,
+                            self._corrupt_draws(noise, img, generator))
         else:
             if std_u is None:
                 std_u = torch.rand((), generator=generator,

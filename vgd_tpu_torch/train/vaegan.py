@@ -26,6 +26,13 @@ stay 0-d device tensors; the caller decides when to read them.
 
 ``cfg.run.fused_conv`` runs the encoder's and discriminator's train-mode
 Conv4x4s2 + BN + LeakyReLU through K1; eval and ``generate`` never do.
+
+Under data parallelism (``mesh``) the trainer holds this rank's rows of
+the global batch: every draw is made for the global batch and sliced
+(caller-given draws are the global batch's too), every BatchNorm takes the
+global batch's statistics, the gradients are averaged over the data axis
+before each of the three Adams' steps (``collectives.average_grads``), and
+the losses come back as the global batch's.
 """
 from __future__ import annotations
 
@@ -35,13 +42,15 @@ import torch
 
 from vgd_tpu_torch.core.config import VAEGANConfig
 from vgd_tpu_torch.core.rng import resolve_device
-from vgd_tpu_torch.models.blocks import frozen_running_stats
+from vgd_tpu_torch.models.blocks import frozen_running_stats, set_group
 from vgd_tpu_torch.models.gan import Discriminator, Generator
 from vgd_tpu_torch.models.vae import (Encoder, kl_divergence,
                                       latent_to_spatial, reparameterize)
 from vgd_tpu_torch.ops.image import to_signed
-from vgd_tpu_torch.train.common import (DTYPES, adam, bce, frozen_parameters,
-                                         mse)
+from vgd_tpu_torch.parallel.collectives import average_grads
+from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw, bce,
+                                         frozen_parameters, mean_metrics, mse)
 
 NETS = ("encoder", "decoder", "disc")
 
@@ -50,9 +59,10 @@ class VAEGANTrainer:
     """The three networks, their three Adams and the step on ``device``."""
 
     def __init__(self, cfg: VAEGANConfig, img_shape: Tuple[int, int, int],
-                 device="cuda"):
+                 device="cuda", mesh: Mesh = LOCAL):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         h, w, c = img_shape
         if h != w:
             raise ValueError(f"square images expected, got {h}x{w}")
@@ -66,6 +76,7 @@ class VAEGANTrainer:
                                      ngf=cfg.ngf, nc=c, dtype=dt)
             self.disc = Discriminator(img_size=h, ndf=cfg.ndf, nc=c,
                                       dtype=dt, fused=fused)
+        set_group(mesh.data_group, self.encoder, self.decoder, self.disc)
         self.opts: Dict[str, torch.optim.Optimizer] = {}
         self.step = 0
 
@@ -157,9 +168,12 @@ class VAEGANTrainer:
                           device=self.device)
 
     def _draw(self, given, shape, generator):
+        """This rank's rows of a standard normal draw for the global batch
+        (``given``, or from ``generator``)."""
         if given is not None:
-            return given.to(self.device, torch.float32)
-        return torch.randn(shape, generator=generator, device=self.device)
+            return self.mesh.rows(given).to(self.device, torch.float32)
+        return batch_draw(self.mesh, lambda s: torch.randn(
+            s, generator=generator, device=self.device), shape)
 
     # ------------------------------------------------------------------- step
     def train_step(self, batch_uint8: torch.Tensor, kl_ramp: float,
@@ -168,8 +182,9 @@ class VAEGANTrainer:
                    noise_real: Optional[torch.Tensor] = None,
                    noise_fake: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
-        """One VAE-GAN step (module docstring); returns the five losses as
-        0-d device tensors: recon, kl, adv, d_loss (the last D step's),
+        """One VAE-GAN step (module docstring) on this rank's rows of the
+        global batch; returns the five losses of the global batch as 0-d
+        device tensors: recon, kl, adv, d_loss (the last D step's),
         g_total."""
         cfg = self.cfg
         x = to_signed(batch_uint8.to(self.device))
@@ -189,6 +204,7 @@ class VAEGANTrainer:
             opt_dis.zero_grad(set_to_none=True)
             d_loss = self.d_loss(real_noisy, fake_noisy)
             d_loss.backward()
+            average_grads(self.disc.parameters(), self.mesh.data_group)
             opt_dis.step()
         opt_dis.zero_grad(set_to_none=True)
 
@@ -198,13 +214,15 @@ class VAEGANTrainer:
         grads = torch.autograd.grad(total, params)
         for p, g in zip(params, grads):
             p.grad = g
+        average_grads(params, self.mesh.data_group)
         self.opts["encoder"].step()
         self.opts["decoder"].step()
         for name in ("encoder", "decoder"):
             self.opts[name].zero_grad(set_to_none=True)
         self.step += 1
-        return {**{k: v.detach() for k, v in parts.items()},
-                "d_loss": d_loss.detach(), "g_total": total.detach()}
+        return mean_metrics({**{k: v.detach() for k, v in parts.items()},
+                             "d_loss": d_loss.detach(),
+                             "g_total": total.detach()}, self.mesh)
 
     # ------------------------------------------------------------ validation
     @torch.no_grad()
