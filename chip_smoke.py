@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--report PATH]
-                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp]
+                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp|mp]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -164,7 +164,26 @@ Run from the root of a checkout on a machine with one CUDA card:
    remat step) and on the stock chain: bit-equal, or within DP_SPREAD_X
    times the step's own spread or REMAT_GRAD_REL of the largest gradient;
    each form's step time and peak memory;
-15. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+15. Glow's model parallelism (``--only mp``; in the full run right after
+   step 14), two rank processes on this card over gloo at the full Glow
+   width (64x64, global B=16, K=32, L=4, width 512, bf16), 3 iterations
+   each: K5 against its plain versions at the pipeline's microbatch
+   shapes (8 rows of each block); (a) ``run_glow --pp-stages 2
+   --fused-coupling`` (GPipe over the flow chain, 2 microbatches): exactly
+   128 K5 forwards, 128 backward 1 and 128 backward 2 a rank a step, plus
+   the ActNorm init's 128 forwards on every rank and rank 0's sample grid;
+   (b) ``run_glow --mesh-model 2`` on the stock chain (coupling filters
+   sharded: 256 of conv1's 512 a rank), no K5 or K6; (a) and (b) both ranks
+   bit-equal after every step (b: the state gathered from both), the first
+   step's losses against one process at the same global batch within
+   MP_LOSS_REL or DP_SPREAD_X times the median over FLOOR_SEEDS of that
+   one-process run's own floor (its first losses with every coupling
+   output perturbed by one f32 ulp), whichever is larger; (c) ``run_glow_eeg --mesh-model 2`` at the reference width in
+   f32, its first losses within MP_EEG_REL of one process; (d) a model
+   axis with ``--fused-coupling`` or ``--flow-stack`` refused before any
+   training; each run's step ms a rank beside one process's, and its peak
+   memory;
+16. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -2654,20 +2673,22 @@ def k1_stage(name):
     return "copy " + name.split("<")[0].split("(")[0][-40:]
 
 
-def check_k5(K, gen, dev, failures):
+def check_k5(K, gen, dev, failures, shapes=None):
     """K5 forward, backward 1 and backward 2 against their plain versions at
     the four Glow shapes (bf16) and K5_EXTRA (backward 2 fed the plain h1 and
     dh2); the Glow shapes timed as kernel, plain version and the library
     yardstick: the cuDNN bf16 channels_last chain (conv2d, ReLU, conv2d,
     ReLU, value-1 pad, conv2d, x exp) for the forward, autograd of that chain
-    for forward + backward."""
+    for forward + backward. ``shapes``: other (site, b, h, w, cin, f,
+    calls, dtype) instead (calls 0: checked, not timed)."""
     import torch
     import torch.nn.functional as F
     rows = {n: [] for n in K5_NAMES}
     khw, pad = (3, 3), (1, 1)
-    for site, b, h, w, cin, f, calls, *dt in \
-            [s_ + ("bfloat16",) for s_ in K5_SHAPES] + \
-            [(n, b, h, w, c, f, 0, d) for n, b, h, w, c, f, d in K5_EXTRA]:
+    if shapes is None:
+        shapes = [s_ + ("bfloat16",) for s_ in K5_SHAPES] + [
+            (n, b, h, w, c, f, 0, d) for n, b, h, w, c, f, d in K5_EXTRA]
+    for site, b, h, w, cin, f, calls, *dt in shapes:
         dtype = getattr(torch, dt[0])
         raw, p = k5_operands(dev, gen, b, h, w, cin, f, dtype)
         rel, atol = ((K5_F32_REL, 0.0) if dtype == torch.float32
@@ -2793,6 +2814,8 @@ def check_k5(K, gen, dev, failures):
         print(f"[kernel] K5 {site} {shape} {dt[0]} " + "; ".join(line),
               flush=True)
         del raw, p, out, got1, got2, ref, ref1, ref2
+    if not any("ms" in r for v in rows.values() for r in v):
+        return rows
     totals = {k: {key: sum(r[key] * r["calls"] for r in v if "ms" in r)
                   for key in ("ms", "ms_p90", "call_ms", "plain_ms",
                               "flop_ms", "byte_ms")}
@@ -4843,6 +4866,200 @@ def dp_path(K, failures):
     return report
 
 
+# Glow's model parallelism: MP_ITERS iterations of each run, a sample grid
+# at the last, on DP_GLOW_DATASET faces (the EEG run on its own trials)
+MP_ITERS = 3
+# the pipeline's microbatch shapes (B / pp_microbatches rows of each
+# block): K5 against its plain versions there, checked, not timed
+MP_K5_SHAPES = [(f"{site} microbatch", b // 2, h, w, cin, f, 0, "bfloat16")
+                for site, b, h, w, cin, f, _ in K5_SHAPES]
+# the f32 EEG run's first losses against one process's (its f32 convs sum
+# the filters in another order under tensor parallelism)
+MP_EEG_REL = 1e-4
+# the bf16 runs' first losses are held as every bf16 step is: the f32
+# bound, here the CPU tests' 1e-5 for a parallel run's losses, or
+# DP_SPREAD_X times the median one-ulp floor, whichever is larger (the
+# floor can be 0: a one-ulp change of every coupling output can vanish in
+# the loss's own f32 rounding, as it did on the H100)
+MP_LOSS_REL = 1e-5
+# a model axis with a coupling kernel (the JAX loop's words)
+MP_REFUSAL = "incompatible with --fused-coupling/--flow-stack"
+
+
+def mp_dir(tag):
+    return OUT_DIR / "mp" / tag
+
+
+def mp_glow_config(tag, model=1, **kw):
+    """``glow_config`` on DP_GLOW_DATASET faces on a data=1 x ``model``
+    mesh, writing under mp/<tag>, its grid at iteration MP_ITERS."""
+    from vgd_tpu_torch.core.config import MeshConfig
+    cfg = glow_config()
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dataset_size=DP_GLOW_DATASET),
+        run=dataclasses.replace(cfg.run, out_dir=str(mp_dir(tag)),
+                                sample_every_iters=MP_ITERS,
+                                checkpoint_every_iters=10 ** 6,
+                                mesh=MeshConfig(data=1, model=model)), **kw)
+
+
+def mp_eeg_config(tag, model=1):
+    from vgd_tpu_torch.core.config import MeshConfig
+    cfg = eeg_config()
+    return dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, out_dir=str(mp_dir(tag)), sample_every_iters=MP_ITERS,
+        checkpoint_every_iters=10 ** 6,
+        mesh=MeshConfig(data=1, model=model)))
+
+
+def first_step_floor(cfg, ref):
+    """The one-ulp floor of the first step's losses: ``run_glow(cfg)`` for
+    one iteration in this process with every coupling output perturbed by
+    one f32 ulp (``perturbed_by``, each seed of FLOOR_SEEDS), against the
+    unperturbed run ``ref``; (median, per seed)."""
+    from vgd_tpu_torch.models.glow import Glow
+    from vgd_tpu_torch.parallel import workers
+    plain = Glow._coupling_nn
+    per = {}
+    for seed in FLOOR_SEEDS:
+        fn = perturbed_by(plain, seed)
+        Glow._coupling_nn = lambda self, p, xa, fn=fn: fn(self, p, xa)
+        tag = f"{Path(cfg.run.out_dir).name}-floor{seed}"
+        try:
+            res = workers.train_loop(
+                family="glow", device=DP_DEVICE, n_iter=1, state=False,
+                cfg=dataclasses.replace(cfg, run=dataclasses.replace(
+                    cfg.run, out_dir=str(mp_dir(tag)))))
+        finally:
+            Glow._coupling_nn = plain
+        shutil.rmtree(mp_dir(tag), ignore_errors=True)
+        per[seed] = loss_rel(res, ref, 1)
+    return sorted(per.values())[len(per) // 2], per
+
+
+def mp_path(K, failures):
+    """Glow's model parallelism on the card (module docstring, step 15):
+    two rank processes on this card over gloo; the one-process references
+    and the floors run in this process."""
+    import torch
+    from vgd_tpu_torch.parallel import workers
+    from vgd_tpu_torch.parallel.launch import spawn
+    from vgd_tpu_torch.parallel.mesh import Mesh
+    from vgd_tpu_torch.train import loop as L
+    shutil.rmtree(OUT_DIR / "mp", ignore_errors=True)
+    t_phase = time.perf_counter()
+    report = {}
+    if DP_DEVICE == "cuda":
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    dev = torch.device(DP_DEVICE)
+    k5 = check_k5(K, torch.Generator(device=dev).manual_seed(15), dev,
+                  failures, shapes=MP_K5_SHAPES)
+    report["k5_microbatch"] = k5
+    jobs = {
+        "pp": dict(family="glow", cfg=mp_glow_config("pp", 2, pp_stages=2)),
+        "tp": dict(family="glow", cfg=mp_glow_config(
+            "tp", 2, fused_coupling=False)),
+        "eeg-tp": dict(family="glow-eeg", cfg=mp_eeg_config("eeg-tp", 2))}
+    common = dict(device=DP_DEVICE, n_iter=MP_ITERS, state=False)
+    t0 = time.perf_counter()
+    ranks = spawn("vgd_tpu_torch.parallel.workers:train_loops", 2,
+                  [dict(job, **common) for job in jobs.values()],
+                  timeout=DP_TIMEOUT, log_dir=str(mp_dir("logs")))
+    report["two_rank_spawn_s"] = time.perf_counter() - t0
+    res = {tag: [r[i] for r in ranks] for i, tag in enumerate(jobs)}
+    refs = {"pp": mp_glow_config("pp-one"),
+            "tp": mp_glow_config("tp-one", fused_coupling=False),
+            "eeg-tp": mp_eeg_config("eeg-one")}
+    refs = {tag: workers.train_loop(
+        family=jobs[tag]["family"], cfg=cfg, **common)
+        for tag, cfg in refs.items()}
+    floors = {tag: first_step_floor(mp_glow_config(f"{tag}-one", **kw),
+                                    refs[tag])
+              for tag, kw in (("pp", {}), ("tp", {"fused_coupling": False}))}
+    # K5 on the pipeline's path: each step's forward and both backwards of
+    # L (K / p) M flows a rank, the ActNorm init's forward of all L K flows
+    # on every rank, and rank 0's sample grid; none on the other runs
+    want = {"pp": lambda r: {
+        "glow_coupling_fwd": K5_PER_STEP * (MP_ITERS + 1 + (r == 0)),
+        "glow_coupling_bwd1": K5_PER_STEP * MP_ITERS,
+        "glow_coupling_bwd2": K5_PER_STEP * MP_ITERS,
+        **{name: 0 for name in K6_NAMES}}}
+    for tag, pair in res.items():
+        ref = refs[tag]
+        first = loss_rel(pair[0], ref, 1)
+        if tag in floors:
+            floor, per_seed = floors[tag]
+            bound = max(MP_LOSS_REL, DP_SPREAD_X * floor)
+        else:
+            floor, per_seed, bound = None, None, MP_EEG_REL
+        row = {"ranks_bit_equal": check_ranks(f"mp {tag}", pair, failures),
+               "step_ms_per_rank": [median_ms(p) for p in pair],
+               "one_process_step_ms": median_ms(ref),
+               "peak_mem_gb_per_rank": [p.get("peak_mem_gb") for p in pair],
+               "one_process_peak_mem_gb": ref.get("peak_mem_gb"),
+               "first_step_loss_rel": first, "loss_rel": loss_rel(pair[0],
+                                                                  ref),
+               "floor": floor, "floor_per_seed": per_seed, "bound": bound,
+               "launches_per_rank": [p["launches"] for p in pair],
+               "conv1_filters_per_rank": [
+                   p["local_shapes"]["block0.flows.coupling.conv1.w"][-1]
+                   for p in pair]}
+        if not first <= bound:
+            failures.append(f"mp {tag}: first-step losses {first} from one "
+                            f"process, bound {bound}")
+        for r, p in enumerate(pair):
+            got = want.get(tag, lambda r: {n: 0 for n in GLOW_NAMES})(r)
+            want_launches(f"mp {tag} rank {r}", p, got, failures)
+        filters = row["conv1_filters_per_rank"]
+        full = ref["local_shapes"]["block0.flows.coupling.conv1.w"][-1]
+        if filters != [full if tag == "pp" else full // 2] * 2:
+            failures.append(f"mp {tag}: conv1 filters per rank {filters}")
+        report[tag] = row
+        print(f"[mp] {tag}: ranks bit-equal {row['ranks_bit_equal']}; step "
+              f"ms per rank {[round(v, 2) for v in row['step_ms_per_rank']]}"
+              f" vs one process {row['one_process_step_ms']:.2f} (two ranks "
+              f"on one card over gloo: collective overhead, not scaling); "
+              f"peak GB per rank {row['peak_mem_gb_per_rank']} vs "
+              f"{row['one_process_peak_mem_gb']}; first-step loss rel "
+              f"{first:.3g} (bound {bound:.3g}"
+              + (f": {MP_LOSS_REL:g} or {DP_SPREAD_X} x the median one-ulp "
+                 f"floor {floor:.3g}, per seed {per_seed}"
+                 if floor is not None else "")
+              + f"), every step {row['loss_rel']:.3g}; conv1 filters per "
+              f"rank {filters}; launches rank 0 {row['launches_per_rank'][0]}",
+              flush=True)
+    # (d) the refusals, before any training
+    real = L.build_mesh
+    L.build_mesh = lambda data, model: Mesh(1, 2)
+    try:
+        for flag, kw in (("fused_coupling", {}),
+                         ("flow_stack", {"fused_coupling": False,
+                                         "flow_stack": True})):
+            try:
+                L.run_glow(mp_glow_config(f"refuse-{flag}", 2, **kw),
+                           device=DP_DEVICE)
+                failures.append(f"mp (d): a model axis with {flag} ran")
+            except ValueError as e:
+                if MP_REFUSAL not in str(e):
+                    failures.append(f"mp (d) {flag}: {e}")
+                report[f"refusal_{flag}"] = str(e)
+    finally:
+        L.build_mesh = real
+    print(f"[mp] (d) a model axis with --fused-coupling / --flow-stack "
+          f"refused: {report.get('refusal_fused_coupling', '')!r}",
+          flush=True)
+    report["launches"] = {name: sum(p["launches"].get(name, 0)
+                                    for pair in res.values() for p in pair)
+                          for name in GLOW_NAMES}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mp] phase {report['phase_s']:.1f} s (two-rank spawn "
+          f"{report['two_rank_spawn_s']:.1f} s); launches on its paths "
+          f"{report['launches']}", flush=True)
+    return report
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
@@ -4861,7 +5078,8 @@ ONLY = {"k1": ("conv_bn_stats.cu",),
                    "glow_coupling.cu"),
         "dp": ("flash_attention.cu", "flash_attention_bwd.cu",
                "groupnorm_silu.cu", "conv_bn_stats.cu", "glow_coupling.cu",
-               "glow_flow_stack.cu")}
+               "glow_flow_stack.cu"),
+        "mp": ("glow_coupling.cu",)}
 # optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
 # figure need matplotlib; the port computes without any of them)
 OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
@@ -4879,7 +5097,8 @@ def main(argv=None) -> int:
                     "phase; fid: the Inception checks and timing; export: "
                     "the serving export and data path on seeded "
                     "checkpoints; dp: data and sequence parallelism across "
-                    "processes and Glow remat) with no main path and no "
+                    "processes and Glow remat; mp: Glow's pipeline and "
+                    "tensor parallelism) with no main path and no "
                     "result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
@@ -4953,11 +5172,14 @@ def main(argv=None) -> int:
             report["export"] = export_path(K, failures)
         elif args.only == "dp":
             report["dp"] = dp_path(K, failures)
+        elif args.only == "mp":
+            report["mp"] = mp_path(K, failures)
         if args.only:
             raise _PartialRun
         # the data-parallel phase first: its rank processes share this card,
         # and the later phases leave tens of GB in this process's hands
         report["dp"] = dp_path(K, failures)
+        report["mp"] = mp_path(K, failures)
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(
             K, gen, dev, failures)
@@ -4993,6 +5215,7 @@ def main(argv=None) -> int:
         report["fid_eval"] = fid_eval_path(K, report, failures)
         report["export"] = export_path(K, failures)
         dp_l = report["dp"]["launches"]
+        mp_l = report["mp"]["launches"]
         exp_l = report["export"]["launches"]
         fid_l = {name: sum(r["launches"].get(name, 0) for r in
                            report["fid_eval"].values() if isinstance(r, dict))
@@ -5039,14 +5262,17 @@ def main(argv=None) -> int:
             k1_entry(k1_rows, report)] + [
             dict(kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_coupling.cu",
-                f"vgd_tpu/ops/glow_coupling.py:{line}", k5_rows[name],
+                f"vgd_tpu/ops/glow_coupling.py:{line}",
+                k5_rows[name] + report["mp"]["k5_microbatch"][name],
                 report["glow"]["train"]["launches_total"][name]
-                + fid_l.get(name, 0) + exp_l.get(name, 0) + dp_l[name],
+                + fid_l.get(name, 0) + exp_l.get(name, 0) + dp_l[name]
+                + mp_l[name],
                 "one 64x64 batch-16 Glow train step (K=32, L=4)"),
                 launches_by_path={
                     "train": report["glow"]["train"]["launches_total"][name],
                     "fid_eval": fid_l.get(name, 0),
-                    "export": exp_l.get(name, 0), "dp": dp_l[name]})
+                    "export": exp_l.get(name, 0), "dp": dp_l[name],
+                    "mp": mp_l[name]})
             for name, line in zip(K5_NAMES, (164, 206, 266))]
         # K6's forward and backward run on the training path, its no-save
         # forward on the likelihood path (the serve phase)
@@ -5057,7 +5283,7 @@ def main(argv=None) -> int:
             entry = kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_flow_stack.cu",
                 f"vgd_tpu/ops/glow_flow_stack.py:{line}", k6_rows[name],
-                k6_launches[name] + dp_l[name],
+                k6_launches[name] + dp_l[name] + mp_l[name],
                 "one 64x64 batch-16 Glow likelihood forward (K=32, L=4)"
                 if name == "glow_flow_stack_fwd_nosave" else
                 "one 64x64 batch-16 Glow train step (K=32, L=4, flow_stack)")
@@ -5065,7 +5291,8 @@ def main(argv=None) -> int:
             # of the same four blocks stands beside it
             timed = [r for r in k6_rows[name] if "ms" in r]
             entry.update(library="none alone", launches_by_path={
-                "main": k6_launches[name], "dp": dp_l[name]},
+                "main": k6_launches[name], "dp": dp_l[name],
+                "mp": mp_l[name]},
                 **{k: sum(r[k] for r in timed) for k in K6_PER_FLOW_KEYS})
             report["kernels"].append(entry)
         idle = [e["name"] for e in report["kernels"] if not e["launches"]]

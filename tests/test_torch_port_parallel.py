@@ -354,20 +354,25 @@ def _vae_cfg(tmp_path, **run):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """No model-axis consumer (JAX's words), Glow's model axis (tensor /
-    pipeline parallelism not ported), a mesh larger than the world (JAX's
+    """No model-axis consumer (JAX's words), Glow's model-axis refusals
+    (tensor parallelism with a coupling kernel, a pipeline whose stage
+    count is not the model axis), a mesh larger than the world (JAX's
     words), and a batch the data axis does not divide: each raises before
     any training."""
     with pytest.raises(ValueError, match="has no effect for this family"):
         L.run_vae(_vae_cfg(tmp_path, mesh=PC.MeshConfig(model=2)),
                   device="cpu")
-    glow = PC.GlowConfig(run=PC.RunConfig(mesh=PC.MeshConfig(model=2)))
-    for run in (L.run_glow, L.run_glow_eeg):
-        cfg = glow if run is L.run_glow else PC.GlowEEGConfig(
-            run=glow.run)
-        with pytest.raises(ValueError, match="tensor parallelism .* "
-                           "pipeline parallelism .* not ported yet"):
-            run(cfg, device="cpu")
+    glow = PC.GlowConfig(run=PC.RunConfig(out_dir=str(tmp_path),
+                                          mesh=PC.MeshConfig(model=2)))
+    with monkeypatch.context() as mp:
+        mp.setattr(L, "build_mesh", lambda data, model: PM.Mesh(1, 2))
+        with pytest.raises(ValueError, match="incompatible with "
+                           "--fused-coupling/--flow-stack"):
+            L.run_glow(dataclasses.replace(glow, fused_coupling=True),
+                       device="cpu")
+        with pytest.raises(ValueError, match="--pp-stages 4 needs a mesh "
+                           "whose model axis has exactly that many"):
+            L.run_glow(dataclasses.replace(glow, pp_stages=4), device="cpu")
     with pytest.raises(ValueError, match="mesh 2x1 does not cover 1 "
                        "devices"):
         L.run_vae(_vae_cfg(tmp_path, mesh=PC.MeshConfig(data=2)),

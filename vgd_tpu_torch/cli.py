@@ -16,7 +16,7 @@ export:
   python -m vgd_tpu_torch.cli glow --iters 30000 --out-dir runs/glow \\
       [--fused-coupling] [--flow-stack [N]] [--sample-every 100] \\
       [--checkpoint-every 1000] [--lr 1e-4] [--keep-checkpoints 3] \\
-      [--resume] [--profile-dir runs/glow/trace]
+      [--resume] [--profile-dir runs/glow/trace] [--pp-stages 2]
   python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow [-n 20]
   python -m vgd_tpu_torch.cli eval-glow --out-dir runs/glow [--max-batches 1]
   python -m vgd_tpu_torch.cli vae --epochs 100 [--noise-std 0.5] [--occlusion] \
@@ -71,14 +71,21 @@ The training commands run data-parallel on several cards, one process a
 card (``train.loop``; ``--batch-size`` is the global batch):
 
   torchrun --nproc-per-node 8 -m vgd_tpu_torch.cli diffusion --mesh-data 8
+  torchrun --nproc-per-node 2 -m vgd_tpu_torch.cli glow --pp-stages 2 \
+      --fused-coupling
+  torchrun --nproc-per-node 2 -m vgd_tpu_torch.cli glow --mesh-model 2
   VGD_COORDINATOR=host0:1234 VGD_NUM_PROCESSES=2 VGD_PROCESS_ID=<i> \
       python -m vgd_tpu_torch.cli vae --multihost
 
 ``--mesh-data`` sizes the data axis (-1: every process ``--mesh-model``
-leaves), ``--mesh-model`` > 1 shards the DDPM UNet's bottleneck tokens
-(ring attention; the other families refuse it), ``--multihost`` starts
-the process group from the ``VGD_*`` variables (or torchrun's), and
-``glow --remat`` recomputes each flow in the backward.
+leaves); ``--mesh-model`` > 1 shards the DDPM UNet's bottleneck tokens
+(ring attention) or the Glow coupling filters (``glow``, ``glow-eeg``:
+tensor parallelism, which refuses ``--fused-coupling`` and
+``--flow-stack``), and ``glow --pp-stages N`` runs every block's flows as
+an N-stage GPipe pipeline over the model axis (sized to N when
+``--mesh-model`` is unset); the other families refuse a model axis.
+``--multihost`` starts the process group from the ``VGD_*`` variables (or
+torchrun's), and ``glow --remat`` recomputes each flow in the backward.
 """
 from __future__ import annotations
 
@@ -290,7 +297,9 @@ def _add_parallel(p):
                    "not used by --mesh-model; default -1)")
     p.add_argument("--mesh-model", type=int, default=None,
                    help="model mesh axis size: >1 shards the UNet token "
-                   "axis (sequence parallel, diffusion only)")
+                   "axis (sequence parallel, diffusion) or the Glow "
+                   "coupling filters (tensor parallel, glow and glow-eeg), "
+                   "or hosts glow's --pp-stages")
 
 
 def _mesh(a):
@@ -395,6 +404,9 @@ def _denoise(a) -> None:
 
 
 def _glow_cfg(a) -> C.GlowConfig:
+    pp = getattr(a, "pp_stages", None)
+    if pp and getattr(a, "mesh_model", None) is None:
+        a.mesh_model = pp            # size the model axis to the stages
     run = {k: getattr(a, arg) for k, arg in (
         ("sample_every_iters", "sample_every"),
         ("checkpoint_every_iters", "checkpoint_every"))
@@ -404,7 +416,8 @@ def _glow_cfg(a) -> C.GlowConfig:
     return _with_args(C.GlowConfig(
         fused_coupling=bool(getattr(a, "fused_coupling", False)),
         flow_stack=_flow_stack(getattr(a, "flow_stack", None)),
-        remat=bool(getattr(a, "remat", False)), **sizes), a, **run)
+        remat=bool(getattr(a, "remat", False)),
+        **({"pp_stages": pp} if pp else {}), **sizes), a, **run)
 
 
 def _add_family(p):
@@ -598,6 +611,11 @@ def main(argv=None):
                    help="recompute each flow in the backward "
                    "(torch.utils.checkpoint): activation memory O(K) -> "
                    "O(1) a block, one more coupling forward a flow")
+    p.add_argument("--pp-stages", type=int, default=None,
+                   help="pipeline-parallel stages: every block's K-flow "
+                   "chain runs as a GPipe pipeline over this many "
+                   "model-axis ranks (K must divide over it); sizes "
+                   "--mesh-model when unset")
     _add_optim(p)
 
     p = sub.add_parser("eval-glow", help="temperature-sample SSIM of a "

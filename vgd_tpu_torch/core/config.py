@@ -21,7 +21,9 @@ from typing import Optional, Tuple
 class MeshConfig:
     """The (data, model) process mesh. ``data`` is the data-parallel axis
     (-1: every process the model axis leaves); ``model`` > 1 shards the
-    DDPM UNet's bottleneck tokens (sequence parallelism)."""
+    DDPM UNet's bottleneck tokens (sequence parallelism) or Glow's coupling
+    filters (tensor parallelism), or hosts Glow's pipeline stages
+    (``GlowConfig.pp_stages``)."""
     data: int = -1
     model: int = 1
 
@@ -137,9 +139,8 @@ def check_flow_stack(flow_stack) -> None:
 class GlowConfig:
     """Glow on images at the reference's training scale (64x64, batch 16,
     K=32 flows, L=4 blocks, coupling width 512, 5 bits, 30k iterations),
-    bf16 coupling convs. Left out: ``pp_stages`` / ``pp_microbatches``
-    (pipeline parallelism is not ported yet) and ``scan_unroll`` (no
-    meaning without ``lax.scan``)."""
+    bf16 coupling convs. Left out: ``scan_unroll`` (no meaning without
+    ``lax.scan``)."""
     data: DataConfig = field(default_factory=lambda: DataConfig(
         batch_size=16, normalize=False))
     run: RunConfig = field(default_factory=lambda: RunConfig(
@@ -162,6 +163,13 @@ class GlowConfig:
     # = every block, an int N = the blocks whose squeezed h*w <= N; off by
     # default, as in the JAX package
     flow_stack: "bool | int" = False
+    # pipeline parallelism: > 0 runs every block's K-flow chain as a GPipe
+    # pipeline over that many model-axis ranks (the CLI sizes --mesh-model
+    # to it when unset; K must divide over it) in pp_microbatches
+    # microbatches; without it a model axis shards the coupling filters
+    # (tensor parallelism)
+    pp_stages: int = 0
+    pp_microbatches: int = 2
 
     def __post_init__(self):
         check_flow_stack(self.flow_stack)

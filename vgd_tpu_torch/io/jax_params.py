@@ -43,6 +43,8 @@ import torch
 from torch import nn
 
 from vgd_tpu_torch.ops.conv import ConvTranspose
+from vgd_tpu_torch.parallel.collectives import size
+from vgd_tpu_torch.parallel.tensor_parallel import split_axis
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -243,16 +245,30 @@ def _strict(got: Dict[str, np.ndarray], want: Dict[str, tuple], what: str):
             f"{[(k, tuple(got[k].shape), want[k]) for k in wrong]}")
 
 
+def _glow_shapes(model: nn.Module) -> Dict[str, tuple]:
+    """The full (unsharded) shape of every state-dict entry of a port
+    ``Glow``: a tensor-parallel model's split leaves times its model
+    group's size along their split axis."""
+    p = size(getattr(model, "tp_group", None))
+    shapes = {}
+    for k, v in model.state_dict().items():
+        shape, axis = list(v.shape), split_axis(k)
+        if axis is not None:
+            shape[axis] *= p
+        shapes[k] = tuple(shape)
+    return shapes
+
+
 def from_jax_glow_params(params: Mapping, model: nn.Module
                          ) -> Dict[str, torch.Tensor]:
     """A JAX Glow params tree (``block{i}/flows/...`` stacked over K,
-    ``block{i}/prior``) as the state_dict of the port's ``Glow``: every
-    leaf keeps its name and layout (HWIO kernels, ZeroConv ``scale`` stays
-    ``scale``); the PLU buffers ``P`` and ``s_sign`` included. Strict: every
-    leaf lands on a tensor of the same shape and every tensor is filled."""
+    ``block{i}/prior``) as the full state_dict of the port's ``Glow``:
+    every leaf keeps its name and layout (HWIO kernels, ZeroConv ``scale``
+    stays ``scale``); the PLU buffers ``P`` and ``s_sign`` included.
+    Strict: every leaf lands on a tensor of the same (full) shape and every
+    tensor is filled."""
     got = _flatten(params)
-    _strict(got, {k: tuple(v.shape) for k, v in model.state_dict().items()},
-            "JAX Glow params")
+    _strict(got, _glow_shapes(model), "JAX Glow params")
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             for k, v in got.items()}
 
@@ -260,23 +276,21 @@ def from_jax_glow_params(params: Mapping, model: nn.Module
 def load_jax_glow_state(trainer, state):
     """Load a JAX ``GlowState`` (``params``, the optax Adam ``opt_state``,
     ``step``; leaves as numpy or array-likes) into a
-    ``train.glow.GlowTrainer`` or ``GlowEEGTrainer``: parameters, the P / s_sign buffers, Adam's
-    moments and count, the iteration. The optax state also holds moments
-    for P and s_sign, which never get a gradient: they must be zero and are
-    dropped (the port's Adam holds the trainable leaves only)."""
+    ``train.glow.GlowTrainer`` or ``GlowEEGTrainer``: parameters, the P /
+    s_sign buffers, Adam's moments and count, the iteration, through
+    ``trainer.load`` (which cuts a tensor-parallel trainer's shard from
+    the full state). The optax state also holds moments for P and s_sign,
+    which never get a gradient: they must be zero and are dropped (the
+    port's Adam holds the trainable leaves only)."""
     model = trainer.model
-    trainer.model.load_state_dict(from_jax_glow_params(state.params, model),
-                                  strict=True)
-    trainer._fresh_optimizer()
+    params = from_jax_glow_params(state.params, model)
     count, mu, nu = _adam_leaves(state.opt_state)
     names = [k for k, _ in model.named_parameters()]
     buffers = {k for k, _ in model.named_buffers()}
     moments = []
     for tree in (mu, nu):
         flat = _flatten(tree)
-        _strict(flat, {k: tuple(v.shape)
-                       for k, v in model.state_dict().items()},
-                "JAX Adam moments")
+        _strict(flat, _glow_shapes(model), "JAX Adam moments")
         for k in buffers:
             if np.any(flat[k] != 0):
                 raise ValueError(f"JAX Adam moment of the buffer {k} is not "
@@ -284,12 +298,12 @@ def load_jax_glow_state(trainer, state):
         moments.append({k: torch.from_numpy(np.array(flat[k], np.float32))
                         for k in names})
     step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    trainer._fresh_optimizer()
     sd = trainer.opt.state_dict()
     sd["state"] = {i: {"step": step.clone(), "exp_avg": moments[0][k],
                        "exp_avg_sq": moments[1][k]}
                    for i, k in enumerate(names)}
-    trainer.opt.load_state_dict(sd)
-    trainer.step = int(np.asarray(state.step))
+    trainer.load(params, sd, int(np.asarray(state.step)))
     return trainer
 
 

@@ -38,8 +38,26 @@ time. Under data parallelism (``group``, the mesh's data group) the ActNorm
 init takes the global batch's mean and unbiased std, the ranks' moments
 merged in rank order (``parallel.collectives.merge_moments``).
 
+Model parallelism over the mesh's model axis (``parallel/``), as in JAX:
+
+* ``tp_group``: tensor parallelism. Each rank holds its shard of the
+  coupling filters (``conv1.w`` / ``conv1.b`` on their output filters,
+  ``conv2.w`` and ``zero.w`` on their input filters), and every coupling
+  network, in the forward and in the reverse, runs
+  ``parallel/tensor_parallel.tp_coupling_nn`` (stock convs with
+  collectives; never a kernel). ``init_parameters`` draws the full tensors
+  and keeps this rank's shard, so the ranks together hold one process's
+  init.
+* ``pp_group``: pipeline parallelism. The training forward of every block
+  runs its K flows as a GPipe pipeline of ``pp_microbatches``
+  microbatches (``parallel/pipeline_parallel.pp_flow_stack``; K5 inside the
+  stages under ``fused_coupling``), taking precedence over ``flow_stack``
+  and ``remat``; the input is cast to f32 and the block's logdet is
+  ``sum(ld_all)``, its gradient through this stage's flows only. The
+  ActNorm init and the reverse keep the per-flow path.
+
 Left out: ``scan_unroll`` (an unroll factor of ``lax.scan``, math-identical
-by construction, meaningless without the scan) and pipeline parallelism.
+by construction, meaningless without the scan).
 """
 from __future__ import annotations
 
@@ -55,6 +73,16 @@ from vgd_tpu_torch.core.config import check_flow_stack
 from vgd_tpu_torch.ops.glow_coupling import glow_coupling_nn
 from vgd_tpu_torch.ops.glow_flow_stack import glow_flow_stack
 from vgd_tpu_torch.parallel.collectives import merge_moments, size
+from vgd_tpu_torch.parallel.pipeline_parallel import owned, pp_flow_stack
+from vgd_tpu_torch.parallel.tensor_parallel import (check_filters,
+                                                    coupling_param_specs,
+                                                    tp_coupling_nn)
+
+# a model axis cannot split the coupling kernels' filters (JAX's words)
+TP_KERNELS = (
+    "--mesh-model > 1 is incompatible with --fused-coupling/--flow-stack: "
+    "the coupling kernels (K5, K6) run whole filter rows and cannot be "
+    "partitioned over the filter axis. Drop one of the flags.")
 
 
 def gaussian_log_p(x, mean, log_sd):
@@ -115,11 +143,12 @@ def _zeroconv_leaves(kh, kw, cin, cout) -> Leaves:
 
 
 class _Flows(nn.Module):
-    """K flows' parameters, each leaf stacked along a leading K axis."""
+    """K flows' parameters, each leaf stacked along a leading K axis; with
+    ``shards`` > 1 the coupling filters are one rank's 1/shards of them."""
 
-    def __init__(self, n_flows, ch, filter_size, kh, kw):
+    def __init__(self, n_flows, ch, filter_size, kh, kw, shards=1):
         super().__init__()
-        k, half, f = n_flows, ch // 2, filter_size
+        k, half, f = n_flows, ch // 2, filter_size // shards
         self.actnorm = Leaves({"b": torch.zeros(k, ch),
                                "s": torch.ones(k, ch)})
         self.invconv = Leaves(
@@ -129,8 +158,9 @@ class _Flows(nn.Module):
         self.coupling = nn.Module()
         self.coupling.conv1 = Leaves({"w": torch.zeros(k, kh, kw, half, f),
                                       "b": torch.zeros(k, f)})
-        self.coupling.conv2 = Leaves({"w": torch.zeros(k, 1, 1, f, f),
-                                      "b": torch.zeros(k, f)})
+        self.coupling.conv2 = Leaves({"w": torch.zeros(k, 1, 1, f,
+                                                       filter_size),
+                                      "b": torch.zeros(k, filter_size)})
         self.coupling.zero = Leaves({"w": torch.zeros(k, kh, kw, f, half),
                                      "b": torch.zeros(k, half),
                                      "scale": torch.zeros(k, half)})
@@ -153,9 +183,9 @@ class _Flows(nn.Module):
 
 class _Block(nn.Module):
 
-    def __init__(self, n_flows, ch, filter_size, kh, kw, split):
+    def __init__(self, n_flows, ch, filter_size, kh, kw, split, shards=1):
         super().__init__()
-        self.flows = _Flows(n_flows, ch, filter_size, kh, kw)
+        self.flows = _Flows(n_flows, ch, filter_size, kh, kw, shards)
         self.prior = (_zeroconv_leaves(kh, kw, ch // 2, ch) if split
                       else _zeroconv_leaves(kh, kw, ch, ch * 2))
 
@@ -170,9 +200,15 @@ class Glow(nn.Module):
 
     def __init__(self, in_channels=3, n_flows=32, n_blocks=4, variant="image",
                  filter_size=512, compute_dtype=torch.float32,
-                 fused_coupling=False, flow_stack=False, remat=False):
+                 fused_coupling=False, flow_stack=False, remat=False,
+                 tp_group=None, pp_group=None, pp_microbatches=2):
         super().__init__()
         check_flow_stack(flow_stack)
+        shards = size(tp_group)
+        if shards > 1:
+            if fused_coupling or flow_stack:
+                raise ValueError(TP_KERNELS)
+            check_filters(filter_size, shards)
         if variant not in ("image", "eeg"):
             raise ValueError(f"variant {variant!r} (image or eeg)")
         self.in_channels, self.n_flows, self.n_blocks = (
@@ -182,6 +218,9 @@ class Glow(nn.Module):
         self.fused_coupling = fused_coupling
         self.flow_stack = flow_stack
         self.remat = remat
+        self.tp_group = tp_group if shards > 1 else None
+        self.pp_group = pp_group
+        self.pp_microbatches = int(pp_microbatches)
         # the data-parallel group whose global batch the ActNorm init sees
         self.group = None
         self.kernel = (3, 3) if variant == "image" else (3, 1)
@@ -191,7 +230,7 @@ class Glow(nn.Module):
         for i, ch in enumerate(self.block_in_channels()):
             setattr(self, f"block{i}", _Block(
                 n_flows, ch * self.squeeze_factor, filter_size, kh, kw,
-                split=i < n_blocks - 1))
+                split=i < n_blocks - 1, shards=shards))
 
     def block_in_channels(self) -> List[int]:
         chs, ch = [], self.in_channels
@@ -215,13 +254,23 @@ class Glow(nn.Module):
                         ) -> None:
         """Conv kernels N(0, 0.05), zero biases, zero ZeroConvs (flows and
         priors), ActNorm b = 0 and s = 1 until ``init_actnorm``, and each
-        1x1 conv the PLU pieces of the Q of a normal matrix's QR."""
+        1x1 conv the PLU pieces of the Q of a normal matrix's QR. Under
+        ``tp_group`` the full kernels are drawn and this rank's shard kept."""
+        specs = coupling_param_specs()
+        shards = size(self.tp_group)
+        m = 0 if shards == 1 else torch.distributed.get_rank(self.tp_group)
         for blk in self.blocks():
             fl = blk.flows
             dev = fl.actnorm.b.device
-            for leaf in (fl.coupling.conv1.w, fl.coupling.conv2.w):
-                leaf.copy_(torch.randn(leaf.shape, generator=generator,
-                                       device=dev) * 0.05)
+            for name in ("conv1", "conv2"):
+                leaf = getattr(fl.coupling, name).w
+                axis = specs[name]["w"]
+                shape = list(leaf.shape)
+                shape[axis] *= shards
+                full = torch.randn(shape, generator=generator,
+                                   device=dev) * 0.05
+                leaf.copy_(full.narrow(axis, m * leaf.shape[axis],
+                                       leaf.shape[axis]))
             for t in (fl.coupling.conv1.b, fl.coupling.conv2.b,
                       *fl.coupling.zero.parameters(), *blk.prior.parameters(),
                       fl.actnorm.b):
@@ -254,6 +303,8 @@ class Glow(nn.Module):
         return self._conv(p, x, 0, torch.float32) * torch.exp(p["scale"] * 3.0)
 
     def _coupling_nn(self, p, xa):
+        if self.tp_group is not None:
+            return tp_coupling_nn(self, p, xa, self.tp_group)
         if self.fused_coupling:
             return glow_coupling_nn(p, xa.float(), self.kernel, self.pad,
                                     self.compute_dtype)
@@ -343,6 +394,16 @@ class Glow(nn.Module):
         w_all = self._plu_weight(fl.invconv)
         ld_all = hw * (torch.sum(torch.log(torch.abs(fl.actnorm.s)), dim=1)
                        + torch.sum(fl.invconv.log_s, dim=1))
+        if not init and self.pp_group is not None:
+            tree = {"actnorm": fl.actnorm.tree(),
+                    "invconv": fl.invconv.tree(),
+                    "coupling": {n: getattr(fl.coupling, n).tree()
+                                 for n in ("conv1", "conv2", "zero")}}
+            y, _ = pp_flow_stack(self, tree, y.float(), self.pp_microbatches,
+                                 self.pp_group, w_all=w_all)
+            y, log_p, z_new = self._block_tail(blk, y, bsz, split)
+            return (y, torch.sum(owned(ld_all, self.pp_group)), log_p, z_new,
+                    [])
         if not init and self._use_flow_stack(hw):
             tree = {"actnorm": fl.actnorm.tree(),
                     "coupling": {n: getattr(fl.coupling, n).tree()

@@ -7,11 +7,19 @@ the caller's own process.
   ``BatchNorm`` with global statistics, the Glow ActNorm init, and ring
   attention, on this rank's rows / tokens of global inputs;
 * ``vaegan_step``: one VAE-GAN step from a given state and given draws;
+* ``mp_checks``: Glow's model-parallel pieces on a model group of the
+  world: the sharded coupling network (``tensor_parallel.tp_coupling_nn``)
+  and the pipelined flow stack (``pipeline_parallel.pp_flow_stack``),
+  forward and gradients, and ``pp_train_step``;
+* ``glow_steps``: a Glow trainer on the mesh of its config, loaded from a
+  JAX state, stepped through given batches and draws;
+* ``bodies``: several of these in one spawn;
 * ``train_loops``: whole ``run_*`` loops, each step's global losses and a
   fingerprint of the state after it (``fingerprint``: an exact integer
   function of every parameter's and buffer's bits, so two ranks agree on
-  it only if their states are bit-equal), the kernel launches, and the
-  final state.
+  it only if their states are bit-equal; a Glow trainer's full state,
+  gathered from its model group under tensor parallelism), the kernel
+  launches, and the final state.
 
 Gradients of a local tensor follow the trainers' convention: each rank's
 loss estimates the global one (a sum over the batch is this rank's sum
@@ -48,17 +56,24 @@ def fingerprint(tensors) -> int:
     return total
 
 
-def _state(trainer) -> Dict[str, torch.Tensor]:
+def _local_state(trainer) -> Dict[str, torch.Tensor]:
     if hasattr(trainer, "state_dict"):
         return trainer.state_dict()
     return trainer.model.state_dict()
+
+
+def _state(trainer) -> Dict[str, torch.Tensor]:
+    """The trainer's full state (collective for a sharded Glow trainer)."""
+    if hasattr(trainer, "checkpoint_state"):
+        return trainer.checkpoint_state()[0]
+    return _local_state(trainer)
 
 
 def adam_keys(trainer) -> Dict[str, List[str]]:
     """For each of the trainer's optimizers (``""`` for a lone one), the
     state-dict keys of its parameters in the optimizer's order."""
     opts = trainer.opts if hasattr(trainer, "opts") else {"": trainer.opt}
-    ptr = {t.data_ptr(): k for k, t in _state(trainer).items()}
+    ptr = {t.data_ptr(): k for k, t in _local_state(trainer).items()}
     return {name: [ptr[p.data_ptr()] for p in o.param_groups[0]["params"]]
             for name, o in opts.items()}
 
@@ -149,6 +164,94 @@ def op_checks(inp: Dict, device: str = "cpu") -> Dict:
     return {k: host(d) for k, d in out.items()}
 
 
+# ------------------------------------------------- Glow model parallelism
+def mp_checks(inp: Dict, device: str = "cpu") -> Dict:
+    """On a (data, model) mesh of the world (``inp["mesh"]``): the sharded
+    coupling network of one flow on the whole of ``x`` (``"tp"``, a list of
+    cases: output, dx and this rank's shard of every parameter gradient,
+    from the loss sum(out * gy)); a full state cut to this rank's shard
+    and gathered back (``"roundtrip"``); the pipelined flow stack on this
+    rank's rows of ``x`` (``"pp"``, for each microbatch count: y, the
+    logdets, dx and the flows' gradients summed over the stages, from
+    sum(y * gy) + sum(logdets) on the global batch); and ``pp_train_step``
+    (``"pp_train"``: the loss and the flows after the Adam step). The PLU
+    buffers P and s_sign get no gradient."""
+    from vgd_tpu_torch.models.glow import Glow
+    from vgd_tpu_torch.parallel import pipeline_parallel as PP
+    from vgd_tpu_torch.parallel import tensor_parallel as TP
+    from vgd_tpu_torch.train.common import adam
+    dev = _start(device)
+    mesh = build_mesh(*inp["mesh"])
+    group = mesh.model_group
+    out = {}
+
+    def host(d):
+        return {k: v.detach().cpu() for k, v in d.items()}
+
+    if "tp" in inp:
+        out["tp"] = []
+        for c in inp["tp"]:
+            glow = Glow(**c["kw"], tp_group=group)
+            # one flow's leaves, stacked as K = 1 for the split axes
+            full = {f"flows.coupling.{n}.{leaf}": v.to(dev)[None]
+                    for n, leaves in c["p"].items()
+                    for leaf, v in leaves.items()}
+            shard = {k.split("coupling.")[1]: v[0].clone().requires_grad_(
+                True) for k, v in TP.shard_glow_coupling(
+                    full, mesh.m, mesh.model).items()}
+            p = {}
+            for k, v in shard.items():
+                n, leaf = k.split(".")
+                p.setdefault(n, {})[leaf] = v
+            x = c["x"].to(dev).clone().requires_grad_(True)
+            y = TP.tp_coupling_nn(glow, p, x, group)
+            (y * c["gy"].to(dev)).sum().backward()
+            out["tp"].append(host({"y": y, "dx": x.grad,
+                                   **{k: v.grad for k, v in shard.items()}}))
+    if "roundtrip" in inp:
+        c = inp["roundtrip"]
+        params, opt = TP.shard_glow_state(c["params"], c["opt"], c["names"],
+                                          c["filter_size"], mesh.m,
+                                          mesh.model)
+        full, full_opt = TP.gather_glow_state(params, group, opt,
+                                              c["names"])
+        out["roundtrip"] = {"shard": params, "full": full,
+                            "full_opt": full_opt}
+    if "pp" in inp:
+        c = inp["pp"]
+        glow = Glow(**c["kw"], pp_group=group)
+        out["pp"] = []
+        for n_mb in c["microbatches"]:
+            flows = _flow_leaves(c["flows"], dev)
+            x = mesh.rows(c["x"].to(dev)).clone().requires_grad_(True)
+            y, ld = PP.pp_flow_stack(glow, PP.nest(flows), x, n_mb, group)
+            # sum over the batch: this rank's share times the data axis
+            (mesh.data * (y * mesh.rows(c["gy"].to(dev))).sum()
+             + ld.sum()).backward()
+            grads = [flows[k] for k in flows if flows[k].grad is not None]
+            PP.sum_stage_grads(grads, group)
+            average_grads(grads, mesh.data_group)
+            out["pp"].append(host({"y": y, "ld": ld, "dx": x.grad / mesh.data,
+                                   **{k: v.grad for k, v in flows.items()
+                                      if v.grad is not None}}))
+    if "pp_train" in inp:
+        c = inp["pp_train"]
+        glow = Glow(**c["kw"], pp_group=group)
+        flows = _flow_leaves(c["flows"], dev)
+        opt = adam([v for v in flows.values() if v.requires_grad], c["lr"])
+        loss = PP.pp_train_step(glow, flows, opt, c["x"].to(dev),
+                                c["microbatches"], group)
+        out["pp_train"] = host({"loss": loss, **flows})
+    return out
+
+
+def _flow_leaves(flows: Dict[str, torch.Tensor], dev) -> Dict:
+    """Copies on ``dev`` of a block's stacked flow leaves ("actnorm.b"
+    ...), each but the PLU buffers requiring a gradient."""
+    return {k: v.to(dev).clone().requires_grad_(
+        not k.endswith((".P", ".s_sign"))) for k, v in flows.items()}
+
+
 def toy_features(images_u8: torch.Tensor):
     """A cheap stand-in for an Inception ``feature_fn`` in the metric
     checks: each image's per-channel means and their squares as features,
@@ -180,6 +283,34 @@ def vaegan_step(cfg, img_shape, state: Dict, batch: torch.Tensor,
             "params": {k: v.cpu() for k, v in st.items()},
             "opt_state": tr.opt_state(),
             "fingerprint": fingerprint(st.values())}
+
+
+def glow_steps(cfg, img_shape, state, batches: List[torch.Tensor],
+               noises: List[torch.Tensor], device: str = "cpu") -> Dict:
+    """A ``GlowTrainer`` on the mesh of ``cfg.run.mesh``, loaded from the
+    JAX state ``state`` (``io.jax_params.load_jax_glow_state``), the
+    ActNorm init on batches[0] and a train step on each later batch, with
+    the global U(0, 1) draws ``noises``; returns each step's losses, the
+    full state after the last and its fingerprint."""
+    from vgd_tpu_torch.io.jax_params import load_jax_glow_state
+    from vgd_tpu_torch.train.glow import GlowTrainer
+    dev = _start(device)
+    mesh = build_mesh(cfg.run.mesh.data, cfg.run.mesh.model)
+    tr = GlowTrainer(cfg, img_shape, device=dev, mesh=mesh)
+    load_jax_glow_state(tr, state)
+    tr.init_step(mesh.rows(batches[0]).to(dev), noise=noises[0])
+    losses = [{k: float(v) for k, v in tr.train_step(
+        mesh.rows(b).to(dev), noise=n).items()}
+        for b, n in zip(batches[1:], noises[1:])]
+    st = _state(tr)
+    return {"losses": losses, "fingerprint": fingerprint(st.values()),
+            "state": {k: v.cpu() for k, v in st.items()}}
+
+
+def bodies(calls: List) -> List:
+    """``fn(**kwargs)`` for each (name of a function of this module,
+    kwargs), in order."""
+    return [globals()[name](**kw) for name, kw in calls]
 
 
 # --------------------------------------------------------------- the loops
@@ -264,6 +395,8 @@ def train_loop(family: str, cfg, device: str = "cpu",
     tr = res["trainer"]
     st = _state(tr)
     out = {"log": res["log"], "steps": rows, "launches": launches,
+           "local_shapes": {k: tuple(v.shape)
+                            for k, v in _local_state(tr).items()},
            "fingerprint": fingerprint(st.values()), "opt_step": tr.step,
            "adam_keys": adam_keys(tr),
            # the training UNet's forwards (DDPM: steps and validation)

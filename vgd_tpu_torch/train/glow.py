@@ -17,6 +17,25 @@ and sliced (a given one is the global batch's too), the ActNorm init takes
 the global batch's statistics, the gradients are averaged over the data
 axis before the Adam step, and the losses come back as the global
 batch's. ``GlowConfig.remat`` recomputes each flow in the backward.
+
+A model axis (``mesh.model`` > 1) runs one of Glow's two model-parallel
+modes over the model group, as in JAX: pipeline parallelism for images
+when ``GlowConfig.pp_stages`` > 0 (every rank holds the full parameters and
+its stage runs 1/p of each block's flows), otherwise tensor parallelism
+(each rank holds its shard of the coupling filters). The gradient
+reduction fits each leaf:
+
+* pipeline: a flow leaf's gradient covers its stage's flows only, so it is
+  summed over the model group, then averaged over the data axis; the
+  replicated leaves (the priors) average over the whole world, because
+  the replicas may differ by the card's atomics (``Mesh.grad_group``);
+* tensor: a shard leaf averages over the data axis only, every replicated
+  leaf (its gradient whole on every rank) over the world.
+
+``load`` takes a full state (a checkpoint or a JAX state) and cuts this
+rank's shard from it; ``checkpoint_state`` gives the full state back
+(collective under tensor parallelism: every rank of the model group calls
+it), so a checkpoint is the same file whatever the mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +50,10 @@ from vgd_tpu_torch.models.glow import (Glow, calc_loss, calc_z_shapes,
 from vgd_tpu_torch.ops.image import quantize_bits, to_unit
 from vgd_tpu_torch.parallel.collectives import average_grads
 from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+from vgd_tpu_torch.parallel.pipeline_parallel import sum_stage_grads
+from vgd_tpu_torch.parallel.tensor_parallel import (gather_glow_state,
+                                                    shard_glow_state,
+                                                    split_axis)
 from vgd_tpu_torch.train.common import DTYPES, adam, batch_draw, mean_metrics
 
 
@@ -46,6 +69,16 @@ class _GlowTrainerBase:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
+        pp = getattr(cfg, "pp_stages", 0)
+        # the model axis's consumer: "pp", "tp" or None (a trainer restored
+        # in one process runs neither, as JAX's has no pp_mesh there)
+        self.parallel = ("pp" if pp > 0 and mesh.model == pp else
+                         "tp" if mesh.model > 1 else None)
+        if self.parallel == "pp":
+            model_kw.update(pp_group=mesh.model_group,
+                            pp_microbatches=cfg.pp_microbatches)
+        elif self.parallel == "tp":
+            model_kw["tp_group"] = mesh.model_group
         with torch.device(self.device):
             self.model = Glow(n_flows=cfg.n_flows, n_blocks=cfg.n_blocks,
                               filter_size=cfg.filter_size,
@@ -64,15 +97,53 @@ class _GlowTrainerBase:
         self._fresh_optimizer()
         self.step = 0
 
+    def _names(self) -> List[str]:
+        """The parameters' keys in Adam's order."""
+        return [k for k, _ in self.model.named_parameters()]
+
     def load(self, params: Dict[str, torch.Tensor],
              opt_state: Optional[dict] = None, step: int = 0) -> None:
-        """Load a ``model.state_dict()`` (buffers included, strict) and,
-        when given, the Adam state_dict."""
+        """Load a full ``model.state_dict()`` (buffers included, strict)
+        and, when given, the Adam state_dict; under tensor parallelism
+        this rank's shard of them."""
+        if self.parallel == "tp":
+            params, opt_state = shard_glow_state(
+                params, opt_state, self._names(), self.cfg.filter_size,
+                self.mesh.m, self.mesh.model)
         self.model.load_state_dict(params, strict=True)
         self._fresh_optimizer()
         if opt_state is not None:
             self.opt.load_state_dict(opt_state)
         self.step = int(step)
+
+    def checkpoint_state(self) -> Tuple[Dict[str, torch.Tensor], dict]:
+        """(the model's full state_dict, Adam's full state_dict): under
+        tensor parallelism gathered from the model group in rank order
+        (collective), else this trainer's own."""
+        params, opt = self.model.state_dict(), self.opt.state_dict()
+        if self.parallel == "tp":
+            return gather_glow_state(params, self.mesh.model_group, opt,
+                                     self._names())
+        return params, opt
+
+    def _reduce_grads(self) -> None:
+        """Each leaf's gradient reduced over the ranks that share it (module
+        docstring)."""
+        mesh = self.mesh
+        named = list(self.model.named_parameters())
+        if self.parallel is None:
+            average_grads([t for _, t in named], mesh.data_group)
+        elif self.parallel == "pp":
+            flows = [t for n, t in named if ".flows." in n]
+            rest = [t for n, t in named if ".flows." not in n]
+            sum_stage_grads(flows, mesh.model_group)
+            average_grads(flows, mesh.data_group)
+            average_grads(rest, mesh.grad_group)
+        else:
+            average_grads([t for n, t in named if split_axis(n) is not None],
+                          mesh.data_group)
+            average_grads([t for n, t in named if split_axis(n) is None],
+                          mesh.grad_group)
 
     def _noise(self, x: torch.Tensor, generator: Optional[torch.Generator],
                noise: Optional[torch.Tensor]) -> torch.Tensor:
@@ -101,7 +172,7 @@ class _GlowTrainerBase:
         loss, lp, ld = self._loss(log_p, logdet)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
-        average_grads(self.model.parameters(), self.mesh.data_group)
+        self._reduce_grads()
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
@@ -109,13 +180,15 @@ class _GlowTrainerBase:
                              "logdet": ld.detach()}, self.mesh)
 
     def reverse(self, z_list: List[torch.Tensor]) -> torch.Tensor:
-        """z -> sample."""
+        """z -> sample (under tensor parallelism every rank of the model
+        group calls it)."""
         return self.model.reverse([z.to(self.device) for z in z_list])
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor):
         """(log_p, logdet, z list) for likelihood evaluation; with
-        ``flow_stack`` the blocks run K6's forward that saves nothing."""
+        ``flow_stack`` the blocks run K6's forward that saves nothing. Under
+        a model axis every rank of the model group calls it."""
         return self.model(x.to(self.device))
 
     def sample_z(self, generator: Optional[torch.Generator], n: int,

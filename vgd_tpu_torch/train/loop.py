@@ -28,11 +28,17 @@ after the init or the resume, validation sums each rank's true rows and
 all-reduces the sums, and only rank 0 writes the log, the grids, the
 profiler trace and the checkpoints (the others wait at a barrier after a
 save; every rank reads on resume). A checkpoint holds the same state
-whatever the world size, so a run resumes on any. ``run_diffusion`` takes
-a model axis (sequence parallelism); the other families refuse one, Glow
-naming its model-axis consumers (tensor and pipeline parallelism) as not
-ported yet. Evaluations and ``sample_from_dir`` run in one process, as in
-the JAX package. The JAX loop's epoch scan has no counterpart: the port
+whatever the world size, so a run resumes on any. Three families take a
+model axis, as in JAX: ``run_diffusion`` (sequence parallelism),
+``run_glow`` (pipeline parallelism with ``GlowConfig.pp_stages``, else
+tensor parallelism) and ``run_glow_eeg`` (tensor parallelism); the others
+refuse one. Under tensor parallelism each rank holds its shard of the
+coupling filters: the full state is initialised or loaded the same way on
+every rank and then cut, a checkpoint holds the state gathered from the
+model group (every rank gathers, rank 0 writes), and every rank of the
+model group runs the sample grid's reverse (rank 0 writes it).
+Evaluations and ``sample_from_dir`` run in one process, as in the JAX
+package. The JAX loop's epoch scan has no counterpart: the port
 loops over steps in Python.
 """
 from __future__ import annotations
@@ -61,11 +67,13 @@ from vgd_tpu_torch.eval.vae_analysis import (denoise_test_loss,
 from vgd_tpu_torch.io.artifacts import (MetricLog, epoch_metrics, save_grid,
                                         save_triplets)
 from vgd_tpu_torch.io.checkpoint import Checkpointer
+from vgd_tpu_torch.models.glow import TP_KERNELS
 from vgd_tpu_torch.models.vae import reparameterize
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
 from vgd_tpu_torch.parallel.collectives import all_sum, barrier, broadcast_
 from vgd_tpu_torch.parallel.launch import init_distributed, rank_device
 from vgd_tpu_torch.parallel.mesh import Mesh, build_mesh
+from vgd_tpu_torch.parallel.tensor_parallel import check_filters, split_axis
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
 from vgd_tpu_torch.train.gan import GANTrainer
@@ -112,24 +120,19 @@ NO_MODEL_CONSUMER = (
     "Model-axis consumers are 'glow' / 'glow-eeg' (tensor-parallel coupling "
     "filters) and 'diffusion' (ring-attention sequence parallelism); use "
     "--mesh-data for data parallelism here.")
-GLOW_MODEL_AXIS = (
-    "--mesh-model {} on {}: Glow's model-axis consumers, tensor parallelism "
-    "(coupling filters sharded over the model axis) and pipeline "
-    "parallelism (--pp-stages), are not ported yet; use --mesh-data for "
-    "data parallelism")
+# the families with a model-axis consumer
+MODEL_AXIS_FAMILIES = ("diffusion", "glow", "glow-eeg")
 
 
 def _start(cfg, device, batch_size: int, family: str):
     """(device, generator, mesh) of a training loop: refuses a model axis
-    the family cannot use (DDPM's sequence parallelism is the one
-    consumer), starts the process group the environment describes
+    the family cannot use (``MODEL_AXIS_FAMILIES`` have a consumer),
+    starts the process group the environment describes
     (``parallel.launch.init_distributed``), puts this rank on its card,
     lays the mesh over the world (it must cover it) and checks that the
     data axis divides the global batch."""
     run = cfg.run
-    if run.mesh.model > 1 and family != "diffusion":
-        if family in ("glow", "glow-eeg"):
-            raise ValueError(GLOW_MODEL_AXIS.format(run.mesh.model, family))
+    if run.mesh.model > 1 and family not in MODEL_AXIS_FAMILIES:
         raise ValueError(NO_MODEL_CONSUMER.format(run.mesh.model))
     device = resolve_device(device)
     init_distributed(run.multihost, device)
@@ -146,6 +149,51 @@ def _replicate(*modules: torch.nn.Module) -> None:
     """Every parameter and buffer overwritten with rank 0's (no-op in one
     process): the ranks start from one state whatever their inits did."""
     broadcast_([t for mod in modules for t in mod.state_dict().values()])
+
+
+def _replicate_glow(trainer, mesh: Mesh) -> None:
+    """``_replicate`` for a Glow trainer: under tensor parallelism the
+    replicated leaves from rank 0 and each shard from the first rank of its
+    data group (the ranks that hold the same shard)."""
+    if trainer.parallel != "tp":
+        _replicate(trainer.model)
+        return
+    state = trainer.model.state_dict()
+    broadcast_([t for k, t in state.items() if split_axis(k) is None])
+    if mesh.data_group is not None:
+        broadcast_([t for k, t in state.items() if split_axis(k) is not None],
+                   mesh.data_group, src=mesh.m)
+
+
+def _save_glow(mesh: Mesh, ckpt: Checkpointer, trainer, cfg, gen,
+               step: int) -> None:
+    """A Glow checkpoint of the full state (``checkpoint_state``: every
+    rank takes part in the gather), written by rank 0."""
+    params, opt_state = trainer.checkpoint_state()
+    _save(mesh, ckpt, step, params, to_dict(cfg), opt_state=opt_state,
+          rng_state=gen.get_state(), opt_step=trainer.step)
+
+
+def _check_model_axis(cfg, mesh: Mesh) -> None:
+    """JAX's refusals of a Glow model axis, before any work: a pipeline
+    that does not fit the mesh, and tensor parallelism with a coupling
+    kernel or with filters the model axis does not divide."""
+    pp = getattr(cfg, "pp_stages", 0)
+    if pp == 0 and mesh.model > 1:
+        if getattr(cfg, "fused_coupling", False) or \
+                getattr(cfg, "flow_stack", False):
+            raise ValueError(TP_KERNELS)
+        check_filters(cfg.filter_size, mesh.model)
+    if pp > 0:
+        if mesh.model != cfg.pp_stages:
+            raise ValueError(
+                f"--pp-stages {cfg.pp_stages} needs a mesh whose model axis "
+                f"has exactly that many devices (have {mesh.model}); pass "
+                f"--mesh-model {cfg.pp_stages} or leave it unset (the CLI "
+                "sizes it automatically) and provide enough devices")
+        if cfg.n_flows % cfg.pp_stages != 0:
+            raise ValueError(f"n_flows={cfg.n_flows} must divide evenly "
+                             f"over --pp-stages {cfg.pp_stages}")
 
 
 def _save(mesh: Mesh, ckpt: Checkpointer, *args, **kwargs) -> None:
@@ -873,6 +921,7 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
     and the iteration. ``resume`` continues from the latest checkpoint
     exactly: same parameters, moments, draws and stream position."""
     device, gen, mesh = _start(cfg, device, cfg.data.batch_size, "glow")
+    _check_model_axis(cfg, mesh)
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
     trainer = GlowTrainer(cfg, img_shape, device=device, mesh=mesh)
     trainer.init(gen)
@@ -892,7 +941,7 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
         gen.set_state(payload["rng_state"])
         start = payload["step"]
         print(f"[checkpoint] resumed at iteration {start}")
-    _replicate(trainer.model)
+    _replicate_glow(trainer, mesh)
     # batch 0 goes to the ActNorm init and batch i + 1 to iteration i, so a
     # run resumed at `start` continues from batch start + 1
     batches = device_prefetch(map(mesh.rows, train.stream(
@@ -901,17 +950,18 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
         trainer.init_step(next(batches), gen)
 
     def save(step):
-        _save(mesh, ckpt, step, trainer.model.state_dict(), to_dict(cfg),
-              opt_state=trainer.opt.state_dict(), rng_state=gen.get_state(),
-              opt_step=trainer.step)
+        _save_glow(mesh, ckpt, trainer, cfg, gen, step)
     t0 = time.perf_counter()
     for i in range(start, n_iter):
         prof.step(i)
         m = trainer.train_step(next(batches), gen)
         if (i + 1) % cfg.run.sample_every_iters == 0:
-            if mesh.primary:
-                save_grid(trainer.reverse(z_sample) * 2.0, os.path.join(
-                    sample_dir, f"{i + 1:06d}.npy"))
+            # under tensor parallelism the reverse is collective
+            if mesh.primary or trainer.parallel == "tp":
+                grid = trainer.reverse(z_sample) * 2.0
+                if mesh.primary:
+                    save_grid(grid, os.path.join(sample_dir,
+                                                 f"{i + 1:06d}.npy"))
             ips = cfg.run.sample_every_iters * cfg.data.batch_size / \
                 max(time.perf_counter() - t0, 1e-9)
             t0 = time.perf_counter()
@@ -1014,6 +1064,7 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
     moments, draws, stream position). Then ``eeg_psd_and_gif``; a failure
     there is printed and does not undo the finished run."""
     device, gen, mesh = _start(cfg, device, cfg.batch_size, "glow-eeg")
+    _check_model_axis(cfg, mesh)
     ds = EEGDataset(path=cfg.eeg_path, dataset_type="T",
                     event_type=cfg.event_type, seed=cfg.run.seed)
     trainer = GlowEEGTrainer(cfg, device=device, mesh=mesh)
@@ -1034,7 +1085,7 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
         gen.set_state(payload["rng_state"])
         start = payload["step"]
         print(f"[checkpoint] resumed at iteration {start}")
-    _replicate(trainer.model)
+    _replicate_glow(trainer, mesh)
     # batch 0 goes to the ActNorm init and batch i + 1 to iteration i
     batches = device_prefetch(map(mesh.rows, eeg_batches(
         ds, cfg.batch_size, seed=cfg.run.seed,
@@ -1047,16 +1098,17 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
               f"samples are written as .npz only, no trace PNG")
 
     def save(step):
-        _save(mesh, ckpt, step, trainer.model.state_dict(), to_dict(cfg),
-              opt_state=trainer.opt.state_dict(), rng_state=gen.get_state(),
-              opt_step=trainer.step)
+        _save_glow(mesh, ckpt, trainer, cfg, gen, step)
     t0 = time.perf_counter()
     for i in range(start, n_iter):
         prof.step(i)
         m = trainer.train_step(next(batches), gen)
         if (i + 1) % cfg.run.sample_every_iters == 0:
+            # under tensor parallelism the reverse is collective
+            fakes = (trainer.reverse(z_sample)
+                     if mesh.primary or trainer.parallel == "tp" else None)
             if mesh.primary:
-                arr = _eeg_trials(trainer.reverse(z_sample))
+                arr = _eeg_trials(fakes)
                 name = f"fake_eeg_{cfg.event_type}_training_{i + 1}"
                 np.savez(os.path.join(sample_dir, f"{name}.npz"), arr)
                 if draw:
@@ -1078,7 +1130,10 @@ def run_glow_eeg(cfg: GlowEEGConfig, n_iter: Optional[int] = None,
     epoch_metrics(log, f"eeg_{cfg.event_type}_")
     try:
         if mesh.primary:
-            eeg_psd_and_gif(cfg, trainer=trainer, dataset=ds)
+            # a sharded trainer's reverse needs its model group: rank 0
+            # restores the final (full) checkpoint instead
+            eeg_psd_and_gif(cfg, trainer=None if trainer.parallel == "tp"
+                            else trainer, dataset=ds, device=device)
     except Exception as e:  # noqa: BLE001 - artifacts, not the run
         print(f"[glow-eeg] post-training artifacts failed: "
               f"{type(e).__name__}: {e}")
