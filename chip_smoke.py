@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--report PATH]
-                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp|mp]
+                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp|mp|cli]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -25,8 +25,10 @@ Run from the root of a checkout on a machine with one CUDA card:
    over two calls, timed against its bound; the f32 form also against
    ``F.group_norm`` + ``F.silu`` on the NCHW view and on an NCHW copy),
    ragged and streamed shapes checked; K1 (Conv4x4 stride 2 + batch statistics) at the 256x256,
-   batch-64 VAE-GAN's nine shapes, the 64x64 batch-64 VAE's four and
-   the 64x64 batch-128 DCGAN's three in bf16 (each with its plan, bit-equal
+   batch-64 VAE-GAN's nine shapes, the 64x64 batch-64 VAE's four, the
+   64x64 batch-128 DCGAN's three and the 64x64 batch-64 VAE-GAN's seven
+   (the VAE's encoder, the DCGAN's discriminator stages at batch 64) in
+   bf16 (each with its plan, bit-equal
    over two calls, its kernels' times by stage and other plans timed
    beside it; then a decision line at the odd 127x127 enc1, which the
    reference's gate sends to XLA, and at each 64x64 shape: the port has no
@@ -183,7 +185,29 @@ Run from the root of a checkout on a machine with one CUDA card:
    axis with ``--fused-coupling`` or ``--flow-stack`` refused before any
    training; each run's step ms a rank beside one process's, and its peak
    memory;
-16. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+16. the command line (``--only cli``, which first holds K1 at the 64x64
+   VAE-GAN's shapes; in the full run after step 13): the documented
+   commands through ``vgd_tpu_torch.cli.main`` as a user types them, with
+   ``--device cuda`` at full model width on synthetic faces and trials
+   (only steps, --dataset-size and -n small), each command's rc, seconds,
+   step ms, images/s, launches and peak memory on a ``[cli]`` line, every
+   SystemExit or exception a failure: (a) the VAE-GAN at its default
+   64x64, B=64 with --fused-conv, exactly K1_VAEGAN64_PER_STEP (23) K1 a
+   train step, a ``--resume`` whose first step starts from the saved state
+   exactly, ``sample``, and the run without the flag (no K1); (b) DDPM
+   ``--no-attn``: no K2 in training, its fused forward within UNET_REL_TOL
+   of no kernel, DDIM-50 ``sample`` and ``eval-diffusion`` with no K3 and
+   exactly CLI_K4_PER_FORWARD (14) K4 a forward; (c) Glow with
+   --fused-coupling (128 K5 of each kind a step, 128 forwards an init and
+   a reverse), resumed exactly, ``sample --temperature 0.5`` bit-equal to
+   ``sample_from_dir`` at 0.5 and unlike the 0.7 grid, ``eval-glow``, and
+   JAX's ``glow --epochs 1 --steps-per-epoch 3 --iters 2`` (2 iterations);
+   (d) EEG Glow, its sample and ``eval-eeg``; (e) the default DDPM (K2 3
+   of each kind a step and a validation forward's, K3 3 and K4 14 a
+   serving forward), VAE, DCGAN and WGAN (no kernel) with ``sample`` and
+   ``eval-*``, ``denoise`` on a folder of four JPEGs, ``export --family vae
+   --mode denoise --poly-batch`` and ``infer`` on it;
+17. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -282,13 +306,23 @@ K1_VAE_SHAPES = [("enc0", 64, 64, 64, 3, 32, 0, 1),
 K1_GAN_SHAPES = [("dis1", 128, 32, 32, 16, 32, 1, 3),
                  ("dis2", 128, 16, 16, 32, 64, 1, 3),
                  ("dis3", 128, 8, 8, 64, 128, 1, 3)]
+# K1 at the VAE-GAN's default 64x64, B=64 (VAEGANConfig; the cli phase):
+# the encoder's four layers (the VAE's shapes) in the recon0 and the G step
+# forwards, and the discriminator's stages i > 0 (64 -> 32 -> 16 -> 8 -> 4:
+# dis1-3, the DCGAN's at batch 64) in 2 x 2 D-step forwards and the G
+# step's: 4 x 2 + 3 x 5 = 23 a step
+K1_VAEGAN64_SHAPES = [s[:-1] + (2,) for s in K1_VAE_SHAPES] + \
+    [(s[0], 64) + s[2:-1] + (5,) for s in K1_GAN_SHAPES]
 K1_VAE_PER_STEP = sum(s[-1] for s in K1_VAE_SHAPES)  # 4
 K1_GAN_PER_STEP = sum(s[-1] for s in K1_GAN_SHAPES)  # 9
 K1_WGAN_PER_STEP = 11 * len(K1_GAN_SHAPES)           # 33
+K1_VAEGAN64_PER_STEP = sum(s[-1] for s in K1_VAEGAN64_SHAPES)  # 23
 # the main-path shapes of each family: (family, shapes, what one step is)
 K1_FAMILIES = (("vaegan", K1_SHAPES, "one 256x256 batch-64 VAE-GAN step"),
                ("vae", K1_VAE_SHAPES, "one 64x64 batch-64 VAE step"),
-               ("gan", K1_GAN_SHAPES, "one 64x64 batch-128 DCGAN step"))
+               ("gan", K1_GAN_SHAPES, "one 64x64 batch-128 DCGAN step"),
+               ("vaegan64", K1_VAEGAN64_SHAPES,
+                "one 64x64 batch-64 VAE-GAN step (the cli phase)"))
 # checked, not timed: one f32 shape and two ragged ones (odd sizes, Cin and K
 # that no 16-byte vector divides)
 K1_EXTRA = [("f32", 8, 64, 64, 32, 64, 1, "float32"),
@@ -986,9 +1020,10 @@ def plan_text(plan):
             f"{plan.k_split} deep, cin {plan.cin} gather {plan.run}")
 
 
-def check_k1(K, gen, dev, failures):
-    """K1 against its plain version at the nine main-path shapes (bf16) and
-    at K1_EXTRA: c, mean, var, and y = bn_lrelu of each; c, mean and var
+def check_k1(K, gen, dev, failures, families=K1_FAMILIES, extras=True):
+    """K1 against its plain version at the main-path shapes of
+    ``families`` (bf16) and at K1_EXTRA: c, mean, var, and y = bn_lrelu of
+    each; c, mean and var
     bit-equal over two calls; the main-path shapes timed as kernel, plain
     version and the library yardstick (cuDNN conv2d in bf16 on
     channels_last input, then torch.var_mean), with other plans beside
@@ -999,9 +1034,9 @@ def check_k1(K, gen, dev, failures):
     from vgd_tpu_torch.ops.fused_conv import bn_lrelu
     rows = []
     extra = [("extra", (n, b, h, w, ci, k, p, 0, dt)) for n, b, h, w, ci, k,
-             p, dt in K1_EXTRA]
+             p, dt in K1_EXTRA] if extras else []
     for family, (site, b, h, w, cin, k, pad, calls, *dt) in \
-            [(fam, s_ + ("bfloat16",)) for fam, shapes, _ in K1_FAMILIES
+            [(fam, s_ + ("bfloat16",)) for fam, shapes, _ in families
              for s_ in shapes] + extra:
         dtype = getattr(torch, dt[0])
         x = torch.randn(b, h, w, cin, device=dev, generator=gen).to(dtype)
@@ -1099,7 +1134,7 @@ def check_k1(K, gen, dev, failures):
                  if calls else "") + alt_text
               + ("" if ok else " FAIL"), flush=True)
         del x, wt
-    for family, shapes, per in K1_FAMILIES:
+    for family, shapes, per in families:
         timed = [r for r in rows if "ms" in r and r["family"] == family]
         bound = sum(max(r["flop_ms"], r["byte_ms"]) * r["calls"]
                     for r in timed)
@@ -1169,19 +1204,21 @@ def k1_entry(rows, report):
     """K1's line entry: its times per VAE-GAN step, as before the 64²
     families ran K1 (``per_family`` has each family's sums per step of that
     family); its launches over every main-path run (VAE-GAN, VAE, DCGAN and
-    WGAN training, and the data-parallel VAE-GAN's ranks;
+    WGAN training, the data-parallel VAE-GAN's ranks and the cli phase's
+    64x64 VAE-GAN;
     ``launches_by_path`` splits them); its errors over every
     checked shape."""
     launches = {"vaegan": report["vaegan"]["train"]["k1_launches"],
                 "vae": report["vae"]["train"]["k1_launches"],
                 "gan": report["gan"]["train"]["k1_launches"],
                 "wgan": report["gan"]["wgan_train"]["k1_launches"],
-                "dp": report["dp"]["launches"]["conv_bn_stats"]}
+                "dp": report["dp"]["launches"]["conv_bn_stats"],
+                "cli": report["cli"]["launches"]["conv_bn_stats"]}
 
     def family_entry(family, per, source="", replaces=""):
         return kernel_entry("conv_bn_stats", source, replaces, [
             r for r in rows if r["family"] in (family, "extra")],
-            launches[family], per)
+            launches.get(family, 0), per)
     family, _, per = K1_FAMILIES[0]
     entry = family_entry(family, per, "vgd_tpu_torch/csrc/conv_bn_stats.cu",
                          "vgd_tpu/ops/fused_conv.py:125")
@@ -1197,29 +1234,39 @@ def k1_entry(rows, report):
     return entry
 
 
-def check_unet(K, trainer, gen, failures):
-    """Fused UNet (kernels) against the same weights with no kernel
-    (``plain_reference``) at B=2; then both timed at B=16, and one fused
-    forward profiled by kernel group."""
+def hold_unet(K, trainer, gen, failures, tag="unet"):
+    """The fused UNet (kernels) against the same weights with no kernel
+    (``plain_reference``) at B=2, within UNET_REL_TOL of the reference's
+    max; returns (max abs err, max |reference|)."""
     import torch
     model = trainer.model_fused
-    dev = trainer.device
-    (h, w), b = trainer.cfg.data.image_size, trainer.cfg.data.batch_size
-    x = torch.randn(2, h, w, 3, device=dev, generator=gen)
+    h, w = trainer.cfg.data.image_size
+    x = torch.randn(2, h, w, 3, device=trainer.device, generator=gen)
     t = torch.tensor([trainer.cfg.timesteps - 1, 17], dtype=torch.int32,
-                     device=dev)
+                     device=trainer.device)
     with torch.inference_mode():
         fused_out = model(x, t)
         with K.plain_reference():
             ref = model(x, t)
     err = float((fused_out - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"[unet] fused vs no-kernel reference, B=2 {h}x{w}: max abs err "
+    print(f"[{tag}] fused vs no-kernel reference, B=2 {h}x{w}: max abs err "
           f"{err:.4g}, max |reference| {scale:.4g}, tol {UNET_REL_TOL} x "
           f"max |reference|", flush=True)
     if not (torch.isfinite(fused_out).all() and err <= UNET_REL_TOL * scale):
-        failures.append(f"fused UNet disagrees with its no-kernel reference:"
-                        f" {err} > {UNET_REL_TOL} x {scale}")
+        failures.append(f"{tag}: fused UNet disagrees with its no-kernel "
+                        f"reference: {err} > {UNET_REL_TOL} x {scale}")
+    return err, scale
+
+
+def check_unet(K, trainer, gen, failures):
+    """``hold_unet``; then the fused and the no-kernel forward timed at
+    B=16, and one fused forward profiled by kernel group."""
+    import torch
+    model = trainer.model_fused
+    dev = trainer.device
+    (h, w), b = trainer.cfg.data.image_size, trainer.cfg.data.batch_size
+    hold_unet(K, trainer, gen, failures)
     x = torch.randn(b, h, w, 3, device=dev, generator=gen)
     t = torch.full((b,), 500, dtype=torch.int32, device=dev)
 
@@ -5060,6 +5107,542 @@ def mp_path(K, failures):
     return report
 
 
+# ---------------------------------------------------------------------------
+# The command line: the documented commands through cli.main, as typed
+# ---------------------------------------------------------------------------
+
+CLI_DIR = OUT_DIR / "cli"
+# synthetic faces each command trains on (90 % train, 10 % val): the
+# VAE-GAN at its default 64x64, B=64 (288 train rows: CLI_STEPS full
+# batches), DDPM at 256x256, B=16 (72), Glow's stream at 64x64, B=16, the
+# VAE at B=64 and the GANs at B=128 (2 full batches each)
+CLI_VAEGAN_SIZE, CLI_DDPM_SIZE, CLI_GLOW_SIZE = 320, 80, 160
+CLI_VAE_SIZE, CLI_GAN_SIZE = 160, 320
+# train steps of the two new configurations' runs, and of the others'
+CLI_STEPS, CLI_SHORT = 4, 2
+# Glow: 4 iterations with a grid and a checkpoint every 2, then a resume
+# to 6; the JAX argv's run
+CLI_GLOW_ITERS, CLI_GLOW_RESUMED, CLI_GLOW_EVERY = 4, 6, 2
+CLI_GLOW_JAX_ITERS = 2
+# per fused UNet forward: K3 at the three attention sites (cross_attn2,
+# cross_attn3, the bottleneck; none without attention, as JAX's
+# attention=False builds none), K4 at gn1 and gn2 of each of the seven
+# ConvBlocks (down1-3, the bottleneck, up3-1), with or without attention
+CLI_K3_PER_FORWARD = {True: 3, False: 0}
+CLI_K4_PER_FORWARD = 2 * 7
+CLI_DDIM_STEPS, CLI_SAMPLES = 50, 16
+CLI_SEED = 13
+
+
+def cli_serving_want(forwards, attention):
+    """Launches of ``forwards`` fused UNet forwards."""
+    want = {"flash_attention": CLI_K3_PER_FORWARD[attention] * forwards,
+            "groupnorm_silu": CLI_K4_PER_FORWARD * forwards}
+    return {k: v for k, v in want.items() if v}
+
+
+def trainer_state(trainer):
+    """Copies of a trainer's parameters and buffers and of every Adam
+    state."""
+    import torch
+    params = (trainer.state_dict() if hasattr(trainer, "state_dict")
+              else trainer.model.state_dict())
+    return ({k: v.detach().clone() for k, v in params.items()},
+            {name: {i: {x: t.clone() for x, t in st.items()
+                        if torch.is_tensor(t)}
+                    for i, st in sd["state"].items()}
+             for name, sd in opt_states(trainer).items()})
+
+
+def same_state(a, b):
+    import torch
+    (pa, oa), (pb, ob) = a, b
+    return (pa.keys() == pb.keys()
+            and all(torch.equal(pa[k], pb[k]) for k in pa)
+            and oa.keys() == ob.keys()
+            and all(oa[n].keys() == ob[n].keys() and all(
+                oa[n][i].keys() == ob[n][i].keys()
+                and all(torch.equal(oa[n][i][x], ob[n][i][x])
+                        for x in oa[n][i]) for i in oa[n]) for n in oa))
+
+
+def cli_hooks(K, rec):
+    """Wraps what the commands call, for the phase: each trainer's train
+    step (its launches and CUDA-event time; the first one after
+    ``rec["expect"]`` is set compares the trainer's state with it, under
+    ``rec["resumed_exact"]``), Glow's init step and reverse, the DDPM
+    validation loss and UNet forward (counted under ``rec["calls"]``,
+    fused forwards apart), and the loop's ``run_*`` (the config and result
+    kept). Returns the list of (owner, name, original or None: delete) to
+    restore."""
+    import torch
+    from vgd_tpu_torch.models.unet import UNet
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    from vgd_tpu_torch.train.gan import GANTrainer
+    from vgd_tpu_torch.train.glow import GlowEEGTrainer, GlowTrainer
+    from vgd_tpu_torch.train.vae import VAETrainer
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    undo = []
+
+    def patch(owner, name, make):
+        # each concrete class is wrapped: an earlier phase may have left a
+        # method in a subclass's own dict that would hide its base's wrapper
+        orig = getattr(owner, name)
+        undo.append((owner, name, orig if name in vars(owner) else None))
+        setattr(owner, name, make(orig))
+
+    def step(orig):
+        def wrapped(self, *args, **kwargs):
+            if rec.get("expect") is not None:
+                rec["resumed_exact"] = same_state(trainer_state(self),
+                                                  rec.pop("expect"))
+            before = K.LAUNCHES.copy()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(self, *args, **kwargs)
+            end.record()
+            rec["steps"].append((K.LAUNCHES - before, start, end))
+            return out
+        return wrapped
+
+    def counted(key):
+        def make(orig):
+            def wrapped(self, *args, **kwargs):
+                rec["calls"][key(self)] += 1
+                return orig(self, *args, **kwargs)
+            return wrapped
+        return make
+
+    def kept(orig):
+        def wrapped(cfg, *args, **kwargs):
+            res = orig(cfg, *args, **kwargs)
+            rec["cfg"], rec["result"] = cfg, res
+            return res
+        return wrapped
+
+    for cls, name in ((VAEGANTrainer, "train_step"),
+                      (VAETrainer, "train_step"), (GANTrainer, "train_step"),
+                      (GANTrainer, "train_step_wgan"),
+                      (DiffusionTrainer, "train_step"),
+                      (GlowTrainer, "train_step"),
+                      (GlowEEGTrainer, "train_step")):
+        patch(cls, name, step)
+    patch(UNet, "forward", counted(
+        lambda m: "fused_forward" if m.down1.gn1.fused else "forward"))
+    patch(DiffusionTrainer, "eval_loss", counted(lambda _: "eval_loss"))
+    for cls in (GlowTrainer, GlowEEGTrainer):
+        patch(cls, "init_step", counted(lambda _: "init_step"))
+        patch(cls, "reverse", counted(lambda _: "reverse"))
+    for name in ("run_vaegan", "run_vae", "run_gan", "run_glow",
+                 "run_glow_eeg", "run_diffusion"):
+        patch(L, name, kept)
+    return undo
+
+
+def cli_run(K, rec, tag, argv, failures, want=None, step_want=None,
+            steps=None):
+    """``cli.main(argv)`` as a user types it, its output captured: a
+    SystemExit or an exception is a failure. Checks its launches against
+    ``want`` (a dict, or a function of the counted calls; every kernel not
+    named must launch 0 times), each train step's against ``step_want``
+    and the number of train steps against ``steps``. Prints one ``[cli]``
+    line: argv, rc, seconds, the steps' CUDA-event median after the first
+    and its images/s, the loop's logged rate, launches and peak memory."""
+    import collections
+    import contextlib
+    import io
+    import torch
+    from vgd_tpu_torch import cli
+    argv = [str(x) for x in argv]
+    rec.update(steps=[], calls=collections.Counter(), cfg=None, result=None)
+    K.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    except SystemExit as e:
+        rc = f"SystemExit({e.code!r})"
+    except Exception:                      # noqa: BLE001 - a failed command
+        rc = "exception: " + traceback.format_exc().strip().splitlines()[-1]
+        traceback.print_exc()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    step_ms = [s.elapsed_time(e) for _, s, e in rec["steps"]]
+    stats = {"tag": tag, "argv": argv, "rc": rc, "seconds": secs,
+             "launches": launches, "steps": len(step_ms), "step_ms": step_ms,
+             "calls": dict(rec["calls"]), "last_line": lines[-1] if lines
+             else "", "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "allocated_before_gb": base / 1e9}
+    text = f"[cli] {' '.join(argv)} rc {rc} {secs:.2f} s"
+    if len(step_ms) > 1:
+        cfg = rec["cfg"]
+        batch = cfg.data.batch_size if hasattr(cfg, "data") else \
+            cfg.batch_size
+        after = sorted(step_ms[1:])
+        stats.update(step_ms_median=after[len(after) // 2],
+                     images_per_sec=batch / after[len(after) // 2] * 1e3)
+        text += (f"; {len(step_ms)} train steps, step ms median "
+                 f"{stats['step_ms_median']:.3f} after the first (min "
+                 f"{after[0]:.3f}, max {after[-1]:.3f}) = "
+                 f"{stats['images_per_sec']:.1f} "
+                 f"{'images' if hasattr(cfg, 'data') else 'trials'}/s")
+    log = (rec["result"] or {}).get("log") or []
+    rate = [k for k in ("images_per_sec", "trials_per_sec")
+            if log and k in log[-1]]
+    if rate:
+        stats["logged_rate"] = log[-1][rate[0]]
+        text += f", the loop's log {stats['logged_rate']:.1f} {rate[0]}"
+    print(text + f"; launches {launches}; peak {stats['peak_gb']:.3f} GB "
+          f"({stats['allocated_before_gb']:.3f} GB allocated before)",
+          flush=True)
+    if rc != 0:
+        print("\n".join(lines[-20:]), flush=True)
+        failures.append(f"cli {tag}: {' '.join(argv)} ended with {rc}")
+        return stats
+    if callable(want):
+        want = want(rec["calls"])
+    if want is not None and any(launches.get(k, 0) != want.get(k, 0)
+                                for k in set(want) | set(launches)):
+        failures.append(f"cli {tag}: launches {launches}, want {want}")
+    if step_want is not None:
+        bad = [dict(c) for c, _, _ in rec["steps"] if dict(c) != step_want]
+        if bad:
+            failures.append(f"cli {tag}: train steps launched {bad[:3]}, "
+                            f"want {step_want} each")
+    if steps is not None and len(step_ms) != steps:
+        failures.append(f"cli {tag}: {len(step_ms)} train steps, want "
+                        f"{steps}")
+    return stats
+
+
+def cli_json(stats, failures):
+    """The JSON result an evaluation command prints last (None if it
+    printed none)."""
+    try:
+        return json.loads(stats["last_line"])
+    except ValueError:
+        failures.append(f"cli {stats['tag']}: no JSON result: "
+                        f"{stats['last_line']!r}")
+        return None
+
+
+def cli_resume_check(rec, tag, failures):
+    exact = rec.pop("resumed_exact", None)
+    print(f"[cli] {tag}: the resumed run's first step started from the "
+          f"saved state exactly: {exact}", flush=True)
+    if exact is not True:
+        failures.append(f"cli {tag}: the resume did not continue from the "
+                        f"saved state ({exact})")
+
+
+def cli_path(K, failures):
+    """The cli phase: the port's commands through ``cli.main`` as a user
+    types them, on synthetic faces and trials, at full model width with
+    ``--device cuda`` (only steps, --dataset-size and -n small): (1) the
+    VAE-GAN at its default 64x64, B=64 with --fused-conv (K1
+    K1_VAEGAN64_PER_STEP a step), resumed, sampled, and without the flag
+    (no K1); (2) DDPM --no-attn (no K2 in training; serving no K3 and
+    CLI_K4_PER_FORWARD K4 a forward; the fused forward against no kernel);
+    (3) Glow as the README has it (K5), resumed, sampled at temperature 0.5
+    (bit-equal to ``sample_from_dir`` at 0.5, unlike 0.7), evaluated, and
+    the JAX argv ``glow --epochs 1 --steps-per-epoch 3 --iters 2``; (4)
+    EEG Glow; (5) the default DDPM (K2, K3, K4), VAE, DCGAN and WGAN with
+    kernels off, sampled and evaluated, ``denoise`` on a folder of JPEGs,
+    ``export`` and ``infer``."""
+    import collections
+    import numpy as np
+    import torch
+    from PIL import Image
+    from vgd_tpu_torch.core.config import DiffusionConfig
+    from vgd_tpu_torch.data.celeba import synthetic_faces
+    from vgd_tpu_torch.models.unet import (AttentionBlock,
+                                           CrossAttentionToGlobalTokens,
+                                           GroupNormSiLU)
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.diffusion import ddim_timesteps
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    rec, total = {}, collections.Counter()
+    stats = {"commands": []}
+
+    def run(tag, argv, **kw):
+        s = cli_run(K, rec, tag, list(argv) + ["--device", "cuda"], failures,
+                    **kw)
+        total.update(s["launches"])
+        stats["commands"].append(s)
+        return s
+
+    def images(path, shape, tag):
+        check_images(np.load(path), shape, f"cli {tag}", failures)
+
+    undo = cli_hooks(K, rec)
+    try:
+        # (1) the VAE-GAN at its default 64x64, batch 64
+        d = CLI_DIR / "vaegan64"
+        data = ["--out-dir", d, "--dataset-size", CLI_VAEGAN_SIZE]
+        k1 = {"conv_bn_stats": K1_VAEGAN64_PER_STEP}
+        k1_run = {"conv_bn_stats": K1_VAEGAN64_PER_STEP * CLI_STEPS}
+        s = run("vaegan64", ["vaegan", "--fused-conv", "--epochs", 1,
+                             "--steps-per-epoch", CLI_STEPS] + data,
+                want=k1_run, step_want=k1, steps=CLI_STEPS)
+        if s["rc"] == 0:
+            row = rec["result"]["log"][-1]
+            if not all(math.isfinite(row[k]) for k in ("val_loss", "ssim",
+                                                        "psnr")):
+                failures.append(f"cli vaegan64: validation {row}")
+            rec["expect"] = trainer_state(rec["result"]["trainer"])
+        stats["vaegan64"] = s
+        s = run("vaegan64-resume", ["vaegan", "--fused-conv", "--epochs", 2,
+                                    "--steps-per-epoch", CLI_STEPS,
+                                    "--resume"] + data,
+                want=k1_run, step_want=k1, steps=CLI_STEPS)
+        cli_resume_check(rec, "vaegan64-resume", failures)
+        if s["rc"] == 0 and (rec["result"]["trainer"].step != 2 * CLI_STEPS
+                             or int(rec["result"]["log"][-1]["epoch"]) != 1):
+            failures.append(f"cli vaegan64-resume: step "
+                            f"{rec['result']['trainer'].step}, log "
+                            f"{rec['result']['log']}")
+        stats["vaegan64_resume"] = s
+        run("vaegan64-sample", ["sample", "--family", "vaegan", "-n", 64,
+                                "--out-dir", d], want={})
+        images(d / "vaegan_samples.npy", (64, 64, 64, 3), "vaegan64-sample")
+        stats["vaegan64_default"] = run(
+            "vaegan64-default", ["vaegan", "--epochs", 1, "--steps-per-epoch",
+                                 CLI_STEPS, "--out-dir",
+                                 CLI_DIR / "vaegan64_default",
+                                 "--dataset-size", CLI_VAEGAN_SIZE],
+            want={}, step_want={}, steps=CLI_STEPS)
+        rec["result"] = None
+
+        # (2) DDPM without attention
+        d = CLI_DIR / "ddpm_noattn"
+        data = ["--no-attn", "--out-dir", d, "--dataset-size", CLI_DDPM_SIZE]
+        stats["ddpm_noattn"] = run(
+            "ddpm-noattn", ["diffusion", "--epochs", 1, "--steps-per-epoch",
+                            CLI_STEPS] + data, want={}, step_want={},
+            steps=CLI_STEPS)
+        cfg = rec["cfg"]
+        rec["result"] = None
+        if stats["ddpm_noattn"]["rc"] == 0:
+            trainer = L.restore_trainer(cfg, device="cuda")
+            mods = collections.Counter(type(m).__name__ for m in
+                                       trainer.model_fused.modules())
+            if (mods[GroupNormSiLU.__name__] != CLI_K4_PER_FORWARD
+                    or mods[AttentionBlock.__name__]
+                    or mods[CrossAttentionToGlobalTokens.__name__]):
+                failures.append(f"cli ddpm-noattn: the UNet holds {mods}")
+            stats["unet_noattn"] = hold_unet(
+                K, trainer, torch.Generator(device="cuda").manual_seed(
+                    CLI_SEED), failures, tag="cli-unet-noattn")
+            del trainer
+        forwards = len(ddim_timesteps(DiffusionConfig().timesteps,
+                                      CLI_DDIM_STEPS))
+        s = run("ddpm-noattn-sample", ["sample", "--family", "diffusion",
+                                       "--no-attn", "-n", CLI_SAMPLES,
+                                       "--ddim-steps", CLI_DDIM_STEPS,
+                                       "--out-dir", d],
+                want=cli_serving_want(forwards, False))
+        if s["calls"].get("fused_forward") != forwards:
+            failures.append(f"cli ddpm-noattn-sample: {s['calls']} forwards,"
+                            f" want {forwards}")
+        images(d / "diffusion_samples.npy", (CLI_SAMPLES, 256, 256, 3),
+               "ddpm-noattn-sample")
+        stats["ddpm_noattn_sample"] = s
+        s = run("ddpm-noattn-eval", ["eval-diffusion", "--max-batches", 1]
+                + data, want=lambda c: cli_serving_want(
+                    c["fused_forward"], False))
+        res = cli_json(s, failures) if s["rc"] == 0 else None
+        if res is not None and not math.isfinite(res["psnr"]):
+            failures.append(f"cli ddpm-noattn-eval: {res}")
+
+        # (3) Glow as the README has it, K5 in every coupling
+        d = CLI_DIR / "glow"
+        data = ["--fused-coupling", "--out-dir", d, "--dataset-size",
+                CLI_GLOW_SIZE]
+        every = ["--sample-every", CLI_GLOW_EVERY, "--checkpoint-every",
+                 CLI_GLOW_EVERY]
+        k5 = {n: K5_PER_STEP for n in K5_NAMES}
+
+        def k5_want(iters, inits, reverses):
+            return {"glow_coupling_fwd": K5_PER_STEP * (iters + inits
+                                                         + reverses),
+                    "glow_coupling_bwd1": K5_PER_STEP * iters,
+                    "glow_coupling_bwd2": K5_PER_STEP * iters}
+        s = run("glow", ["glow", "--iters", CLI_GLOW_ITERS] + every + data,
+                want=k5_want(CLI_GLOW_ITERS, 1,
+                             CLI_GLOW_ITERS // CLI_GLOW_EVERY),
+                step_want=k5, steps=CLI_GLOW_ITERS)
+        glow_cfg = rec["cfg"]
+        if s["rc"] == 0:
+            rec["expect"] = trainer_state(rec["result"]["trainer"])
+        rec["result"] = None
+        stats["glow"] = s
+        more = CLI_GLOW_RESUMED - CLI_GLOW_ITERS
+        stats["glow_resume"] = run(
+            "glow-resume", ["glow", "--iters", CLI_GLOW_RESUMED, "--resume"]
+            + every + data, want=k5_want(more, 0, more // CLI_GLOW_EVERY),
+            step_want=k5, steps=more)
+        cli_resume_check(rec, "glow-resume", failures)
+        rec["result"] = None
+        grids = {}
+        for t in (0.5, None):
+            out = d / f"cli_grid_{t or 'default'}.npy"
+            run(f"glow-sample-{t or 'default'}",
+                ["sample", "--family", "glow", "-n", 20, "--fused-coupling",
+                 "--out-dir", d, "--out", out]
+                + (["--temperature", t] if t else []),
+                want=k5_want(0, 0, 1))
+            grids[t] = np.load(out)
+            # a few iterations' reverse is not bounded to [-1, 1]
+            if not (grids[t].shape == (20, 64, 64, 3)
+                    and np.isfinite(grids[t]).all()):
+                failures.append(f"cli glow-sample {t}: {grids[t].shape}")
+        ref = np.load(L.sample_from_dir(
+            "glow", dataclasses.replace(glow_cfg, temperature=0.5), n=20,
+            out_path=str(d / "ref_grid_0.5.npy"), device="cuda"))
+        same = np.array_equal(grids[0.5], ref)
+        differ = not np.array_equal(grids[None], ref)
+        print(f"[cli] glow sample --temperature 0.5 bit-equal to "
+              f"sample_from_dir at 0.5: {same}; differs from the default "
+              f"0.7 grid: {differ}", flush=True)
+        if not (same and differ):
+            failures.append(f"cli glow-sample: bit-equal {same}, differs "
+                            f"from 0.7 {differ}")
+        s = run("glow-eval", ["eval-glow", "--max-batches", 1] + data,
+                want=k5_want(0, 0, 1))
+        res = cli_json(s, failures) if s["rc"] == 0 else None
+        if res is not None and not 0 < res["ssim"] <= 1:
+            failures.append(f"cli glow-eval: {res}")
+        run("glow-jax-argv", ["glow", "--epochs", 1, "--steps-per-epoch", 3,
+                              "--iters", CLI_GLOW_JAX_ITERS, "--out-dir",
+                              CLI_DIR / "glow_stock", "--dataset-size",
+                              CLI_GLOW_SIZE],
+            want={}, steps=CLI_GLOW_JAX_ITERS)
+        rec["result"] = None
+
+        # (4) EEG Glow (f32, no kernel)
+        d = CLI_DIR / "eeg"
+        run("eeg", ["glow-eeg", "--iters", CLI_STEPS, "--event-type", "mi",
+                    "--out-dir", d], want={}, steps=CLI_STEPS)
+        rec["result"] = None
+        run("eeg-sample", ["sample", "--family", "glow-eeg", "--temperature",
+                           0.5, "-n", CLI_SAMPLES, "--event-type", "mi",
+                           "--out-dir", d], want={})
+        trials = np.load(d / "glow-eeg_samples.npy")
+        if not (trials.shape == (CLI_SAMPLES, 22, 160)
+                and np.isfinite(trials).all()):
+            failures.append(f"cli eeg-sample: {trials.shape}")
+        s = run("eeg-eval", ["eval-eeg", "--event-type", "mi", "--out-dir",
+                             d], want={})
+        res = cli_json(s, failures) if s["rc"] == 0 else None
+        if res is not None and not os.path.exists(res["psd_npz"]):
+            failures.append(f"cli eeg-eval: {res}")
+
+        # (5) the default DDPM (attention), VAE, DCGAN and WGAN
+        d = CLI_DIR / "ddpm"
+        data = ["--out-dir", d, "--dataset-size", CLI_DDPM_SIZE]
+        sites = k2_sites(K)
+        run("ddpm", ["diffusion", "--epochs", 1, "--steps-per-epoch",
+                     CLI_SHORT] + data,
+            want=lambda c: {"attention_fwd": sites * (CLI_SHORT
+                                                      + c["eval_loss"]),
+                            "attention_dq": sites * CLI_SHORT,
+                            "attention_dkv": sites * CLI_SHORT},
+            step_want={k: sites for k in K2_NAMES}, steps=CLI_SHORT)
+        rec["result"] = None
+        s = run("ddpm-sample", ["sample", "--family", "diffusion", "-n",
+                                CLI_SAMPLES, "--ddim-steps", CLI_DDIM_STEPS,
+                                "--out-dir", d],
+                want=cli_serving_want(forwards, True))
+        images(d / "diffusion_samples.npy", (CLI_SAMPLES, 256, 256, 3),
+               "ddpm-sample")
+        stats["ddpm_sample"] = s
+        s = run("ddpm-eval", ["eval-diffusion", "--max-batches", 1] + data,
+                want=lambda c: cli_serving_want(c["fused_forward"], True))
+        res = cli_json(s, failures) if s["rc"] == 0 else None
+        if res is not None and not math.isfinite(res["psnr"]):
+            failures.append(f"cli ddpm-eval: {res}")
+
+        d = CLI_DIR / "vae"
+        data = ["--out-dir", d, "--dataset-size", CLI_VAE_SIZE]
+        run("vae", ["vae", "--epochs", 1, "--steps-per-epoch", CLI_SHORT]
+            + data, want={}, step_want={}, steps=CLI_SHORT)
+        rec["result"] = None
+        run("vae-sample", ["sample", "--family", "vae", "-n", 64,
+                           "--out-dir", d], want={})
+        images(d / "vae_samples.npy", (64, 64, 64, 3), "vae-sample")
+        s = run("vae-eval", ["eval-vae", "--max-batches", 1,
+                             "--max-checkpoints", 1] + data, want={})
+        res = cli_json(s, failures) if s["rc"] == 0 else None
+        if res is not None and [r["step"] for r in res["sweep"]] != [1]:
+            failures.append(f"cli vae-eval: {res}")
+        faces = CLI_DIR / "denoise_in"
+        faces.mkdir()
+        for i, img in enumerate(synthetic_faces(4, (64, 64), seed=CLI_SEED)):
+            Image.fromarray(img).save(faces / f"{i:06d}.jpg", quality=95)
+        (CLI_DIR / "denoise_out").mkdir()
+        run("vae-denoise", ["denoise", "--ckpt", d / "ckpt", "--input",
+                            faces, "--output",
+                            CLI_DIR / "denoise_out" / "out.png"], want={})
+        written = sorted(os.listdir(CLI_DIR / "denoise_out"))
+        if written != [f"denoised_{i:06d}.jpg" for i in range(4)]:
+            failures.append(f"cli vae-denoise: wrote {written}")
+        artifact = d / "serving_vae_denoise.pt2"
+        run("vae-export", ["export", "--family", "vae", "--mode", "denoise",
+                           "--poly-batch", "--out-dir", d], want={})
+        run("vae-infer", ["infer", "--artifact", artifact, "--input",
+                          faces / "000000.jpg", "--out",
+                          CLI_DIR / "infer_out.jpg"], want={})
+        if not (CLI_DIR / "infer_out.jpg").exists():
+            failures.append("cli vae-infer: no grid written")
+
+        for cmd in ("gan", "wgan"):
+            d = CLI_DIR / cmd
+            data = ["--out-dir", d, "--dataset-size", CLI_GAN_SIZE]
+            run(cmd, [cmd, "--epochs", 1, "--steps-per-epoch", CLI_SHORT]
+                + data, want={}, step_want={}, steps=CLI_SHORT)
+            rec["result"] = None
+            run(f"{cmd}-sample", ["sample", "--family", cmd, "-n", 64,
+                                  "--out-dir", d], want={})
+            images(d / f"{cmd}_samples.npy", (64, 64, 64, 3),
+                   f"{cmd}-sample")
+            s = run(f"{cmd}-eval", ["eval-gan", "--max-batches", 1]
+                    + (["--wgan"] if cmd == "wgan" else []) + data, want={})
+            res = cli_json(s, failures) if s["rc"] == 0 else None
+            if res is not None and [r["step"] for r in res] != [1]:
+                failures.append(f"cli {cmd}-eval: {res}")
+    finally:
+        for owner, name, orig in reversed(undo):
+            if orig is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, orig)
+        rec.clear()
+    stats["launches"] = dict(total)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    for tag in ("vaegan64", "vaegan64_default", "ddpm_noattn"):
+        s = stats.get(tag, {})
+        print(f"[cli] {tag}: step ms median {s.get('step_ms_median')}, "
+              f"images/s {s.get('images_per_sec')}, peak memory "
+              f"{s.get('peak_gb')} GB", flush=True)
+    s = stats.get("ddpm_noattn_sample", {})
+    print(f"[cli] ddpm-noattn DDIM-{CLI_DDIM_STEPS} request ({CLI_SAMPLES} "
+          f"images, checkpoint restore included) {s.get('seconds')} s: "
+          f"{s.get('last_line')}", flush=True)
+    print(f"[cli] phase {stats['phase_s']:.1f} s, {len(stats['commands'])} "
+          f"commands; launches {stats['launches']}", flush=True)
+    return stats
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
@@ -5079,7 +5662,10 @@ ONLY = {"k1": ("conv_bn_stats.cu",),
         "dp": ("flash_attention.cu", "flash_attention_bwd.cu",
                "groupnorm_silu.cu", "conv_bn_stats.cu", "glow_coupling.cu",
                "glow_flow_stack.cu"),
-        "mp": ("glow_coupling.cu",)}
+        "mp": ("glow_coupling.cu",),
+        "cli": ("conv_bn_stats.cu", "flash_attention.cu",
+                "flash_attention_bwd.cu", "groupnorm_silu.cu",
+                "glow_coupling.cu")}
 # optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
 # figure need matplotlib; the port computes without any of them)
 OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
@@ -5098,7 +5684,9 @@ def main(argv=None) -> int:
                     "the serving export and data path on seeded "
                     "checkpoints; dp: data and sequence parallelism across "
                     "processes and Glow remat; mp: Glow's pipeline and "
-                    "tensor parallelism) with no main path and no "
+                    "tensor parallelism; cli: K1 at the 64x64 VAE-GAN's "
+                    "shapes, then the documented commands through "
+                    "cli.main) with no main path and no "
                     "result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
@@ -5174,6 +5762,11 @@ def main(argv=None) -> int:
             report["dp"] = dp_path(K, failures)
         elif args.only == "mp":
             report["mp"] = mp_path(K, failures)
+        elif args.only == "cli":
+            report["k1"] = check_k1(K, torch.Generator(device=dev)
+                                    .manual_seed(0), dev, failures,
+                                    families=K1_FAMILIES[-1:], extras=False)
+            report["cli"] = cli_path(K, failures)
         if args.only:
             raise _PartialRun
         # the data-parallel phase first: its rank processes share this card,
@@ -5214,7 +5807,9 @@ def main(argv=None) -> int:
         report["inception"] = check_inception(failures)
         report["fid_eval"] = fid_eval_path(K, report, failures)
         report["export"] = export_path(K, failures)
+        report["cli"] = cli_path(K, failures)
         dp_l = report["dp"]["launches"]
+        cli_l = report["cli"]["launches"]
         mp_l = report["mp"]["launches"]
         exp_l = report["export"]["launches"]
         fid_l = {name: sum(r["launches"].get(name, 0) for r in
@@ -5228,9 +5823,11 @@ def main(argv=None) -> int:
         report["kernels"] = [
             dict(kernel_entry(name, src, f"vgd_tpu/ops/pallas_kernels.py:"
                               f"{line}", k2_rows[name],
-                              train_l[name] + dp_l[name], per_step),
+                              train_l[name] + dp_l[name]
+                              + cli_l.get(name, 0), per_step),
                  launches_by_path={"train": train_l[name],
-                                   "dp": dp_l[name]})
+                                   "dp": dp_l[name],
+                                   "cli": cli_l.get(name, 0)})
             for name, src, line in (("attention_fwd", fwd_src, 218),
                                     ("attention_dq", bwd_src, 251),
                                     ("attention_dkv", bwd_src, 280))] + [
@@ -5239,26 +5836,30 @@ def main(argv=None) -> int:
                               serve_l["flash_attention"]
                               + fid_l["flash_attention"]
                               + exp_l["flash_attention"]
-                              + dp_l["flash_attention"], per_fwd),
+                              + dp_l["flash_attention"]
+                              + cli_l.get("flash_attention", 0), per_fwd),
                  launches_by_path={
                      "serve": serve_l["flash_attention"],
                      "fid_eval": fid_l["flash_attention"],
                      "export": exp_l["flash_attention"],
-                     "dp": dp_l["flash_attention"]}),
+                     "dp": dp_l["flash_attention"],
+                     "cli": cli_l.get("flash_attention", 0)}),
             dict(kernel_entry("groupnorm_silu",
                               "vgd_tpu_torch/csrc/groupnorm_silu.cu",
                               "vgd_tpu/ops/pallas_kernels.py:193", gn_rows,
                               serve_l["groupnorm_silu"]
                               + fid_l["groupnorm_silu"]
                               + exp_l["groupnorm_silu"]
-                              + dp_l["groupnorm_silu"], per_fwd),
+                              + dp_l["groupnorm_silu"]
+                              + cli_l.get("groupnorm_silu", 0), per_fwd),
                  form="f32 in and out (the TPU kernel's function)",
                  main_path_forms=report["k4_main_path"],
                  launches_by_path={
                      "serve": serve_l["groupnorm_silu"],
                      "fid_eval": fid_l["groupnorm_silu"],
                      "export": exp_l["groupnorm_silu"],
-                     "dp": dp_l["groupnorm_silu"]}),
+                     "dp": dp_l["groupnorm_silu"],
+                     "cli": cli_l.get("groupnorm_silu", 0)}),
             k1_entry(k1_rows, report)] + [
             dict(kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_coupling.cu",
@@ -5266,13 +5867,13 @@ def main(argv=None) -> int:
                 k5_rows[name] + report["mp"]["k5_microbatch"][name],
                 report["glow"]["train"]["launches_total"][name]
                 + fid_l.get(name, 0) + exp_l.get(name, 0) + dp_l[name]
-                + mp_l[name],
+                + mp_l[name] + cli_l.get(name, 0),
                 "one 64x64 batch-16 Glow train step (K=32, L=4)"),
                 launches_by_path={
                     "train": report["glow"]["train"]["launches_total"][name],
                     "fid_eval": fid_l.get(name, 0),
                     "export": exp_l.get(name, 0), "dp": dp_l[name],
-                    "mp": mp_l[name]})
+                    "mp": mp_l[name], "cli": cli_l.get(name, 0)})
             for name, line in zip(K5_NAMES, (164, 206, 266))]
         # K6's forward and backward run on the training path, its no-save
         # forward on the likelihood path (the serve phase)
@@ -5283,7 +5884,8 @@ def main(argv=None) -> int:
             entry = kernel_entry(
                 name, "vgd_tpu_torch/csrc/glow_flow_stack.cu",
                 f"vgd_tpu/ops/glow_flow_stack.py:{line}", k6_rows[name],
-                k6_launches[name] + dp_l[name] + mp_l[name],
+                k6_launches[name] + dp_l[name] + mp_l[name]
+                + cli_l.get(name, 0),
                 "one 64x64 batch-16 Glow likelihood forward (K=32, L=4)"
                 if name == "glow_flow_stack_fwd_nosave" else
                 "one 64x64 batch-16 Glow train step (K=32, L=4, flow_stack)")
@@ -5292,7 +5894,7 @@ def main(argv=None) -> int:
             timed = [r for r in k6_rows[name] if "ms" in r]
             entry.update(library="none alone", launches_by_path={
                 "main": k6_launches[name], "dp": dp_l[name],
-                "mp": mp_l[name]},
+                "mp": mp_l[name], "cli": cli_l.get(name, 0)},
                 **{k: sum(r[k] for r in timed) for k in K6_PER_FLOW_KEYS})
             report["kernels"].append(entry)
         idle = [e["name"] for e in report["kernels"] if not e["launches"]]

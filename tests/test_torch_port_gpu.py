@@ -287,6 +287,30 @@ def test_fused_unet_matches_plain_bf16(cuda):
     assert K.LAUNCHES["flash_attention"] == 3
 
 
+def test_fused_unet_without_attention_matches_plain_bf16(cuda):
+    """The no-attention UNet (``--no-attn``) in bf16: within UNET_REL_TOL of
+    max |output| of the same model with no kernel, with 14 K4 and no K3
+    launch a forward."""
+    from vgd_tpu_torch.models.unet import UNet
+    g = torch.Generator(device=cuda).manual_seed(4)
+    with torch.device(cuda):
+        fused = UNet(base_ch=16, time_emb_dim=32, dtype=torch.bfloat16,
+                     attention=False, fused=True)
+        fused.init_parameters(g)
+    x = torch.randn(2, 32, 32, 3, device=cuda, generator=g)
+    t = torch.tensor([5, 900], device=cuda)
+    with torch.inference_mode():
+        with K.plain_reference():
+            ref = fused(x, t)
+        K.LAUNCHES.clear()
+        out = fused(x, t)
+    assert torch.isfinite(out).all()
+    err = float((out - ref).abs().max())
+    assert err <= chip_smoke.UNET_REL_TOL * float(ref.abs().max()), err
+    assert dict(K.LAUNCHES) == {
+        "groupnorm_silu": chip_smoke.CLI_K4_PER_FORWARD}
+
+
 # the three training shapes of the 256x256, batch-16 UNet (cross_attn2,
 # cross_attn3, the bottleneck), the two ragged ones of chip_smoke.py, and
 # smaller and degenerate ones
@@ -1004,7 +1028,11 @@ K1_MAIN_AND_RAGGED = (
     + [(2, 16, 16, 3, 32, 1), (2, 32, 32, 3, 32, 0), (3, 31, 29, 5, 7, 0),
        (2, 9, 13, 12, 20, 1)]
     + [tuple(s[1:7]) for s in chip_smoke.K1_VAE_SHAPES
-       + chip_smoke.K1_GAN_SHAPES])
+       + chip_smoke.K1_GAN_SHAPES]
+    # the 64x64 VAE-GAN's discriminator stages at batch 64 (its encoder's
+    # shapes are the VAE's)
+    + [tuple(s[1:7]) for s in chip_smoke.K1_VAEGAN64_SHAPES
+       if s[0].startswith("dis")])
 
 
 @pytest.mark.parametrize("b,h,w,cin,k,pad", K1_MAIN_AND_RAGGED)

@@ -17,7 +17,8 @@ export:
       [--fused-coupling] [--flow-stack [N]] [--sample-every 100] \\
       [--checkpoint-every 1000] [--lr 1e-4] [--keep-checkpoints 3] \\
       [--resume] [--profile-dir runs/glow/trace] [--pp-stages 2]
-  python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow [-n 20]
+  python -m vgd_tpu_torch.cli sample --family glow --out-dir runs/glow \
+      [-n 20] [--temperature 0.5]
   python -m vgd_tpu_torch.cli eval-glow --out-dir runs/glow [--max-batches 1]
   python -m vgd_tpu_torch.cli vae --epochs 100 [--noise-std 0.5] [--occlusion] \
       [--fused-conv] [--steps-per-epoch 9] [--resume]
@@ -86,6 +87,14 @@ an N-stage GPipe pipeline over the model axis (sized to N when
 ``--mesh-model`` is unset); the other families refuse a model axis.
 ``--multihost`` starts the process group from the ``VGD_*`` variables (or
 torchrun's), and ``glow --remat`` recomputes each flow in the backward.
+
+Every flag JAX's CLI takes on a command, this one takes on it, so JAX's
+command lines run here. A command ignores the flags it has no use for, as
+JAX's does (``glow --epochs``, ``sample --lr``, ``eval-gan
+--max-batches``, ``tstr --iters``); ``--epoch-scan``, ``--no-epoch-scan``,
+``--num-cpu-devices`` and ``--prng-impl`` have no meaning in PyTorch and
+are ignored with a line on stderr. ``--device`` names ``cuda`` or ``cpu``
+(JAX's ``tpu`` is no device of the port).
 """
 from __future__ import annotations
 
@@ -97,7 +106,36 @@ import sys
 from vgd_tpu_torch.core import config as C
 
 
+# JAX's flags with no meaning in PyTorch: the epoch scan (``lax.scan``),
+# virtual CPU devices (the port runs more processes) and the PRNG family
+# (draws come from ``torch.Generator``s). Every command whose JAX parser
+# takes one accepts it, so JAX's command lines run, and ignores it with a
+# line on stderr (flag -> argparse keywords).
+_NO_MEANING = {"--epoch-scan": {"action": "store_true"},
+               "--no-epoch-scan": {"action": "store_true"},
+               "--num-cpu-devices": {"type": int},
+               "--prng-impl": {"type": str,
+                               "choices": ["rbg", "threefry2x32"]}}
+
+
+def _add_no_meaning(p, flags=tuple(_NO_MEANING)):
+    for flag in flags:
+        p.add_argument(flag, default=argparse.SUPPRESS,
+                       help="JAX's flag; no meaning here (ignored)",
+                       **_NO_MEANING[flag])
+
+
+def _warn_no_meaning(a) -> None:
+    for flag in _NO_MEANING:
+        if hasattr(a, flag[2:].replace("-", "_")):
+            print(f"[cli] {flag} has no meaning in the PyTorch port: "
+                  f"ignored", file=sys.stderr)
+
+
 def _add_common(p, serving=True):
+    """JAX's common flags, on every command that has them there: a command
+    reads the ones it has a use for and, as JAX's does, ignores the rest
+    (``sample --lr``, ``glow --epochs``)."""
     p.add_argument("--data", type=str, default=None,
                    help="folder of *.jpg, decoded once into a uint8 memmap "
                    "cache beside them (default, or not a folder: synthetic "
@@ -107,14 +145,46 @@ def _add_common(p, serving=True):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--dataset-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--iters", type=int, default=None,
+                   help="glow / glow-eeg iterations (default: the config's)")
+    p.add_argument("--lr", type=float, default=None,
+                   help="learning rate (default: the config's)")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="truncate epochs (smoke runs)")
+    p.add_argument("--keep-checkpoints", type=int, default=None,
+                   help="checkpoint retention count (default 3)")
+    p.add_argument("--compute-dtype", type=str, default=None,
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="torch.profiler trace of train steps 10-20 here")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="train under autograd anomaly detection: a "
+                   "backward that makes a NaN raises, naming its op")
+    p.add_argument("--fused-conv", action="store_true",
+                   help="vaegan / vae / gan / wgan: the Conv+BN+LeakyReLU "
+                   "stacks through the fused K1 kernel")
+    p.add_argument("--multihost", action="store_true", default=None,
+                   help="start torch.distributed from VGD_COORDINATOR=host:"
+                   "port, VGD_NUM_PROCESSES and VGD_PROCESS_ID (or from "
+                   "torchrun's variables) before the run")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis size (-1 = all processes "
+                   "not used by --mesh-model; default -1)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="model mesh axis size: >1 shards the UNet token "
+                   "axis (sequence parallel, diffusion) or the Glow "
+                   "coupling filters (tensor parallel, glow and glow-eeg), "
+                   "or hosts glow's --pp-stages")
+    _add_no_meaning(p)
     if serving:
         p.add_argument("--step", type=int, default=None,
                        help="checkpoint step (default: latest)")
-    p.add_argument("--compute-dtype", type=str, default=None,
-                   choices=["bfloat16", "float32"])
-    p.add_argument("--device", type=str, default="cuda",
-                   choices=["cuda", "cpu"])
 
 
 def _add_diffusion(p):
@@ -174,22 +244,35 @@ def _add_eeg(p, sizes=True):
 # RunConfig fields a command line may set (a flag left out leaves the
 # config's value)
 _RUN_ARGS = ("out_dir", "compute_dtype", "profile_dir", "keep_checkpoints",
-             "debug_nans", "multihost", "mesh")
+             "debug_nans", "fused_conv", "multihost", "mesh")
+# the top-level fields a training command takes from the command line
+# (field -> flag); JAX's evaluation, sampling and export apply none
+_EPOCH_TOP = (("epochs", "epochs"), ("lr", "lr"))
+_ITER_TOP = (("n_iter", "iters"), ("lr", "lr"))
+_BATCH = (("batch_size", "batch_size"),)
 
 
-def _eeg_cfg(a) -> C.GlowEEGConfig:
-    """``GlowEEGConfig`` with the values given on the command line."""
-    top = {k: getattr(a, k) for k in (
-        "n_flows", "n_blocks", "filter_size", "batch_size", "lr")
-        if getattr(a, k, None) is not None}
-    run = {"seed": a.seed}
+def _given(a, pairs):
+    """{field: value} of the (field, flag) ``pairs`` given on ``a``."""
+    return {k: getattr(a, arg) for k, arg in pairs
+            if getattr(a, arg, None) is not None}
+
+
+def _run_args(cfg, a, **run):
+    """``cfg.run`` with the seed and the ``_RUN_ARGS`` given on ``a``."""
+    run["seed"] = a.seed
     a.mesh = _mesh(a)
-    for k in _RUN_ARGS:
-        if getattr(a, k, None) is not None:
-            run[k] = getattr(a, k)
+    run.update(_given(a, ((k, k) for k in _RUN_ARGS)))
+    return dataclasses.replace(cfg.run, **run)
+
+
+def _eeg_cfg(a, top=()) -> C.GlowEEGConfig:
+    """``GlowEEGConfig`` with the sizes and run fields given on the command
+    line, and the top-level (field, flag) pairs ``top``."""
+    sizes = tuple((k, k) for k in ("n_flows", "n_blocks", "filter_size"))
     cfg = C.GlowEEGConfig(event_type=a.event_type, eeg_path=a.eeg_path)
-    return dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, **run),
-                               **top)
+    return dataclasses.replace(cfg, run=_run_args(cfg, a),
+                               **_given(a, sizes + top))
 
 
 def _tstr(a) -> None:
@@ -275,33 +358,6 @@ def generate_synthetic_eeg(a):
     return out[0], out[1]
 
 
-def _add_training(p):
-    p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--steps-per-epoch", type=int, default=None,
-                   help="truncate epochs (smoke runs)")
-    p.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint")
-    p.add_argument("--profile-dir", type=str, default=None,
-                   help="torch.profiler trace of train steps 10-20 here")
-
-
-def _add_parallel(p):
-    """The training commands' process mesh (``RunConfig.mesh``,
-    ``RunConfig.multihost``), with the JAX CLI's meanings."""
-    p.add_argument("--multihost", action="store_true", default=None,
-                   help="start torch.distributed from VGD_COORDINATOR=host:"
-                   "port, VGD_NUM_PROCESSES and VGD_PROCESS_ID (or from "
-                   "torchrun's variables) before the run")
-    p.add_argument("--mesh-data", type=int, default=None,
-                   help="data-parallel mesh axis size (-1 = all processes "
-                   "not used by --mesh-model; default -1)")
-    p.add_argument("--mesh-model", type=int, default=None,
-                   help="model mesh axis size: >1 shards the UNet token "
-                   "axis (sequence parallel, diffusion) or the Glow "
-                   "coupling filters (tensor parallel, glow and glow-eeg), "
-                   "or hosts glow's --pp-stages")
-
-
 def _mesh(a):
     """``MeshConfig`` of --mesh-data / --mesh-model (None when neither)."""
     if getattr(a, "mesh_data", None) is None and \
@@ -312,66 +368,51 @@ def _mesh(a):
         model=a.mesh_model if a.mesh_model is not None else 1)
 
 
-def _add_optim(p):
-    """The training commands' --lr and --keep-checkpoints (each command of
-    the reference takes both), --debug-nans and the process mesh."""
-    _add_parallel(p)
-    p.add_argument("--lr", type=float, default=None,
-                   help="learning rate (default: the config's)")
-    p.add_argument("--keep-checkpoints", type=int, default=None,
-                   help="checkpoint retention count (default 3)")
-    p.add_argument("--debug-nans", action="store_true",
-                   help="train under autograd anomaly detection: a "
-                   "backward that makes a NaN raises, naming its op")
-
-
-def _with_args(cfg, a, **run):
-    """``cfg`` with the values given on the command line."""
+def _with_args(cfg, a, top=(), **run):
+    """``cfg`` with the values given on the command line: the data and run
+    fields, and the top-level (field, flag) pairs ``top``."""
     data = {k: getattr(a, k) for k in ("batch_size", "dataset_size")
             if getattr(a, k) is not None}
     if a.image_size is not None:
         data["image_size"] = (a.image_size, a.image_size)
     if getattr(a, "data", None) is not None:
         data["path"] = a.data
-    run["seed"] = a.seed
-    a.mesh = _mesh(a)
-    for k in _RUN_ARGS:
-        if getattr(a, k, None) is not None:
-            run[k] = getattr(a, k)
-    top = {k: getattr(a, k) for k in ("epochs", "lr")
-           if getattr(a, k, None) is not None}
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data),
-                               run=dataclasses.replace(cfg.run, **run), **top)
+                               run=_run_args(cfg, a, **run),
+                               **_given(a, top))
 
 
-def _diffusion_cfg(a) -> C.DiffusionConfig:
+def _diffusion_cfg(a, train=False) -> C.DiffusionConfig:
     return _with_args(C.DiffusionConfig(timesteps=a.timesteps,
-                                        attention=not a.no_attn), a)
+                                        attention=not a.no_attn), a,
+                      _EPOCH_TOP if train else ())
 
 
-def _vaegan_cfg(a) -> C.VAEGANConfig:
-    return _with_args(C.VAEGANConfig(), a,
-                      fused_conv=bool(getattr(a, "fused_conv", False)))
+def _vaegan_cfg(a, train=False) -> C.VAEGANConfig:
+    return _with_args(C.VAEGANConfig(), a, _EPOCH_TOP if train else ())
 
 
-def _vae_cfg(a) -> C.VAEConfig:
-    cfg = _with_args(C.VAEConfig(), a,
-                     fused_conv=bool(getattr(a, "fused_conv", False)))
-    data = {"occlusion": bool(getattr(a, "occlusion", False))}
+def _vae_cfg(a, train=False) -> C.VAEConfig:
+    """As JAX's CLI: --noise-std on ``vae`` and ``eval-vae``, --occlusion
+    (training with the occlusion corruption) on ``vae`` only."""
+    cfg = _with_args(C.VAEConfig(), a, _EPOCH_TOP if train else ())
+    data = {"occlusion": bool(a.occlusion)} if train else {}
     if getattr(a, "noise_std", None) is not None:
         data["noise_max_std"] = a.noise_std
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                              **data))
 
 
-def _gan_cfg(a, wgan: bool) -> C.GANConfig:
+def _gan_cfg(a, wgan: bool, train=True) -> C.GANConfig:
+    """As JAX's CLI: the ``wgan`` command trains the reference's 1500
+    epochs unless --epochs says otherwise; evaluation and sampling keep
+    ``GANConfig(wgan=True)``'s."""
     cfg = C.GANConfig(wgan=wgan)
     if wgan:
-        cfg = dataclasses.replace(cfg, epochs=1500,
-                                  run=dataclasses.replace(cfg.run,
-                                                          out_dir="runs/wgan"))
-    return _with_args(cfg, a, fused_conv=bool(getattr(a, "fused_conv",
-                                                      False)))
+        cfg = dataclasses.replace(
+            cfg, epochs=1500 if train else cfg.epochs,
+            run=dataclasses.replace(cfg.run, out_dir="runs/wgan"))
+    return _with_args(cfg, a, _EPOCH_TOP if train else ())
 
 
 def _denoise(a) -> None:
@@ -403,21 +444,20 @@ def _denoise(a) -> None:
         print(f"{p} -> {dst}")
 
 
-def _glow_cfg(a) -> C.GlowConfig:
+def _glow_cfg(a, train=False) -> C.GlowConfig:
     pp = getattr(a, "pp_stages", None)
     if pp and getattr(a, "mesh_model", None) is None:
         a.mesh_model = pp            # size the model axis to the stages
-    run = {k: getattr(a, arg) for k, arg in (
-        ("sample_every_iters", "sample_every"),
-        ("checkpoint_every_iters", "checkpoint_every"))
-        if getattr(a, arg, None) is not None}
-    sizes = {k: getattr(a, k) for k in ("n_flows", "n_blocks", "filter_size")
-             if getattr(a, k, None) is not None}
+    run = _given(a, (("sample_every_iters", "sample_every"),
+                     ("checkpoint_every_iters", "checkpoint_every")))
+    sizes = _given(a, ((k, k) for k in ("n_flows", "n_blocks",
+                                        "filter_size")))
     return _with_args(C.GlowConfig(
         fused_coupling=bool(getattr(a, "fused_coupling", False)),
         flow_stack=_flow_stack(getattr(a, "flow_stack", None)),
         remat=bool(getattr(a, "remat", False)),
-        **({"pp_stages": pp} if pp else {}), **sizes), a, **run)
+        **({"pp_stages": pp} if pp else {}), **sizes), a,
+        _ITER_TOP if train else (), **run)
 
 
 def _add_family(p):
@@ -435,26 +475,28 @@ def _add_family(p):
                    help=">0 samples through the strided DDIM chain instead "
                    "of the full ancestral chain")
     p.add_argument("--ddim-eta", type=float, default=0.0)
+    p.add_argument("--temperature", type=float, default=None,
+                   help="glow / glow-eeg: z temperature (default: the "
+                   "config's)")
 
 
 def _family_cfg(a):
     """The config of ``a.family`` with the values given on the command
-    line."""
+    line; --temperature sets glow's and glow-eeg's and, as in JAX's CLI,
+    the other families ignore it."""
     if a.family == "glow-eeg":
         cfg = _eeg_cfg(a)
     elif a.family == "vae":
         cfg = _vae_cfg(a)
     elif a.family in ("gan", "wgan"):
-        cfg = _gan_cfg(a, a.family == "wgan")
+        cfg = _gan_cfg(a, a.family == "wgan", train=False)
     elif a.family == "glow":
         cfg = _glow_cfg(a)
     elif a.family == "vaegan":
         cfg = _vaegan_cfg(a)
     else:
         cfg = _diffusion_cfg(a)
-    if getattr(a, "temperature", None) is not None:
-        if a.family not in ("glow", "glow-eeg"):
-            raise SystemExit("--temperature applies to glow and glow-eeg")
+    if a.temperature is not None and a.family in ("glow", "glow-eeg"):
         cfg = dataclasses.replace(cfg, temperature=a.temperature)
     return cfg
 
@@ -527,31 +569,19 @@ def main(argv=None):
                        "<out-dir>/ckpt, loss log diffusion_loss.jsonl)")
     _add_common(p, serving=False)
     _add_diffusion(p)
-    _add_training(p)
-    _add_optim(p)
 
     p = sub.add_parser("vaegan", help="train the VAE-GAN (checkpoints under "
                        "<out-dir>/ckpt, loss log vaegan_loss.jsonl)")
     _add_common(p, serving=False)
-    _add_training(p)
-    _add_optim(p)
-    p.add_argument("--fused-conv", action="store_true",
-                   help="encoder/discriminator Conv+BN+LeakyReLU through "
-                   "the fused K1 kernel")
     _add_fid(p)
 
     p = sub.add_parser("vae", help="train the denoising VAE (checkpoints "
                        "under <out-dir>/ckpt, loss log vae_loss.jsonl)")
     _add_common(p, serving=False)
-    _add_training(p)
-    _add_optim(p)
     _add_vae(p)
     p.add_argument("--occlusion", action="store_true",
                    help="train with the occlusion rectangle + per-sample "
                    "noise corruption")
-    p.add_argument("--fused-conv", action="store_true",
-                   help="encoder Conv+BN+LeakyReLU through the fused K1 "
-                   "kernel")
 
     p = sub.add_parser("eval-vae", help="aggregated-posterior SSIM sweep "
                        "over the checkpoints; with --occlusion the occlusion "
@@ -582,11 +612,6 @@ def main(argv=None):
         p = sub.add_parser(name, help=f"train {name.upper()} (checkpoints "
                            f"under <out-dir>/ckpt, loss log gan_loss.jsonl)")
         _add_common(p, serving=False)
-        _add_training(p)
-        _add_optim(p)
-        p.add_argument("--fused-conv", action="store_true",
-                       help="discriminator Conv+BN+LeakyReLU through the "
-                       "fused K1 kernel")
 
     p = sub.add_parser("eval-gan", help="prior-sample SSIM sweep over the "
                        "checkpoints")
@@ -594,17 +619,14 @@ def main(argv=None):
     _add_fid(p)
     p.add_argument("--wgan", action="store_true")
     p.add_argument("--max-checkpoints", type=int, default=None)
+    p.add_argument("--max-batches", type=int, default=None,
+                   help="JAX's flag, unread there too: the sweep scores "
+                   "one batch of samples a checkpoint")
 
     p = sub.add_parser("glow", help="train Glow (checkpoints under "
                        "<out-dir>/ckpt, loss log glow_loss.jsonl)")
     _add_common(p, serving=False)
     _add_glow(p)
-    p.add_argument("--iters", type=int, default=None,
-                   help="iterations (default: the config's 30000)")
-    p.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint")
-    p.add_argument("--profile-dir", type=str, default=None,
-                   help="torch.profiler trace of train steps 10-20 here")
     p.add_argument("--sample-every", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
     p.add_argument("--remat", action="store_true",
@@ -616,7 +638,6 @@ def main(argv=None):
                    "chain runs as a GPipe pipeline over this many "
                    "model-axis ranks (K must divide over it); sizes "
                    "--mesh-model when unset")
-    _add_optim(p)
 
     p = sub.add_parser("eval-glow", help="temperature-sample SSIM of a "
                        "Glow checkpoint against the val split")
@@ -638,9 +659,6 @@ def main(argv=None):
     p.add_argument("--mode", default="sample", choices=["sample", "denoise"],
                    help="sample: draws -> image batch; denoise: (images, "
                    "draw) -> reconstructions (vae / vaegan)")
-    p.add_argument("--temperature", type=float, default=None,
-                   help="glow / glow-eeg: z temperature (default: the "
-                   "config's)")
     p.add_argument("--platforms", type=str, default="cuda,cpu",
                    help="comma-separated devices the artifact may be "
                    "loaded on")
@@ -663,6 +681,7 @@ def main(argv=None):
                    help="denoise artifacts: .npy batch or image file")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
+    _add_no_meaning(p, ("--num-cpu-devices",))
 
     p = sub.add_parser("eval-diffusion", help="partial-noise restoration "
                        "evaluation (SSIM, PSNR, MSE) of a checkpoint")
@@ -676,13 +695,6 @@ def main(argv=None):
                        "loss log eeg_<event-type>.jsonl)")
     _add_common(p, serving=False)
     _add_eeg(p)
-    p.add_argument("--iters", type=int, default=None,
-                   help="iterations (default: the config's 6000)")
-    p.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint")
-    p.add_argument("--profile-dir", type=str, default=None,
-                   help="torch.profiler trace of train steps 10-20 here")
-    _add_optim(p)
 
     p = sub.add_parser("eval-eeg", help="real-vs-generated central PSD "
                        "(psd_<event-type>.npz; figure and training GIF "
@@ -703,22 +715,26 @@ def main(argv=None):
     p.add_argument("--subjects", nargs="*", default=["01"])
     p.add_argument("--n-samples", type=int, default=288,
                    help="generated trials per class (synt, sr)")
+    p.add_argument("--iters", type=int, default=None,
+                   help="JAX's flag, unread there too")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
 
     a = ap.parse_args(argv)
+    _warn_no_meaning(a)
     from vgd_tpu_torch.train import loop as L
 
     if a.cmd == "tstr":
         _tstr(a)
         return 0
     if a.cmd == "glow-eeg":
-        L.run_glow_eeg(_eeg_cfg(a), n_iter=a.iters, resume=a.resume,
+        L.run_glow_eeg(_eeg_cfg(a, _BATCH + _ITER_TOP), resume=a.resume,
                        device=a.device)
         return 0
     if a.cmd == "eval-eeg":
-        print(json.dumps(L.eeg_psd_and_gif(_eeg_cfg(a), n_fake=a.n_fake,
-                                           step=a.step, device=a.device)))
+        print(json.dumps(L.eeg_psd_and_gif(_eeg_cfg(a, _BATCH),
+                                           n_fake=a.n_fake, step=a.step,
+                                           device=a.device)))
         return 0
     if a.cmd == "sample":
         L.sample_from_dir(a.family, _family_cfg(a), n=a.num_samples,
@@ -741,7 +757,8 @@ def main(argv=None):
         _denoise(a)
         return 0
     if a.cmd == "vae":
-        L.run_vae(_vae_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
+        L.run_vae(_vae_cfg(a, train=True),
+                  max_steps_per_epoch=a.steps_per_epoch,
                   resume=a.resume, device=a.device)
         return 0
     if a.cmd == "eval-vae":
@@ -765,13 +782,13 @@ def main(argv=None):
         return 0
     if a.cmd == "eval-gan":
         res = L.evaluate_gan_checkpoints(
-            _gan_cfg(a, a.wgan), feature_fn=_feature_fn(a),
+            _gan_cfg(a, a.wgan, train=False), feature_fn=_feature_fn(a),
             max_checkpoints=a.max_checkpoints, device=a.device)
         print(json.dumps(res))
         return 0
 
     if a.cmd == "glow":
-        L.run_glow(_glow_cfg(a), n_iter=a.iters, resume=a.resume,
+        L.run_glow(_glow_cfg(a, train=True), resume=a.resume,
                    device=a.device)
         return 0
     if a.cmd == "eval-glow":
@@ -781,11 +798,12 @@ def main(argv=None):
         print(json.dumps(res))
         return 0
     if a.cmd == "vaegan":
-        L.run_vaegan(_vaegan_cfg(a), max_steps_per_epoch=a.steps_per_epoch,
+        L.run_vaegan(_vaegan_cfg(a, train=True),
+                     max_steps_per_epoch=a.steps_per_epoch,
                      feature_fn=_feature_fn(a), resume=a.resume,
                      device=a.device)
         return 0
-    cfg = _diffusion_cfg(a)
+    cfg = _diffusion_cfg(a, train=a.cmd == "diffusion")
     if a.cmd == "diffusion":
         L.run_diffusion(cfg, max_steps_per_epoch=a.steps_per_epoch,
                         resume=a.resume, device=a.device)
