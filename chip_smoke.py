@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--report PATH]
-                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp|mp|cli]
+                          [--only k1|attn|k4|k5|k6|eeg|fid|export|dp|mp|cli|
+                                  scan]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -39,7 +40,9 @@ Run from the root of a checkout on a machine with one CUDA card:
    (loss and every gradient) against the same weights run with no kernel at
    all (``kernels.plain_reference``), and profiles both by kernel group;
 4. DDPM: trains at full width (256x256, batch 16, base_ch 64, T=1000, bf16
-   convs) through ``run_diffusion`` on synthetic faces: 2 epochs of 8 steps,
+   convs) through ``run_diffusion``'s per-step loop (``epoch_scan=False``,
+   as every phase that wraps ``train_step`` runs it; step 17 holds the
+   scan to it) on synthetic faces: 2 epochs of 8 steps,
    a checkpoint per epoch, a resume that must restore exactly what was
    saved, and a third epoch. Every train step must launch K2 once of each
    kind (forward, dq, dk/dv) per attention past ``kernels.attention``'s
@@ -191,7 +194,9 @@ Run from the root of a checkout on a machine with one CUDA card:
    ``--device cuda`` at full model width on synthetic faces and trials
    (only steps, --dataset-size and -n small), each command's rc, seconds,
    step ms, images/s, launches and peak memory on a ``[cli]`` line, every
-   SystemExit or exception a failure: (a) the VAE-GAN at its default
+   SystemExit or exception a failure (the VAE-GAN and DDPM training
+   commands with ``--no-epoch-scan``: the phase wraps ``train_step``, and
+   step 17 runs the scan): (a) the VAE-GAN at its default
    64x64, B=64 with --fused-conv, exactly K1_VAEGAN64_PER_STEP (23) K1 a
    train step, a ``--resume`` whose first step starts from the saved state
    exactly, ``sample``, and the run without the flag (no K1); (b) DDPM
@@ -207,7 +212,38 @@ Run from the root of a checkout on a machine with one CUDA card:
    serving forward), VAE, DCGAN and WGAN (no kernel) with ``sample`` and
    ``eval-*``, ``denoise`` on a folder of four JPEGs, ``export --family vae
    --mode denoise --poly-batch`` and ``infer`` on it;
-17. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+17. the epoch scan (``--only scan``, which builds K1 and K2; in the full
+   run right after step 15, before the phases that leave memory held):
+   seven cells, vaegan-64 (``VAEGANConfig``'s 64x64, B=64) with
+   --fused-conv and without, vaegan-256 (the flagship, K1), ddpm-256 with
+   attention, vae-64, gan-64 and wgan-64 with --fused-conv, all bf16.
+   (a) Lockstep: SCAN_STEPS steps from one initial state and generator
+   through the per-step loop twice (the floor) and through a
+   ``StepGraph`` (WARMUP_STEPS eager steps, one capture, replays); every
+   parameter, BN buffer and Adam moment against its own change from the
+   initial state, bit-equal where the per-step loop repeats itself (one
+   seed), else within SCAN_FLOOR_X times the median floor over FLOOR_SEEDS,
+   parameter elements whose first-update gradient is rounding left out
+   and counted; there two broken scans (Adam's count frozen at the
+   capture, the generator put back before each replay) must fail that
+   bound, and a third (a stale batch slot) is reported; the generator
+   state bit-equal, each
+   path's launches exactly SCAN_STEPS times a step's; (b) K1 / K2 (their
+   CUDA functions) in a profiler trace of one replay; (c) both loops
+   through ``run_*``: step ms (the median period of consecutive steps
+   after the scan's warm-up and capture), images/s, the busy share of a
+   profiler trace of steps SCAN_PROFILE_STEPS, peak memory, launches, and
+   (``--only scan`` alone) on three 64x64 cells the per-step loop with
+   Adam capturable and not;
+   (d) a scan run resumed after its first epoch against a straight one
+   (within the lockstep's bound, generator bit-equal; not vaegan-256);
+   then (e) each family's training command through ``cli.main`` on the
+   scan path, and ``vaegan --debug-nans``, which trains step by step;
+   (f) one process as a world of one on NCCL: the scan bit-equal to the
+   per-step loop with the collectives captured; (g) two ranks on the card
+   over gloo: ``epoch_scan=True`` refused, the default trained step by
+   step;
+18. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -216,6 +252,8 @@ port cannot be imported, or when any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1204,8 +1242,8 @@ def k1_entry(rows, report):
     """K1's line entry: its times per VAE-GAN step, as before the 64²
     families ran K1 (``per_family`` has each family's sums per step of that
     family); its launches over every main-path run (VAE-GAN, VAE, DCGAN and
-    WGAN training, the data-parallel VAE-GAN's ranks and the cli phase's
-    64x64 VAE-GAN;
+    WGAN training, the data-parallel VAE-GAN's ranks, the cli phase's
+    64x64 VAE-GAN and the scan phase's CUDA-graph steps;
     ``launches_by_path`` splits them); its errors over every
     checked shape."""
     launches = {"vaegan": report["vaegan"]["train"]["k1_launches"],
@@ -1213,7 +1251,8 @@ def k1_entry(rows, report):
                 "gan": report["gan"]["train"]["k1_launches"],
                 "wgan": report["gan"]["wgan_train"]["k1_launches"],
                 "dp": report["dp"]["launches"]["conv_bn_stats"],
-                "cli": report["cli"]["launches"]["conv_bn_stats"]}
+                "cli": report["cli"]["launches"]["conv_bn_stats"],
+                "scan": report["scan"]["launches"]["conv_bn_stats"]}
 
     def family_entry(family, per, source="", replaces=""):
         return kernel_entry("conv_bn_stats", source, replaces, [
@@ -1484,7 +1523,7 @@ def train_path(K, cfg, init_params, failures):
         torch.cuda.reset_peak_memory_stats()
         K.LAUNCHES.clear()
         t0 = time.perf_counter()
-        res = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS,
+        res = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS, epoch_scan=False,
                               max_steps_per_epoch=TRAIN_STEPS, device="cuda")
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
@@ -1538,6 +1577,7 @@ def train_path(K, cfg, init_params, failures):
         payload = Checkpointer(f"{cfg.run.out_dir}/ckpt").load()
         K.LAUNCHES.clear()
         back = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS, resume=True,
+                               epoch_scan=False,
                                device="cuda")["trainer"]
         same_params = all(torch.equal(final[k], v) and
                           torch.equal(payload["params"][k], v.cpu())
@@ -1560,7 +1600,7 @@ def train_path(K, cfg, init_params, failures):
 
         step_events.clear()
         K.LAUNCHES.clear()
-        res = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS + 1,
+        res = L.run_diffusion(cfg, epochs=TRAIN_EPOCHS + 1, epoch_scan=False,
                               max_steps_per_epoch=TRAIN_STEPS, resume=True,
                               device="cuda")
         steps3 = len(step_events)
@@ -2024,7 +2064,8 @@ def family_train_path(K, tag, cls, run, cfg, steps_per_epoch, epochs,
     step first) are wrapped to count K1 launches and time each call with
     CUDA events: exactly ``per_step`` K1 launches per train step, none in
     the others, and no other kernel. ``keys`` are the log's metrics, which
-    must be finite."""
+    must be finite. Every run takes the per-step loop (the scan replays
+    graphs, which no wrapper sees)."""
     import torch
     from vgd_tpu_torch.io.checkpoint import Checkpointer
     step_name = counted[0]
@@ -2054,7 +2095,7 @@ def family_train_path(K, tag, cls, run, cfg, steps_per_epoch, epochs,
         K.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = run(cfg, epochs=epochs, max_steps_per_epoch=steps_per_epoch,
-                  device="cuda")
+                  device="cuda", epoch_scan=False)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         total = K.LAUNCHES["conv_bn_stats"]
@@ -2112,7 +2153,8 @@ def family_train_path(K, tag, cls, run, cfg, steps_per_epoch, epochs,
         final = {k: v.clone() for k, v in trainer.state_dict().items()}
         payload = Checkpointer(f"{cfg.run.out_dir}/ckpt").load()
         K.LAUNCHES.clear()
-        back = run(cfg, epochs=epochs, resume=True, device="cuda")["trainer"]
+        back = run(cfg, epochs=epochs, resume=True, device="cuda",
+                   epoch_scan=False)["trainer"]
         same_params = all(torch.equal(final[k], v) and
                           torch.equal(payload["params"][k], v.cpu())
                           for k, v in back.state_dict().items())
@@ -2139,7 +2181,7 @@ def family_train_path(K, tag, cls, run, cfg, steps_per_epoch, epochs,
             v.clear()
         K.LAUNCHES.clear()
         res = run(cfg, epochs=epochs + 1, max_steps_per_epoch=steps_per_epoch,
-                  resume=True, device="cuda")
+                  resume=True, device="cuda", epoch_scan=False)
         steps3 = len(calls[step_name])
         got = K.LAUNCHES["conv_bn_stats"]
         row = res["log"][-1]
@@ -4553,7 +4595,7 @@ def dp_ddpm_job(tag, mesh=None, steps=DP_STEPS, **kw):
     epoch of ``steps`` steps on ``dp_ddpm_config(tag, mesh)``."""
     return dict(family="diffusion", device=DP_DEVICE, epochs=1,
                 max_steps_per_epoch=steps, state=False,
-                cfg=dp_ddpm_config(tag, mesh), **kw)
+                cfg=dp_ddpm_config(tag, mesh), epoch_scan=False, **kw)
 
 
 def dp_jobs(x, t):
@@ -4567,7 +4609,7 @@ def dp_jobs(x, t):
             "vaegan-dp": dict(family="vaegan", device=DP_DEVICE, epochs=1,
                               max_steps_per_epoch=DP_VAEGAN_STEPS,
                               cfg=dp_vaegan_config("vaegan-dp"),
-                              state=False),
+                              state=False, epoch_scan=False),
             "glow-dp": dict(cfg=dp_glow_config("glow-dp"), **glow),
             "glow-stack-dp": dict(cfg=dp_glow_config(
                 "glow-stack-dp", flow_stack=True), **glow)}
@@ -4797,7 +4839,7 @@ def dp_path(K, failures):
     refs = {"vaegan-dp": workers.train_loop(
         family="vaegan", device=DP_DEVICE, epochs=1,
         max_steps_per_epoch=DP_VAEGAN_STEPS,
-        cfg=dp_vaegan_config("vaegan-one"), state=False),
+        cfg=dp_vaegan_config("vaegan-one"), state=False, epoch_scan=False),
         "glow-dp": workers.train_loop(
             family="glow", device=DP_DEVICE, n_iter=DP_GLOW_ITERS,
             cfg=dp_glow_config("glow-one"), state=False),
@@ -4813,7 +4855,7 @@ def dp_path(K, failures):
         try:
             floors.append(loss_rel(workers.train_loop(
                 family="vaegan", device=DP_DEVICE, epochs=1,
-                max_steps_per_epoch=1, state=False,
+                max_steps_per_epoch=1, state=False, epoch_scan=False,
                 cfg=dp_vaegan_config(f"vaegan-floor{seed}")),
                 refs["vaegan-dp"], 1))
         finally:
@@ -5392,7 +5434,8 @@ def cli_path(K, failures):
         k1 = {"conv_bn_stats": K1_VAEGAN64_PER_STEP}
         k1_run = {"conv_bn_stats": K1_VAEGAN64_PER_STEP * CLI_STEPS}
         s = run("vaegan64", ["vaegan", "--fused-conv", "--epochs", 1,
-                             "--steps-per-epoch", CLI_STEPS] + data,
+                             "--steps-per-epoch", CLI_STEPS,
+                             "--no-epoch-scan"] + data,
                 want=k1_run, step_want=k1, steps=CLI_STEPS)
         if s["rc"] == 0:
             row = rec["result"]["log"][-1]
@@ -5403,7 +5446,7 @@ def cli_path(K, failures):
         stats["vaegan64"] = s
         s = run("vaegan64-resume", ["vaegan", "--fused-conv", "--epochs", 2,
                                     "--steps-per-epoch", CLI_STEPS,
-                                    "--resume"] + data,
+                                    "--resume", "--no-epoch-scan"] + data,
                 want=k1_run, step_want=k1, steps=CLI_STEPS)
         cli_resume_check(rec, "vaegan64-resume", failures)
         if s["rc"] == 0 and (rec["result"]["trainer"].step != 2 * CLI_STEPS
@@ -5417,7 +5460,7 @@ def cli_path(K, failures):
         images(d / "vaegan_samples.npy", (64, 64, 64, 3), "vaegan64-sample")
         stats["vaegan64_default"] = run(
             "vaegan64-default", ["vaegan", "--epochs", 1, "--steps-per-epoch",
-                                 CLI_STEPS, "--out-dir",
+                                 CLI_STEPS, "--no-epoch-scan", "--out-dir",
                                  CLI_DIR / "vaegan64_default",
                                  "--dataset-size", CLI_VAEGAN_SIZE],
             want={}, step_want={}, steps=CLI_STEPS)
@@ -5428,7 +5471,8 @@ def cli_path(K, failures):
         data = ["--no-attn", "--out-dir", d, "--dataset-size", CLI_DDPM_SIZE]
         stats["ddpm_noattn"] = run(
             "ddpm-noattn", ["diffusion", "--epochs", 1, "--steps-per-epoch",
-                            CLI_STEPS] + data, want={}, step_want={},
+                            CLI_STEPS, "--no-epoch-scan"] + data, want={},
+            step_want={},
             steps=CLI_STEPS)
         cfg = rec["cfg"]
         rec["result"] = None
@@ -5552,7 +5596,7 @@ def cli_path(K, failures):
         data = ["--out-dir", d, "--dataset-size", CLI_DDPM_SIZE]
         sites = k2_sites(K)
         run("ddpm", ["diffusion", "--epochs", 1, "--steps-per-epoch",
-                     CLI_SHORT] + data,
+                     CLI_SHORT, "--no-epoch-scan"] + data,
             want=lambda c: {"attention_fwd": sites * (CLI_SHORT
                                                       + c["eval_loss"]),
                             "attention_dq": sites * CLI_SHORT,
@@ -5643,6 +5687,924 @@ def cli_path(K, failures):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the epoch scan (--only scan)
+# ---------------------------------------------------------------------------
+
+SCAN_DIR = OUT_DIR / "scan"
+# lockstep: SCAN_STEPS steps from one state and generator, per step twice
+# and through the scan path once. Each leaf (parameter, BN buffer, Adam
+# moment and count) is measured against its own change from the initial
+# state: |a - b| / |b - init| in the 2-norm. A cell whose first seed's per-step
+# floor is 0 repeats itself bit for bit and must be bit-equal; otherwise
+# the scan path stays within SCAN_FLOOR_X times the median over FLOOR_SEEDS
+# of the per-step path's own floor
+SCAN_STEPS, SCAN_FLOOR_X = 8, 3.0
+# where the per-step loop does not repeat itself, an element of a parameter
+# is rounding, not signal, when its gradient at the first update is under
+# SCAN_ROUNDING of its parameter's largest (1/16 of the bf16 rounding of
+# that largest value; DDPM's attention key biases, which softmax ignores,
+# sit there), or when the two per-step runs of a seed do not reproduce it
+# to within SCAN_NOISE_GRAD of its size: Adam's per-element normalisation
+# turns such a gradient into full-size steps whose sign is rounding. Those
+# elements and their Adam moments are left out of the comparison, and
+# counted; at most SCAN_NOISE_MAX of a cell's parameter elements
+SCAN_ROUNDING, SCAN_NOISE_GRAD, SCAN_NOISE_MAX = 2.0 ** -12, 0.5, 0.1
+# the broken scans that must fail the bound where it is not 0 (the third,
+# a stale batch slot, is reported)
+SCAN_CONTROLS_REQUIRED = ("frozen_adam_count", "stale_draws")
+# timing through run_*: SCAN_TIME_EPOCHS epochs of SCAN_TIME_STEPS steps a
+# path; the step ms is the median period between consecutive steps of an
+# epoch, leaving out a run's first WARMUP_STEPS + 1 steps (the scan's eager
+# warm-up and its capture) on both paths; the profiler traces global steps
+# SCAN_PROFILE_STEPS (the scan: the chunks that overlap them)
+SCAN_TIME_EPOCHS, SCAN_TIME_STEPS = 2, 14
+SCAN_PROFILE_STEPS = (17, 22)
+# resume: a scan run of 2 epochs of SCAN_RESUME_STEPS against 1 epoch and
+# a resumed second (SCAN_STEPS steps in all, as the lockstep's floor)
+SCAN_RESUME_STEPS = SCAN_STEPS // 2
+# the KL ramp of the lockstep's VAE-GAN and VAE steps
+SCAN_RAMP = 0.5
+# the lockstep's random uint8 batches
+SCAN_DATA_SEED = 15
+# the CUDA functions of K1 and K2 a replay of a step's graph must launch
+SCAN_K1_FUNCS = ("conv_stats_mma_kernel", "combine_stats_kernel")
+SCAN_K2_FUNCS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+# the cli commands' steps (one epoch each; the default profile window,
+# steps 10-20, lies inside); the --debug-nans command's
+SCAN_CLI_STEPS, SCAN_NANS_STEPS = 24, 4
+# the per-step loop with Adam capturable and not, alternated
+# SCAN_AB_ROUNDS times, SCAN_AB_STEPS steps each, on these cells
+SCAN_AB_CELLS = ("vaegan-64-k1", "gan-64", "wgan-64")
+SCAN_AB_ROUNDS, SCAN_AB_STEPS = 2, 12
+
+
+def scan_cells():
+    """The cells: (tag, family, config, kernel launches a step, CUDA
+    functions of the step's graph, timed and resumed through ``run_*``).
+    vaegan-64 is ``VAEGANConfig``'s default (64x64, B=64), with K1 and
+    without; vaegan-256 the flagship (``vaegan_config``: 256x256, B=64,
+    K1), held in lockstep and timed; ddpm-256 the default DDPM with
+    attention (K2); vae-64, gan-64 and wgan-64 their 64x64 defaults with
+    ``--fused-conv``; all bf16, a checkpoint every epoch."""
+    from vgd_tpu_torch.core.config import (DataConfig, DiffusionConfig,
+                                           GANConfig, RunConfig, VAEConfig,
+                                           VAEGANConfig)
+
+    def run(tag, fused=True):
+        return RunConfig(out_dir=str(SCAN_DIR / tag), seed=42,
+                         fused_conv=fused)
+    k2 = {name: len(ATTN_SHAPES) for name in K2_NAMES}
+    flagship = vaegan_config()
+    return [
+        ("vaegan-64-k1", "vaegan", VAEGANConfig(
+            data=DataConfig(batch_size=64, image_size=(64, 64),
+                            dataset_size=1000), run=run("vaegan-64-k1")),
+         {"conv_bn_stats": K1_VAEGAN64_PER_STEP}, SCAN_K1_FUNCS, True),
+        ("vaegan-64", "vaegan", VAEGANConfig(
+            data=DataConfig(batch_size=64, image_size=(64, 64),
+                            dataset_size=1000),
+            run=run("vaegan-64", fused=False)), {}, (), True),
+        ("vaegan-256-k1", "vaegan", dataclasses.replace(
+            flagship, data=dataclasses.replace(flagship.data,
+                                               dataset_size=1000),
+            run=run("vaegan-256-k1")),
+         {"conv_bn_stats": K1_PER_STEP}, SCAN_K1_FUNCS, False),
+        ("ddpm-256", "diffusion", DiffusionConfig(
+            data=DataConfig(batch_size=16, image_size=(256, 256),
+                            dataset_size=250), run=run("ddpm-256", False)),
+         k2, SCAN_K2_FUNCS, True),
+        ("vae-64", "vae", VAEConfig(
+            data=DataConfig(batch_size=64, image_size=(64, 64),
+                            dataset_size=1000, noise_max_std=0.5,
+                            occlusion=False), run=run("vae-64")),
+         {"conv_bn_stats": K1_VAE_PER_STEP}, SCAN_K1_FUNCS, True),
+        ("gan-64", "gan", GANConfig(
+            data=DataConfig(batch_size=128, image_size=(64, 64),
+                            dataset_size=2000), run=run("gan-64")),
+         {"conv_bn_stats": K1_GAN_PER_STEP}, SCAN_K1_FUNCS, True),
+        ("wgan-64", "wgan", GANConfig(
+            data=DataConfig(batch_size=128, image_size=(64, 64),
+                            dataset_size=2000), run=run("wgan-64"),
+            wgan=True),
+         {"conv_bn_stats": K1_WGAN_PER_STEP}, SCAN_K1_FUNCS, True)]
+
+
+def scan_trainer(family, cfg, seed, capturable=True):
+    """A trainer of ``family`` initialised from ``seed``, its generator
+    and its step function (one batch), with Adam capturable or not."""
+    import torch
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    from vgd_tpu_torch.train.gan import GANTrainer
+    from vgd_tpu_torch.train.vae import VAETrainer
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    cls = {"vaegan": VAEGANTrainer, "diffusion": DiffusionTrainer,
+           "vae": VAETrainer, "gan": GANTrainer, "wgan": GANTrainer}[family]
+    h, w = cfg.data.image_size
+    tr = cls(cfg, (h, w, 3), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tr.init(gen)
+    for opt in optimizers(tr).values():
+        for group in opt.param_groups:
+            group["capturable"] = capturable
+    ramp = torch.full((), SCAN_RAMP, device="cuda")
+    step = {"vaegan": lambda b: tr.train_step(b, ramp, gen),
+            "diffusion": lambda b: {"loss": tr.train_step(b, gen)},
+            "vae": lambda b: tr.train_step(b, ramp, generator=gen),
+            "gan": lambda b: tr.train_step(b, gen),
+            "wgan": lambda b: tr.train_step_wgan(b, gen)}[family]
+    return tr, gen, step
+
+
+def optimizers(trainer):
+    return getattr(trainer, "opts", None) or {"adam": trainer.opt}
+
+
+def param_names(trainer):
+    """Each parameter's name in the trainer's state (``<net>.<name>``, the
+    DDPM UNet's own names), by ``id``."""
+    nets = trainer.nets() if hasattr(trainer, "nets") else \
+        {"": trainer.model}
+    return {id(p): f"{n}.{k}" if n else k for n, net in nets.items()
+            for k, p in net.named_parameters()}
+
+
+def scan_state(trainer):
+    """Copies of every parameter and BN buffer, and of each parameter's
+    Adam moments and count (``adam.<optimizer>.<parameter>.<key>``)."""
+    import torch
+    params = (trainer.state_dict() if hasattr(trainer, "state_dict")
+              else trainer.model.state_dict())
+    out = {k: v.detach().clone() for k, v in params.items()}
+    names = param_names(trainer)
+    for oname, opt in optimizers(trainer).items():
+        for p, st in opt.state.items():
+            out.update({f"adam.{oname}.{names[id(p)]}.{x}": t.detach().clone()
+                        for x, t in st.items() if torch.is_tensor(t)})
+    return out
+
+
+@contextlib.contextmanager
+def first_grads(trainer):
+    """Inside the block, records into the yielded dict a copy of each
+    parameter's gradient at the first optimizer update that applies one
+    (an optimizer step pre-hook: the steps clear their gradients after
+    the update), by name."""
+    names = param_names(trainer)
+    grads = {}
+
+    def pre(opt, args, kwargs):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is not None and names[id(p)] not in grads:
+                    grads[names[id(p)]] = p.grad.detach().clone()
+    hooks = [opt.register_step_pre_hook(pre)
+             for opt in optimizers(trainer).values()]
+    try:
+        yield grads
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def noise_masks(ga, gb):
+    """For each parameter with any, the elements (True) that are rounding
+    by the gradients ``ga`` and ``gb`` of two runs of the same first
+    update: under SCAN_ROUNDING of the parameter's largest in ``ga``, or
+    differing between the runs by more than SCAN_NOISE_GRAD of their
+    size."""
+    out = {}
+    for k, a in ga.items():
+        a64 = a.double().abs()
+        m = a64 <= SCAN_ROUNDING * a64.max()
+        b = gb.get(k)
+        if b is not None:
+            m |= (a.double() - b.double()).abs() > SCAN_NOISE_GRAD * a64
+        if bool(m.any()):
+            out[k] = m
+    return out
+
+
+def merge_masks(a, b):
+    return {k: a[k] | b[k] if k in a and k in b else a.get(k, b.get(k))
+            for k in set(a) | set(b)}
+
+
+def leaf_mask(key, masks):
+    """The noise elements of a state leaf: its parameter's, for the
+    parameter and its Adam moments (not its count); None for none."""
+    if key.startswith("adam."):
+        _, _, rest = key.split(".", 2)
+        name, x = rest.rsplit(".", 1)
+        return None if x == "step" else masks.get(name)
+    return masks.get(key)
+
+
+def leaf_rel(got, ref, init, masks=None, params_only=False):
+    """(largest |got - ref| / |ref - init| over the leaves, its name), |.|
+    the 2-norm over a leaf's elements that ``masks`` (``noise_masks``)
+    does not mark: each leaf against its own change from ``init`` (a leaf
+    absent there, an Adam moment before the first step, starts at 0), so
+    that a few elements do not decide a leaf; 0 only when every such
+    element is bit-equal, inf for a NaN, a changed dtype or a difference
+    where the reference did not move."""
+    import torch
+    worst = (0.0, "")
+    for k, r in ref.items():
+        if (params_only and k.startswith("adam.")) or torch.equal(got[k], r):
+            continue
+        r64, g64 = r.double(), got[k].double()
+        moved = r64 - init[k].double() if k in init else r64
+        m = leaf_mask(k, masks or {})
+        if m is not None:
+            keep = ~m
+            r64, g64, moved = r64[keep], g64[keep], moved[keep]
+            if not r64.numel():
+                continue
+        d = float(torch.linalg.vector_norm(g64 - r64))
+        den = float(torch.linalg.vector_norm(moved))
+        rel = d / den if den > 0 and math.isfinite(d) else \
+            (0.0 if d == 0 else float("inf"))
+        worst = max(worst, (rel, k))
+    return worst
+
+
+def scan_control_graphs():
+    """Three broken epoch scans, each a ``StepGraph`` subclass:
+    ``frozen_adam_count`` puts Adam's step counts back before every
+    replay, so each replay's bias correction is the capture's (what a
+    non-capturable Adam would bake into the graph); ``stale_draws`` puts
+    the generator back before every replay, so every replay draws what the
+    first did (a generator the graph does not advance); ``stale_batch``
+    fills the batch slot only for the first replay, so every later replay
+    trains on that batch again."""
+    from vgd_tpu_torch.ops import kernels
+    from vgd_tpu_torch.train.common import StepGraph
+
+    class FrozenAdamCount(StepGraph):
+        frozen = ()
+
+        def _capture(self, batch):
+            super()._capture(batch)
+            self.frozen = [(t, t.clone())
+                           for opt in optimizers(self.owner).values()
+                           for st in opt.state.values()
+                           for x, t in st.items() if x == "step"]
+
+        def one(self, batch):
+            for t, v in self.frozen:
+                t.copy_(v)
+            super().one(batch)
+
+    class StaleDraws(StepGraph):
+        saved = None
+
+        def _capture(self, batch):
+            super()._capture(batch)
+            self.saved = self.generator.get_state()
+
+        def one(self, batch):
+            if self.saved is not None:
+                self.generator.set_state(self.saved)
+            super().one(batch)
+
+    class StaleBatch(StepGraph):
+        def one(self, batch):
+            if self.graph is None:
+                return super().one(batch)
+            self.graph.replay()
+            self.owner.step += 1
+            kernels.replayed(self.captured)
+            self.steps_run += 1
+
+    return {"frozen_adam_count": FrozenAdamCount, "stale_draws": StaleDraws,
+            "stale_batch": StaleBatch}
+
+
+def scan_lockstep(K, tag, family, cfg, per_step, funcs, failures):
+    """Items 1 and 2 of the phase for one cell: per seed, SCAN_STEPS steps
+    from one initial state and generator per step twice (the run-to-run
+    floor) and once through a ``StepGraph`` (WARMUP_STEPS eager steps, a
+    capture, replays); every leaf against its own change (``leaf_rel``,
+    rounding elements left out by their first-step gradients), the
+    generator state, the launches of both paths, and the K1 / K2 functions
+    in a profiler trace of one more replay (the kernels a graph launches
+    are traced one by one). One seed where the per-step path repeats
+    itself bit for bit, else FLOOR_SEEDS; where the floor is not 0 the
+    broken scans SCAN_CONTROLS_REQUIRED (``scan_control_graphs``) must
+    fail the bound on the parameters and buffers alone."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vgd_tpu_torch.train.common import WARMUP_STEPS, StepGraph
+    h, w = cfg.data.image_size
+    dgen = torch.Generator(device="cuda").manual_seed(SCAN_DATA_SEED)
+    chunk = torch.randint(0, 256, (SCAN_STEPS, cfg.data.batch_size, h, w, 3),
+                          generator=dgen, device="cuda", dtype=torch.uint8)
+    runs, noise, launches, names, captured = {}, {}, {}, {}, {}
+    n_elems = 0
+
+    def one_run(seed, how):
+        tr, gen, step = scan_trainer(family, cfg, seed)
+        init = scan_state(tr)
+        K.LAUNCHES.clear()
+        grads, graph = None, None
+        if how.startswith("step"):
+            with first_grads(tr) as grads:
+                step(chunk[0])
+            for b in chunk[1:]:
+                step(b)
+        else:
+            cls = scan_control_graphs().get(how, StepGraph)
+            graph = cls(step, tr, gen)
+            graph.run(chunk)
+        torch.cuda.synchronize()
+        out = {"state": scan_state(tr), "gen": gen.get_state(),
+               "init": init, "grads": grads,
+               "launches": {k: v for k, v in K.LAUNCHES.items() if v}}
+        return tr, graph, out
+
+    for seed in FLOOR_SEEDS:
+        for how in ("step_a", "step_b", "scan"):
+            tr, graph, runs[seed, how] = one_run(seed, how)
+            launches[how] = runs[seed, how]["launches"]
+            n_elems = sum(g.numel() for g in (runs[seed, how]["grads"] or {})
+                          .values()) or n_elems
+            if how == "scan" and seed == FLOOR_SEEDS[0]:
+                captured = dict(graph.captured)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    graph.one(chunk[0])
+                    torch.cuda.synchronize()
+                names = {f: sum(e.count for e in prof.key_averages()
+                                if f in e.key and device_us(e) > 0)
+                         for f in funcs}
+            del tr, graph
+            gc.collect()
+        a, b = runs[seed, "step_a"], runs[seed, "step_b"]
+        if seed == FLOOR_SEEDS[0] and all(torch.equal(b["state"][k], v)
+                                          for k, v in a["state"].items()):
+            break       # the per-step loop repeats itself: bit-equality
+        noise = merge_masks(noise, noise_masks(a["grads"], b["grads"]))
+        a["grads"] = b["grads"] = None
+    seeds = sorted({s for s, _ in runs})
+
+    def rel(seed, how, **kw):
+        a = runs[seed, "step_a"]
+        return leaf_rel(runs[seed, how]["state"], a["state"], a["init"],
+                        noise, **kw)
+    floors = {s: rel(s, "step_b") for s in seeds}
+    diffs = {s: rel(s, "scan") for s in seeds}
+    gen_equal = all(torch.equal(runs[s, "scan"]["gen"],
+                                runs[s, "step_a"]["gen"]) for s in seeds)
+    floor = sorted(f[0] for f in floors.values())[len(floors) // 2]
+    bound = SCAN_FLOOR_X * floor
+    worst = max(diffs.values())
+    controls = {}
+    if floor > 0:
+        s = seeds[0]
+        for how in scan_control_graphs():
+            tr, graph, runs[s, how] = one_run(s, how)
+            del tr, graph
+            controls[how] = {"all": list(rel(s, how)),
+                             "params": list(rel(s, how, params_only=True))}
+            if how in SCAN_CONTROLS_REQUIRED and \
+                    controls[how]["params"][0] <= bound:
+                failures.append(f"scan {tag}: the broken scan {how} stays "
+                                f"within the bound {bound:.3g}: "
+                                f"{controls[how]}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: v * SCAN_STEPS for k, v in per_step.items() if v}
+    n_noise = sum(int(m.sum()) for m in noise.values())
+    by_param = dict(sorted(((k, int(m.sum())) for k, m in noise.items()),
+                           key=lambda kv: -kv[1])[:8])
+    row = {"seeds": seeds, "floors": {str(s): list(f)
+                                      for s, f in floors.items()},
+           "median_floor": floor, "bound": bound,
+           "scan_vs_step": {str(s): list(d) for s, d in diffs.items()},
+           "noise_elements": n_noise, "elements": n_elems,
+           "noise_params": len(noise), "noise_by_param": by_param,
+           "controls": controls, "generator_equal": gen_equal,
+           "launches": launches, "captured_per_replay": captured,
+           "replay_trace": names, "masks": noise}
+    print(f"[scan-lockstep] {tag}: {SCAN_STEPS} steps ({WARMUP_STEPS} "
+          f"eager + capture + replays on the scan path), seeds {seeds}; "
+          f"each leaf against its own change: scan vs per step worst "
+          f"{worst[0]:.3g} ({worst[1]}), per-step floor median {floor:.3g} "
+          f"(per seed " + ", ".join(f"{f[0]:.3g} ({f[1]})"
+                                    for f in floors.values())
+          + f"), bound {bound:.3g}; {n_noise} of {n_elems} parameter "
+          f"elements left out as rounding ({len(noise)} parameters, most "
+          f"{by_param}); broken scans {controls}; "
+          f"generator state bit-equal {gen_equal}; launches per step path "
+          f"{launches['step_a']}, scan path {launches['scan']} ({captured} "
+          f"a replay); launches of each kernel function in one replay's "
+          f"trace {names}", flush=True)
+    if any(d[0] > bound for d in diffs.values()):
+        failures.append(f"scan {tag}: scan path off the per-step path by "
+                        f"{worst} (bound {bound:.3g})")
+    if n_noise > SCAN_NOISE_MAX * max(n_elems, 1):
+        failures.append(f"scan {tag}: {n_noise} of {n_elems} parameter "
+                        f"elements are rounding by their first-step "
+                        f"gradients")
+    if not gen_equal:
+        failures.append(f"scan {tag}: generator state differs")
+    for how in ("step_a", "step_b", "scan"):
+        if launches[how] != want:
+            failures.append(f"scan {tag}: {how} launched {launches[how]}, "
+                            f"want {want}")
+    if not all(names.values()):
+        failures.append(f"scan {tag}: kernels missing from a replay's trace "
+                        f"{names}")
+    return row
+
+
+def scan_adam_ab(tag, family, cfg):
+    """The per-step loop's step ms with Adam capturable (as the port runs
+    it on a card) and not, alternated SCAN_AB_ROUNDS times: the median
+    period of SCAN_AB_STEPS steps after the first two, each path's
+    medians."""
+    import gc
+    import torch
+    h, w = cfg.data.image_size
+    dgen = torch.Generator(device="cuda").manual_seed(SCAN_DATA_SEED)
+    chunk = torch.randint(0, 256, (SCAN_AB_STEPS, cfg.data.batch_size, h, w,
+                                   3), generator=dgen, device="cuda",
+                          dtype=torch.uint8)
+    out = {"capturable": [], "host_count": []}
+    for _ in range(SCAN_AB_ROUNDS):
+        for capturable in (True, False):
+            tr, gen, step = scan_trainer(family, cfg, FLOOR_SEEDS[0],
+                                         capturable)
+            marks = []
+            for b in chunk:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+                step(b)
+            torch.cuda.synchronize()
+            periods = sorted(marks[i].elapsed_time(marks[i + 1])
+                             for i in range(2, len(marks) - 1))
+            out["capturable" if capturable else "host_count"].append(
+                periods[len(periods) // 2])
+            del tr, gen, step
+            gc.collect()
+    print(f"[scan-adam] {tag}: per-step loop step ms with Adam capturable "
+          f"{out['capturable']}, with its count on the host "
+          f"{out['host_count']} (alternated)", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def counted_evals():
+    """Counts ``DiffusionTrainer.eval_loss`` calls (each a validation
+    forward with K2's forward at every gated site) into the yielded
+    counter."""
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    calls = collections.Counter()
+    orig = DiffusionTrainer.eval_loss
+
+    def counted(self, *args, **kwargs):
+        calls["eval_loss"] += 1
+        return orig(self, *args, **kwargs)
+    DiffusionTrainer.eval_loss = counted
+    try:
+        yield calls
+    finally:
+        DiffusionTrainer.eval_loss = orig
+
+
+def scan_want(per_step, steps, evals):
+    """Launches of ``steps`` train steps of ``per_step`` and ``evals`` DDPM
+    validation forwards (K2's forward at each gated site)."""
+    want = {k: v * steps for k, v in per_step.items() if v}
+    if "attention_fwd" in want:
+        want["attention_fwd"] += len(ATTN_SHAPES) * evals
+    return want
+
+
+def scan_busy(trace_dir):
+    """The device's busy ms in a profiler trace written by ``run_*``
+    (``profile_dir``): the union of its kernel, memcpy and memset
+    intervals (None without a trace)."""
+    files = sorted(Path(trace_dir).glob("*.json"))
+    if not files:
+        return None
+    events = json.loads(files[-1].read_text()).get("traceEvents", [])
+    iv = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                and "ts" in e)
+    busy, end = 0.0, iv[0][0] if iv else 0.0
+    for lo, hi in iv:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def traced_steps(window, steps, chunk, epochs, scan):
+    """The train steps ``run_*``'s profiler traced over ``window`` (global
+    steps [start, stop)): those on the per-step path, every chunk that
+    overlaps it on the scan path."""
+    start, stop = window
+    if not scan:
+        return max(0, min(stop, steps * epochs) - start)
+    n = 0
+    for e in range(epochs):
+        for lo in range(e * steps, (e + 1) * steps, chunk):
+            hi = min(lo + chunk, (e + 1) * steps)
+            n += hi - lo if lo < stop and hi > start else 0
+    return n
+
+
+def step_stats(marks, steps, batch, trace_dir, traced):
+    """A run's step measurements: ``marks`` the CUDA events recorded before
+    each step, ``steps`` a run's steps an epoch. The step ms is the median
+    period of consecutive steps of one epoch, leaving out a run's first
+    WARMUP_STEPS + 1 steps (on the scan path its eager warm-up and its
+    capture); the busy share is the device's busy ms in the trace a traced
+    step over that median."""
+    from vgd_tpu_torch.train.common import WARMUP_STEPS
+    periods = sorted(marks[i].elapsed_time(marks[i + 1])
+                     for i in range(WARMUP_STEPS + 1, len(marks) - 1)
+                     if (i + 1) % steps)
+    median = periods[len(periods) // 2] if periods else float("nan")
+    busy_ms = scan_busy(trace_dir)
+    per = busy_ms / traced if busy_ms is not None and traced else None
+    return {"steps": len(marks), "periods": len(periods),
+            "step_ms_median": median,
+            "step_ms_min": periods[0] if periods else None,
+            "step_ms_max": periods[-1] if periods else None,
+            "images_per_sec": batch / median * 1e3,
+            "traced_steps": traced, "busy_ms_a_step": per,
+            "busy_share": per / median if per is not None else None}
+
+
+def stats_text(row):
+    def num(k):
+        return "none" if row[k] is None else f"{row[k]:.3f}"
+    return (f"{row['steps']} steps; step ms median {num('step_ms_median')} "
+            f"(min {num('step_ms_min')}, max {num('step_ms_max')}, "
+            f"{row['periods']} periods) = {row['images_per_sec']:.1f} "
+            f"images/s; busy share {num('busy_share')} "
+            f"({row['traced_steps']} traced steps)")
+
+
+def scan_hooks(family, scan, marks):
+    """Records a CUDA event before every train step into ``marks``: the
+    trainer's step method on the per-step path, ``StepGraph.one`` on the
+    scan path. Returns an undo function."""
+    import torch
+    from vgd_tpu_torch.train.common import StepGraph
+    from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+    from vgd_tpu_torch.train.gan import GANTrainer
+    from vgd_tpu_torch.train.vae import VAETrainer
+    from vgd_tpu_torch.train.vaegan import VAEGANTrainer
+    owner, name = (StepGraph, "one") if scan else {
+        "vaegan": (VAEGANTrainer, "train_step"),
+        "diffusion": (DiffusionTrainer, "train_step"),
+        "vae": (VAETrainer, "train_step"), "gan": (GANTrainer, "train_step"),
+        "wgan": (GANTrainer, "train_step_wgan")}[family]
+    orig = getattr(owner, name)
+    own = name in vars(owner)
+
+    def marked(self, *args, **kwargs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return orig(self, *args, **kwargs)
+    setattr(owner, name, marked)
+
+    def undo():
+        if own:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+    return undo
+
+
+def scan_run(K, tag, family, cfg, scan, per_step):
+    """Item 3 for one path of a cell: ``run_*`` for SCAN_TIME_EPOCHS x
+    SCAN_TIME_STEPS steps, profiled over SCAN_PROFILE_STEPS: step ms
+    (median period of consecutive steps of an epoch after the run's first
+    WARMUP_STEPS + 1), images/s, busy share of the traced window, peak
+    memory, launches against ``per_step``. Returns (row, result)."""
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    path = "scan" if scan else "step"
+    out = SCAN_DIR / f"{tag}-{path}"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, out_dir=str(out), profile_dir=str(out / "trace"),
+        profile_steps=SCAN_PROFILE_STEPS))
+    run = {"vaegan": L.run_vaegan, "diffusion": L.run_diffusion,
+           "vae": L.run_vae, "gan": L.run_gan, "wgan": L.run_gan}[family]
+    marks = []
+    undo = scan_hooks(family, scan, marks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        with counted_evals() as evals:
+            res = run(cfg, epochs=SCAN_TIME_EPOCHS,
+                      max_steps_per_epoch=SCAN_TIME_STEPS, device="cuda",
+                      epoch_scan=scan)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    secs = time.perf_counter() - t0
+    n = SCAN_TIME_EPOCHS * SCAN_TIME_STEPS
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    chunk = L._chunk_steps(cfg.data.batch_size, tuple(cfg.data.image_size)
+                           + (3,), SCAN_TIME_STEPS)
+    row = step_stats(marks, SCAN_TIME_STEPS, cfg.data.batch_size,
+                     out / "trace", traced_steps(
+                         SCAN_PROFILE_STEPS, SCAN_TIME_STEPS, chunk,
+                         SCAN_TIME_EPOCHS, scan))
+    row.update(logged_images_per_sec=[r["images_per_sec"]
+                                      for r in res["log"]],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, run_s=secs,
+               launches=launches, launches_ok=launches == scan_want(
+                   per_step, n, evals["eval_loss"]), log=res["log"])
+    print(f"[scan-time] {tag} {path}: {stats_text(row)}; peak "
+          f"{row['peak_gb']:.3f} GB; run {secs:.1f} s; launches {launches}",
+          flush=True)
+    return row, res
+
+
+
+def scan_resume(K, tag, family, cfg, bound, masks, failures):
+    """Item 4: a scan run of 2 epochs of SCAN_RESUME_STEPS against one
+    epoch and a resumed second: the final states within ``bound`` (the
+    lockstep's, each leaf against its change from the run's initial
+    state, the lockstep's rounding elements left out), the generator state
+    of the last checkpoints bit-equal."""
+    import torch
+    from vgd_tpu_torch.io.checkpoint import Checkpointer
+    from vgd_tpu_torch.train import loop as L
+    run = {"vaegan": L.run_vaegan, "diffusion": L.run_diffusion,
+           "vae": L.run_vae, "gan": L.run_gan, "wgan": L.run_gan}[family]
+    # the runs' initial state: run_* seeds its generator with the run's
+    # seed and initialises the trainer from it, as scan_trainer does
+    finals = {"init": scan_state(scan_trainer(family, cfg, cfg.run.seed)[0])}
+    rng = {}
+    for name, legs in (("straight", [(2, False)]),
+                       ("resumed", [(1, False), (2, True)])):
+        out = SCAN_DIR / f"{tag}-{name}"
+        shutil.rmtree(out, ignore_errors=True)
+        c = dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, out_dir=str(out)))
+        for epochs, resume in legs:
+            res = run(c, epochs=epochs, max_steps_per_epoch=SCAN_RESUME_STEPS,
+                      resume=resume, device="cuda", epoch_scan=True)
+        finals[name] = scan_state(res["trainer"])
+        rng[name] = Checkpointer(str(out / "ckpt")).load()["rng_state"]
+        del res
+    diff = leaf_rel(finals["resumed"], finals["straight"], finals["init"],
+                    masks)
+    same_rng = torch.equal(rng["resumed"], rng["straight"])
+    print(f"[scan-resume] {tag}: 2 x {SCAN_RESUME_STEPS} scan steps "
+          f"straight vs 1 epoch + a resumed one: worst {diff[0]:.3g} "
+          f"({diff[1]}), bound {bound:.3g}; generator state bit-equal "
+          f"{same_rng}", flush=True)
+    if diff[0] > bound or not same_rng:
+        failures.append(f"scan {tag}: resume off by {diff}, generator "
+                        f"equal {same_rng}")
+    return {"worst": list(diff), "generator_equal": same_rng}
+
+
+def scan_refusal(failures):
+    """Item 5: two ranks on the one card over gloo: ``epoch_scan=True``
+    refuses before training, the default takes the per-step loop and says
+    so on stderr (``parallel.workers.scan_refusal``)."""
+    from vgd_tpu_torch.parallel.launch import spawn
+    cfg = scan_cells()[0][2]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, dataset_size=300), run=dataclasses.replace(
+        cfg.run, out_dir=str(SCAN_DIR / "refusal")))
+    ranks = spawn("vgd_tpu_torch.parallel.workers:scan_refusal", 2, cfg,
+                  "cuda", timeout=DP_TIMEOUT,
+                  log_dir=str(SCAN_DIR / "refusal-logs"))
+    for r, got in enumerate(ranks):
+        print(f"[scan-refusal] rank {r}: epoch_scan=True raised "
+              f"{got['raised']!r}; the default trained "
+              f"{got['default_steps']} steps per step, its stderr line "
+              f"{got['default_line']!r}", flush=True)
+    ok = all("--no-epoch-scan" in (g["raised"] or "") and g["default_line"]
+             and g["default_steps"] == 2 for g in ranks)
+    if not ok:
+        failures.append(f"scan refusal: {ranks}")
+    return ranks
+
+
+def scan_nccl(failures):
+    """The scan under NCCL, which it captures: one process as a world of
+    one on NCCL (so BatchNorm's global statistics, the gradient averages
+    and the metric means run as NCCL collectives inside the graph) trains
+    vaegan-64 with K1 for SCAN_STEPS steps step by step and then through
+    the scan (the family's default); both must end bit-equal, each
+    launching K1 exactly SCAN_STEPS times a step's."""
+    from vgd_tpu_torch.parallel.launch import spawn
+    cfg = scan_cells()[0][2]
+
+    def job(tag, scan):
+        c = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, dataset_size=700), run=dataclasses.replace(
+            cfg.run, out_dir=str(SCAN_DIR / tag)))
+        return dict(family="vaegan", device="cuda", epochs=1,
+                    max_steps_per_epoch=SCAN_STEPS, cfg=c, state=False,
+                    record=not scan, epoch_scan=None if scan else False)
+    step, scan = spawn("vgd_tpu_torch.parallel.workers:train_loops", 1,
+                       [job("nccl-step", False), job("nccl-scan", True)],
+                       timeout=DP_TIMEOUT,
+                       log_dir=str(SCAN_DIR / "nccl-logs"))[0]
+    want = {"conv_bn_stats": K1_VAEGAN64_PER_STEP * SCAN_STEPS}
+    got = [{k: v for k, v in r["launches"].items() if v}
+           for r in (step, scan)]
+    same = step["fingerprint"] == scan["fingerprint"]
+    print(f"[scan-nccl] vaegan-64 K1, one process on NCCL: {SCAN_STEPS} "
+          f"steps per step vs the scan bit-equal {same}; launches {got[0]} "
+          f"vs {got[1]}; optimizer steps {step['opt_step']} vs "
+          f"{scan['opt_step']}", flush=True)
+    if not same or got != [want, want] or scan["opt_step"] != SCAN_STEPS:
+        failures.append(f"scan nccl: bit-equal {same}, launches {got} (want "
+                        f"{want}), steps {scan['opt_step']}")
+    return {"bit_equal": same, "launches": got,
+            "peak_gb": [step.get("peak_mem_gb"), scan.get("peak_mem_gb")]}
+
+
+def scan_cli(K, failures):
+    """Item 3 through ``cli.main``: each family's training command as a
+    user types it on the scan path (``vaegan --fused-conv``, ``vaegan``,
+    ``diffusion``, and ``vae``, ``gan``, ``wgan`` with ``--epoch-scan
+    --fused-conv``), one epoch of SCAN_CLI_STEPS steps with
+    ``--profile-dir``: rc, seconds, the loop's line, launches, and the
+    step measurements of ``scan_run``; then ``vaegan --fused-conv
+    --debug-nans``, which must train SCAN_NANS_STEPS steps per step and
+    say why on stderr."""
+    import io
+    import torch
+    from vgd_tpu_torch import cli
+    from vgd_tpu_torch.core.config import RunConfig
+    from vgd_tpu_torch.train import loop as L
+    k2 = {k: len(ATTN_SHAPES) for k in K2_NAMES}
+    k1_vaegan = {"conv_bn_stats": K1_VAEGAN64_PER_STEP}
+    # (tag, family, argv, batch, image side, dataset size, launches a step,
+    # steps, the loop the line must name)
+    cmds = [("vaegan", "vaegan", ["vaegan", "--fused-conv"], 64, 64, 1720,
+             k1_vaegan, SCAN_CLI_STEPS, "scan"),
+            ("vaegan-default", "vaegan", ["vaegan"], 64, 64, 1720, {},
+             SCAN_CLI_STEPS, "scan"),
+            ("diffusion", "diffusion", ["diffusion"], 16, 256, 430, k2,
+             SCAN_CLI_STEPS, "scan"),
+            ("vae", "vae", ["vae", "--epoch-scan", "--fused-conv"], 64, 64,
+             1720, {"conv_bn_stats": K1_VAE_PER_STEP}, SCAN_CLI_STEPS,
+             "scan"),
+            ("gan", "gan", ["gan", "--epoch-scan", "--fused-conv"], 128, 64,
+             3420, {"conv_bn_stats": K1_GAN_PER_STEP}, SCAN_CLI_STEPS,
+             "scan"),
+            ("wgan", "wgan", ["wgan", "--epoch-scan", "--fused-conv"], 128,
+             64, 3420, {"conv_bn_stats": K1_WGAN_PER_STEP}, SCAN_CLI_STEPS,
+             "scan"),
+            ("vaegan-debug-nans", "vaegan", ["vaegan", "--fused-conv",
+                                             "--debug-nans"], 64, 64, 400,
+             k1_vaegan, SCAN_NANS_STEPS, "per step")]
+    window = RunConfig().profile_steps
+    rows = {}
+    for tag, family, argv, batch, side, size, per_step, steps, loop in cmds:
+        out_dir = SCAN_DIR / f"cli-{tag}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = [str(a) for a in argv + [
+            "--epochs", 1, "--steps-per-epoch", steps, "--dataset-size",
+            size, "--out-dir", out_dir, "--profile-dir", out_dir / "trace",
+            "--device", "cuda"]]
+        scan = loop == "scan"
+        marks = []
+        undo = scan_hooks(family, scan, marks)
+        K.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(err), \
+                    counted_evals() as evals:
+                rc = cli.main(argv)
+        except Exception:                  # noqa: BLE001 - a failed command
+            rc = "exception: " + traceback.format_exc().strip() \
+                .splitlines()[-1]
+            traceback.print_exc()
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        sys.stderr.write(err.getvalue())
+        loop_line = next((ln for ln in lines if "epoch loop:" in ln), "")
+        err_line = next((ln for ln in err.getvalue().splitlines()
+                         if "epoch scan" in ln), "")
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        want = scan_want(per_step, steps, evals["eval_loss"])
+        chunk = L._chunk_steps(batch, (side, side, 3), steps)
+        row = step_stats(marks, steps, batch, out_dir / "trace",
+                         traced_steps(window, steps, chunk, 1, scan))
+        row.update(argv=argv, rc=rc, seconds=secs, loop_line=loop_line,
+                   stderr_line=err_line, launches=launches,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   last_line=lines[-1] if lines else "")
+        rows[tag] = row
+        print(f"[scan-cli] {' '.join(argv)} rc {rc} {secs:.2f} s; "
+              f"{loop_line.strip()}; {err_line.strip()}; {stats_text(row)}; "
+              f"launches {launches}; peak {row['peak_gb']:.3f} GB; "
+              f"{row['last_line']}", flush=True)
+        ok = rc == 0 and f"epoch loop: {loop}" in loop_line and \
+            launches == want and (scan or "--debug-nans" in err_line)
+        if not ok:
+            failures.append(f"scan cli {tag}: rc {rc}, loop line "
+                            f"{loop_line!r}, stderr {err_line!r}, launches "
+                            f"{launches} (want {want})")
+    return rows
+
+
+def scan_path(K, failures, adam_ab=False):
+    """The epoch-scan phase (module docstring, step 17): per cell the
+    lockstep, the kernels in the graph, both paths' times through
+    ``run_*`` and the resume; with ``adam_ab`` (``--only scan``; the full
+    run leaves it out for time) the capturable Adam's cost on the
+    per-step loop; then the commands, the scan under NCCL and the gloo
+    refusal."""
+    import gc
+    import torch
+    shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"cells": {}, "adam_ab": {}}
+    launches = {k: 0 for k in ("conv_bn_stats",) + K2_NAMES}
+    for tag, family, cfg, per_step, funcs, resumed in scan_cells():
+        t_cell = time.perf_counter()
+        cell = {"lockstep": scan_lockstep(K, tag, family, cfg, per_step,
+                                          funcs, failures)}
+        if adam_ab and tag in SCAN_AB_CELLS:
+            report["adam_ab"][tag] = scan_adam_ab(tag, family, cfg)
+        for scan in (False, True):
+            row, res = scan_run(K, tag, family, cfg, scan, per_step)
+            cell["scan" if scan else "step"] = row
+            if scan:
+                for k in launches:
+                    launches[k] += row["launches"].get(k, 0)
+            if not row["launches_ok"]:
+                failures.append(f"scan {tag}: a run launched "
+                                f"{row['launches']}, want {per_step} a step")
+            if not all(math.isfinite(v) for r in row["log"]
+                       for k, v in r.items() if k.startswith(
+                           ("train", "d_loss", "g_loss"))):
+                failures.append(f"scan {tag}: non-finite log {row['log']}")
+            del res
+        step_log, scan_log = cell["step"]["log"], cell["scan"]["log"]
+        masks = cell["lockstep"].pop("masks")
+        if resumed:
+            cell["resume"] = scan_resume(K, tag, family, cfg,
+                                         cell["lockstep"]["bound"], masks,
+                                         failures)
+        del masks
+        cell["cell_s"] = time.perf_counter() - t_cell
+        print(f"[scan] {tag}: step ms per step "
+              f"{cell['step']['step_ms_median']:.3f} -> scan "
+              f"{cell['scan']['step_ms_median']:.3f}; busy "
+              f"{cell['step']['busy_share']} -> "
+              f"{cell['scan']['busy_share']}; peak "
+              f"{cell['step']['peak_gb']:.3f} -> "
+              f"{cell['scan']['peak_gb']:.3f} GB; logged images/s "
+              f"{step_log[-1]['images_per_sec']:.1f} -> "
+              f"{scan_log[-1]['images_per_sec']:.1f}; cell "
+              f"{cell['cell_s']:.1f} s", flush=True)
+        report["cells"][tag] = cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["cli"] = scan_cli(K, failures)
+    report["cli_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report["nccl"] = scan_nccl(failures)
+    report["nccl_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report["refusal"] = scan_refusal(failures)
+    report["refusal_s"] = time.perf_counter() - t
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[scan] phase {report['phase_s']:.1f} s (commands "
+          f"{report['cli_s']:.1f}, NCCL {report['nccl_s']:.1f}, refusal "
+          f"{report['refusal_s']:.1f}); scan-path launches {launches}",
+          flush=True)
+    return report
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
@@ -5665,7 +6627,9 @@ ONLY = {"k1": ("conv_bn_stats.cu",),
         "mp": ("glow_coupling.cu",),
         "cli": ("conv_bn_stats.cu", "flash_attention.cu",
                 "flash_attention_bwd.cu", "groupnorm_silu.cu",
-                "glow_coupling.cu")}
+                "glow_coupling.cu"),
+        "scan": ("conv_bn_stats.cu", "flash_attention.cu",
+                 "flash_attention_bwd.cu")}
 # optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
 # figure need matplotlib; the port computes without any of them)
 OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
@@ -5686,7 +6650,8 @@ def main(argv=None) -> int:
                     "processes and Glow remat; mp: Glow's pipeline and "
                     "tensor parallelism; cli: K1 at the 64x64 VAE-GAN's "
                     "shapes, then the documented commands through "
-                    "cli.main) with no main path and no "
+                    "cli.main; scan: the epoch scan's CUDA-graph steps "
+                    "against the per-step loop) with no main path and no "
                     "result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
@@ -5767,12 +6732,16 @@ def main(argv=None) -> int:
                                     .manual_seed(0), dev, failures,
                                     families=K1_FAMILIES[-1:], extras=False)
             report["cli"] = cli_path(K, failures)
+        elif args.only == "scan":
+            report["scan"] = scan_path(K, failures, adam_ab=True)
         if args.only:
             raise _PartialRun
         # the data-parallel phase first: its rank processes share this card,
         # and the later phases leave tens of GB in this process's hands
         report["dp"] = dp_path(K, failures)
         report["mp"] = mp_path(K, failures)
+        # the scan phase spawns two rank processes on this card as well
+        report["scan"] = scan_path(K, failures)
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(
             K, gen, dev, failures)
@@ -5808,6 +6777,7 @@ def main(argv=None) -> int:
         report["fid_eval"] = fid_eval_path(K, report, failures)
         report["export"] = export_path(K, failures)
         report["cli"] = cli_path(K, failures)
+        scan_l = report["scan"]["launches"]
         dp_l = report["dp"]["launches"]
         cli_l = report["cli"]["launches"]
         mp_l = report["mp"]["launches"]
@@ -5824,10 +6794,12 @@ def main(argv=None) -> int:
             dict(kernel_entry(name, src, f"vgd_tpu/ops/pallas_kernels.py:"
                               f"{line}", k2_rows[name],
                               train_l[name] + dp_l[name]
-                              + cli_l.get(name, 0), per_step),
+                              + cli_l.get(name, 0) + scan_l[name],
+                              per_step),
                  launches_by_path={"train": train_l[name],
                                    "dp": dp_l[name],
-                                   "cli": cli_l.get(name, 0)})
+                                   "cli": cli_l.get(name, 0),
+                                   "scan": scan_l[name]})
             for name, src, line in (("attention_fwd", fwd_src, 218),
                                     ("attention_dq", bwd_src, 251),
                                     ("attention_dkv", bwd_src, 280))] + [

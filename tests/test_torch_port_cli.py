@@ -116,11 +116,12 @@ LOOPS = ("run_vaegan", "run_vae", "run_gan", "run_glow", "run_glow_eeg",
          "eeg_psd_and_gif", "sample_from_dir")
 # config fields only JAX has: the eval_metrics switch (unread), the PRNG
 # family (--prng-impl, no meaning in PyTorch) and Glow's scan unroll (no
-# lax.scan); and loop arguments only one side takes: JAX's epoch_scan and
-# export seed (the port's artifact takes its seed per request), the port's
-# device and export platforms (cuda where JAX names tpu)
+# lax.scan); and loop arguments only one side takes: JAX's export seed (the
+# port's artifact takes its seed per request), the port's device and export
+# platforms (cuda where JAX names tpu). ``epoch_scan`` is compared: both
+# CLIs resolve --epoch-scan / --no-epoch-scan alike
 JAX_ONLY_FIELDS = {"run.eval_metrics", "run.prng_impl", "scan_unroll"}
-ONE_SIDED_ARGS = {"epoch_scan", "seed", "device", "platforms"}
+ONE_SIDED_ARGS = {"seed", "device", "platforms"}
 
 
 def _calls(monkeypatch, cli_mod, loop, export, argv):
@@ -233,6 +234,14 @@ LINES = [
     "sample --family vae --lr 1e-3 --resume",
     "eval-eeg --event-type baseline --flows 2 --batch-size 8 --lr 0.1",
     "glow-eeg --batch-size 8 --lr 0.1 --fused-conv",
+    "vaegan --no-epoch-scan --fused-conv",
+    "vaegan --epoch-scan",
+    "diffusion --no-epoch-scan --steps-per-epoch 2",
+    "diffusion --epoch-scan --no-epoch-scan",
+    "vae --epoch-scan --fused-conv",
+    "gan --epoch-scan --fused-conv",
+    "wgan --epoch-scan --no-epoch-scan",
+    "wgan --no-epoch-scan",
 ]
 
 
@@ -274,7 +283,11 @@ IGNORED = [
     ("glow --epochs 5 --prng-impl rbg", "glow"),
     ("glow --steps-per-epoch 3 --epoch-scan", "glow"),
     ("glow-eeg --epochs 3 --steps-per-epoch 2 --no-epoch-scan", "glow-eeg"),
-    ("vaegan --iters 9 --epoch-scan --num-cpu-devices 4", "vaegan"),
+    # --epoch-scan is read by vaegan, so both lines carry it
+    pytest.param("vaegan --iters 9 --epoch-scan --num-cpu-devices 4",
+                 "vaegan --epoch-scan",
+                 id="vaegan --iters 9 --epoch-scan --num-cpu-devices 4-"
+                 "vaegan"),
     ("diffusion --iters 3 --prng-impl threefry2x32", "diffusion"),
     ("eval-gan --max-batches 1 --lr 0.1 --epochs 3 --resume", "eval-gan"),
     ("eval-glow --iters 4 --steps-per-epoch 2 --lr 0.1", "eval-glow"),
@@ -291,7 +304,8 @@ IGNORED = [
 def test_ignored_flags_leave_the_call_unchanged(monkeypatch, capsys, line,
                                                 plain):
     """A flag the command does not read changes nothing it is handed; the
-    four with no meaning in PyTorch each say so on stderr."""
+    two with no meaning in PyTorch each say so on stderr, and the epoch
+    scan's flags, read by the epoch-driven commands, never do."""
     def call(text):
         (c,) = _calls(monkeypatch, cli, L, PE,
                       shlex.split(text) + ["--device", "cpu"])
@@ -300,6 +314,7 @@ def test_ignored_flags_leave_the_call_unchanged(monkeypatch, capsys, line,
     err = capsys.readouterr().err
     for flag in cli._NO_MEANING:
         assert (f"{flag} has no meaning" in err) == (f"{flag} " in line + " ")
+    assert "epoch-scan has no meaning" not in err
 
 
 @pytest.mark.parametrize("line", ["tstr --iters 10",

@@ -91,10 +91,15 @@ torchrun's), and ``glow --remat`` recomputes each flow in the backward.
 Every flag JAX's CLI takes on a command, this one takes on it, so JAX's
 command lines run here. A command ignores the flags it has no use for, as
 JAX's does (``glow --epochs``, ``sample --lr``, ``eval-gan
---max-batches``, ``tstr --iters``); ``--epoch-scan``, ``--no-epoch-scan``,
+--max-batches``, ``tstr --iters``, ``glow --epoch-scan``);
 ``--num-cpu-devices`` and ``--prng-impl`` have no meaning in PyTorch and
-are ignored with a line on stderr. ``--device`` names ``cuda`` or ``cpu``
-(JAX's ``tpu`` is no device of the port).
+are ignored with a line on stderr. ``--epoch-scan`` / ``--no-epoch-scan``
+choose the training loop of ``vaegan``, ``vae``, ``gan``, ``wgan`` and
+``diffusion`` as in JAX: the epoch scan (on a card each train step one
+replay of a CUDA graph) or the per-step loop; neither flag keeps the
+family's default (the scan for ``vaegan`` and ``diffusion``).
+``--device`` names ``cuda`` or ``cpu`` (JAX's ``tpu`` is no device of the
+port).
 """
 from __future__ import annotations
 
@@ -106,14 +111,12 @@ import sys
 from vgd_tpu_torch.core import config as C
 
 
-# JAX's flags with no meaning in PyTorch: the epoch scan (``lax.scan``),
-# virtual CPU devices (the port runs more processes) and the PRNG family
-# (draws come from ``torch.Generator``s). Every command whose JAX parser
-# takes one accepts it, so JAX's command lines run, and ignores it with a
-# line on stderr (flag -> argparse keywords).
-_NO_MEANING = {"--epoch-scan": {"action": "store_true"},
-               "--no-epoch-scan": {"action": "store_true"},
-               "--num-cpu-devices": {"type": int},
+# JAX's flags with no meaning in PyTorch: virtual CPU devices (the port
+# runs more processes) and the PRNG family (draws come from
+# ``torch.Generator``s). Every command whose JAX parser takes one accepts
+# it, so JAX's command lines run, and ignores it with a line on stderr
+# (flag -> argparse keywords).
+_NO_MEANING = {"--num-cpu-devices": {"type": int},
                "--prng-impl": {"type": str,
                                "choices": ["rbg", "threefry2x32"]}}
 
@@ -155,6 +158,13 @@ def _add_common(p, serving=True):
                    help="truncate epochs (smoke runs)")
     p.add_argument("--keep-checkpoints", type=int, default=None,
                    help="checkpoint retention count (default 3)")
+    p.add_argument("--no-epoch-scan", action="store_true",
+                   help="vaegan / vae / gan / wgan / diffusion: the per-step "
+                   "loop (the default for vae, gan and wgan)")
+    p.add_argument("--epoch-scan", action="store_true",
+                   help="vaegan / vae / gan / wgan / diffusion: the streaming "
+                   "epoch scan, each train step on a card one CUDA-graph "
+                   "replay (the default for vaegan and diffusion)")
     p.add_argument("--compute-dtype", type=str, default=None,
                    choices=["bfloat16", "float32"])
     p.add_argument("--resume", action="store_true",
@@ -185,6 +195,12 @@ def _add_common(p, serving=True):
     if serving:
         p.add_argument("--step", type=int, default=None,
                        help="checkpoint step (default: latest)")
+
+
+def _epoch_scan(a):
+    """JAX's resolution of the two flags: None keeps the family's
+    default."""
+    return False if a.no_epoch_scan else True if a.epoch_scan else None
 
 
 def _add_diffusion(p):
@@ -759,7 +775,8 @@ def main(argv=None):
     if a.cmd == "vae":
         L.run_vae(_vae_cfg(a, train=True),
                   max_steps_per_epoch=a.steps_per_epoch,
-                  resume=a.resume, device=a.device)
+                  resume=a.resume, device=a.device,
+                  epoch_scan=_epoch_scan(a))
         return 0
     if a.cmd == "eval-vae":
         # --occlusion runs the occlusion test, alone or, with --fid, beside
@@ -778,7 +795,7 @@ def main(argv=None):
     if a.cmd in ("gan", "wgan"):
         L.run_gan(_gan_cfg(a, a.cmd == "wgan"),
                   max_steps_per_epoch=a.steps_per_epoch, resume=a.resume,
-                  device=a.device)
+                  device=a.device, epoch_scan=_epoch_scan(a))
         return 0
     if a.cmd == "eval-gan":
         res = L.evaluate_gan_checkpoints(
@@ -801,12 +818,13 @@ def main(argv=None):
         L.run_vaegan(_vaegan_cfg(a, train=True),
                      max_steps_per_epoch=a.steps_per_epoch,
                      feature_fn=_feature_fn(a), resume=a.resume,
-                     device=a.device)
+                     device=a.device, epoch_scan=_epoch_scan(a))
         return 0
     cfg = _diffusion_cfg(a, train=a.cmd == "diffusion")
     if a.cmd == "diffusion":
         L.run_diffusion(cfg, max_steps_per_epoch=a.steps_per_epoch,
-                        resume=a.resume, device=a.device)
+                        resume=a.resume, device=a.device,
+                        epoch_scan=_epoch_scan(a))
     else:
         res = L.evaluate_diffusion_from_dir(cfg, feature_fn=_feature_fn(a),
                                             max_batches=a.max_batches,

@@ -47,7 +47,11 @@ no fallback; the one size gate is ``attention``'s (``MIN_FLASH_ELEMS``, set
 below the JAX package's by measurement), which sends small attentions to the
 plain form before any wrapper is called.
 ``LAUNCHES`` counts the wrapper calls that launched a kernel, so a run can
-show that its main path went through them.
+show that its main path went through them. A call inside a CUDA graph's
+capture records its launch and runs nothing: ``capturing()`` takes those
+counts back out and hands them over, and ``replayed`` adds them once for
+each replay of the graph (``train.common.StepGraph``), so the counts stay
+the launches that ran.
 
 ``plain_reference()`` is a context manager that routes every wrapper to its
 plain version on any device. It exists so that ``chip_smoke.py`` and the
@@ -83,6 +87,26 @@ def plain_reference() -> Iterator[None]:
         yield
     finally:
         _PLAIN_REFERENCE = before
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[collections.Counter]:
+    """Around a CUDA graph's capture: the launches its wrapper calls
+    recorded are taken back out of ``LAUNCHES`` (a capture runs nothing)
+    and left in the yielded counter, the launches of one replay."""
+    before = LAUNCHES.copy()
+    recorded = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        recorded.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
+
+def replayed(recorded: collections.Counter) -> None:
+    """One replay of a graph whose capture recorded ``recorded``."""
+    LAUNCHES.update(recorded)
 
 
 def _check_devices(*tensors: torch.Tensor) -> None:

@@ -19,7 +19,8 @@ the caller's own process.
   function of every parameter's and buffer's bits, so two ranks agree on
   it only if their states are bit-equal; a Glow trainer's full state,
   gathered from its model group under tensor parallelism), the kernel
-  launches, and the final state.
+  launches, and the final state;
+* ``scan_refusal``: the epoch scan under a host-staged (gloo) group.
 
 Gradients of a local tensor follow the trainers' convention: each rank's
 loss estimates the global one (a sum over the batch is this rank's sum
@@ -376,12 +377,14 @@ def _run(family: str):
 
 def train_loop(family: str, cfg, device: str = "cpu",
                forward: Optional[Dict] = None, state: bool = True,
-               **run_kwargs) -> Dict:
+               record: bool = True, **run_kwargs) -> Dict:
     """``run_<family>(cfg, device=device, **run_kwargs)`` on this rank:
-    its log, every step's losses / fingerprint / ms, the launches of each
-    kernel, the peak memory on a card, and (``state``) the final state on
-    the CPU. ``forward`` (DDPM: ``x`` and ``t``) also runs the sampling UNet
-    once on them after training and returns its output and launches."""
+    its log, every step's losses / fingerprint / ms (``record``; off for
+    the epoch scan on a card, whose captured step cannot read its losses
+    on the host), the launches of each kernel, the peak memory on a card,
+    and (``state``) the final state on the CPU. ``forward`` (DDPM: ``x``
+    and ``t``) also runs the sampling UNet once on them after training and
+    returns its output and launches."""
     from vgd_tpu_torch.ops import kernels as K
     dev = _start(device)
     if dev.type == "cuda":
@@ -389,7 +392,8 @@ def train_loop(family: str, cfg, device: str = "cpu",
         torch.cuda.reset_peak_memory_stats()
     rows: List[Dict] = []
     K.LAUNCHES.clear()
-    with record_steps(family, rows):
+    with (record_steps(family, rows) if record
+          else contextlib.nullcontext()):
         res = _run(family)(cfg, device=device, **run_kwargs)
     launches = dict(K.LAUNCHES)
     tr = res["trainer"]
@@ -414,6 +418,31 @@ def train_loop(family: str, cfg, device: str = "cpu",
         out["forward"] = {"out": y.float().cpu(),
                           "launches": dict(K.LAUNCHES)}
     return out
+
+
+def scan_refusal(cfg, device: str = "cpu", steps: int = 2) -> Dict:
+    """The epoch scan under this rank's process group: ``run_vaegan`` with
+    ``epoch_scan=True`` (over gloo on a card: refused before any step),
+    then with the default (on a card over gloo: ``steps`` steps of the
+    per-step loop, announced on stderr). Returns the refusal's message
+    (None if it trained), the stderr line and the steps trained."""
+    import io
+    from vgd_tpu_torch.train import loop as L
+    _start(device)
+    try:
+        L.run_vaegan(cfg, epochs=1, max_steps_per_epoch=steps,
+                     device=device, epoch_scan=True)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        res = L.run_vaegan(cfg, epochs=1, max_steps_per_epoch=steps,
+                           device=device)
+    line = next((ln for ln in err.getvalue().splitlines()
+                 if "epoch scan" in ln), None)
+    return {"raised": raised, "default_line": line,
+            "default_steps": res["trainer"].step}
 
 
 def train_loops(jobs: List[Dict]) -> List[Dict]:

@@ -10,7 +10,9 @@ form (attention through the differentiable K2 kernels, stock GroupNorm), and
 The train step draws its timesteps and noise from an explicit
 ``torch.Generator`` or takes them as arguments, so a test can hand both
 packages the same draws. Losses stay on the device; the caller decides
-when to read them.
+when to read them. ``train_step`` can be captured as a CUDA graph, its t
+and noise draws inside (the epoch scan, ``common.StepGraph``); its Adam is
+``capturable`` on a card.
 
 Under data parallelism (``mesh``) the trainer holds this rank's rows of
 the global batch: t and the noise are drawn for the global batch and
@@ -33,7 +35,7 @@ executed step, so a test can hand both packages the same draws.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -187,7 +189,8 @@ class DiffusionTrainer:
 
     def _optimizer(self) -> torch.optim.Optimizer:
         if self.opt is None:
-            self.opt = adam(self.model.parameters(), self.cfg.lr)
+            self.opt = adam(self.model.parameters(), self.cfg.lr,
+                            capturable=True)
         return self.opt
 
     def init(self, generator: Optional[torch.Generator] = None
@@ -247,20 +250,6 @@ class DiffusionTrainer:
         opt.step()
         self.step += 1
         return mean_metrics({"loss": loss.detach()}, self.mesh)["loss"]
-
-    def train_epoch(self, batches: Iterable[torch.Tensor],
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-        """``train_step`` over every batch; the mean loss as a 0-d device
-        tensor."""
-        total, count = None, 0
-        for batch in batches:
-            loss = self.train_step(batch, generator)
-            total = loss if total is None else total + loss
-            count += 1
-        if total is None:
-            raise ValueError("train_epoch got no batch")
-        return total / count
 
     @torch.no_grad()
     def eval_loss(self, batch_uint8: torch.Tensor,

@@ -22,6 +22,10 @@ and shift too, not the running stats); then a G step on one more z with
 loss -mean(D(G(z))), D's stats advanced once more as in DCGAN. The
 reference keeps the sigmoid on the critic; so does this port.
 
+``train_step`` and ``train_step_wgan`` (its critic steps and their
+in-place clips) can be captured as a CUDA graph (the epoch scan,
+``common.StepGraph``); the Adams are ``capturable`` on a card.
+
 z comes from the caller (DCGAN (B, latent); WGAN (critic_iters + 1, B,
 latent)) or from an explicit ``torch.Generator``. Metrics (d_loss, the last
 critic step's under WGAN, and g_loss) stay 0-d device tensors.
@@ -51,8 +55,8 @@ from vgd_tpu_torch.models.vae import latent_to_spatial
 from vgd_tpu_torch.ops.image import to_signed
 from vgd_tpu_torch.parallel.collectives import average_grads
 from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
-from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw, bce,
-                                         clamp_params, frozen_parameters,
+from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw,
+                                         bce, clamp_params, frozen_parameters,
                                          mean_metrics)
 
 NETS = ("gen", "disc")
@@ -87,7 +91,7 @@ class GANTrainer:
     def _fresh_optimizers(self) -> None:
         cfg = self.cfg
         self.opts = {name: adam(net.parameters(), cfg.lr, b1=cfg.beta1,
-                                b2=cfg.beta2)
+                                b2=cfg.beta2, capturable=True)
                      for name, net in self.nets().items()}
 
     def init(self, generator: Optional[torch.Generator] = None) -> None:

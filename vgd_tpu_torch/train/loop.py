@@ -38,13 +38,32 @@ every rank and then cut, a checkpoint holds the state gathered from the
 model group (every rank gathers, rank 0 writes), and every rank of the
 model group runs the sample grid's reverse (rank 0 writes it).
 Evaluations and ``sample_from_dir`` run in one process, as in the JAX
-package. The JAX loop's epoch scan has no counterpart: the port
-loops over steps in Python.
+package.
+
+The epoch-driven loops (``run_vaegan``, ``run_vae``, ``run_gan``,
+``run_diffusion``) train either through the streaming epoch scan
+(``_stream_epoch_scan``, JAX's default for the VAE-GAN and DDPM, and
+``epoch_scan=True`` for the others, ``SCAN_DEFAULT``) or step by step over
+``device_prefetch``ed batches. The scan stacks chunks of batches
+(``_chunk_steps``: at most SCAN_CHUNK_BYTES and a quarter of the epoch),
+stacks and copies the next chunk while the device runs this one
+(``device_prefetch`` of the chunks) and runs each chunk through the run's
+one ``common.StepGraph`` of the trainer's ``train_step``, made after init
+or resume: on a card every step after the warm-up is one replay of the
+step captured as a CUDA graph, on the CPU the step itself. Both paths take
+the same draws in the same order and log the mean over every step of the
+epoch, so on the CPU they give the same bits. On a card two things cannot
+be captured: a group that moves CUDA tensors through the host (gloo), and
+``--debug-nans``'s anomaly mode, which reads every backward result on the
+host. With either, an explicit ``epoch_scan=True`` raises, and the default
+falls back to the per-step loop with a line on stderr.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import os
+import sys
 import time
 from typing import Dict, Optional
 
@@ -70,10 +89,12 @@ from vgd_tpu_torch.io.checkpoint import Checkpointer
 from vgd_tpu_torch.models.glow import TP_KERNELS
 from vgd_tpu_torch.models.vae import reparameterize
 from vgd_tpu_torch.ops.image import signed_to_unit, to_signed
-from vgd_tpu_torch.parallel.collectives import all_sum, barrier, broadcast_
+from vgd_tpu_torch.parallel.collectives import (all_sum, barrier,
+                                                broadcast_, staged)
 from vgd_tpu_torch.parallel.launch import init_distributed, rank_device
 from vgd_tpu_torch.parallel.mesh import Mesh, build_mesh
 from vgd_tpu_torch.parallel.tensor_parallel import check_filters, split_axis
+from vgd_tpu_torch.train.common import StepGraph
 from vgd_tpu_torch.train.diffusion import (DiffusionState, DiffusionTrainer,
                                            q_sample)
 from vgd_tpu_torch.train.gan import GANTrainer
@@ -102,7 +123,8 @@ def _debug_nans(run):
     """Runs ``run(cfg, ...)`` under ``torch.autograd.set_detect_anomaly``
     when ``cfg.run.debug_nans`` is set (the counterpart of the JAX loop's
     ``jax_debug_nans``: a backward that makes a NaN raises, naming the
-    forward op that made it)."""
+    forward op that made it). Its host reads cannot be captured, so on a
+    card the epoch loops train step by step under it (``_epoch_scan``)."""
     @functools.wraps(run)
     def wrapped(cfg, *args, **kwargs):
         if not cfg.run.debug_nans:
@@ -220,7 +242,9 @@ def _val_sums(rows, mesh: Mesh):
 class _Profiler:
     """``torch.profiler`` trace of global train steps [start, stop) written
     as a Chrome trace into ``RunConfig.profile_dir`` (no-op when unset, and
-    on every rank but 0)."""
+    on every rank but 0). The per-step loop calls ``step``; the epoch scan,
+    which runs whole chunks, calls ``chunk_begin`` / ``chunk_end`` and
+    traces every chunk that overlaps [start, stop)."""
 
     def __init__(self, run_cfg, device: torch.device, enabled: bool = True):
         self.dir = run_cfg.profile_dir if enabled else None
@@ -228,17 +252,34 @@ class _Profiler:
         self.device = device
         self.prof = None
 
+    def _start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+
     def step(self, i: int) -> None:
         if not self.dir:
             return
         if i == self.start_step and self.prof is None:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
-            self.prof.__enter__()
+            self._start()
         elif i == self.stop_step:
+            self.close()
+
+    def chunk_begin(self, lo: int, hi: int) -> None:
+        """Before a chunk of global steps [lo, hi): starts the trace when
+        the chunk overlaps [start, stop)."""
+        if (self.dir and self.prof is None and lo < self.stop_step
+                and hi > self.start_step):
+            self._start()
+
+    def chunk_end(self, hi: int) -> None:
+        """After a chunk ending at global step ``hi``: once the chunks
+        reach ``stop``, waits for the card (only while a trace is live, so
+        the staging overlap is kept otherwise) and writes the trace."""
+        if self.prof is not None and hi >= self.stop_step:
             self.close()
 
     def close(self) -> None:
@@ -255,6 +296,135 @@ class _Profiler:
 
 def _image_shape(cfg):
     return tuple(cfg.data.image_size) + (cfg.data.channels,)
+
+
+# ---------------------------------------------------------------------------
+# the streaming epoch scan (vgd_tpu/train/loop.py:245-305)
+# ---------------------------------------------------------------------------
+
+# streaming epoch scan: host-stage at most this many bytes of uint8 batches
+# per chunk (one chunk in flight + one being staged, so peak extra host
+# memory is ~2 chunks instead of a full second copy of the epoch)
+SCAN_CHUNK_BYTES = 256 * 1024 ** 2
+# the epoch loop each family takes when ``epoch_scan`` is None (JAX's
+# defaults: the scan for the VAE-GAN and DDPM, the per-step loop for the
+# VAE and DCGAN / WGAN, per JAX's measured A/B)
+SCAN_DEFAULT = {"vaegan": True, "diffusion": True, "vae": False,
+                "gan": False, "wgan": False}
+
+
+def _stack_next(batch_iter, n: int):
+    """Stack up to n batches from the iterator; None when exhausted."""
+    buf = list(itertools.islice(batch_iter, n))
+    if not buf:
+        return None
+    return np.stack(buf)
+
+
+def _chunk_steps(batch_size: int, img_shape, steps_per_epoch: int) -> int:
+    """Steps per scan chunk: under the SCAN_CHUNK_BYTES budget AND at most a
+    quarter of the epoch, so there are >= ~4 chunks per epoch and the host
+    stages the next chunk while the device runs this one."""
+    batch_bytes = batch_size * int(np.prod(img_shape))
+    budget = SCAN_CHUNK_BYTES // max(batch_bytes, 1)
+    quarter = -(-steps_per_epoch // 4)   # ceil
+    return max(1, min(steps_per_epoch, budget, quarter))
+
+
+def _stream_epoch_scan(graph, train_iter, steps_per_epoch: int,
+                       chunk_steps: int, prof, gstep: int, device):
+    """The streaming epoch scan of one epoch: chunks of ``chunk_steps``
+    stacked batches (the last one shorter), each copied to ``device``
+    (``device_prefetch``: the next chunk is stacked and its copy enqueued
+    while the device runs this one) and run by ``graph.run(chunk)`` (a
+    ``common.StepGraph``); the metrics are read once, after the loop
+    (``graph.read()``). Returns (sums, count, gstep): ``sums`` the metrics
+    summed over every step (divide by ``count`` for the epoch mean)."""
+    def chunks():
+        count = 0
+        while count < steps_per_epoch:
+            stacked = _stack_next(train_iter,
+                                  min(chunk_steps, steps_per_epoch - count))
+            if stacked is None:
+                return
+            count += stacked.shape[0]
+            yield stacked
+
+    count = 0
+    for cur in device_prefetch(chunks(), size=2, device=device):
+        n = cur.shape[0]
+        prof.chunk_begin(gstep, gstep + n)
+        graph.run(cur)
+        count += n
+        gstep += n
+        prof.chunk_end(gstep)
+    return (graph.read() if count else {}), count, gstep
+
+
+def _epoch_scan(family: str, epoch_scan: Optional[bool], mesh: Mesh,
+                device: torch.device, debug_nans: bool = False) -> bool:
+    """Whether a run takes the epoch scan, and the line that says so:
+    ``epoch_scan`` as given, None -> ``SCAN_DEFAULT[family]``. On a card a
+    group that stages tensors through the host, and ``debug_nans``'s
+    anomaly mode (a host read of every backward result), cannot be
+    captured: an explicit True raises, the default takes the per-step
+    loop."""
+    cuda = device.type == "cuda"
+    if cuda and any(staged(g) for g in (mesh.data_group, mesh.model_group,
+                                        mesh.world_group)):
+        why = ("a gloo process group moves CUDA tensors through host "
+               "memory", "or use NCCL",
+               "a gloo group's host-staged collectives")
+    elif cuda and debug_nans:
+        why = ("--debug-nans's anomaly mode reads every backward result on "
+               "the host", "or drop --debug-nans", "--debug-nans's host reads")
+    else:
+        why = None
+    scan = SCAN_DEFAULT[family] if epoch_scan is None else epoch_scan
+    if scan and why is not None:
+        if epoch_scan:
+            raise ValueError(
+                f"the epoch scan captures each train step in a CUDA graph, "
+                f"and {why[0]}, which a graph cannot capture: pass "
+                f"--no-epoch-scan (epoch_scan=False), {why[1]}")
+        print(f"[{family}] the epoch scan cannot capture {why[2]}: "
+              "training step by step", file=sys.stderr)
+        scan = False
+    if mesh.primary:
+        how = ("each step after the warm-up one CUDA graph replay"
+               if cuda else "each step called directly")
+        print(f"[{family}] epoch loop: " + (
+            f"scan ({how})" if scan else "per step" + (
+                "" if epoch_scan is False else " (the family's default)")))
+    return scan
+
+
+def _train_epoch(graph: Optional[StepGraph], train, mesh: Mesh, device,
+                 steps: int, chunk_steps: int, prof, gstep: int, step_fn):
+    """One epoch's ``steps`` train steps, through the epoch scan (``graph``,
+    the run's StepGraph of ``step_fn``) or, with no graph, step by step
+    (``step_fn`` on each ``device_prefetch``ed batch, the metrics summed on
+    the device and read once). Returns (sums, count, gstep) as
+    ``_stream_epoch_scan`` does."""
+    batches = (mesh.rows(b) for b, _ in train.epoch())
+    if graph is not None:
+        return _stream_epoch_scan(graph, batches, steps, chunk_steps, prof,
+                                  gstep, device)
+    sums, count = {}, 0
+    for batch in device_prefetch(batches, size=2, device=device):
+        if count >= steps:
+            break
+        prof.step(gstep)
+        m = step_fn(batch)
+        gstep += 1
+        count += 1
+        sums = {k: v + sums[k] if k in sums else v for k, v in m.items()}
+    return {k: float(v) for k, v in sums.items()}, count, gstep
+
+
+def _steps_per_epoch(train, max_steps_per_epoch: Optional[int]) -> int:
+    n = len(train)
+    return n if max_steps_per_epoch is None else min(n, max_steps_per_epoch)
 
 
 def restore_trainer(cfg: DiffusionConfig, step: Optional[int] = None,
@@ -280,9 +450,12 @@ def save_checkpoint(cfg: DiffusionConfig, trainer: DiffusionTrainer,
 @_debug_nans
 def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
                   max_steps_per_epoch: Optional[int] = None,
-                  resume: bool = False, device="cuda") -> Dict:
-    """Train DDPM: per epoch, train steps over ``device_prefetch``ed
-    batches (the loss summed on the device and read once), the validation
+                  resume: bool = False, device="cuda",
+                  epoch_scan: Optional[bool] = None) -> Dict:
+    """Train DDPM: per epoch, train steps through the epoch scan (the
+    default) or over ``device_prefetch``ed batches with ``epoch_scan=False``
+    (module docstring; the loss summed on the device and read once), the
+    validation
     epsilon-MSE over the true rows of every val batch, a ``MetricLog`` row
     (train_loss, val_loss, images_per_sec) and, every
     ``checkpoint_every_epochs``, a checkpoint of params, Adam state and the
@@ -310,21 +483,21 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
     log = MetricLog(cfg.run.out_dir, "diffusion_loss")
     prof = _Profiler(cfg.run, device, mesh.primary)
     epochs = cfg.epochs if epochs is None else epochs
+    scan = _epoch_scan("diffusion", epoch_scan, mesh, device,
+                       cfg.run.debug_nans)
+    steps = _steps_per_epoch(train, max_steps_per_epoch)
+    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+
+    def step_fn(b):
+        return {"loss": trainer.train_step(b, gen)}
+    graph = StepGraph(step_fn, trainer, gen) if scan else None
     gstep, n_val = trainer.step, 0
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
-        total_dev, count = None, 0
-        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
-                                  size=2, device=device)
-        for i, batch in enumerate(batches):
-            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
-                break
-            prof.step(gstep)
-            loss = trainer.train_step(batch, gen)
-            gstep += 1
-            count += 1
-            total_dev = loss if total_dev is None else total_dev + loss
-        total = float(total_dev) if count else 0.0
+        sums, count, gstep = _train_epoch(
+            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
+            step_fn)
+        total = sums.get("loss", 0.0)
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
         vgen = torch.Generator(device=device).manual_seed(
@@ -438,19 +611,22 @@ def restore_vaegan(cfg: VAEGANConfig, step: Optional[int] = None,
 @_debug_nans
 def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                max_steps_per_epoch: Optional[int] = None,
-               feature_fn=None, resume: bool = False, device="cuda") -> Dict:
-    """Train the VAE-GAN: per epoch, ``train_step`` over
-    ``device_prefetch``ed batches with the KL ramp of the epoch (the losses
-    summed on the device and read once: epoch metrics are means over every
-    step), then the denoising validation pass over the true rows of every
-    val batch (val loss = mean(per_mse[:n]) + alpha_kl * sum(per_kl[:n]),
-    weighted by n; PSNR; SSIM, and with ``feature_fn`` FID / IS / P-R,
-    through ``MetricAccumulator``), a
-    ``MetricLog`` row, the noisy / clean / reconstruction panel and the
-    fixed-z sample grid (``.npy``), and every ``checkpoint_every_epochs`` a
-    checkpoint of the three networks (BN buffers included), the three Adam
-    states, the optimizer step and the generator state at step = epochs
-    done. ``resume`` continues from the latest checkpoint exactly."""
+               feature_fn=None, resume: bool = False, device="cuda",
+               epoch_scan: Optional[bool] = None) -> Dict:
+    """Train the VAE-GAN: per epoch, ``train_step`` through the epoch scan
+    (the default) or over ``device_prefetch``ed batches with
+    ``epoch_scan=False`` (module docstring), with the KL ramp of the epoch
+    in a 0-d tensor (the losses summed on the device and read once: epoch
+    metrics are means over every step), then the denoising validation
+    pass over the true rows of every val batch (val loss =
+    mean(per_mse[:n]) + alpha_kl * sum(per_kl[:n]), weighted by n; PSNR;
+    SSIM, and with ``feature_fn`` FID / IS / P-R, through
+    ``MetricAccumulator``), a ``MetricLog`` row, the noisy / clean /
+    reconstruction panel and the fixed-z sample grid (``.npy``), and every
+    ``checkpoint_every_epochs`` a checkpoint of the three networks (BN
+    buffers included), the three Adam states, the optimizer step and the
+    generator state at step = epochs done. ``resume`` continues from the
+    latest checkpoint exactly."""
     device, gen, mesh = _start(cfg, device, cfg.data.batch_size, "vaegan")
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
     trainer = VAEGANTrainer(cfg, img_shape, device=device, mesh=mesh)
@@ -473,23 +649,26 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
         (64, cfg.latent_dim), device=device, generator=torch.Generator(
             device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
     epochs = cfg.epochs if epochs is None else epochs
+    scan = _epoch_scan("vaegan", epoch_scan, mesh, device,
+                       cfg.run.debug_nans)
+    steps = _steps_per_epoch(train, max_steps_per_epoch)
+    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+    # the epoch's KL ramp, filled before each epoch: a captured step reads
+    # the tensor at every replay
+    ramp = torch.zeros((), device=device)
+
+    def step_fn(b):
+        return trainer.train_step(b, ramp, gen)
+    graph = StepGraph(step_fn, trainer, gen) if scan else None
     gstep, n_val = trainer.step, 0
     od = cfg.run.out_dir
     for epoch in range(start_epoch, epochs):
-        ramp = trainer.kl_ramp(epoch)
+        ramp.fill_(trainer.kl_ramp(epoch))
         t0 = time.perf_counter()
-        sums, count = {}, 0
-        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
-                                  size=2, device=device)
-        for i, batch in enumerate(batches):
-            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
-                break
-            prof.step(gstep)
-            m = trainer.train_step(batch, ramp, gen)
-            gstep += 1
-            count += 1
-            sums = {k: v + sums[k] if k in sums else v for k, v in m.items()}
-        means = {f"train_{k}": float(v) / count for k, v in sums.items()}
+        sums, count, gstep = _train_epoch(
+            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
+            step_fn)
+        means = {f"train_{k}": v / count for k, v in sums.items()}
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
 
@@ -554,10 +733,12 @@ def restore_vae(cfg: VAEConfig, step: Optional[int] = None,
 @_debug_nans
 def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
             max_steps_per_epoch: Optional[int] = None, resume: bool = False,
-            device="cuda") -> Dict:
+            device="cuda", epoch_scan: Optional[bool] = None) -> Dict:
     """Train the denoising VAE: per epoch, ``train_step`` over
-    ``device_prefetch``ed batches with the KL ramp of the epoch (the loss
-    summed on the device and read once), then the random-std denoising
+    ``device_prefetch``ed batches (the default) or through the epoch scan
+    with ``epoch_scan=True`` (module docstring), with the KL ramp of the
+    epoch in a 0-d tensor (the loss summed on the device and read once),
+    then the random-std denoising
     validation over the true rows of every val batch (val loss = mean(
     per_mse[:n]) + sum(per_kl[:n]), weighted by n; MSE, PSNR and SSIM of
     the [0, 1] reconstructions, each weighted by n), a ``MetricLog`` row,
@@ -588,24 +769,23 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
         (64, cfg.latent_dim), device=device, generator=torch.Generator(
             device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
     epochs = cfg.epochs if epochs is None else epochs
+    scan = _epoch_scan("vae", epoch_scan, mesh, device, cfg.run.debug_nans)
+    steps = _steps_per_epoch(train, max_steps_per_epoch)
+    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+    ramp = torch.zeros((), device=device)
+
+    def step_fn(b):
+        return {"total": trainer.train_step(b, ramp, generator=gen)["total"]}
+    graph = StepGraph(step_fn, trainer, gen) if scan else None
     gstep, n_val = trainer.step, 0
     od = cfg.run.out_dir
     for epoch in range(start_epoch, epochs):
-        ramp = trainer.kl_ramp(epoch)
+        ramp.fill_(trainer.kl_ramp(epoch))
         t0 = time.perf_counter()
-        total_dev, count = None, 0
-        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
-                                  size=2, device=device)
-        for i, batch in enumerate(batches):
-            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
-                break
-            prof.step(gstep)
-            m = trainer.train_step(batch, ramp, generator=gen)
-            gstep += 1
-            count += 1
-            total_dev = m["total"] if total_dev is None \
-                else total_dev + m["total"]
-        total = float(total_dev) if count else 0.0
+        sums, count, gstep = _train_epoch(
+            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
+            step_fn)
+        total = sums.get("total", 0.0)
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
 
@@ -799,12 +979,13 @@ def restore_gan(cfg: GANConfig, step: Optional[int] = None,
 @_debug_nans
 def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
             max_steps_per_epoch: Optional[int] = None, resume: bool = False,
-            device="cuda") -> Dict:
+            device="cuda", epoch_scan: Optional[bool] = None) -> Dict:
     """Train DCGAN (or WGAN with ``cfg.wgan``): per epoch, ``train_step``
-    (``train_step_wgan``) over ``device_prefetch``ed batches (both losses
-    summed on the device and read once), a ``MetricLog`` row (d_loss,
-    g_loss, images_per_sec), every ``checkpoint_every_epochs`` a checkpoint
-    of both networks (BN buffers included), both Adam states, the
+    (``train_step_wgan``) over ``device_prefetch``ed batches (the default)
+    or through the epoch scan with ``epoch_scan=True`` (module docstring;
+    both losses summed on the device and read once), a ``MetricLog`` row
+    (d_loss, g_loss, images_per_sec), every ``checkpoint_every_epochs`` a
+    checkpoint of both networks (BN buffers included), both Adam states, the
     optimizer step and the generator state at step = epochs done, and the
     fixed-z grid (``.npy``). ``resume`` continues from the latest
     checkpoint exactly."""
@@ -830,23 +1011,22 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
     fixed_z = torch.randn(
         (64, cfg.latent_dim), device=device, generator=torch.Generator(
             device=device).manual_seed(cfg.run.seed + FIXED_Z_SEED_OFFSET))
-    step_fn = trainer.train_step_wgan if cfg.wgan else trainer.train_step
+    step = trainer.train_step_wgan if cfg.wgan else trainer.train_step
     epochs = cfg.epochs if epochs is None else epochs
+    scan = _epoch_scan(name, epoch_scan, mesh, device, cfg.run.debug_nans)
+    steps = _steps_per_epoch(train, max_steps_per_epoch)
+    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+
+    def step_fn(b):
+        return step(b, gen)
+    graph = StepGraph(step_fn, trainer, gen) if scan else None
     gstep = trainer.step
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
-        sums, count = {}, 0
-        batches = device_prefetch((mesh.rows(b) for b, _ in train.epoch()),
-                                  size=2, device=device)
-        for i, batch in enumerate(batches):
-            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
-                break
-            prof.step(gstep)
-            m = step_fn(batch, gen)
-            gstep += 1
-            count += 1
-            sums = {k: v + sums[k] if k in sums else v for k, v in m.items()}
-        means = {k: float(v) / max(count, 1) for k, v in sums.items()}
+        sums, count, gstep = _train_epoch(
+            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
+            step_fn)
+        means = {k: v / max(count, 1) for k, v in sums.items()}
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
         log.append(epoch=epoch, **means, images_per_sec=ips)

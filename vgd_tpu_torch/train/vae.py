@@ -13,6 +13,10 @@ decoder's (the optax state's ``{"enc", "dec"}`` tree). One train step:
 3. loss = MSE(recon, clean) + KL (raw sum) * ramp * ``kl_weight``, one Adam
    step of both networks.
 
+``train_step`` can be captured as a CUDA graph (the epoch scan,
+``common.StepGraph``): its KL ramp may be a 0-d tensor the caller fills
+before each epoch, and its Adam is ``capturable`` on a card.
+
 The draws come from the caller or, in this order, from an explicit
 ``torch.Generator``: the noise (a standard normal of the image's shape, or
 ``CorruptDraws`` with occlusion), then ``eps`` (B, latent). Metrics stay
@@ -32,7 +36,7 @@ step, and the losses come back as the global batch's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -87,7 +91,7 @@ class VAETrainer:
         return [p for net in self.nets().values() for p in net.parameters()]
 
     def _fresh_optimizer(self) -> None:
-        self.opt = adam(self.parameters(), self.cfg.lr)
+        self.opt = adam(self.parameters(), self.cfg.lr, capturable=True)
 
     def init(self, generator: Optional[torch.Generator] = None) -> None:
         """Seeded init (Flax defaults for the encoder, DCGAN for the
@@ -144,7 +148,8 @@ class VAETrainer:
             s, generator, self.device), img.shape)
 
     def loss(self, img: torch.Tensor, noisy: torch.Tensor, eps: torch.Tensor,
-             kl_ramp: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             kl_ramp: Union[float, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total, {recon, kl}) of the train-mode forward on ``noisy``
         against the clean ``img``, with ``eps`` (B, latent)."""
         mu, logvar = self.encoder(noisy, train=True)
@@ -157,7 +162,8 @@ class VAETrainer:
         return total, {"recon": recon_loss, "kl": kl}
 
     # ------------------------------------------------------------------- step
-    def train_step(self, batch_uint8: torch.Tensor, kl_ramp: float,
+    def train_step(self, batch_uint8: torch.Tensor,
+                   kl_ramp: Union[float, torch.Tensor],
                    noise=None, eps: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -178,7 +184,6 @@ class VAETrainer:
                              **{k: v.detach() for k, v in parts.items()}},
                             self.mesh)
 
-    # ----------------------------------------------------------- evaluation
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mu, logvar clamped to [-10, 10]) of x in [-1, 1], eval mode."""

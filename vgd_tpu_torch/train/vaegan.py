@@ -17,6 +17,11 @@ One train step, as in the JAX package:
    advances its running stats a fifth time, and that update is kept. D
    gets no Adam step and keeps no ``.grad``.
 
+``train_step`` can be captured as a CUDA graph (the epoch scan,
+``common.StepGraph``): its KL ramp may be a 0-d tensor the caller fills
+before each epoch, so one capture serves the whole run (a float works
+too), and its Adams are ``capturable`` on a card.
+
 The draws come from the caller or, in this order, from an explicit
 ``torch.Generator``: ``eps`` (B, latent) for the reparameterisation (one
 draw for ``recon0`` and the G step), then ``noise_real`` and
@@ -36,7 +41,7 @@ the losses come back as the global batch's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -49,8 +54,9 @@ from vgd_tpu_torch.models.vae import (Encoder, kl_divergence,
 from vgd_tpu_torch.ops.image import to_signed
 from vgd_tpu_torch.parallel.collectives import average_grads
 from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
-from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw, bce,
-                                         frozen_parameters, mean_metrics, mse)
+from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw,
+                                         bce, frozen_parameters, mean_metrics,
+                                         mse)
 
 NETS = ("encoder", "decoder", "disc")
 
@@ -84,7 +90,8 @@ class VAEGANTrainer:
         return {name: getattr(self, name) for name in NETS}
 
     def _fresh_optimizers(self) -> None:
-        self.opts = {name: adam(net.parameters(), self.cfg.lr)
+        self.opts = {name: adam(net.parameters(), self.cfg.lr,
+                                capturable=True)
                      for name, net in self.nets().items()}
 
     def init(self, generator: Optional[torch.Generator] = None) -> None:
@@ -140,7 +147,8 @@ class VAEGANTrainer:
 
     def g_loss(self, x: torch.Tensor, eps: torch.Tensor,
                real_noisy: torch.Tensor, noise_fake: torch.Tensor,
-               kl_ramp: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               kl_ramp: Union[float, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The G/E objective: (total, {"recon", "kl", "adv"}). D's forwards
         advance its running stats and record no gradient for its
         parameters; the gradient reaches the encoder and decoder through
@@ -176,7 +184,8 @@ class VAEGANTrainer:
             s, generator=generator, device=self.device), shape)
 
     # ------------------------------------------------------------------- step
-    def train_step(self, batch_uint8: torch.Tensor, kl_ramp: float,
+    def train_step(self, batch_uint8: torch.Tensor,
+                   kl_ramp: Union[float, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    eps: Optional[torch.Tensor] = None,
                    noise_real: Optional[torch.Tensor] = None,
@@ -224,7 +233,6 @@ class VAEGANTrainer:
                              "d_loss": d_loss.detach(),
                              "g_total": total.detach()}, self.mesh)
 
-    # ------------------------------------------------------------ validation
     @torch.no_grad()
     def eval_step(self, batch_uint8: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
