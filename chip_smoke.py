@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--report PATH]
                           [--only k1|attn|k4|k5|k6|eeg|fid|export|dp|mp|cli|
-                                  scan]
+                                  scan|data]
 
 1. builds the port's kernels from the checkout's sources (CUDA with nvcc
    for sm_90a, one process per source, all at once);
@@ -243,7 +243,39 @@ Run from the root of a checkout on a machine with one CUDA card:
    per-step loop with the collectives captured; (g) two ranks on the card
    over gloo: ``epoch_scan=True`` refused, the default trained step by
    step;
-18. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+18. the native batch gather (``vgd_tpu_torch/data/native.py``, built by
+   the host C++ compiler at the phase's start) and the pinned staging of
+   both epoch loops (``--only data``, which builds no CUDA source up front;
+   in the full run right after step 17), on memmaps the phase writes:
+   7680 faces at 256x256 (1.51 GB, the decode cache of a folder of empty
+   JPEG names) and 30720 at 64x64. (b) ``run_vaegan`` at 256x256, B=64
+   with K1 on the default scan from the memmap, 2 epochs of 84 steps
+   (chunks of 21): step ms, busy share of a traced chunk, peak, exactly
+   K1_PER_STEP K1 a step, finite losses, each epoch's start gap (CUDA
+   events from entering the epoch to its first step) and the gather ms of
+   each chunk, beside the synthetic vaegan-256 scan cell (step 17's row;
+   ``--only data`` runs that cell and the same memmap run with the
+   parent's staging: numpy gathers, ``np.stack``, ``pin_memory()``, two
+   chunks in flight); (a) the scan's chunk at 64x64 (341 x 64) and
+   256x256 (21 x 64), staged natively into a pinned buffer (one call a
+   chunk, as the scan does, and one a batch on the threads of a batch's
+   bytes, as the per-step loop does), by numpy gathers, by numpy +
+   ``np.stack`` + ``pin_memory()`` and by numpy + ``pin_memory()`` a batch
+   (the parent's two loops): host ms and GB/s each, the native bytes equal
+   to numpy's, the H2D copy ms, and the chunk's device time (``--only
+   data`` adds a batch a call at 1 to 8 threads); (c) the batch-identity
+   check: a probe ``StepGraph`` whose step spins ~10 ms on the card and
+   records each row of its batch dotted with fixed weights (f64, exact)
+   runs 84 steps (two turns of the two-buffer ring) through
+   ``_train_epoch``; every step's record must equal the rows the loader
+   chose for it, at B=64, at DDPM's B=16, on the per-step loop and as
+   rank 1 of a data axis of 2; and three broken stagers must be caught at
+   B=64: a ring buffer refilled without waiting on its copy's event, a
+   buffer filled on its first turn only, and step 17's stale batch slot;
+   (d) ``--only data`` only: the per-step loops of vae-64, gan-64 and
+   wgan-64 (step 17's cells) with the parent's staging and the loop's, in
+   the order parent, change, change, parent: step ms and busy share;
+19. prints a ``{"kernels": [...]}`` line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when no card is visible, when the
@@ -1243,8 +1275,8 @@ def k1_entry(rows, report):
     families ran K1 (``per_family`` has each family's sums per step of that
     family); its launches over every main-path run (VAE-GAN, VAE, DCGAN and
     WGAN training, the data-parallel VAE-GAN's ranks, the cli phase's
-    64x64 VAE-GAN and the scan phase's CUDA-graph steps;
-    ``launches_by_path`` splits them); its errors over every
+    64x64 VAE-GAN, the scan phase's CUDA-graph steps and the data phase's
+    memmap run; ``launches_by_path`` splits them); its errors over every
     checked shape."""
     launches = {"vaegan": report["vaegan"]["train"]["k1_launches"],
                 "vae": report["vae"]["train"]["k1_launches"],
@@ -1252,7 +1284,9 @@ def k1_entry(rows, report):
                 "wgan": report["gan"]["wgan_train"]["k1_launches"],
                 "dp": report["dp"]["launches"]["conv_bn_stats"],
                 "cli": report["cli"]["launches"]["conv_bn_stats"],
-                "scan": report["scan"]["launches"]["conv_bn_stats"]}
+                "scan": report["scan"]["launches"]["conv_bn_stats"],
+                "data": report["data"]["run"]["launches"].get(
+                    "conv_bn_stats", 0)}
 
     def family_entry(family, per, source="", replaces=""):
         return kernel_entry("conv_bn_stats", source, replaces, [
@@ -6605,13 +6639,540 @@ def scan_path(K, failures, adam_ab=False):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the native batch gather and the pinned staging of both epoch loops
+# (``--only data``; step 18)
+# ---------------------------------------------------------------------------
+
+NATIVE_DIR = OUT_DIR / "native_data"
+# the run's memmap: NATIVE_FACES images at 256x256 (1.51 GB), passes of
+# NATIVE_BASE synthetic faces, each pass shifted one column further; the
+# (a) source at 64x64: NATIVE_FACES_64 images (377 MB)
+NATIVE_FACES, NATIVE_FACES_64, NATIVE_BASE = 7680, 30720, 128
+# (a): (tag, image size, batch, steps a chunk): the scan's chunk under
+# SCAN_CHUNK_BYTES (256 MiB) at 64x64 and 256x256, batch 64, over a full
+# CelebA epoch (182,339 train images: 2849 steps, so the byte budget binds)
+NATIVE_STAGE_CASES = [("vaegan-64", (64, 64), 64, 341),
+                      ("vaegan-256", (256, 256), 64, 21)]
+NATIVE_STAGE_REPEATS = 5
+NATIVE_SWEEP_THREADS = (1, 2, 3, 4, 8)
+NATIVE_SEED = 17
+# (b): run_vaegan on the memmap, NATIVE_EPOCHS epochs of NATIVE_STEPS steps
+# (4 chunks of 21 an epoch); the profiler traces the chunk that holds
+# global steps NATIVE_PROFILE_STEPS
+NATIVE_EPOCHS, NATIVE_STEPS = 2, 84
+NATIVE_PROFILE_STEPS = (NATIVE_STEPS + 25, NATIVE_STEPS + 30)
+# (c): the batch-identity probe: PROBE_STEPS steps (4 chunks of 21: two
+# turns of the scan's two-buffer ring), each first spinning PROBE_CYCLES
+# clock cycles on the card (~10 ms), so the card runs behind the host's
+# staging and a buffer refilled before its copy would be caught
+PROBE_STEPS, PROBE_CYCLES = 84, 20_000_000
+# the stagers that must fail the probe
+PROBE_BROKEN = ("refilled_without_wait", "stale_buffer", "stale_graph_slot")
+
+
+def native_sources():
+    """Writes the phase's memmaps: a folder whose JPEG names are empty
+    files and whose decode cache (``celeba.cache_path``) holds
+    NATIVE_FACES faces at 256x256, and a plain .npy of NATIVE_FACES_64 at
+    64x64. Returns (folder, {image size: memmap}, seconds)."""
+    import numpy as np
+    from vgd_tpu_torch.data import celeba
+    t0 = time.perf_counter()
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    folder = NATIVE_DIR / "faces256"
+    folder.mkdir(parents=True)
+    for i in range(NATIVE_FACES):
+        (folder / f"{i:06d}.jpg").touch()
+    sources = {}
+    for hw, n, path in (((256, 256), NATIVE_FACES,
+                         celeba.cache_path(str(folder), (256, 256),
+                                           NATIVE_FACES)),
+                        ((64, 64), NATIVE_FACES_64,
+                         str(NATIVE_DIR / "faces64.npy"))):
+        base = celeba.synthetic_faces(NATIVE_BASE, hw, seed=NATIVE_SEED)
+        out = np.lib.format.open_memmap(path + ".tmp", mode="w+",
+                                        dtype=np.uint8,
+                                        shape=(n,) + hw + (3,))
+        for i in range(0, n, NATIVE_BASE):
+            k = min(NATIVE_BASE, n - i)
+            out[i:i + k] = np.roll(base[:k], i // NATIVE_BASE, axis=2)
+        out.flush()
+        del out
+        os.replace(path + ".tmp", path)
+        sources[hw] = np.load(path, mmap_mode="r")
+    return folder, sources, time.perf_counter() - t0
+
+
+def native_stage(tag, data, batch, chunk, step_ms, failures, ab=False):
+    """(a) for one case: one chunk of ``chunk`` random sorted selections of
+    ``batch`` rows staged five ways, in turns: the native gather straight
+    into a pinned buffer as the scan does (``prefetch.fill_chunk``: the
+    chunk in one call, ``native.threads_for`` its bytes) and as the
+    per-step loop does (``fill_chunk`` a batch into its own slot, on the
+    threads of a batch's bytes), numpy fancy indexing alone, and the
+    parent's passes: on the scan numpy gathers, ``np.stack`` and
+    ``pin_memory()``, on the per-step loop a numpy gather and
+    ``pin_memory()`` a batch; host ms median of NATIVE_STAGE_REPEATS (3
+    without ``ab``), GB/s, the native bytes against numpy's, the H2D copy
+    of the pinned chunk (CUDA events), beside the chunk's device time
+    (``chunk`` x ``step_ms``, None where not measured in this call). With
+    ``ab`` (``--only data``) also a batch a call at each of
+    NATIVE_SWEEP_THREADS threads (``native.gather_rows_at``), the
+    measurement behind ``native.THREAD_GRAIN``."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.data import native
+    from vgd_tpu_torch.utils.prefetch import fill_chunk
+    rng = np.random.default_rng(NATIVE_SEED)
+    sels = [np.sort(rng.choice(len(data), batch, replace=False))
+            for _ in range(chunk)]
+    buf = torch.empty((chunk, batch) + data.shape[1:], dtype=torch.uint8,
+                      pin_memory=True)
+    flat = buf.numpy().reshape((-1,) + data.shape[1:])
+
+    def per_batch():
+        for i, s in enumerate(sels):
+            fill_chunk(data, [s], buf[i:i + 1])
+
+    def threaded(n):
+        def run():
+            for i, s in enumerate(sels):
+                native.gather_rows_at(data, s, flat, i * batch, n)
+        return run
+    ways = {"native": lambda: fill_chunk(data, sels, buf),
+            "native_per_batch": per_batch,
+            "numpy": lambda: [data[s] for s in sels],
+            "numpy_stack_pin": lambda: torch.from_numpy(
+                np.stack([data[s] for s in sels])).pin_memory(),
+            "numpy_pin_per_batch": lambda: [
+                torch.from_numpy(data[s]).pin_memory() for s in sels]}
+    if ab:
+        ways.update({f"per_batch_{n}_threads": threaded(n)
+                     for n in NATIVE_SWEEP_THREADS})
+    times = {k: [] for k in ways}
+    for r in range(NATIVE_STAGE_REPEATS if ab else 3):
+        for k in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            t = time.perf_counter()
+            ways[k]()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    same = buf.numpy().tobytes() == np.stack(ways["numpy"]()).tobytes()
+    if not same:
+        failures.append(f"data {tag}: the native gather's chunk differs "
+                        f"from numpy's")
+    dev = torch.empty(buf.shape, dtype=torch.uint8, device="cuda")
+    copy = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dev.copy_(buf, non_blocking=True)
+        b.record()
+        torch.cuda.synchronize()
+        copy.append(a.elapsed_time(b))
+    nbytes = buf.numel()
+    row = {"chunk_steps": chunk, "batch": batch, "bytes": nbytes,
+           "threads": native.threads_for(nbytes),
+           "threads_a_batch": native.threads_for(nbytes // chunk),
+           "byte_equal": same, "h2d_ms": sorted(copy)[1],
+           "device_ms": chunk * step_ms if step_ms else None}
+    for k, v in times.items():
+        ms = sorted(v)[len(v) // 2]
+        row[k] = {"ms": ms, "ms_all": v, "gb_per_s": nbytes / ms / 1e6,
+                  "ms_a_batch": ms / chunk}
+    dev_txt = (f"{row['device_ms']:.3f} ms ({chunk} x {step_ms:.3f})"
+               if step_ms else "not measured in this call")
+
+    def way(k):
+        return (f"{row[k]['ms']:.3f} ms = {row[k]['gb_per_s']:.2f} GB/s "
+                f"({row[k]['ms_a_batch']:.4f} a batch)")
+    sweep = ", ".join(f"{n}: {row[f'per_batch_{n}_threads']['ms']:.3f}"
+                      for n in NATIVE_SWEEP_THREADS if ab)
+    print(f"[data-stage] {tag} chunk {chunk} x {batch} ({nbytes / 1e6:.1f} "
+          f"MB): scan: native {way('native')} on {row['threads']} threads, "
+          f"numpy + stack + pin (the parent) {way('numpy_stack_pin')}; "
+          f"per step: native {way('native_per_batch')} on "
+          f"{row['threads_a_batch']} threads a batch, numpy + pin a batch "
+          f"(the parent) {way('numpy_pin_per_batch')}; numpy alone "
+          f"{way('numpy')}; H2D {row['h2d_ms']:.3f} ms; the chunk's device "
+          f"time {dev_txt}; byte-equal {same}"
+          + (f"; a batch a call by threads (ms a chunk) {sweep}"
+             if ab else ""), flush=True)
+    del dev
+    return row
+
+
+def parent_staging():
+    """The parent's staging as a ``_Staging`` (``--only data``'s A/B):
+    numpy fancy indexing a batch; on the scan ``np.stack`` of a chunk,
+    ``pin_memory()`` of it, two chunks in flight; on the per-step loop
+    ``pin_memory()`` of each batch, two in flight."""
+    import itertools
+    import numpy as np
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.utils.prefetch import device_prefetch
+
+    class ParentStaging(L._Staging):
+        def batches(self, selections, steps=None):
+            return device_prefetch(
+                (self.mesh.rows(self.data[s])
+                 for s in itertools.islice(selections, steps)),
+                size=2, device=self.ring.device)
+
+        def chunks(self, selections, steps=None):
+            per = self.ring.buffers[0].shape[0]
+
+            def stacked():
+                it, count = iter(selections), 0
+                while steps is None or count < steps:
+                    n = per if steps is None else min(per, steps - count)
+                    buf = [self.mesh.rows(self.data[s])
+                           for s in itertools.islice(it, n)]
+                    if not buf:
+                        return
+                    count += len(buf)
+                    yield np.stack(buf)
+            return device_prefetch(stacked(), size=2,
+                                   device=self.ring.device)
+    return ParentStaging
+
+
+def native_run(K, tag, folder, failures, staging=None):
+    """(b) ``run_vaegan`` at 256x256, B=64 with K1 on the default scan from
+    the memmap ``folder``, NATIVE_EPOCHS x NATIVE_STEPS: step ms (median
+    period, ``step_stats``), busy share of the traced chunk, peak, K1
+    launches (K1_PER_STEP a step), finite losses; per epoch the gap from
+    entering ``_train_epoch`` to its first step (CUDA events: the card
+    waits for the staging and the first chunk's copy) and its host ms;
+    the host ms of each chunk's gather. ``staging`` replaces the loop's
+    ``_Staging`` class for the run (the parent's, for the A/B)."""
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.common import StepGraph
+    base = vaegan_config()
+    out = NATIVE_DIR / tag
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, path=str(folder),
+                                       dataset_size=NATIVE_FACES),
+        run=dataclasses.replace(base.run, out_dir=str(out),
+                                profile_dir=str(out / "trace"),
+                                profile_steps=NATIVE_PROFILE_STEPS))
+    marks, starts, fills = [], [], []
+    orig_epoch, orig_one = L._train_epoch, StepGraph.one
+    orig_staging, orig_fill = L._Staging, L._Staging.fill
+
+    def entered(*args, **kwargs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        starts.append((ev, time.perf_counter(), len(marks)))
+        return orig_epoch(*args, **kwargs)
+
+    def one(self, batch):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+        return orig_one(self, batch)
+
+    def fill(self, data, sels, buf):
+        t = time.perf_counter()
+        orig_fill(self, data, sels, buf)
+        fills.append((time.perf_counter() - t) * 1e3)
+    L._train_epoch, StepGraph.one, L._Staging.fill = entered, one, fill
+    if staging is not None:
+        L._Staging = staging
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        res = L.run_vaegan(cfg, epochs=NATIVE_EPOCHS,
+                           max_steps_per_epoch=NATIVE_STEPS, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        L._train_epoch, StepGraph.one = orig_epoch, orig_one
+        L._Staging, L._Staging.fill = orig_staging, orig_fill
+    secs = time.perf_counter() - t0
+    chunk = L._chunk_steps(64, (256, 256, 3), NATIVE_STEPS)
+    row = step_stats([ev for ev, _ in marks], NATIVE_STEPS, 64,
+                     out / "trace", traced_steps(
+                         NATIVE_PROFILE_STEPS, NATIVE_STEPS, chunk,
+                         NATIVE_EPOCHS, True))
+    gaps = [{"device_ms": ev.elapsed_time(marks[i][0]),
+             "host_ms": (marks[i][1] - t) * 1e3}
+            for ev, t, i in starts if i < len(marks)]
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    want = {"conv_bn_stats": K1_PER_STEP * NATIVE_EPOCHS * NATIVE_STEPS}
+    finite = all(math.isfinite(v) for r in res["log"] for k, v in r.items()
+                 if k.startswith("train"))
+    row.update(chunk_steps=chunk, epoch_start_gaps=gaps,
+               fill_ms=fills, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               run_s=secs, launches=launches, launches_ok=launches == want,
+               finite=finite, log=res["log"])
+    if staging is None and (not row["launches_ok"] or not finite):
+        failures.append(f"data {tag}: launches {launches} (want {want}), "
+                        f"finite losses {finite}")
+    fill_txt = (f"; gather ms a chunk median "
+                f"{sorted(fills)[len(fills) // 2]:.3f} of {len(fills)}"
+                if fills else "")
+    print(f"[data-run] {tag}: {stats_text(row)}; peak {row['peak_gb']:.3f} "
+          f"GB; epoch-start gap (card ms, host ms) " + ", ".join(
+              f"{g['device_ms']:.3f} / {g['host_ms']:.3f}" for g in gaps)
+          + f"{fill_txt}; run {secs:.1f} s; launches {launches}", flush=True)
+    return row
+
+
+def probe_loaders(folder):
+    """The memmap's train loader (B=64, the run's) and one at DDPM's batch
+    (B=16) over the same rows."""
+    from vgd_tpu_torch.data import celeba
+    base = vaegan_config()
+    cfg = dataclasses.replace(base.data, path=str(folder),
+                              dataset_size=NATIVE_FACES)
+    train, _, _ = celeba.make_image_datasets(cfg, seed=base.run.seed)
+    return {64: train, 16: celeba.Loader(train.ds, train.indices, 16,
+                                         shuffle=True, seed=base.run.seed)}
+
+
+def probe_expected(loader, mesh, weights):
+    """The probe's record a straight run must leave: per step, each of this
+    rank's rows of the step's selection dotted with ``weights``."""
+    import numpy as np
+    loader.set_epoch(0)
+    out = []
+    for i, (sel, _) in enumerate(loader.selections()):
+        if i == PROBE_STEPS:
+            break
+        rows = loader.ds.array[mesh.rows(sel)]
+        out.append(rows.reshape(len(rows), -1).astype(np.float64) @ weights)
+    return np.stack(out)
+
+
+def broken_stagers():
+    """The probe's broken stagers, each existing only in this phase:
+    ``refilled_without_wait`` hands a ring buffer out again without
+    waiting on its copy's event; ``stale_buffer`` fills each ring buffer
+    on its first turn only; and step 17's ``stale_batch`` StepGraph, which
+    fills the graph's batch slot for the capture only
+    (``stale_graph_slot``)."""
+    from vgd_tpu_torch.train import loop as L
+
+    class RefilledWithoutWait(L._Staging):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ring.wait = lambda k: None
+
+    class StaleBuffer(L._Staging):
+        filled = frozenset()
+
+        def fill(self, data, sels, buf):
+            if buf.data_ptr() not in self.filled:
+                self.filled = self.filled | {buf.data_ptr()}
+                super().fill(data, sels, buf)
+    return {"refilled_without_wait": (RefilledWithoutWait, None),
+            "stale_buffer": (StaleBuffer, None),
+            "stale_graph_slot": (L._Staging,
+                                 scan_control_graphs()["stale_batch"])}
+
+
+def identity_probe(loader, mesh, weights, expected, scan, staging_cls,
+                   graph_cls):
+    """(c) one run of the probe: ``_train_epoch`` over PROBE_STEPS steps of
+    ``loader`` staged by ``staging_cls`` (the scan's chunks, or one batch a
+    buffer), through a ``graph_cls`` StepGraph (or the per-step loop)
+    whose step spins PROBE_CYCLES on the card and records the dot of each
+    row of its batch with ``weights`` (f64, exact: integer sums under
+    2^53). Returns the steps whose record differs from ``expected``."""
+    import types
+    import numpy as np
+    import torch
+    from vgd_tpu_torch.train import loop as L
+    from vgd_tpu_torch.train.common import StepGraph
+    dev = torch.device("cuda")
+    rows = expected.shape[1]
+    w = torch.from_numpy(weights).to(dev)
+    rec = torch.full(expected.shape, -1.0, dtype=torch.float64, device=dev)
+    at = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def step(b):
+        torch.cuda._sleep(PROBE_CYCLES)
+        rec.index_copy_(0, at, (b.reshape(rows, -1).double() @ w)[None])
+        at.add_(1)
+        return {"steps": torch.ones((), device=dev)}
+
+    class Quiet:
+        def step(self, i):
+            pass
+
+        def chunk_begin(self, lo, hi):
+            pass
+
+        def chunk_end(self, hi):
+            pass
+    owner = types.SimpleNamespace(device=dev, step=0)
+    graph = (graph_cls or StepGraph)(step, owner) if scan else None
+    loader.set_epoch(0)
+    per = L._chunk_steps(loader.batch_size, loader.ds.image_shape,
+                         PROBE_STEPS) if scan else 1
+    staging = staging_cls(loader.ds.array, loader.batch_size, mesh, dev,
+                          per, L.SCAN_PREFETCH if scan else L.STEP_PREFETCH)
+    _, count, _ = L._train_epoch(graph, staging, loader, PROBE_STEPS,
+                                 Quiet(), 0, step)
+    torch.cuda.synchronize()
+    got = rec.cpu().numpy()
+    bad = [i for i in range(len(expected))
+           if not np.array_equal(got[i], expected[i])]
+    return {"steps": count, "turns": staging.ring.turn,
+            "buffers": len(staging.ring.buffers), "mismatched_steps": bad}
+
+
+def identity_path(folder, failures):
+    """(c) the batch-identity check under the scan (module docstring)."""
+    import numpy as np
+    from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
+    from vgd_tpu_torch.train import loop as L
+    loaders = probe_loaders(folder)
+    weights = np.random.default_rng(NATIVE_SEED).integers(
+        1, 2 ** 16, int(np.prod(loaders[64].ds.image_shape))).astype(
+            np.float64)
+    out = {}
+    broken = broken_stagers()
+    runs = [(f"scan-b{b}", b, LOCAL, True, None) for b in (64, 16)] + [
+        (f"scan-b64-{name}", 64, LOCAL, True, name)
+        for name in PROBE_BROKEN] + [
+        ("step-b64", 64, LOCAL, False, None),
+        ("scan-b64-dp2-rank1", 64, Mesh(2, 1, 1), True, None)]
+    expected = {}
+    for tag, b, mesh, scan, name in runs:
+        key = (b, mesh.data, mesh.rank)
+        if key not in expected:
+            expected[key] = probe_expected(loaders[b], mesh, weights)
+        staging_cls, graph_cls = broken[name] if name else (L._Staging,
+                                                            None)
+        t = time.perf_counter()
+        row = identity_probe(loaders[b], mesh, weights, expected[key], scan,
+                             staging_cls, graph_cls)
+        row["s"] = time.perf_counter() - t
+        held = not row["mismatched_steps"]
+        if name is None and (not held or row["steps"] != PROBE_STEPS):
+            failures.append(f"data identity {tag}: steps "
+                            f"{row['mismatched_steps']} differ from the "
+                            f"loader's rows ({row['steps']} run)")
+        if name is not None and held:
+            failures.append(f"data identity {tag}: the broken stager passed")
+        if scan and row["turns"] < 2 * row["buffers"]:
+            failures.append(f"data identity {tag}: {row['turns']} buffer "
+                            f"turns, want two turns of {row['buffers']}")
+        print(f"[data-identity] {tag}: {row['steps']} steps, "
+              f"{row['turns']} turns of {row['buffers']} buffers, "
+              f"{len(row['mismatched_steps'])} steps differ "
+              f"{row['mismatched_steps'][:8]} ({'held' if held else 'caught'}"
+              f", {row['s']:.1f} s)", flush=True)
+        out[tag] = row
+    return out
+
+
+# (d) the per-step loop's cells timed against the parent's staging
+NATIVE_STEP_CELLS = ("vae-64", "gan-64", "wgan-64")
+
+
+def step_ab(K):
+    """(d) ``--only data``: each NATIVE_STEP_CELLS cell's per-step loop
+    (step 17's timed ``run_*``, ``scan_run``) with the parent's staging
+    and with the loop's, in the order parent, change, change, parent:
+    step ms (median period) and busy share of each run."""
+    from vgd_tpu_torch.train import loop as L
+    cells = {c[0]: c for c in scan_cells()}
+    parent, out = parent_staging(), {}
+    for name in NATIVE_STEP_CELLS:
+        tag, family, cfg, per_step, _, _ = cells[name]
+        rows = []
+        for which in ("parent", "change", "change", "parent"):
+            orig = L._Staging
+            L._Staging = parent if which == "parent" else orig
+            try:
+                row, res = scan_run(K, tag, family, cfg, False, per_step)
+            finally:
+                L._Staging = orig
+            del res
+            rows.append({"staging": which, "step_ms": row["step_ms_median"],
+                         "busy_share": row["busy_share"],
+                         "peak_gb": row["peak_gb"]})
+        out[name] = rows
+        print(f"[data-step] {name} per-step loop ms (busy) " + ", ".join(
+            f"{r['staging']} {r['step_ms']:.3f} ({r['busy_share']})"
+            for r in rows), flush=True)
+    return out
+
+
+def native_data_path(K, failures, scan_report=None, ab=False):
+    """The data phase (module docstring, step 18): the native gather's
+    build; (a) each staging case; (b) ``run_vaegan`` from the memmap, and
+    with ``ab`` (``--only data``) the parent's staging on the same run and
+    the synthetic vaegan-256 scan cell (else its row from ``scan_report``,
+    the scan phase of this call); (c) the batch-identity probe; with
+    ``ab``, (d) the per-step loops against the parent's staging."""
+    import gc
+    import torch
+    from vgd_tpu_torch.data import native
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    lib = native.build(force=True)
+    report = {"build_s": time.perf_counter() - t, "library": str(lib)}
+    print(f"[data] native gather built by {native.find_cxx()} in "
+          f"{report['build_s']:.2f} s ({lib.name}); threads "
+          f"{native.default_threads()} of {os.cpu_count()} cores", flush=True)
+    folder, sources, report["write_s"] = native_sources()
+    print(f"[data] memmaps written in {report['write_s']:.1f} s: "
+          + ", ".join(f"{len(a)} x {a.shape[1]}x{a.shape[2]} "
+                      f"({a.nbytes / 1e9:.2f} GB)" for a in sources.values())
+          + " (warm: just written)", flush=True)
+    report["run"] = native_run(K, "memmap-256", folder, failures)
+    cells = (scan_report or {}).get("cells", {})
+    if ab:
+        report["parent_run"] = native_run(K, "memmap-256-parent", folder,
+                                          failures, parent_staging())
+        tag, family, cfg, per_step, _, _ = next(
+            c for c in scan_cells() if c[0] == "vaegan-256-k1")
+        report["synthetic_cell"], res = scan_run(K, tag, family, cfg, True,
+                                                 per_step)
+        del res
+    elif "vaegan-256-k1" in cells:
+        report["synthetic_cell"] = cells["vaegan-256-k1"]["scan"]
+    syn = report.get("synthetic_cell")
+    r = report["run"]
+    print(f"[data-run] memmap scan step ms {r['step_ms_median']:.3f}, busy "
+          f"{r['busy_share']}, peak {r['peak_gb']:.3f} GB against the "
+          f"synthetic vaegan-256 scan cell " + (
+              f"{syn['step_ms_median']:.3f}, busy {syn['busy_share']}, peak "
+              f"{syn['peak_gb']:.3f} GB" if syn else "(not run in this "
+              "call)"), flush=True)
+    step64 = cells.get("vaegan-64-k1", {}).get("scan", {}).get(
+        "step_ms_median")
+    report["stage"] = {}
+    for tag, hw, batch, chunk in NATIVE_STAGE_CASES:
+        step_ms = r["step_ms_median"] if hw == (256, 256) else step64
+        report["stage"][tag] = native_stage(tag, sources[hw], batch, chunk,
+                                            step_ms, failures, ab)
+    del sources
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["identity"] = identity_path(folder, failures)
+    if ab:
+        report["step_ab"] = step_ab(K)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[data] phase {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
 class _PartialRun(Exception):
     """Ends a ``--only`` run after its kernel's checks."""
 
 
-# ``--only`` choices and the sources each builds (the EEG phase and the
-# Inception checks build none; ``fid`` has no trained checkpoint to
-# evaluate, so it checks and times the network alone)
+# ``--only`` choices and the sources each builds (the EEG phase, the
+# Inception checks and the data phase build none up front: the data
+# phase's run builds K1 at its first launch; ``fid`` has no trained
+# checkpoint to evaluate, so it checks and times the network alone)
 ONLY = {"k1": ("conv_bn_stats.cu",),
         "attn": ("flash_attention.cu", "flash_attention_bwd.cu"),
         "k4": ("groupnorm_silu.cu",),
@@ -6629,7 +7190,8 @@ ONLY = {"k1": ("conv_bn_stats.cu",),
                 "flash_attention_bwd.cu", "groupnorm_silu.cu",
                 "glow_coupling.cu"),
         "scan": ("conv_bn_stats.cu", "flash_attention.cu",
-                 "flash_attention_bwd.cu")}
+                 "flash_attention_bwd.cu"),
+        "data": ()}
 # optional packages the ``[env]`` line reports (the EEG trace PNGs and PSD
 # figure need matplotlib; the port computes without any of them)
 OPTIONAL_PACKAGES = ("matplotlib", "PIL", "imageio", "sklearn", "scipy")
@@ -6651,7 +7213,9 @@ def main(argv=None) -> int:
                     "tensor parallelism; cli: K1 at the 64x64 VAE-GAN's "
                     "shapes, then the documented commands through "
                     "cli.main; scan: the epoch scan's CUDA-graph steps "
-                    "against the per-step loop) with no main path and no "
+                    "against the per-step loop; data: the native gather, "
+                    "its pinned staging and the batch-identity probe) with "
+                    "no main path and no "
                     "result line; exit 0 if it passed")
     args = ap.parse_args(argv)
     import torch
@@ -6734,6 +7298,8 @@ def main(argv=None) -> int:
             report["cli"] = cli_path(K, failures)
         elif args.only == "scan":
             report["scan"] = scan_path(K, failures, adam_ab=True)
+        elif args.only == "data":
+            report["data"] = native_data_path(K, failures, ab=True)
         if args.only:
             raise _PartialRun
         # the data-parallel phase first: its rank processes share this card,
@@ -6742,6 +7308,7 @@ def main(argv=None) -> int:
         report["mp"] = mp_path(K, failures)
         # the scan phase spawns two rank processes on this card as well
         report["scan"] = scan_path(K, failures)
+        report["data"] = native_data_path(K, failures, report["scan"])
         gen = torch.Generator(device=dev).manual_seed(0)
         k2_rows, report["sdpa_backend"], report["k2_gate"] = check_k2(
             K, gen, dev, failures)

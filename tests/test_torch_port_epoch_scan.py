@@ -102,8 +102,12 @@ def test_stream_epoch_scan_matches_jax(monkeypatch, batch, shape, steps,
         epoch_fn, 0, iter(data), steps, chunk_steps, jax.random.PRNGKey(0),
         3, jprof, 5, None)
     toy = _ToyGraph()
+    # the port stages the same batches from their rows' selections
+    staging = L._Staging(np.concatenate(data), batch, LOCAL, "cpu",
+                         chunk_steps, L.SCAN_PREFETCH)
+    sels = (np.arange(i * batch, (i + 1) * batch) for i in range(len(data)))
     psums, pcount, pgstep = L._stream_epoch_scan(
-        toy, iter(data), steps, chunk_steps, pprof, 5, "cpu")
+        toy, staging.chunks(sels, steps), pprof, 5)
     assert (pcount, pgstep) == (jcount, jgstep) == (steps, 5 + steps)
     assert toy.chunks == jax_chunks and int(state) == steps
     assert pprof.calls == jprof.calls

@@ -116,13 +116,17 @@ def test_cli_training_commands_take_lr_and_keep_checkpoints(
 
 
 def test_no_jax_import_in_port():
-    """No JAX-side import in the package or chip_smoke.py; no library
-    attention, group norm or torch.compile inside the package (chip_smoke.py
-    times the library calls as a yardstick only)."""
+    """No JAX-side import in the package or chip_smoke.py, the native
+    gather's bindings among them, and no load of the JAX package's gather
+    library; no library attention, group norm or torch.compile inside the
+    package (chip_smoke.py times the library calls as a yardstick only)."""
     package = sorted((ROOT / "vgd_tpu_torch").rglob("*.py"))
     files = package + [ROOT / "chip_smoke.py"]
+    assert ROOT / "vgd_tpu_torch" / "data" / "native.py" in package
     bad = []
     for f in files:
+        if "libvgdgather" in f.read_text():
+            bad.append(f"{f.relative_to(ROOT)}: libvgdgather")
         tree = ast.parse(f.read_text())
         for node in ast.walk(tree):
             names = []

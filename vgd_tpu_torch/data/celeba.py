@@ -11,8 +11,9 @@ either package opens the other's. A ``path`` that is not a folder falls
 back to synthetic faces, as in the JAX package; ``make_image_datasets``
 prints one ``[data]`` line naming the source. ``synthetic_faces`` is the
 same numpy code as the JAX package's, so both packages see the same bytes
-from a seed. Batches are uint8 host arrays; the consumer moves them to its
-device. PIL is imported where a JPEG is decoded, only.
+from a seed. Batches are uint8 host arrays gathered by the native gather
+(``data/native.py``), as the JAX package's are; the consumer moves them to
+its device. PIL is imported where a JPEG is decoded, only.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from vgd_tpu_torch.core.config import DataConfig
+from vgd_tpu_torch.data import native
 
 
 class ArrayDataset:
@@ -150,7 +152,12 @@ def split_dataset(ds: ArrayDataset, train_fraction: float, seed: int
 class Loader:
     """Minibatch iterator over an ArrayDataset subset, yielding
     ``(uint8 batch, n_valid)``. The train loader drops the last partial
-    batch; the eval loader pads it by repeating its last row."""
+    batch; the eval loader pads it by repeating its last row. Each batch is
+    gathered by the native gather (``data/native.py``, on threads sized to
+    the batch's bytes) at the sorted indices of its step (sorted: a faster
+    memmap read); ``selections`` and ``stream_selections`` give those
+    indices, so that a consumer can gather straight into its own buffer
+    (the training loop's pinned staging, ``utils/prefetch.py``)."""
 
     def __init__(self, ds: ArrayDataset, indices: np.ndarray, batch_size: int,
                  shuffle: bool, seed: int = 0, drop_last: bool = True):
@@ -175,38 +182,58 @@ class Loader:
         order), so a resumed run sees the batches a straight run would."""
         self._epoch = int(epoch)
 
-    def stream(self, start_batch: int = 0) -> Iterator[np.ndarray]:
-        """Endless full batches from global batch index ``start_batch``: a
-        resumed run sees exactly the batches a straight run would (the
-        skipped prefix replays only the shuffle permutations)."""
+    def _order(self) -> np.ndarray:
+        """This pass's order of the indices; the pass counter advances."""
+        idx = self.indices
+        if self.shuffle:
+            idx = np.random.default_rng(self.seed + self._epoch
+                                        ).permutation(idx)
+        self._epoch += 1
+        return idx
+
+    def stream_selections(self, start_batch: int = 0) -> Iterator[np.ndarray]:
+        """The sorted indices of ``stream(start_batch)``'s batches."""
         b = self.batch_size
         per = max(len(self.indices) // b, 1)
         self._epoch = start_batch // per
         skip = start_batch % per
         while True:
-            idx = self.indices
-            if self.shuffle:
-                idx = np.random.default_rng(self.seed + self._epoch
-                                            ).permutation(idx)
-            self._epoch += 1
+            idx = self._order()
             for i in range(skip, len(idx) // b):
-                yield self.ds.array[np.sort(idx[i * b:(i + 1) * b])]
+                yield np.sort(idx[i * b:(i + 1) * b])
             skip = 0
 
-    def epoch(self) -> Iterator[Tuple[np.ndarray, int]]:
-        idx = self.indices
-        if self.shuffle:
-            idx = np.random.default_rng(self.seed + self._epoch).permutation(idx)
-        self._epoch += 1
+    def stream(self, start_batch: int = 0) -> Iterator[np.ndarray]:
+        """Endless full batches from global batch index ``start_batch``: a
+        resumed run sees exactly the batches a straight run would (the
+        skipped prefix replays only the shuffle permutations, never the
+        gathers)."""
+        for sel in self.stream_selections(start_batch):
+            yield self._gather(sel)
+
+    def selections(self) -> Iterator[Tuple[np.ndarray, int]]:
+        """``(sorted indices, n_valid)`` of ``epoch()``'s batches: a padded
+        final batch repeats its last index."""
+        idx = self._order()
         b = self.batch_size
         n_full = len(idx) // b
         for i in range(n_full):
-            yield self.ds.array[np.sort(idx[i * b:(i + 1) * b])], b
+            yield np.sort(idx[i * b:(i + 1) * b]), b
         rem = len(idx) - n_full * b
         if rem and not self.drop_last:
-            batch = self.ds.array[np.sort(idx[n_full * b:])]
-            pad = np.repeat(batch[-1:], b - rem, axis=0)
-            yield np.concatenate([batch, pad], 0), rem
+            sel = np.sort(idx[n_full * b:])
+            yield np.concatenate([sel, np.repeat(sel[-1:], b - rem)]), rem
+
+    def epoch(self) -> Iterator[Tuple[np.ndarray, int]]:
+        for sel, n in self.selections():
+            yield self._gather(sel), n
+
+    def _gather(self, sel: np.ndarray) -> np.ndarray:
+        """The batch of ``sel``, on threads sized to its bytes."""
+        return native.gather_batch(self.ds.array, sel,
+                                   n_threads=native.threads_for(
+                                       sel.size * int(np.prod(
+                                           self.ds.image_shape))))
 
 
 def make_image_datasets(cfg: DataConfig, seed: int = 42):

@@ -44,15 +44,18 @@ The epoch-driven loops (``run_vaegan``, ``run_vae``, ``run_gan``,
 ``run_diffusion``) train either through the streaming epoch scan
 (``_stream_epoch_scan``, JAX's default for the VAE-GAN and DDPM, and
 ``epoch_scan=True`` for the others, ``SCAN_DEFAULT``) or step by step over
-``device_prefetch``ed batches. The scan stacks chunks of batches
-(``_chunk_steps``: at most SCAN_CHUNK_BYTES and a quarter of the epoch),
-stacks and copies the next chunk while the device runs this one
-(``device_prefetch`` of the chunks) and runs each chunk through the run's
-one ``common.StepGraph`` of the trainer's ``train_step``, made after init
-or resume: on a card every step after the warm-up is one replay of the
-step captured as a CUDA graph, on the CPU the step itself. Both paths take
-the same draws in the same order and log the mean over every step of the
-epoch, so on the CPU they give the same bits. On a card two things cannot
+staged batches. Both take their input from the run's ``_Staging``: each
+step's rows gathered by the native gather (``data/native.py``) straight
+into a ring of pinned buffers and copied to the card from there
+(``utils/prefetch.py``), a buffer refilled only after its copy has
+completed. The scan stages chunks of batches (``_chunk_steps``: at most
+SCAN_CHUNK_BYTES and a quarter of the epoch), gathers and copies the next
+chunk while the device runs this one, and runs each chunk through the
+run's one ``common.StepGraph`` of the trainer's ``train_step``, made after
+init or resume: on a card every step after the warm-up is one replay of
+the step captured as a CUDA graph, on the CPU the step itself. Both paths
+take the same draws in the same order and log the mean over every step of
+the epoch, so on the CPU they give the same bits. On a card two things cannot
 be captured: a group that moves CUDA tensors through the host (gloo), and
 ``--debug-nans``'s anomaly mode, which reads every backward result on the
 host. With either, an explicit ``epoch_scan=True`` raises, and the default
@@ -61,7 +64,6 @@ falls back to the per-step loop with a line on stderr.
 from __future__ import annotations
 
 import functools
-import itertools
 import os
 import sys
 import time
@@ -101,7 +103,8 @@ from vgd_tpu_torch.train.gan import GANTrainer
 from vgd_tpu_torch.train.glow import GlowEEGTrainer, GlowTrainer
 from vgd_tpu_torch.train.vae import VAETrainer
 from vgd_tpu_torch.train.vaegan import VAEGANTrainer
-from vgd_tpu_torch.utils.prefetch import device_prefetch
+from vgd_tpu_torch.utils.prefetch import (PinnedRing, device_prefetch,
+                                          fill_chunk, stage_chunks)
 from vgd_tpu_torch.utils.viz import have_matplotlib, plot_eeg_signals, \
     save_gif
 
@@ -313,14 +316,6 @@ SCAN_DEFAULT = {"vaegan": True, "diffusion": True, "vae": False,
                 "gan": False, "wgan": False}
 
 
-def _stack_next(batch_iter, n: int):
-    """Stack up to n batches from the iterator; None when exhausted."""
-    buf = list(itertools.islice(batch_iter, n))
-    if not buf:
-        return None
-    return np.stack(buf)
-
-
 def _chunk_steps(batch_size: int, img_shape, steps_per_epoch: int) -> int:
     """Steps per scan chunk: under the SCAN_CHUNK_BYTES budget AND at most a
     quarter of the epoch, so there are >= ~4 chunks per epoch and the host
@@ -331,27 +326,63 @@ def _chunk_steps(batch_size: int, img_shape, steps_per_epoch: int) -> int:
     return max(1, min(steps_per_epoch, budget, quarter))
 
 
-def _stream_epoch_scan(graph, train_iter, steps_per_epoch: int,
-                       chunk_steps: int, prof, gstep: int, device):
-    """The streaming epoch scan of one epoch: chunks of ``chunk_steps``
-    stacked batches (the last one shorter), each copied to ``device``
-    (``device_prefetch``: the next chunk is stacked and its copy enqueued
-    while the device runs this one) and run by ``graph.run(chunk)`` (a
-    ``common.StepGraph``); the metrics are read once, after the loop
+# staged transfers in flight (``stage_chunks``): the per-step loop's, and
+# the scan's, which stages chunk i + 1 while the device runs chunk i (as
+# JAX's streaming scan does), so one chunk is staged before the first
+# replay
+STEP_PREFETCH, SCAN_PREFETCH = 2, 1
+
+
+class _Staging:
+    """A run's input staging: each step's rows (``Mesh.rows`` of the
+    loader's sorted selection: this rank's part of the global batch)
+    gathered by the native gather straight into the buffers of one
+    ``PinnedRing`` (``utils/prefetch.py``), made once a run: buffers of
+    ``per_slot`` batches (the scan's chunk; 1 for the per-step loop), one
+    more than the ``prefetch`` transfers in flight, each refilled only
+    after its last copy to the card has completed."""
+
+    def __init__(self, data: np.ndarray, batch_size: int, mesh: Mesh, device,
+                 per_slot: int, prefetch: int):
+        lo, hi = mesh.bounds(batch_size)
+        self.data, self.mesh, self.prefetch = data, mesh, prefetch
+        self.ring = PinnedRing((per_slot, hi - lo) + data.shape[1:],
+                               device, slots=prefetch + 1)
+
+    def fill(self, data: np.ndarray, sels, buf: torch.Tensor) -> None:
+        fill_chunk(data, sels, buf)
+
+    def chunks(self, selections, steps: Optional[int] = None):
+        """Device chunks (k, rows, ...) of up to ``per_slot`` steps of
+        ``selections``, at most ``steps`` in all."""
+        return stage_chunks(self.data, selections, self.ring, steps,
+                            self.mesh.rows, self.fill, self.prefetch)
+
+    def batches(self, selections, steps: Optional[int] = None):
+        """Device batches (rows, ...) of ``selections``, one a buffer."""
+        return (c[0] for c in self.chunks(selections, steps))
+
+
+def _staging(train, mesh: Mesh, device, scan: bool, steps: int) -> _Staging:
+    """The run's staging: chunks of ``_chunk_steps`` for the scan, single
+    batches for the per-step loop."""
+    if not scan:
+        return _Staging(train.ds.array, train.batch_size, mesh, device, 1,
+                        STEP_PREFETCH)
+    return _Staging(train.ds.array, train.batch_size, mesh, device,
+                    _chunk_steps(train.batch_size, train.ds.image_shape,
+                                 steps), SCAN_PREFETCH)
+
+
+def _stream_epoch_scan(graph, chunks, prof, gstep: int):
+    """The streaming epoch scan of one epoch: each device chunk of stacked
+    batches (``_Staging.chunks``: the next chunk is gathered and its copy
+    enqueued while the device runs this one) run by ``graph.run(chunk)``
+    (a ``common.StepGraph``); the metrics are read once, after the loop
     (``graph.read()``). Returns (sums, count, gstep): ``sums`` the metrics
     summed over every step (divide by ``count`` for the epoch mean)."""
-    def chunks():
-        count = 0
-        while count < steps_per_epoch:
-            stacked = _stack_next(train_iter,
-                                  min(chunk_steps, steps_per_epoch - count))
-            if stacked is None:
-                return
-            count += stacked.shape[0]
-            yield stacked
-
     count = 0
-    for cur in device_prefetch(chunks(), size=2, device=device):
+    for cur in chunks:
         n = cur.shape[0]
         prof.chunk_begin(gstep, gstep + n)
         graph.run(cur)
@@ -399,21 +430,19 @@ def _epoch_scan(family: str, epoch_scan: Optional[bool], mesh: Mesh,
     return scan
 
 
-def _train_epoch(graph: Optional[StepGraph], train, mesh: Mesh, device,
-                 steps: int, chunk_steps: int, prof, gstep: int, step_fn):
-    """One epoch's ``steps`` train steps, through the epoch scan (``graph``,
-    the run's StepGraph of ``step_fn``) or, with no graph, step by step
-    (``step_fn`` on each ``device_prefetch``ed batch, the metrics summed on
-    the device and read once). Returns (sums, count, gstep) as
-    ``_stream_epoch_scan`` does."""
-    batches = (mesh.rows(b) for b, _ in train.epoch())
+def _train_epoch(graph: Optional[StepGraph], staging: _Staging, train,
+                 steps: int, prof, gstep: int, step_fn):
+    """One epoch's ``steps`` train steps over ``train``'s batches staged by
+    ``staging``, through the epoch scan (``graph``, the run's StepGraph of
+    ``step_fn``) or, with no graph, step by step (``step_fn`` on each
+    batch, the metrics summed on the device and read once). Returns (sums,
+    count, gstep) as ``_stream_epoch_scan`` does."""
+    selections = (sel for sel, _ in train.selections())
     if graph is not None:
-        return _stream_epoch_scan(graph, batches, steps, chunk_steps, prof,
-                                  gstep, device)
+        return _stream_epoch_scan(graph, staging.chunks(selections, steps),
+                                  prof, gstep)
     sums, count = {}, 0
-    for batch in device_prefetch(batches, size=2, device=device):
-        if count >= steps:
-            break
+    for batch in staging.batches(selections, steps):
         prof.step(gstep)
         m = step_fn(batch)
         gstep += 1
@@ -453,7 +482,7 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
                   resume: bool = False, device="cuda",
                   epoch_scan: Optional[bool] = None) -> Dict:
     """Train DDPM: per epoch, train steps through the epoch scan (the
-    default) or over ``device_prefetch``ed batches with ``epoch_scan=False``
+    default) or over staged batches with ``epoch_scan=False``
     (module docstring; the loss summed on the device and read once), the
     validation
     epsilon-MSE over the true rows of every val batch, a ``MetricLog`` row
@@ -486,7 +515,7 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
     scan = _epoch_scan("diffusion", epoch_scan, mesh, device,
                        cfg.run.debug_nans)
     steps = _steps_per_epoch(train, max_steps_per_epoch)
-    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+    staging = _staging(train, mesh, device, scan, steps)
 
     def step_fn(b):
         return {"loss": trainer.train_step(b, gen)}
@@ -495,8 +524,7 @@ def run_diffusion(cfg: DiffusionConfig, epochs: Optional[int] = None,
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         sums, count, gstep = _train_epoch(
-            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
-            step_fn)
+            graph, staging, train, steps, prof, gstep, step_fn)
         total = sums.get("loss", 0.0)
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
@@ -614,7 +642,7 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
                feature_fn=None, resume: bool = False, device="cuda",
                epoch_scan: Optional[bool] = None) -> Dict:
     """Train the VAE-GAN: per epoch, ``train_step`` through the epoch scan
-    (the default) or over ``device_prefetch``ed batches with
+    (the default) or over staged batches with
     ``epoch_scan=False`` (module docstring), with the KL ramp of the epoch
     in a 0-d tensor (the losses summed on the device and read once: epoch
     metrics are means over every step), then the denoising validation
@@ -652,7 +680,7 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
     scan = _epoch_scan("vaegan", epoch_scan, mesh, device,
                        cfg.run.debug_nans)
     steps = _steps_per_epoch(train, max_steps_per_epoch)
-    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+    staging = _staging(train, mesh, device, scan, steps)
     # the epoch's KL ramp, filled before each epoch: a captured step reads
     # the tensor at every replay
     ramp = torch.zeros((), device=device)
@@ -666,8 +694,7 @@ def run_vaegan(cfg: VAEGANConfig, epochs: Optional[int] = None,
         ramp.fill_(trainer.kl_ramp(epoch))
         t0 = time.perf_counter()
         sums, count, gstep = _train_epoch(
-            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
-            step_fn)
+            graph, staging, train, steps, prof, gstep, step_fn)
         means = {f"train_{k}": v / count for k, v in sums.items()}
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
@@ -735,7 +762,7 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
             max_steps_per_epoch: Optional[int] = None, resume: bool = False,
             device="cuda", epoch_scan: Optional[bool] = None) -> Dict:
     """Train the denoising VAE: per epoch, ``train_step`` over
-    ``device_prefetch``ed batches (the default) or through the epoch scan
+    staged batches (the default) or through the epoch scan
     with ``epoch_scan=True`` (module docstring), with the KL ramp of the
     epoch in a 0-d tensor (the loss summed on the device and read once),
     then the random-std denoising
@@ -771,7 +798,7 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
     epochs = cfg.epochs if epochs is None else epochs
     scan = _epoch_scan("vae", epoch_scan, mesh, device, cfg.run.debug_nans)
     steps = _steps_per_epoch(train, max_steps_per_epoch)
-    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+    staging = _staging(train, mesh, device, scan, steps)
     ramp = torch.zeros((), device=device)
 
     def step_fn(b):
@@ -783,8 +810,7 @@ def run_vae(cfg: VAEConfig, epochs: Optional[int] = None,
         ramp.fill_(trainer.kl_ramp(epoch))
         t0 = time.perf_counter()
         sums, count, gstep = _train_epoch(
-            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
-            step_fn)
+            graph, staging, train, steps, prof, gstep, step_fn)
         total = sums.get("total", 0.0)
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
@@ -981,7 +1007,7 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
             max_steps_per_epoch: Optional[int] = None, resume: bool = False,
             device="cuda", epoch_scan: Optional[bool] = None) -> Dict:
     """Train DCGAN (or WGAN with ``cfg.wgan``): per epoch, ``train_step``
-    (``train_step_wgan``) over ``device_prefetch``ed batches (the default)
+    (``train_step_wgan``) over staged batches (the default)
     or through the epoch scan with ``epoch_scan=True`` (module docstring;
     both losses summed on the device and read once), a ``MetricLog`` row
     (d_loss, g_loss, images_per_sec), every ``checkpoint_every_epochs`` a
@@ -1015,7 +1041,7 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
     epochs = cfg.epochs if epochs is None else epochs
     scan = _epoch_scan(name, epoch_scan, mesh, device, cfg.run.debug_nans)
     steps = _steps_per_epoch(train, max_steps_per_epoch)
-    chunk_steps = _chunk_steps(cfg.data.batch_size, img_shape, steps)
+    staging = _staging(train, mesh, device, scan, steps)
 
     def step_fn(b):
         return step(b, gen)
@@ -1024,8 +1050,7 @@ def run_gan(cfg: GANConfig, epochs: Optional[int] = None,
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         sums, count, gstep = _train_epoch(
-            graph, train, mesh, device, steps, chunk_steps, prof, gstep,
-            step_fn)
+            graph, staging, train, steps, prof, gstep, step_fn)
         means = {k: v / max(count, 1) for k, v in sums.items()}
         ips = count * cfg.data.batch_size / max(time.perf_counter() - t0,
                                                 1e-9)
@@ -1124,8 +1149,8 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
     _replicate_glow(trainer, mesh)
     # batch 0 goes to the ActNorm init and batch i + 1 to iteration i, so a
     # run resumed at `start` continues from batch start + 1
-    batches = device_prefetch(map(mesh.rows, train.stream(
-        start + 1 if start else 0)), size=2, device=device)
+    batches = _staging(train, mesh, device, False, 0).batches(
+        train.stream_selections(start + 1 if start else 0))
     if start == 0:
         trainer.init_step(next(batches), gen)
 
