@@ -1,0 +1,7 @@
+"""device_idle.train: 1 - the union of the device's kernel, copy and fill
+intervals over the traced window, in %."""
+from portbench.readers import idle
+
+
+def read(reading):
+    return idle(reading)
