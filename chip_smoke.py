@@ -1350,8 +1350,7 @@ def check_unet(K, trainer, gen, failures):
         stats = {"unet_fused_ms": cuda_ms(lambda: model(x, t), 2, 10),
                  "unet_plain_ms": cuda_ms(plain, 2, 10)}
         stats["forward_profile"] = profile_fn(
-            lambda: model(x, t), stats["unet_fused_ms"], FORWARD_GROUPS,
-            "profile")
+            lambda: model(x, t), FORWARD_GROUPS, "profile")
     print(f"[unet] forward B={b} {h}x{w}: fused {stats['unet_fused_ms']:.3f} "
           f"ms, no-kernel reference {stats['unet_plain_ms']:.3f} ms",
           flush=True)
@@ -1423,8 +1422,8 @@ def check_train_step(K, trainer, gen, failures):
     def step():
         trainer.train_step(batch, t=t, noise=noise)
     stats["train_step_ms"] = cuda_ms(step, 1, 5)
-    stats["train_step_profile"] = profile_fn(step, stats["train_step_ms"],
-                                             TRAIN_GROUPS, "profile-train")
+    stats["train_step_profile"] = profile_fn(step, TRAIN_GROUPS,
+                                             "profile-train")
     print(f"[train-step] forward+backward B={b} {h}x{w}: K2 "
           f"{stats['fwd_bwd_ms']:.3f} ms, no-kernel reference "
           f"{stats['fwd_bwd_plain_ms']:.3f} ms; whole train step "
@@ -1460,10 +1459,9 @@ def device_us(evt):
     return evt.self_cuda_time_total if us is None else us
 
 
-def profile_fn(fn, wall_ms, groups, tag):
+def profile_fn(fn, groups, tag):
     """Device kernel time of one call of ``fn`` by kernel and by group
-    (torch.profiler), and the device's busy share: summed kernel time over
-    the CUDA-event time of a call."""
+    (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1493,8 +1491,7 @@ def profile_fn(fn, wall_ms, groups, tag):
               f"x{launches[group]:<5d} {group}", flush=True)
     for name, ms, count in rows[:10]:
         print(f"[{tag}]   {ms:8.3f} ms x{count:<4d} {name[:80]}", flush=True)
-    print(f"[{tag}] kernel time {total:.3f} ms of a {wall_ms:.3f} ms call: "
-          f"device busy share {total / wall_ms:.3f}", flush=True)
+    print(f"[{tag}] kernel time {total:.3f} ms", flush=True)
     return {"kernel_ms": total, "groups": by_group,
             "group_launches": launches, "top": [list(r) for r in rows[:10]]}
 
@@ -2015,7 +2012,7 @@ def held_step(K, tag, make, draws, grads_fn, shapes, launches, failures,
 
 def timed_step(K, tag, step, batch_size, failures, launches=None):
     """One whole bf16 train step: CUDA-event time with K1 and with no
-    kernel, images/s, its profile by kernel group (device busy share), and
+    kernel, images/s, its profile by kernel group, and
     the K1 launches of one step against ``launches``."""
     import torch
 
@@ -2026,10 +2023,8 @@ def timed_step(K, tag, step, batch_size, failures, launches=None):
     stats = {"train_step_ms": cuda_ms(step, 2, 5),
              "train_step_plain_ms": cuda_ms(plain_step, 2, 5)}
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    stats["train_step_profile"] = profile_fn(
-        step, stats["train_step_ms"], VAEGAN_GROUPS, f"profile-{tag}")
-    busy = stats["train_step_profile"]["kernel_ms"] / stats["train_step_ms"]
-    stats["busy_share"] = busy
+    stats["train_step_profile"] = profile_fn(step, VAEGAN_GROUPS,
+                                             f"profile-{tag}")
     K.LAUNCHES.clear()
     step()
     stats["k1_launches"] = K.LAUNCHES["conv_bn_stats"]
@@ -2038,9 +2033,9 @@ def timed_step(K, tag, step, batch_size, failures, launches=None):
                         f"{stats['k1_launches']} times, want {launches}")
     print(f"[{tag}] whole bf16 train step: K1 {stats['train_step_ms']:.3f} ms"
           f" = {batch_size / stats['train_step_ms'] * 1e3:.1f} images/s, "
-          f"no-kernel reference {stats['train_step_plain_ms']:.3f} ms; busy "
-          f"share {busy:.3f}; peak memory {stats['peak_mem_gb']:.3f} GB; K1 "
-          f"launches {stats['k1_launches']}", flush=True)
+          f"no-kernel reference {stats['train_step_plain_ms']:.3f} ms; peak "
+          f"memory {stats['peak_mem_gb']:.3f} GB; K1 launches "
+          f"{stats['k1_launches']}", flush=True)
     return stats
 
 
@@ -3073,8 +3068,8 @@ def check_glow_step(K, cfg, gen, failures, tag, init_want, step_want,
             step()
     stats.update(train_step_ms=cuda_ms(step, 1, 3),
                  train_step_plain_ms=cuda_ms(plain_step, 1, 3))
-    stats["train_step_profile"] = profile_fn(
-        step, stats["train_step_ms"], GLOW_GROUPS, f"profile-{tag}")
+    stats["train_step_profile"] = profile_fn(step, GLOW_GROUPS,
+                                             f"profile-{tag}")
     print(f"[{tag}] whole bf16 train step B={b} {h}x{w}: kernels "
           f"{stats['train_step_ms']:.3f} ms, no-kernel reference "
           f"{stats['train_step_plain_ms']:.3f} ms", flush=True)
@@ -3812,7 +3807,7 @@ def check_eeg_step(K, cfg, failures):
     same batch and dequantisation noise; the loss within STEP_LOSS_REL and
     every gradient within STEP_GRAD_REL x its tensor's max |g| +
     STEP_GRAD_FLOOR x the largest (``compare_glow_step``). Then the step
-    timed, profiled (device busy share) and its peak memory."""
+    timed, profiled and its peak memory."""
     import torch
     from vgd_tpu_torch.data.eeg import EEGDataset, eeg_batches
     from vgd_tpu_torch.train.glow import GlowEEGTrainer
@@ -3863,13 +3858,11 @@ def check_eeg_step(K, cfg, failures):
     torch.cuda.reset_peak_memory_stats()
     stats["train_step_ms"] = ms = cuda_ms(step, 2, 5)
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    prof = stats["train_step_profile"] = profile_fn(
-        step, ms, EEG_GROUPS, "profile-eeg-step")
-    stats["busy_share"] = prof["kernel_ms"] / ms
+    stats["train_step_profile"] = profile_fn(step, EEG_GROUPS,
+                                             "profile-eeg-step")
     print(f"[eeg-step] whole f32 train step B={cfg.batch_size}: {ms:.3f} ms "
-          f"= {cfg.batch_size / ms * 1e3:.1f} trials/s; busy share "
-          f"{stats['busy_share']:.3f}; peak memory {stats['peak_mem_gb']:.3f}"
-          f" GB", flush=True)
+          f"= {cfg.batch_size / ms * 1e3:.1f} trials/s; peak memory "
+          f"{stats['peak_mem_gb']:.3f} GB", flush=True)
     return stats
 
 

@@ -242,6 +242,45 @@ def test_groupnorm_silu_graph_replays_beside_eager_calls(cuda):
             assert ratio <= 1.0, err
 
 
+def test_step_graph_replay_spans_and_capture_counters(cuda, monkeypatch):
+    """Under the profiler each replay of a ``StepGraph`` is one
+    ``vgd.graph.replay`` span; its one capture is counted, with its host
+    seconds and the memory its private pool reserved, and its replays'
+    least host seconds are kept, traced or not."""
+    from types import SimpleNamespace
+    from torch.profiler import ProfilerActivity, profile
+    from vgd_tpu_torch.train import common
+    from vgd_tpu_torch.utils import trace
+    monkeypatch.setattr(trace, "COUNTERS", type(trace.COUNTERS)())
+    owner = SimpleNamespace(device=torch.device(cuda), step=0)
+    w = torch.linspace(0.5, 1.5, 64 * 64, device=cuda).reshape(64, 64)
+
+    def step(batch):
+        owner.step += 1
+        return {"s": torch.tanh(batch.float() @ w).sum()}
+    g = common.StepGraph(step, owner)
+    chunk = torch.randint(0, 256, (12, 4, 64), dtype=torch.uint8,
+                          device=cuda)
+    first = common.WARMUP_STEPS + 1          # the eager steps, one replay
+    g.run(chunk[:first])
+    torch.cuda.synchronize()
+    assert trace.COUNTERS["graph.replay_min_s"] > 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g.run(chunk[first:])
+        torch.cuda.synchronize()
+    host = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    assert host.count("vgd.graph.replay") == len(chunk) - first
+    assert "vgd.graph.capture" not in host
+    assert trace.COUNTERS["graph.captures"] == 1
+    assert trace.COUNTERS["graph.capture_s"] > 0
+    assert trace.COUNTERS["graph.capture_reserved_bytes"] >= 0
+    assert owner.step == len(chunk)
+    want = sum(float(torch.tanh(b.float() @ w).sum()) for b in chunk)
+    assert g.read()["s"] == pytest.approx(want, rel=1e-4)
+
+
 def test_fused_unet_matches_plain_f32(cuda):
     """Small f32 UNet: kernels inside the model agree with the same model
     run with no kernel at all."""

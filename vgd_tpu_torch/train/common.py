@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from vgd_tpu_torch.ops import kernels
 from vgd_tpu_torch.parallel.collectives import all_mean
 from vgd_tpu_torch.parallel.mesh import Mesh
+from vgd_tpu_torch.utils import trace
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -135,11 +136,15 @@ class StepGraph:
     ``torch.Generator``, is registered with the graph, so each replay draws
     what an eager step would draw next and leaves the generator where an
     eager step leaves it. Kernel launches recorded in the capture are taken
-    out of ``kernels.LAUNCHES`` and added back at every replay. A capture
-    that fails raises: a card never falls back to eager steps. The graph
-    holds the addresses of every tensor the step touches, so the loop makes
-    one StepGraph a run, after the trainer's init or resume, and loads no
-    state into the trainer while it is in use.
+    out of ``kernels.LAUNCHES`` and added back at every replay. The capture
+    and each replay are the spans ``vgd.graph.capture`` and
+    ``vgd.graph.replay`` (``utils.trace``); the capture adds its host
+    seconds and the device memory it reserved to ``trace.COUNTERS``, and a
+    replay its host seconds where they are the least yet. A
+    capture that fails raises: a card never falls back to eager steps. The
+    graph holds the addresses of every tensor the step touches, so the loop
+    makes one StepGraph a run, after the trainer's init or resume, and loads
+    no state into the trainer while it is in use.
 
     On the CPU every step is the call ``step(batch)`` itself.
     """
@@ -176,10 +181,12 @@ class StepGraph:
         else:
             if self.graph is None:
                 self._capture(batch)
-            self.slot.copy_(batch)
-            self.graph.replay()
-            self.owner.step += 1
-            kernels.replayed(self.captured)
+            with trace.timed("vgd.graph.replay", "graph.replay_min_s",
+                             least=True):
+                self.slot.copy_(batch)
+                self.graph.replay()
+                self.owner.step += 1
+                kernels.replayed(self.captured)
         self.steps_run += 1
 
     def _accumulate(self, metrics: Dict[str, torch.Tensor]) -> None:
@@ -191,14 +198,22 @@ class StepGraph:
             self.sums[k].add_(v)
 
     def _capture(self, batch: torch.Tensor) -> None:
-        self.slot = torch.empty_like(batch)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        counter = self.owner.step
-        with kernels.capturing() as launched:
-            with torch.cuda.graph(graph):
-                self._accumulate(self.step(self.slot))
+        with trace.timed("vgd.graph.capture", "graph.capture_s"):
+            self.slot = torch.empty_like(batch)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            counter = self.owner.step
+            with kernels.capturing() as launched:
+                with torch.cuda.graph(graph):
+                    # taken once the capture has begun: entering it empties
+                    # the allocator's cache, so from here on what the
+                    # allocator reserves is the graph's private pool
+                    before = torch.cuda.memory_reserved(self.device)
+                    self._accumulate(self.step(self.slot))
+            pool = torch.cuda.memory_reserved(self.device) - before
+        trace.COUNTERS.update({"graph.captures": 1,
+                               "graph.capture_reserved_bytes": pool})
         self.owner.step = counter
         self.captured = launched
         self.graph = graph

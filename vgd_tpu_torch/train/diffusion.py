@@ -30,7 +30,11 @@ forward per step. Scalar schedule entries stay 0-d f32 tensors on the
 device, so the update arithmetic is f32 as in the JAX package and no step
 waits on the host. Each sampler draws its Gaussian noise from an explicit
 ``torch.Generator``, or takes a ``noise`` sequence of one tensor per
-executed step, so a test can hand both packages the same draws.
+executed step, so a test can hand both packages the same draws. A
+sampler's chain, each of its steps and each UNet forward are the spans
+``vgd.sample.request``, ``vgd.sample.step`` and ``vgd.sample.forward``
+(``utils.trace``: recorded only while a profiler is active); the least
+host seconds of a forward are always kept in ``trace.COUNTERS``.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from vgd_tpu_torch.parallel.collectives import average_grads
 from vgd_tpu_torch.parallel.mesh import LOCAL, Mesh
 from vgd_tpu_torch.train.common import (DTYPES, adam, batch_draw,
                                          mean_metrics, mse)
+from vgd_tpu_torch.utils import trace
 
 
 class Schedule(NamedTuple):
@@ -279,7 +284,9 @@ class DiffusionTrainer:
                                device=x.device)
         else:
             t_vec = t.to(torch.int32).reshape(1).expand(x.shape[0])
-        return self.model_fused(x, t_vec)
+        with trace.timed("vgd.sample.forward", "sample.forward_min_s",
+                         least=True):
+            return self.model_fused(x, t_vec)
 
     def ancestral_step(self, x: torch.Tensor, t, noise: torch.Tensor
                        ) -> torch.Tensor:
@@ -322,11 +329,13 @@ class DiffusionTrainer:
         x unchanged, so skipping it gives the identical result, and eager
         PyTorch has no reason to pay for masked forwards. ``noise`` holds
         one tensor per executed step, for t = t_start, ..., 0."""
-        x = xt.to(self.device, torch.float32)
-        for i, t in enumerate(range(int(t_start), -1, -1)):
-            x = self.ancestral_step(x, t, self._noise(noise, i, x,
-                                                      generator))
-        return torch.clamp(x, -1.0, 1.0)
+        with trace.span("vgd.sample.request"):
+            x = xt.to(self.device, torch.float32)
+            for i, t in enumerate(range(int(t_start), -1, -1)):
+                with trace.span("vgd.sample.step"):
+                    x = self.ancestral_step(x, t, self._noise(noise, i, x,
+                                                              generator))
+            return torch.clamp(x, -1.0, 1.0)
 
     @torch.inference_mode()
     def ddim_sample(self, xt: torch.Tensor, num_steps: int, eta: float = 1.0,
@@ -343,15 +352,18 @@ class DiffusionTrainer:
         t_start = T - 1 if t_start is None else int(t_start)
         taus = [int(t) for t in ddim_timesteps(T, num_steps)[::-1]]
         eta_t = torch.tensor(eta, dtype=torch.float32, device=self.device)
-        x = xt.to(self.device, torch.float32)
-        i = 0
-        for tau, tau_prev in zip(taus, taus[1:] + [T]):
-            if tau > t_start:
-                continue
-            x = self.ddim_step(x, tau, tau_prev, eta_t, None if eta == 0.0
-                               else self._noise(noise, i, x, generator))
-            i += 1
-        return torch.clamp(x, -1.0, 1.0)
+        with trace.span("vgd.sample.request"):
+            x = xt.to(self.device, torch.float32)
+            i = 0
+            for tau, tau_prev in zip(taus, taus[1:] + [T]):
+                if tau > t_start:
+                    continue
+                with trace.span("vgd.sample.step"):
+                    x = self.ddim_step(
+                        x, tau, tau_prev, eta_t, None if eta == 0.0
+                        else self._noise(noise, i, x, generator))
+                i += 1
+            return torch.clamp(x, -1.0, 1.0)
 
     def generate_ddim(self, shape: Tuple[int, ...], num_steps: int,
                       eta: float = 0.0,

@@ -76,6 +76,7 @@ from vgd_tpu_torch.core.config import (DiffusionConfig, GANConfig,
                                        GlowConfig, GlowEEGConfig, VAEConfig,
                                        VAEGANConfig, to_dict)
 from vgd_tpu_torch.core.rng import resolve_device, seed_all
+from vgd_tpu_torch.data import native
 from vgd_tpu_torch.data.celeba import make_image_datasets
 from vgd_tpu_torch.data.corrupt import corrupt, corrupt_draws
 from vgd_tpu_torch.data.eeg import CHANNEL_NAMES, EEGDataset, eeg_batches
@@ -340,7 +341,9 @@ class _Staging:
     ``PinnedRing`` (``utils/prefetch.py``), made once a run: buffers of
     ``per_slot`` batches (the scan's chunk; 1 for the per-step loop), one
     more than the ``prefetch`` transfers in flight, each refilled only
-    after its last copy to the card has completed."""
+    after its last copy to the card has completed. Where a chunk's gather
+    takes threads, their library is built here, in the run's set-up, and
+    not in the first chunk's fill."""
 
     def __init__(self, data: np.ndarray, batch_size: int, mesh: Mesh, device,
                  per_slot: int, prefetch: int):
@@ -348,6 +351,8 @@ class _Staging:
         self.data, self.mesh, self.prefetch = data, mesh, prefetch
         self.ring = PinnedRing((per_slot, hi - lo) + data.shape[1:],
                                device, slots=prefetch + 1)
+        if native.threads_for(self.ring.buffers[0].numel()) > 1:
+            native.build()
 
     def fill(self, data: np.ndarray, sels, buf: torch.Tensor) -> None:
         fill_chunk(data, sels, buf)

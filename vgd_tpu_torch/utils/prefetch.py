@@ -13,7 +13,9 @@ pinned on a card, and the ring enqueues the buffer's copy to the card. PyTorch's
 allocator keeps a buffer made by ``pin_memory()`` alive until its copy has
 finished; a ring buffer is reused by hand instead, so the ring records a
 CUDA event after each copy and refills a buffer only after that buffer's
-event has completed.
+event has completed. Each ``stage`` adds to ``utils.trace.COUNTERS`` (its
+chunk, its wait and fill seconds) and, while a profiler is active, opens
+the spans ``vgd.stage.wait`` and ``vgd.stage.fill``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from vgd_tpu_torch.data import native
+from vgd_tpu_torch.utils import trace
 
 
 def _ahead(items: Iterator, size: int) -> Iterator:
@@ -69,15 +72,17 @@ class PinnedRing:
         buffer's next turn waits on; on the CPU the buffer's view."""
         k = self.turn % len(self.buffers)
         self.turn += 1
-        self.wait(k)
-        fill(self.buffers[k])
-        host = self.buffers[k][:n]
-        if self.device.type != "cuda":
-            return host
-        out = host.to(self.device, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        self.events[k] = ev
+        with trace.timed("vgd.stage.wait", "stage.wait_s"):
+            self.wait(k)
+        with trace.timed("vgd.stage.fill", "stage.busy_s"):
+            fill(self.buffers[k])
+            out = self.buffers[k][:n]
+            if self.device.type == "cuda":
+                out = out.to(self.device, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                self.events[k] = ev
+        trace.COUNTERS["stage.chunks"] += 1
         return out
 
 
