@@ -804,10 +804,15 @@ def check_k2(K, gen, dev, failures):
 
 
 # K4's forms: the f32 form (the TPU kernel's own function: f32 in and out),
-# gn1's (bf16 in, bf16 out) and gn2's (bf16 in, bf16 residual, bf16 out)
-# on the fused UNet's main path; bytes an element moved at least (x read,
-# the residual read, out written once)
-K4_FORMS = (("f32", 8), ("gn1", 4), ("gn2", 6))
+# gn1's (bf16 in, bf16 out), gn1s, gn1's with the time projection as its
+# shift (the fused UNet's gn1 on the main path), and gn2's (bf16 in, bf16
+# residual, bf16 out); bytes an element moved at least (x read, the
+# residual read, out written once)
+K4_FORMS = (("f32", 8), ("gn1", 4), ("gn1s", 4), ("gn2", 6))
+# the forms the fused UNet's forward runs: gn1 with its shift, gn2
+K4_MAIN_FORMS = ("gn1s", "gn2")
+# K4 launches with a shift a fused UNet forward: gn1 of the seven ConvBlocks
+K4_SHIFT_PER_FORWARD = 7
 # checked, not timed: ragged shapes and one an image of which the grid's
 # shared memory cannot hold (streamed), in f32 and bf16
 GN_EXTRA = [(3, 7, 9, 24), (1, 1, 1, 8), (2, 7, 9, 24), (2, 512, 512, 64)]
@@ -849,15 +854,29 @@ def gn_operands(gen, dev, b, h, w, c):
 
 
 def gn_form_args(form, x, res):
-    """(x, kwargs) of one form of K4's call."""
+    """(x, kwargs) of one form of K4's call; gn1s's shift (B, C) is the
+    residual's first pixel, times 4 (a time projection's size)."""
     import torch
     if form == "f32":
         return x, {}
     xb = x.to(torch.bfloat16)
     if form == "gn1":
         return xb, {"out_dtype": torch.bfloat16}
+    if form == "gn1s":
+        return xb, {"out_dtype": torch.bfloat16,
+                    "shift": 4.0 * res[:, 0, 0, :].contiguous()}
     return xb, {"out_dtype": torch.bfloat16,
                 "residual": res.to(torch.bfloat16)}
+
+
+def gn_unshifted(K, xi, scale, bias, kw):
+    """K4 on x with gn1s's shift added by a stock op beforehand (what the
+    fused UNet ran before K4 took the shift): the shifted call's
+    bit-equal yardstick."""
+    rest = {k: v for k, v in kw.items() if k != "shift"}
+    return K.groupnorm_silu(
+        xi + kw["shift"][:, None, None, :].to(xi.dtype), scale, bias, 8,
+        **rest)
 
 
 def gn_plan_text(plan):
@@ -880,20 +899,23 @@ def k4_phases(K, xi, scale, bias, kw, plan, dev):
 
 
 def check_groupnorm(K, gen, dev, failures, phases=False):
-    """K4 in its three forms at every main-path shape (each against its
+    """K4 in its four forms at every main-path shape (each against its
     plain version, bit-equal over two calls, one launch a call, timed with
-    its bound; the f32 form also against ``F.group_norm`` + ``F.silu`` on
-    the NHWC tensor's NCHW view and on an NCHW-contiguous copy), then the
-    ragged and streamed shapes in f32 and bf16. Returns the f32 rows (the
-    TPU kernel's function, the ``kernels`` line's) and the main-path
-    forms' totals per forward. With ``phases`` (``--only k4``) each form
-    also prints block 0's phases and is timed with the plan of the other
-    CTAs an SM beside it (the plan's choice, decided by measurement)."""
+    its bound; the shifted form also bit-equal to K4 on the input with the
+    shift added by a stock op; the f32 form also against ``F.group_norm`` +
+    ``F.silu`` on the NHWC tensor's NCHW view and on an NCHW-contiguous
+    copy), then the ragged and streamed shapes in f32 and bf16. Returns the
+    f32 rows (the TPU kernel's function, the ``kernels`` line's) and the
+    forms' totals per forward (the main path: gn1s + gn2). With ``phases``
+    (``--only k4``) each form also prints block 0's phases and is timed
+    with the plan of the other CTAs an SM beside it (the plan's choice,
+    decided by measurement)."""
     import torch
     import torch.nn.functional as F
     rows, main_rows = [], []
-    main = {"gn1_ms": 0.0, "gn2_ms": 0.0, "gn1_plain_ms": 0.0,
-            "gn2_plain_ms": 0.0, "bound_ms": 0.0}
+    main = {k: 0.0 for form in ("gn1", "gn1s", "gn2")
+            for k in (f"{form}_ms", f"{form}_plain_ms")}
+    main["bound_ms"] = 0.0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, h, w, c, calls in GN_SHAPES:
         x, scale, bias, res = gn_operands(gen, dev, b, h, w, c)
@@ -908,19 +930,26 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
             launched = K.LAUNCHES["groupnorm_silu"] - before
             ref = K.groupnorm_silu_plain(xi, scale, bias, 8, **kw)
             err, ratio = gn_error(out, ref, form)
+            shift_bytes = 4 * b * c if "shift" in kw else 0
             row = {"shape": [b, h, w, c], "form": form, "max_abs_err": err,
                    "max_rel_err": err / float(ref.float().abs().max()),
                    "err_over_tol": ratio, "bit_equal": torch.equal(out, again),
                    "plan": plan._asdict(), "calls": calls,
-                   "byte_ms": (nbytes * n + 8 * c) / HBM_BYTES_PER_S * 1e3,
+                   "byte_ms": (nbytes * n + 8 * c + shift_bytes)
+                   / HBM_BYTES_PER_S * 1e3,
                    # ~12 operations an element: statistics, normalise,
                    # affine, SiLU (and the residual add)
                    "flop_ms": 12.0 * n / F32_FLOPS * 1e3}
-            if not (ratio <= 1.0 and row["bit_equal"] and launched == 2):
+            if "shift" in kw:
+                row["equal_to_added"] = torch.equal(
+                    out, gn_unshifted(K, xi, scale, bias, kw))
+            if not (ratio <= 1.0 and row["bit_equal"] and launched == 2
+                    and row.get("equal_to_added", True)):
                 failures.append(f"groupnorm_silu {form} {row['shape']}: err "
                                 f"{err} ({ratio:.3g} of the bound), bit-equal "
-                                f"{row['bit_equal']}, {launched} launches for "
-                                f"2 calls")
+                                f"{row['bit_equal']}, equal to the stock add "
+                                f"then K4 {row.get('equal_to_added')}, "
+                                f"{launched} launches for 2 calls")
             others = {}
             library = None
             if form == "f32":
@@ -951,7 +980,8 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
                 main_rows.append(row)
                 main[f"{form}_ms"] += row["ms"] * calls / 2
                 main[f"{form}_plain_ms"] += row["plain_ms"] * calls / 2
-                main["bound_ms"] += row["byte_ms"] * calls / 2
+                if form in K4_MAIN_FORMS:
+                    main["bound_ms"] += row["byte_ms"] * calls / 2
             lib = (f" library {row['library_ms']:.4f} (NCHW copy "
                    f"{row['library_nchw_ms']:.4f})" if form == "f32" else "")
             ph = (f" {3 - plan.per_sm}/SM "
@@ -967,20 +997,23 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
         torch.cuda.empty_cache()
     for b, h, w, c in GN_EXTRA:
         x, scale, bias, res = gn_operands(gen, dev, b, h, w, c)
-        for form in ("f32", "gn2"):
+        for form in ("f32", "gn1s", "gn2"):
             xi, kw = gn_form_args(form, x, res)
             plan = K.groupnorm_silu_plan(b, h, w, c, 8, xi.dtype, sms)
             out = K.groupnorm_silu(xi, scale, bias, 8, **kw)
             torch.cuda.synchronize()
             ref = K.groupnorm_silu_plain(xi, scale, bias, 8, **kw)
             err, ratio = gn_error(out, ref, form)
+            added = "shift" not in kw or torch.equal(
+                out, gn_unshifted(K, xi, scale, bias, kw))
             rows.append({"shape": [b, h, w, c], "form": form,
                          "max_abs_err": err, "err_over_tol": ratio,
                          "max_rel_err": err / float(ref.float().abs().max()),
                          "plan": plan._asdict()})
-            if not ratio <= 1.0:
+            if not (ratio <= 1.0 and added):
                 failures.append(f"groupnorm_silu {form} {[b, h, w, c]}: err "
-                                f"{err} ({ratio:.3g} of the bound)")
+                                f"{err} ({ratio:.3g} of the bound), equal to "
+                                f"the stock add then K4 {added}")
             print(f"[kernel] K4 {form} {[b, h, w, c]} {gn_plan_text(plan)}: "
                   f"abs_err {err:.3g} ({ratio:.3g} of tol)", flush=True)
         del x, res
@@ -988,7 +1021,7 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
     f32 = {k: sum(r[k] * r["calls"] for r in timed)
            for k in ("ms", "byte_ms", "plain_ms", "library_ms",
                      "library_nchw_ms")}
-    main["forms_ms"] = main["gn1_ms"] + main["gn2_ms"]
+    main["forms_ms"] = sum(main[f"{f}_ms"] for f in K4_MAIN_FORMS)
     if phases:
         for form, _ in K4_FORMS:
             got = [r for r in (rows if form == "f32" else main_rows)
@@ -1003,10 +1036,11 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
     print(f"[kernel] K4 per forward (14 calls): f32 form {f32['ms']:.4f} ms "
           f"(bound {f32['byte_ms']:.4f}, plain {f32['plain_ms']:.4f}, "
           f"library {f32['library_ms']:.4f}, on an NCHW copy "
-          f"{f32['library_nchw_ms']:.4f}); main-path forms gn1 + gn2 "
-          f"{main['forms_ms']:.4f} ms (gn1 {main['gn1_ms']:.4f}, gn2 "
+          f"{f32['library_nchw_ms']:.4f}); main-path forms gn1s + gn2 "
+          f"{main['forms_ms']:.4f} ms (gn1s {main['gn1s_ms']:.4f}, gn1 "
+          f"without the shift {main['gn1_ms']:.4f}, gn2 "
           f"{main['gn2_ms']:.4f}; bound {main['bound_ms']:.4f}, plain "
-          f"{main['gn1_plain_ms'] + main['gn2_plain_ms']:.4f})", flush=True)
+          f"{main['gn1s_plain_ms'] + main['gn2_plain_ms']:.4f})", flush=True)
     return rows, main
 
 
@@ -1332,9 +1366,33 @@ def hold_unet(K, trainer, gen, failures, tag="unet"):
     return err, scale
 
 
+def time_projection_adds(fn):
+    """The stock broadcast adds of (B, H, W, C) and (B, 1, 1, C) that one
+    call of ``fn`` makes (the time projection's add before gn1, which K4
+    takes as its shift on the fused path), from the profiler's recorded
+    shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = 0
+    for evt in prof.events():
+        shapes = evt.input_shapes or []
+        if evt.name in ("aten::add", "aten::add_") and len(shapes) >= 2:
+            a, p = shapes[0], shapes[1]
+            n += (len(a) == len(p) == 4 and a[1] > 1 and p[1] == p[2] == 1
+                  and p[0] == a[0] and p[3] == a[3])
+    return n
+
+
 def check_unet(K, trainer, gen, failures):
     """``hold_unet``; then the fused and the no-kernel forward timed at
-    B=16, and one fused forward profiled by kernel group."""
+    B=16, one fused forward's launches (14 K4, 7 of them with the time
+    projection as their shift, and 3 K3) and its stock broadcast adds of
+    the time projection (none), and one fused forward profiled by kernel
+    group."""
     import torch
     model = trainer.model_fused
     dev = trainer.device
@@ -1349,6 +1407,18 @@ def check_unet(K, trainer, gen, failures):
     with torch.inference_mode():
         stats = {"unet_fused_ms": cuda_ms(lambda: model(x, t), 2, 10),
                  "unet_plain_ms": cuda_ms(plain, 2, 10)}
+        K.LAUNCHES.clear()
+        model(x, t)
+        stats["forward_launches"] = check_launches(
+            K, serving_launches(1), "unet", failures)
+        stats["time_projection_adds"] = time_projection_adds(
+            lambda: model(x, t))
+        print(f"[unet] stock time-projection adds a fused forward: "
+              f"{stats['time_projection_adds']}", flush=True)
+        if stats["time_projection_adds"]:
+            failures.append(f"unet: the fused forward made "
+                            f"{stats['time_projection_adds']} stock "
+                            f"time-projection adds, want 0")
         stats["forward_profile"] = profile_fn(
             lambda: model(x, t), FORWARD_GROUPS, "profile")
     print(f"[unet] forward B={b} {h}x{w}: fused {stats['unet_fused_ms']:.3f} "
@@ -1506,6 +1576,7 @@ def check_launches(K, want, what, failures):
 
 def serving_launches(forwards):
     return {"flash_attention": 3 * forwards, "groupnorm_silu": 14 * forwards,
+            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD * forwards,
             **{k: 0 for k in K2_NAMES}}
 
 
@@ -1565,7 +1636,8 @@ def train_path(K, cfg, init_params, failures):
             "attention_fwd": sites * (steps + evals),
             "attention_dq": sites * steps,
             "attention_dkv": sites * steps, "flash_attention": 0,
-            "groupnorm_silu": 0}, "train", failures)
+            "groupnorm_silu": 0, "groupnorm_silu_shift": 0}, "train",
+            failures)
         step_ms = sorted(s.elapsed_time(e) for s, e in step_events[1:])
         stats = {"train_steps": steps, "eval_forwards": evals,
                  "train_run_s": train_s,
@@ -1640,7 +1712,8 @@ def train_path(K, cfg, init_params, failures):
             "attention_fwd": sites * (steps3 + evals3),
             "attention_dq": sites * steps3,
             "attention_dkv": sites * steps3, "flash_attention": 0,
-            "groupnorm_silu": 0}, "train-resumed", failures)
+            "groupnorm_silu": 0, "groupnorm_silu_shift": 0},
+            "train-resumed", failures)
         launches = {k: launches[k] + got[k] for k in launches}
         row = res["log"][-1]
         stats["resumed_log"] = res["log"]
@@ -4682,7 +4755,8 @@ def dp_train_launches(sites, steps, forwards):
     ``forwards`` training-form forwards in all (validation included)."""
     return {"attention_fwd": sites * forwards,
             "attention_dq": sites * steps, "attention_dkv": sites * steps,
-            "flash_attention": 0, "groupnorm_silu": 0}
+            "flash_attention": 0, "groupnorm_silu": 0,
+            "groupnorm_silu_shift": 0}
 
 
 def remat_path(K, failures):
@@ -4917,7 +4991,8 @@ def dp_path(K, failures):
         want_launches("dp (c) SP rank", p, dp_train_launches(
             sites - 1, DP_STEPS, p["forwards"]), failures)
         want_launches("dp (c) SP fused forward", p["forward"], {
-            "flash_attention": 2, "groupnorm_silu": 14, "attention_fwd": 0},
+            "flash_attention": 2, "groupnorm_silu": 14,
+            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD, "attention_fwd": 0},
             failures)
     for p in res["vaegan-dp"]:
         want_launches("dp (b) VAE-GAN rank", p,
@@ -5206,7 +5281,8 @@ CLI_SEED = 13
 def cli_serving_want(forwards, attention):
     """Launches of ``forwards`` fused UNet forwards."""
     want = {"flash_attention": CLI_K3_PER_FORWARD[attention] * forwards,
-            "groupnorm_silu": CLI_K4_PER_FORWARD * forwards}
+            "groupnorm_silu": CLI_K4_PER_FORWARD * forwards,
+            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD * forwards}
     return {k: v for k, v in want.items() if v}
 
 

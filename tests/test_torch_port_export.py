@@ -338,6 +338,12 @@ def _ops(call):
             if nd.op == "call_function"]
 
 
+def _shift(node):
+    """The ``shift`` argument of a ``vgd::groupnorm_silu`` node."""
+    return node.kwargs.get("shift", node.args[7] if len(node.args) > 7
+                           else None)
+
+
 @pytest.mark.parametrize("ddim_steps", [4, 0], ids=["ddim", "ancestral"])
 def test_diffusion_artifact_matches_jax_run_artifact(ddpm, ddim_steps,
                                                      tmp_path):
@@ -366,6 +372,9 @@ def test_diffusion_artifact_matches_jax_run_artifact(ddpm, ddim_steps,
     ops = _ops(call)
     assert ops.count("vgd.flash_attention.default") == 3
     assert ops.count("vgd.groupnorm_silu.default") == 14
+    # gn1 of each ConvBlock takes the time projection as its shift
+    assert sum(_shift(nd) is not None for nd in call.graph.nodes
+               if str(nd.target) == "vgd.groupnorm_silu.default") == 7
     # the plain forms would trace as sigmoid (GroupNorm+SiLU) and softmax
     assert not any("sigmoid" in op or "softmax" in op for op in ops)
     assert len(meta["steps"]) == (len(set(np.round(np.linspace(

@@ -129,6 +129,114 @@ def test_groupnorm_silu_refuses_what_it_cannot_take(cuda):
         K.groupnorm_silu(x, one, zero, out_dtype=torch.float16)
 
 
+def test_groupnorm_silu_refuses_a_shift_it_cannot_take(cuda):
+    x = torch.randn(2, 8, 8, 64, device=cuda)
+    one, zero = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    shift = torch.randn(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="shift must have shape"):
+        K.groupnorm_silu(x, one, zero, shift=shift[:1])
+    with pytest.raises(ValueError, match="float32"):
+        K.groupnorm_silu(x, one, zero, shift=shift.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.groupnorm_silu_cuda(x, one, zero,
+                              shift=torch.randn(64, 2, device=cuda).t())
+    with pytest.raises(ValueError, match="without a residual"):
+        K.groupnorm_silu(x, one, zero, residual=x, shift=shift)
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(x, one, zero, shift=shift.cpu())
+
+
+def k4_forced_plans(shape, dtype, sms):
+    """K4's plans for one shape, each mode forced: "resident" (the buffer
+    loaded at each wave's start, no refill), "refill" (at least two waves,
+    the next wave's run loaded during the apply pass) and "streamed" (each
+    run through a buffer of half its size, in tiles)."""
+    b, h, w, c = shape
+    pix = c * torch.empty((), dtype=dtype).element_size()
+
+    def buf(pixels):
+        return -(-pixels * pix // 128) * 128
+
+    def run(ipw):
+        return -(-h * w // min(2 * sms // ipw, 512))
+    default = K.groupnorm_silu_plan(b, h, w, c, 8, dtype, sms)
+    refill = K.groupnorm_silu_plan(
+        b, h, w, c, 8, dtype, sms,
+        smem_bytes=K.K4_AUX_BYTES + buf(run(max(1, b // 4))))
+    streamed = K.groupnorm_silu_plan(
+        b, h, w, c, 8, dtype, sms,
+        smem_bytes=K.K4_AUX_BYTES + max(buf(1), buf(run(1)) // 256 * 128))
+    plans = {"resident": default._replace(refill=False), "refill": refill,
+             "streamed": streamed}
+    assert plans["resident"].mode == refill.mode == "resident"
+    assert refill.refill and refill.waves > 1
+    assert streamed.mode == "streamed" and streamed.tiles > 1
+    return plans
+
+
+# the fused UNet's gn1 shapes at B=16 (256x256, base 64): chip_smoke's K4
+# shapes, down1 and up1 sharing the first
+K4_GN1_SHAPES = [tuple(s[:4]) for s in chip_smoke.GN_SHAPES]
+
+
+@pytest.mark.parametrize("mode", ["resident", "refill", "streamed"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", K4_GN1_SHAPES)
+def test_groupnorm_silu_shift_equals_k4_on_the_added_input(cuda, shape,
+                                                            dtype, mode):
+    """K4 with the time projection as its shift is bit for bit K4 on x with
+    the shift added by the stock op the fused UNet ran before
+    (``x + shift.to(x.dtype)``), under each plan mode, and counts one
+    launch with a shift."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b, c = shape[0], shape[-1]
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3.0 + 1.0).to(dtype)
+    scale = torch.randn(c, device=cuda, generator=g)
+    bias = torch.randn(c, device=cuda, generator=g)
+    shift = 4.0 * torch.randn(b, c, device=cuda, generator=g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = k4_forced_plans(shape, dtype, sms)[mode]
+    kw = {"out_dtype": torch.bfloat16, "plan": plan}
+    before = K.LAUNCHES.copy()
+    got = K.groupnorm_silu(x, scale, bias, shift=shift, **kw)
+    want = K.groupnorm_silu(x + shift[:, None, None, :].to(dtype), scale,
+                            bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.LAUNCHES - before == {"groupnorm_silu": 2,
+                                   "groupnorm_silu_shift": 1}
+
+
+def test_groupnorm_silu_shift_in_a_graph_replay(cuda):
+    """K4 with a shift captured in a CUDA graph: each replay reads the
+    shift's buffer as it stands then and equals the eager shifted call,
+    which equals K4 on the input with the shift added."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape = (16, 64, 64, 128)
+    x = torch.randn(*shape, device=cuda, generator=g).bfloat16()
+    scale = torch.randn(128, device=cuda, generator=g)
+    bias = torch.randn(128, device=cuda, generator=g)
+    shift = torch.randn(16, 128, device=cuda, generator=g)
+    kw = {"out_dtype": torch.bfloat16}
+    st = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(st):
+        K.groupnorm_silu(x, scale, bias, shift=shift, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=st):
+        out = K.groupnorm_silu(x, scale, bias, shift=shift, **kw)
+    for step in range(3):
+        shift.copy_(torch.randn(16, 128, device=cuda, generator=g) * step)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = K.groupnorm_silu(x, scale, bias, shift=shift, **kw)
+        added = K.groupnorm_silu(x + shift[:, None, None, :].bfloat16(),
+                                 scale, bias, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and torch.equal(eager, added)
+
+
 def test_groupnorm_silu_refuses_a_grid_the_occupancy_does_not_allow(cuda):
     """Four CTAs an SM do not fit (that needs at most 64 registers a
     thread): the cooperative launch is refused with an error, never shrunk.
@@ -323,6 +431,8 @@ def test_fused_unet_matches_plain_bf16(cuda):
     err = float((out - ref).abs().max())
     assert err <= chip_smoke.UNET_REL_TOL * float(ref.abs().max()), err
     assert K.LAUNCHES["groupnorm_silu"] == 14
+    assert K.LAUNCHES["groupnorm_silu_shift"] == \
+        chip_smoke.K4_SHIFT_PER_FORWARD
     assert K.LAUNCHES["flash_attention"] == 3
 
 
@@ -347,7 +457,8 @@ def test_fused_unet_without_attention_matches_plain_bf16(cuda):
     err = float((out - ref).abs().max())
     assert err <= chip_smoke.UNET_REL_TOL * float(ref.abs().max()), err
     assert dict(K.LAUNCHES) == {
-        "groupnorm_silu": chip_smoke.CLI_K4_PER_FORWARD}
+        "groupnorm_silu": chip_smoke.CLI_K4_PER_FORWARD,
+        "groupnorm_silu_shift": chip_smoke.K4_SHIFT_PER_FORWARD}
 
 
 # the three training shapes of the 256x256, batch-16 UNet (cross_attn2,
@@ -1143,10 +1254,13 @@ def test_registered_ops_equal_the_direct_wrappers(cuda):
     x = torch.randn(2, 8, 8, 64, device=cuda, generator=g)
     res = torch.randn(2, 8, 8, 64, device=cuda, generator=g).bfloat16()
     w, b = torch.rand(64, device=cuda) + 0.5, torch.randn(64, device=cuda)
-    for kw in ({}, {"out_dtype": torch.bfloat16, "residual": res}):
+    shift = torch.randn(2, 64, device=cuda, generator=g)
+    for kw in ({}, {"out_dtype": torch.bfloat16, "residual": res},
+               {"out_dtype": torch.bfloat16, "shift": shift}):
         op = torch.ops.vgd.groupnorm_silu(x.bfloat16(), w, b, 8, 1e-5,
                                           kw.get("out_dtype"),
-                                          kw.get("residual"))
+                                          kw.get("residual"),
+                                          kw.get("shift"))
         assert torch.equal(op, K.groupnorm_silu_cuda(x.bfloat16(), w, b, 8,
                                                      1e-5, **kw))
     p, vec = k5_inputs(cuda, 2, 8, 8, 6, 64, torch.bfloat16, 21)
@@ -1155,7 +1269,8 @@ def test_registered_ops_equal_the_direct_wrappers(cuda):
                                          vec["scale"], [3, 3], [1, 1])
     assert torch.equal(op, K.glow_coupling_fwd_cuda(
         *args, vec["bz"], vec["scale"], (3, 3), (1, 1), wzf=p["wzf"]))
-    assert dict(K.LAUNCHES) == {"flash_attention": 2, "groupnorm_silu": 4,
+    assert dict(K.LAUNCHES) == {"flash_attention": 2, "groupnorm_silu": 6,
+                                "groupnorm_silu_shift": 2,
                                 "glow_coupling_fwd": 2}
     # an exported program may hand an op a layout it was not traced with:
     # the op copies to contiguous, the direct wrapper refuses
@@ -1171,7 +1286,8 @@ def test_registered_ops_equal_the_direct_wrappers(cuda):
 
 
 def test_loaded_artifacts_count_their_launches(cuda, tmp_path):
-    """A DDIM-3 DDPM artifact (3 K3 and 14 K4 a step) and a fused-coupling
+    """A DDIM-3 DDPM artifact (3 K3 and 14 K4 a step, 7 of them with the
+    time projection as their shift) and a fused-coupling
     Glow artifact (one K5 a flow), exported from seeded checkpoints and
     loaded on the card, launch exactly those kernels and agree with the
     eager path on the same draws."""
@@ -1197,7 +1313,8 @@ def test_loaded_artifacts_count_their_launches(cuda, tmp_path):
     draws = serving_draws(meta, 1)
     K.LAUNCHES.clear()
     out = run_artifact(seed=1, loaded=(call, meta))
-    assert dict(K.LAUNCHES) == {"flash_attention": 9, "groupnorm_silu": 42}
+    assert dict(K.LAUNCHES) == {"flash_attention": 9, "groupnorm_silu": 42,
+                                "groupnorm_silu_shift": 21}
     want = tr.ddim_sample(draws["xt"].to(cuda), 3, eta=0.0).cpu().numpy()
     assert np.array_equal(out, want)
 

@@ -144,6 +144,66 @@ def test_groupnorm_silu_plain_forms_match_pallas_interpret(shape, form):
     assert np.all(np.abs(out - ref) <= tol), float(np.max(np.abs(out - ref)))
 
 
+@pytest.mark.parametrize("form", ["same_dtype", "out_dtype", "residual"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (2, 16, 16, 16),
+                                   (3, 5, 7, 24)])
+def test_groupnorm_silu_plain_shift_is_the_added_input(shape, dtype, form):
+    """``shift`` (B, C) is the fused ConvBlock's time projection: the plain
+    form with it is bit for bit the plain form of x with the shift added
+    in x's dtype first, as the block added it before gn1."""
+    g = torch.Generator().manual_seed(9)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g) * 2.0 + 0.5).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=g)
+    bias = 0.1 * torch.randn(c, generator=g)
+    shift = 3.0 * torch.randn(shape[0], c, generator=g)
+    kw = {"same_dtype": {},
+          "out_dtype": {"out_dtype": torch.bfloat16},
+          "residual": {"out_dtype": torch.bfloat16,
+                       "residual": torch.randn(shape, generator=g)}}[form]
+    got = K.groupnorm_silu_plain(x, scale, bias, 8, shift=shift, **kw)
+    want = K.groupnorm_silu_plain(x + shift[:, None, None, :].to(dtype),
+                                  scale, bias, 8, **kw)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+def test_groupnorm_silu_op_takes_a_trailing_optional_shift():
+    """``vgd::groupnorm_silu`` gains ``Tensor? shift=None`` last, so a call
+    without it (an exported program's too) keeps its meaning; its CPU
+    kernel is the plain form with the shift, its fake gives the output's
+    shape and dtype with or without one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    op = torch.ops.vgd.groupnorm_silu
+    assert str(op.default._schema).endswith(
+        "Tensor? residual, Tensor? shift=None) -> Tensor")
+    g = torch.Generator().manual_seed(10)
+    bf16 = torch.bfloat16
+    x = torch.randn(2, 4, 4, 16, generator=g).to(bf16)
+    w, b = torch.ones(16), 0.1 * torch.randn(16, generator=g)
+    shift = torch.randn(2, 16, generator=g)
+    plain = K.groupnorm_silu_plain(x, w, b, 8, out_dtype=bf16)
+    assert torch.equal(op(x, w, b, 8, 1e-5, bf16, None), plain)
+    assert torch.equal(op(x, w, b, 8, 1e-5, bf16, None, None), plain)
+    shifted = K.groupnorm_silu_plain(x, w, b, 8, out_dtype=bf16,
+                                     shift=shift)
+    assert not torch.equal(shifted, plain)
+    assert torch.equal(op(x, w, b, 8, 1e-5, bf16, None, shift), shifted)
+    K.LAUNCHES.clear()
+    assert torch.equal(K.groupnorm_silu(x, w, b, out_dtype=bf16,
+                                        shift=shift), shifted)
+    assert sum(K.LAUNCHES.values()) == 0
+    with FakeTensorMode() as mode:
+        fx, fw, fb, fs = (mode.from_tensor(t) for t in (x, w, b, shift))
+        for args in ((bf16, None), (bf16, None, None), (bf16, None, fs),
+                     (None, None, fs)):
+            out = op(fx, fw, fb, 8, 1e-5, *args)
+            assert out.shape == x.shape
+            assert out.dtype == (bf16 if args[0] is None else args[0])
+
+
 def test_groupnorm_silu_wrapper_refuses_mixed_and_meta_devices():
     """Every operand, the residual too, must be on the CPU (the plain
     version) or on one CUDA device: a meta tensor or a mix is refused."""

@@ -62,6 +62,27 @@ def test_unet_forward_matches_jax(attention):
                                rtol=0)
 
 
+@pytest.mark.parametrize("attention", [True, False])
+def test_unfused_unet_forward_matches_jax(attention):
+    """The training form (stock GroupNorm + SiLU, the stock add of the time
+    projection, K2's plain form on the CPU) against the JAX UNet's XLA
+    form on the same params."""
+    x = _nhwc(10, (2, 32, 32, 3))
+    t = np.array([2, 6], np.int32)
+    jm = J.UNet(out_ch=3, base_ch=8, time_emb_dim=32, attention=attention,
+                fused=False)
+    params = jax_params(jm, x, t, seed=11)
+    ref = jax.jit(jm.apply)({"params": params}, jnp.asarray(x),
+                            jnp.asarray(t))
+    pm = P.UNet(in_ch=3, out_ch=3, base_ch=8, time_emb_dim=32,
+                attention=attention, fused=False)
+    load_jax_params(pm, params)
+    with torch.no_grad():
+        out = pm(torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
 def test_conv_block_matches_jax():
     """Time projection after conv1 and before gn1; f32 residual add."""
     x = _nhwc(2, (2, 8, 8, 8))
@@ -105,6 +126,67 @@ def test_fused_conv_block_bf16_is_bit_equal_to_explicit_casts(in_ch):
         want = (h + res.float()).to(bf16)
     assert got.dtype == bf16
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_group_norm_silu_shift_is_one_function_in_both_forms(dtype):
+    """``GroupNormSiLU(x, shift=s)``: K4's form (its plain version on the
+    CPU) and the training form's stock add then norm agree bit for bit."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 4, 4, 16, generator=g).to(dtype)
+    s = torch.randn(2, 16, generator=g)
+    fused, train = P.GroupNormSiLU(16, fused=True), P.GroupNormSiLU(16)
+    with torch.no_grad():
+        for m in (fused, train):
+            m.weight.copy_(1.0 + 0.1 * torch.arange(16.0))
+            m.bias.fill_(0.2)
+        for kw in ({}, {"out_dtype": torch.bfloat16}):
+            got = fused(x, shift=s, **kw)
+            assert got.dtype == kw.get("out_dtype", torch.float32)
+            assert torch.equal(got, train(x, shift=s, **kw))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "training"])
+def test_conv_block_hands_the_time_projection_to_k4_when_fused(fused):
+    """The fused block passes the time projection (f32, (B, C)) to gn1's
+    op as its shift and makes no stock broadcast add of it; the training
+    form adds it with the stock op and passes no shift."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls.append((str(func), args))
+            return func(*args, **(kwargs or {}))
+    g = torch.Generator().manual_seed(12)
+    pb = P.ConvBlock(8, 16, 32, torch.bfloat16, fused=fused)
+    with torch.no_grad():
+        for prm in pb.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=g) * 0.3)
+    x = torch.randn(2, 8, 8, 8, generator=g).to(torch.bfloat16)
+    temb = torch.randn(2, 32, generator=g)
+    with torch.no_grad(), Log() as log:
+        pb(x, temb)
+
+    def shape(a):
+        return tuple(a.shape) if isinstance(a, torch.Tensor) else None
+    adds = [args for name, args in log.calls if name == "aten.add.Tensor"
+            and [shape(a) for a in args[:2]] == [(2, 8, 8, 16), (2, 1, 1, 16)]]
+    gns = [args for name, args in log.calls
+           if name == "vgd.groupnorm_silu.default"]
+    shifts = [args[7] for args in gns if len(args) > 7
+              and args[7] is not None]
+    if fused:
+        assert len(gns) == 2 and not adds
+        assert len(shifts) == 1
+        assert shifts[0].dtype == torch.float32
+        assert shifts[0].shape == (2, 16)
+    else:
+        assert not gns and not shifts and len(adds) == 1
 
 
 def test_training_conv_block_bf16_is_bit_equal_to_explicit_casts():

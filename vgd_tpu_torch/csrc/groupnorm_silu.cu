@@ -11,6 +11,14 @@
 //   y = silu(gn(float(x)) * scale + bias)            (f32, statistics in f32)
 //   out = cast<TOut>(y)  or  cast<TOut>(y + float(residual))
 //
+// and, for gn1 (no residual), the block's time projection added before the
+// normalisation: with a shift s (B, C) f32, x is replaced by
+//
+//   x' = cast<TIn>(float(x) + float(cast<TIn>(s[image, channel])))
+//
+// which is `h + tp.to(h.dtype)` in PyTorch, bit for bit, so the stock
+// broadcast add's read and write of the whole conv output are gone.
+//
 // What bounds it on the H100: a few operations an element against 2-12
 // bytes, so bytes. The least it can move is one read of x (and of the
 // residual) and one write of out; this kernel moves exactly that.
@@ -49,7 +57,10 @@
 // the entry point checks it.
 //
 // Every thread owns 8 channels (C % 8 == 0) of every (threads / (C / 8))-th
-// pixel of the run, so its channels, groups, scale and bias stay fixed: for
+// pixel of the run, so its channels, groups, scale and bias stay fixed (and
+// its 8 shifts for a wave's image, held in registers and added to each value
+// it reads from shared memory, in both statistics passes and the apply
+// pass: no extra pass and no extra global write; see Shift): for
 // a 2-byte input 8 consecutive ones (one 16-byte access), for f32 the
 // channels 4v..4v+3 and C/2 + 4v..+3 (thread v of a row), so that each
 // 16-byte access of a warp is contiguous: no bank conflicts in shared
@@ -87,6 +98,7 @@ struct Args {
   int cpi, ipw, run_pix, tile_pix, refill;
   int buf_bytes;    // the buffer, a multiple of 128
   unsigned long long* stamps;  // null, or kStamps device times a wave
+  const float* shift;  // (b, c): added to x before the statistics (SHIFT)
 };
 
 // The tracing of a call: with a.stamps set, block 0's thread 0 writes the
@@ -277,6 +289,48 @@ struct Row {
   }
 };
 
+// A thread's 8 shifts of one image, cast to T, and a row's values read with
+// them added, x' = cast<T>(x + s). f32: 8 floats added after the load.
+template <typename T, bool SPLIT>
+struct Shift {
+  float s[kVec];
+  __device__ __forceinline__ void set(const float* shift, int v, int c) {
+#pragma unroll
+    for (int l = 0; l < kVec; ++l) s[l] = shift[channel<SPLIT>(v, c, l)];
+  }
+  __device__ __forceinline__ void load(const T* row, int v, int c, float x[kVec]) const {
+    Row<T, SPLIT>::load(row, v, c, x);
+#pragma unroll
+    for (int l = 0; l < kVec; ++l) x[l] += s[l];
+  }
+};
+// bf16: 4 words of 2 (channel 2i in the low half, as a 16-byte access holds
+// them) added to the packed row before it is unpacked, by add.rn.bf16x2, the
+// correctly rounded sum: what rounding the f32 sum gives (f32 has more than
+// twice bf16's bits, so the double rounding is innocuous)
+template <>
+struct Shift<__nv_bfloat16, false> {
+  unsigned s[kVec / 2];
+  __device__ __forceinline__ void set(const float* shift, int v, int c) {
+#pragma unroll
+    for (int i = 0; i < kVec / 2; ++i) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(shift[kVec * v + 2 * i], shift[kVec * v + 2 * i + 1]);
+      s[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+  }
+  static __device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+    unsigned d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ void load(const __nv_bfloat16* row, int v, int, float x[kVec]) const {
+    const uint4 a = *reinterpret_cast<const uint4*>(row + kVec * v);
+    Vec8::unpack(make_uint4(add2(a.x, s[0]), add2(a.y, s[1]), add2(a.z, s[2]), add2(a.w, s[3])),
+                 x);
+  }
+};
+
 // RES: 0 no residual, 1 f32, 2 bf16
 template <int RES>
 struct ResT {
@@ -287,8 +341,10 @@ struct ResT<2> {
   using T = __nv_bfloat16;
 };
 
-template <typename TIn, int RES, typename TOut>
+// SHIFT: add a.shift's row of the image to x first (gn1; never with RES)
+template <typename TIn, int RES, typename TOut, bool SHIFT>
 __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Args a) {
+  static_assert(!(SHIFT && RES != 0), "the shift is gn1's, which has no residual");
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int warps = T >> 5;  // whole warps (T may end in a partial one)
@@ -370,6 +426,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
     const bool refill = a.refill && img + a.ipw < a.b;
     unsigned long long* st = a.stamps == nullptr ? nullptr : a.stamps + kStamps * wave;
     stamp(st, 0);
+    [[maybe_unused]] Shift<TIn, kSplit> sh;  // the image's, of this thread's channels
+    if constexpr (SHIFT) sh.set(a.shift + img * a.c, cv, a.c);
     // this thread (g < G) carries group g's running (count, mean, M2)
     float rn = 0.f, rmean = 0.f, rm2 = 0.f;
     for (int t = 0; t < ntiles; ++t) {
@@ -382,7 +440,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
 #pragma unroll 4
       for (int r = row0; r < n; r += rows) {
         float v[kVec];
-        In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+        if constexpr (SHIFT)
+          sh.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+        else
+          In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
 #pragma unroll
         for (int l = 0; l < kVec; ++l) s[l] += v[l];
       }
@@ -397,7 +458,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
 #pragma unroll 4
       for (int r = row0; r < n; r += rows) {
         float v[kVec];
-        In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+        if constexpr (SHIFT)
+          sh.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+        else
+          In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
 #pragma unroll
         for (int l = 0; l < kVec; ++l) {
           const float d = v[l] - m[l];
@@ -507,7 +571,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
             const int r = r0 + i * rows;
             if (r >= q1) break;
             float v[kVec];
-            In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+            if constexpr (SHIFT)
+              sh.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+            else
+              In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
 #pragma unroll
             for (int l = 0; l < kVec; ++l) {
               float yv = (v[l] - m[l]) * rs[l] * sc[l] + bi[l];
@@ -540,21 +607,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1) counter_probe(unsigned* sync, 
 
 using KernelFn = void (*)(const Args);
 
+// the shifted form exists without a residual only (gn1)
 template <typename TIn, typename TOut>
-KernelFn pick_res(int res_kind) {
+KernelFn pick_res(int res_kind, bool shift) {
   switch (res_kind) {
-    case 0: return &groupnorm_silu_kernel<TIn, 0, TOut>;
-    case 1: return &groupnorm_silu_kernel<TIn, 1, TOut>;
-    case 2: return &groupnorm_silu_kernel<TIn, 2, TOut>;
+    case 0:
+      return shift ? &groupnorm_silu_kernel<TIn, 0, TOut, true>
+                   : &groupnorm_silu_kernel<TIn, 0, TOut, false>;
+    case 1: return shift ? nullptr : &groupnorm_silu_kernel<TIn, 1, TOut, false>;
+    case 2: return shift ? nullptr : &groupnorm_silu_kernel<TIn, 2, TOut, false>;
   }
   return nullptr;
 }
 
-KernelFn pick(int in_bf16, int res_kind, int out_bf16) {
+KernelFn pick(int in_bf16, int res_kind, int out_bf16, bool shift) {
   if (in_bf16)
-    return out_bf16 ? pick_res<__nv_bfloat16, __nv_bfloat16>(res_kind)
-                    : pick_res<__nv_bfloat16, float>(res_kind);
-  return out_bf16 ? pick_res<float, __nv_bfloat16>(res_kind) : pick_res<float, float>(res_kind);
+    return out_bf16 ? pick_res<__nv_bfloat16, __nv_bfloat16>(res_kind, shift)
+                    : pick_res<__nv_bfloat16, float>(res_kind, shift);
+  return out_bf16 ? pick_res<float, __nv_bfloat16>(res_kind, shift)
+                  : pick_res<float, float>(res_kind, shift);
 }
 
 // blocks of `fn` that can be resident at once at `threads` and `smem`
@@ -592,14 +663,17 @@ extern "C" int vgd_groupnorm_silu_aux_bytes() { return kAuxBytes; }
 // kSyncStride * i, and every call leaves each count at zero). The plan
 // (threads, cpi, ipw, run_pix, tile_pix, refill, buf_bytes, smem) comes from
 // kernels.groupnorm_silu_plan and is checked here. stamps: null, or
-// kStamps * waves device times (block 0's phases, see stamp()).
+// kStamps * waves device times (block 0's phases, see stamp()). shift:
+// null, or (b, c) f32 contiguous, added to x (cast to x's type) before the
+// statistics; only without res.
 extern "C" int vgd_groupnorm_silu(const void* x, const void* res, void* y, const float* scale,
                                   const float* bias, float* part, unsigned* sync, int sync_words,
                                   int b, long long hw, int c, int groups, float eps, int in_bf16,
                                   int res_kind, int out_bf16, int threads, int cpi, int ipw,
                                   int run_pix, int tile_pix, int refill, int buf_bytes, int smem,
-                                  unsigned long long* stamps, void* stream) {
-  const KernelFn fn = pick(in_bf16, res_kind, out_bf16);
+                                  unsigned long long* stamps, const float* shift,
+                                  void* stream) {
+  const KernelFn fn = pick(in_bf16, res_kind, out_bf16, shift != nullptr);
   const long long es = in_bf16 ? 2 : 4;
   const bool ok =
       fn != nullptr && b >= 1 && hw >= 1 && c >= kVec && c % kVec == 0 && c <= kMaxChannels &&
@@ -615,7 +689,7 @@ extern "C" int vgd_groupnorm_silu(const void* x, const void* res, void* y, const
       (res_kind == 0) == (res == nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a{x, res, y, scale, bias, part, sync, hw, b, c, groups, c / groups, eps,
-         cpi, ipw, run_pix, tile_pix, refill, buf_bytes, stamps};
+         cpi, ipw, run_pix, tile_pix, refill, buf_bytes, stamps, shift};
   void* params[] = {&a};
   return static_cast<int>(launch(reinterpret_cast<const void*>(fn), params, cpi * ipw, threads,
                                  smem, static_cast<cudaStream_t>(stream)));

@@ -70,11 +70,13 @@ class Dense(nn.Module):
 
 class GroupNormSiLU(nn.Module):
     """GroupNorm(8) + SiLU in f32, NHWC. ``fused=True`` runs the K4 kernel,
-    which also takes the cast of its output (``out_dtype``) and a residual
-    added in f32 before that cast (``residual``), reading x in its own
-    dtype. The training form (``fused=False``) computes the same function
-    of ``x.float()`` in stock PyTorch ops under autograd and no kernel: the
-    JAX train step keeps the XLA form there (``vgd_tpu/models/unet.py``
+    which also takes the cast of its output (``out_dtype``), a residual
+    added in f32 before that cast (``residual``) and a per-(image,
+    channel) ``shift`` (B, C) added to x in x's dtype before the norm,
+    reading x in its own dtype. The training form (``fused=False``)
+    computes the same function in stock PyTorch ops under autograd and no
+    kernel (the shift's add, then the norm of ``x.float()``): the JAX train
+    step keeps the XLA form there (``vgd_tpu/models/unet.py``
     GroupNormSiLU) and K4 has no backward. Both return f32 unless given
     ``out_dtype``."""
 
@@ -85,12 +87,15 @@ class GroupNormSiLU(nn.Module):
         self.groups = groups
         self.fused = fused
 
-    def forward(self, x, out_dtype=None, residual=None):
+    def forward(self, x, out_dtype=None, residual=None, shift=None):
         if self.fused:
             return groupnorm_silu(
                 x.contiguous(), self.weight, self.bias, self.groups,
                 out_dtype=F32 if out_dtype is None else out_dtype,
-                residual=None if residual is None else residual.contiguous())
+                residual=None if residual is None else residual.contiguous(),
+                shift=shift)
+        if shift is not None:
+            x = x + shift[:, None, None, :].to(x.dtype)
         return groupnorm_silu_plain(x.float(), self.weight, self.bias,
                                     self.groups, out_dtype=out_dtype,
                                     residual=residual)
@@ -110,8 +115,10 @@ class ConvBlock(nn.Module):
     """Residual double conv with additive time embedding. The time
     projection is added after ``conv1`` and before ``gn1``, in the conv's
     dtype; the residual add runs in f32 and is cast back. With ``fused``
-    the conv outputs go into K4 in their own dtype, and K4 writes gn1's
-    cast and gn2's residual add and cast itself."""
+    the conv outputs go into K4 in their own dtype, and K4 adds the time
+    projection as it reads conv1's output and writes gn1's cast and gn2's
+    residual add and cast itself; the training form adds the projection
+    with a stock op."""
 
     def __init__(self, in_ch: int, out_ch: int, time_emb_dim: int,
                  dtype: torch.dtype, fused: bool):
@@ -128,8 +135,12 @@ class ConvBlock(nn.Module):
     def forward(self, x, t_emb):
         res = x if self.residual_conv is None else self.residual_conv(x)
         h = self.conv1(x)
-        h = h + self.time_proj(t_emb)[:, None, None, :].to(h.dtype)
-        h = self.gn1(h, out_dtype=self.dtype)
+        tp = self.time_proj(t_emb)
+        if self.gn1.fused:
+            h = self.gn1(h, out_dtype=self.dtype, shift=tp)
+        else:   # the add rebinds h, so conv1's output is freed before gn1
+            h = h + tp[:, None, None, :].to(h.dtype)
+            h = self.gn1(h, out_dtype=self.dtype)
         return self.gn2(self.conv2(h), out_dtype=self.dtype, residual=res)
 
 

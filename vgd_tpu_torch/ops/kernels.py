@@ -11,8 +11,8 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
 * ``flash_attention`` (K3, serving) -> the CUDA kernel in
   ``csrc/flash_attention.cu``;
 * ``groupnorm_silu`` (K4, serving: GroupNorm + SiLU with the casts and the
-  residual add around it) -> the CUDA kernel in ``csrc/groupnorm_silu.cu``
-  under ``groupnorm_silu_plan``;
+  residual add around it, or the time projection's add before it) -> the
+  CUDA kernel in ``csrc/groupnorm_silu.cu`` under ``groupnorm_silu_plan``;
 * ``conv_stats`` (K1, VAE-GAN training: Conv4x4 stride 2 with the
   per-channel batch statistics of its output) -> the CUDA kernels in
   ``csrc/conv_bn_stats.cu``; ``ops/fused_conv.py`` builds the
@@ -457,13 +457,19 @@ def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, groups: int = 8,
                          eps: float = 1e-5, *,
                          out_dtype: Optional[torch.dtype] = None,
-                         residual: Optional[torch.Tensor] = None
+                         residual: Optional[torch.Tensor] = None,
+                         shift: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """GroupNorm over (H, W, C/G) then SiLU of x in f32, NHWC, two-pass f32
     variance (the math of ``groupnorm_silu_xla`` on ``x.astype(F32)``);
     then ``residual`` (upcast) added in f32 if given, and the result cast
     to ``out_dtype`` (default x's dtype): what ``vgd_tpu/models/unet.py``
-    ConvBlock computes around its two ``GroupNormSiLU`` calls."""
+    ConvBlock computes around its two ``GroupNormSiLU`` calls. ``shift``
+    (B, C), the block's time projection, is first added to x in x's dtype
+    (``x + shift[:, None, None, :].to(x.dtype)``), as the ConvBlock adds
+    it before gn1."""
+    if shift is not None:
+        x = x + shift[:, None, None, :].to(x.dtype)
     b, h, w, c = x.shape
     xg = x.reshape(b, h, w, groups, c // groups).float()
     mean = xg.mean(dim=(1, 2, 4), keepdim=True)
@@ -619,23 +625,26 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    groups: int = 8, eps: float = 1e-5, *,
                    out_dtype: Optional[torch.dtype] = None,
                    residual: Optional[torch.Tensor] = None,
+                   shift: Optional[torch.Tensor] = None,
                    plan: Optional[GroupNormPlan] = None,
                    stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused GroupNorm(groups) + SiLU of x (B, H, W, C) in f32, plus
-    ``residual`` if given, cast to ``out_dtype`` (default x's dtype): the
-    function of ``groupnorm_silu_plain``, through the registered op
+    ``residual`` if given, cast to ``out_dtype`` (default x's dtype), x
+    first shifted by ``shift`` (B, C) if given: the function of
+    ``groupnorm_silu_plain``, through the registered op
     ``vgd::groupnorm_silu`` (K4 for CUDA tensors, on contiguous copies where
     they are not; the plain version for CPU tensors). ``plan`` and
     ``stamps``, which only the kernel's own checks pass (``chip_smoke.py``),
     call ``groupnorm_silu_cuda`` directly."""
-    operands = (x, scale, bias) + (() if residual is None else (residual,))
+    operands = tuple(t for t in (x, scale, bias, residual, shift)
+                     if t is not None)
     if plan is not None or stamps is not None:
         return groupnorm_silu_cuda(x, scale, bias, groups, eps,
                                    out_dtype=out_dtype, residual=residual,
-                                   plan=plan, stamps=stamps)
+                                   shift=shift, plan=plan, stamps=stamps)
     _check_devices(*operands)
     return _groupnorm_silu_op(x, scale, bias, int(groups), float(eps),
-                              out_dtype, residual)
+                              out_dtype, residual, shift)
 
 
 def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -643,30 +652,41 @@ def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
                         eps: float = 1e-5, *,
                         out_dtype: Optional[torch.dtype] = None,
                         residual: Optional[torch.Tensor] = None,
+                        shift: Optional[torch.Tensor] = None,
                         plan: Optional[GroupNormPlan] = None,
                         stamps: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """K4, the op's CUDA implementation. x and the residual f32 or bf16,
     contiguous and 16-byte aligned; scale and bias f32 (C,); C a multiple
-    of 8 and of ``groups``; ``plan`` defaults to ``groupnorm_silu_plan`` of
-    the shape on this card. ``stamps`` (an int64 tensor of K4_STAMPS x
+    of 8 and of ``groups``; ``shift`` f32 (B, C), contiguous, and only
+    without a residual (gn1's form), counted apart in
+    ``LAUNCHES["groupnorm_silu_shift"]``; ``plan`` defaults to
+    ``groupnorm_silu_plan`` of the shape on this card (a shift leaves it
+    as it is). ``stamps`` (an int64 tensor of K4_STAMPS x
     plan.waves) makes block 0 record the device clock (ns) at each wave's
     phases: start, run loaded, statistics, barrier, merge, apply
     (``chip_smoke.k4_phases``). The plan cache and the barrier words
     (``_k4_sync``) are touched here only."""
-    operands = (x, scale, bias) + (() if residual is None else (residual,))
+    operands = tuple(t for t in (x, scale, bias, residual, shift)
+                     if t is not None)
     if _on_cpu(*operands):
         return groupnorm_silu_plain(x, scale, bias, groups, eps,
-                                    out_dtype=out_dtype, residual=residual)
+                                    out_dtype=out_dtype, residual=residual,
+                                    shift=shift)
     _require(x.ndim == 4, "groupnorm_silu takes x (B, H, W, C)")
     b, h, w, c = x.shape
     _k4_check(c, groups)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     _require(scale.shape == (c,) and bias.shape == (c,),
              f"scale/bias must have shape ({c},)")
-    for name, t in (("scale", scale), ("bias", bias)):
+    for name, t in (("scale", scale), ("bias", bias)) + (
+            () if shift is None else (("shift", shift),)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
         _require(t.is_contiguous(), f"{name} must be contiguous")
+    if shift is not None:
+        _require(shift.shape == (b, c), f"shift must have shape ({b}, {c})")
+        _require(residual is None, "K4 takes a shift only without a "
+                 "residual (gn1's form)")
     named = (("x", x),) + (() if residual is None else
                            (("residual", residual),))
     for name, t in named:
@@ -698,9 +718,12 @@ def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
             plan.threads, plan.cpi, plan.ipw, plan.run_pix, plan.tile_pix,
             int(plan.refill), plan.buf_bytes, plan.smem,
             _k4_stamps(stamps, plan, x),
+            None if shift is None else shift.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "groupnorm_silu")
     LAUNCHES["groupnorm_silu"] += 1
+    if shift is not None:
+        LAUNCHES["groupnorm_silu_shift"] += 1
     return y
 
 
@@ -709,21 +732,24 @@ def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
 def _groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, groups: int, eps: float,
                        out_dtype: Optional[torch.dtype],
-                       residual: Optional[torch.Tensor]) -> torch.Tensor:
+                       residual: Optional[torch.Tensor],
+                       shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     return groupnorm_silu_cuda(
         x.contiguous(), scale.contiguous(), bias.contiguous(), groups, eps,
         out_dtype=out_dtype,
-        residual=None if residual is None else residual.contiguous())
+        residual=None if residual is None else residual.contiguous(),
+        shift=None if shift is None else shift.contiguous())
 
 
 @_groupnorm_silu_op.register_kernel("cpu")
-def _(x, scale, bias, groups, eps, out_dtype, residual):
+def _(x, scale, bias, groups, eps, out_dtype, residual, shift=None):
     return groupnorm_silu_plain(x, scale, bias, groups, eps,
-                                out_dtype=out_dtype, residual=residual)
+                                out_dtype=out_dtype, residual=residual,
+                                shift=shift)
 
 
 @_groupnorm_silu_op.register_fake
-def _(x, scale, bias, groups, eps, out_dtype, residual):
+def _(x, scale, bias, groups, eps, out_dtype, residual, shift=None):
     return x.new_empty(x.shape, dtype=x.dtype if out_dtype is None
                        else out_dtype)
 
