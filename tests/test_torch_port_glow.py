@@ -18,8 +18,10 @@ whose gradient is within f32 noise can move by up to 2 lr apart (held at
 steps from the same init is held at the JAX coupling test's rtol 2e-3 /
 atol 1e-4 on the losses.
 
-Then ``run_glow`` on the CPU: resume is exact, the CLI trains and serves,
-and the entry points refuse to run without a card (``flow_stack`` has its
+Then ``run_glow`` on the CPU: resume is exact, its loop
+(``train.loop._glow_steps``) gives the bits of the same loop written out,
+the CLI trains and serves, and the entry points refuse to run without a
+card (``flow_stack`` has its
 own file, ``test_torch_port_glow_flow_stack.py``).
 """
 import dataclasses
@@ -43,6 +45,7 @@ from vgd_tpu_torch.io.jax_params import (_adam_leaves, _flatten,
 from vgd_tpu_torch.models import glow as PG
 from vgd_tpu_torch.ops import image as PI
 from vgd_tpu_torch.ops import kernels as K
+from vgd_tpu_torch.parallel.mesh import LOCAL
 from vgd_tpu_torch.train import loop as L
 from vgd_tpu_torch.train.glow import GlowTrainer as PT
 
@@ -432,6 +435,39 @@ def test_run_glow_resume_is_exact(tmp_path):
     assert "block0.flows.invconv.P" in ckpt["params"]
     np.testing.assert_array_equal(
         np.load(tmp_path / "b" / "sample" / "000004.npy"), grid)
+
+
+def test_run_glow_loop_gives_the_written_out_loops_bits(tmp_path):
+    """``run_glow`` (K6's plain form) against its steps written out: the
+    init on batch 0, then ``train_step`` on batches 1-4 of the staged
+    stream, the sample grids between them: the same logged losses and the
+    same final checkpoint, bit for bit."""
+    cfg = dataclasses.replace(_run_cfg(tmp_path), fused_coupling=False,
+                              flow_stack=True)
+    out = L.run_glow(cfg, n_iter=4, device="cpu")
+    dev = torch.device("cpu")
+    gen = L.seed_all(cfg.run.seed, dev)
+    train, _, shape = L.make_image_datasets(cfg.data, seed=cfg.run.seed)
+    tr = PT(cfg, shape, device=dev)
+    tr.init(gen)
+    z = tr.sample_z(torch.Generator(device=dev).manual_seed(
+        cfg.run.seed + L.FIXED_Z_SEED_OFFSET), cfg.n_samples)
+    batches = L._staging(train, LOCAL, dev, False, 0).batches(
+        train.stream_selections(0))
+    tr.init_step(next(batches), gen)
+    logged = []
+    for i in range(4):
+        m = tr.train_step(next(batches), gen)
+        if (i + 1) % 2 == 0:
+            tr.reverse(z)
+            logged.append([float(m[k]) for k in ("loss", "log_p",
+                                                 "logdet")])
+    assert [[r[k] for k in ("loss", "log_p", "logdet")]
+            for r in out["log"]] == logged
+    ckpt = torch.load(tmp_path / "ckpt" / "00000004.pt", weights_only=True)
+    for k, v in tr.model.state_dict().items():
+        assert torch.equal(ckpt["params"][k], v), k
+    assert ckpt["rng_state"].equal(gen.get_state())
 
 
 def test_cli_glow_trains_and_serves(tmp_path, capsys):

@@ -20,11 +20,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from vgd_tpu_torch.core.config import DataConfig, DiffusionConfig, RunConfig
+from vgd_tpu_torch.core.config import (DataConfig, DiffusionConfig,
+                                       GlowConfig, RunConfig)
 from vgd_tpu_torch.parallel.mesh import LOCAL
 from vgd_tpu_torch.train import common
 from vgd_tpu_torch.train import loop as L
 from vgd_tpu_torch.train.diffusion import DiffusionTrainer
+from vgd_tpu_torch.train.glow import GlowTrainer
 from vgd_tpu_torch.utils import trace
 from vgd_tpu_torch.utils.prefetch import PinnedRing, stage_chunks
 
@@ -223,3 +225,58 @@ def test_profiler_trace_of_a_scan_epoch_holds_the_staging(tables, tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"}
     assert {"vgd.stage.fill", "vgd.stage.wait"} <= names
+
+
+GLOW_SPANS = ("vgd.glow.forward", "vgd.glow.backward", "vgd.glow.adam")
+
+
+def _glow():
+    """A tiny Glow trainer (K6's plain form) after its ActNorm init, a
+    batch and the run's generator."""
+    cfg = GlowConfig(
+        data=DataConfig(image_size=(HW, HW), batch_size=B, normalize=False),
+        run=RunConfig(compute_dtype="float32"), n_flows=2, n_blocks=2,
+        filter_size=16, flow_stack=True)
+    tr = GlowTrainer(cfg, (HW, HW, 3), device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    tr.init(gen)
+    batch = torch.randint(0, 256, (B, HW, HW, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(4))
+    tr.init_step(batch, gen)
+    return tr, batch, gen
+
+
+def test_glow_step_spans_nest_in_the_trace(tables, tmp_path):
+    """Under a profiler a step opens ``vgd.glow.step`` once, around its
+    forward, backward and Adam spans; the init's span fired before; the
+    traced step gives the untraced one's bits."""
+    tr, batch, gen = _glow()
+    assert tables.COUNTERS["glow.init_s"] > 0
+    twin, _, twin_gen = _glow()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        m = tr.train_step(batch, gen)
+    assert tables.COUNTERS["glow.steps"] == 1
+    events = _events(prof, tmp_path)
+    step = [e for e in events if e["name"] == "vgd.glow.step"]
+    assert len(step) == 1
+    for name in GLOW_SPANS:
+        inner = [e for e in events if e["name"] == name]
+        assert len(inner) == 1 and _inside(inner[0], step), name
+    assert float(twin.train_step(batch, twin_gen)["loss"]) == float(
+        m["loss"])
+    for (k, a), b in zip(tr.model.state_dict().items(),
+                         twin.model.state_dict().values()):
+        assert torch.equal(a, b), k
+
+
+def test_glow_step_without_a_profiler_counts_and_enters_no_span(
+        tables, monkeypatch):
+    tr, batch, gen = _glow()
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    for _ in range(2):
+        tr.train_step(batch, gen)
+    assert tables.COUNTERS["glow.steps"] == 2
+    assert 0 < tables.COUNTERS["glow.step_min_s"] < 10

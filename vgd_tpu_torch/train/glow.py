@@ -17,6 +17,9 @@ and sliced (a given one is the global batch's too), the ActNorm init takes
 the global batch's statistics, the gradients are averaged over the data
 axis before the Adam step, and the losses come back as the global
 batch's. ``GlowConfig.remat`` recomputes each flow in the backward.
+A step is the span ``vgd.glow.step`` around ``vgd.glow.forward``,
+``vgd.glow.backward`` and ``vgd.glow.adam``, and the ActNorm init
+``vgd.glow.init`` (``utils/trace.py``).
 
 A model axis (``mesh.model`` > 1) runs one of Glow's two model-parallel
 modes over the model group, as in JAX: pipeline parallelism for images
@@ -55,6 +58,7 @@ from vgd_tpu_torch.parallel.tensor_parallel import (gather_glow_state,
                                                     shard_glow_state,
                                                     split_axis)
 from vgd_tpu_torch.train.common import DTYPES, adam, batch_draw, mean_metrics
+from vgd_tpu_torch.utils import trace
 
 
 class _GlowTrainerBase:
@@ -158,8 +162,9 @@ class _GlowTrainerBase:
                   generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None) -> None:
         """ActNorm's data-dependent init on this batch, then a fresh Adam."""
-        self.model.init_actnorm(self._prep(batch, generator, noise))
-        self._fresh_optimizer()
+        with trace.timed("vgd.glow.init", "glow.init_s"):
+            self.model.init_actnorm(self._prep(batch, generator, noise))
+            self._fresh_optimizer()
 
     def train_step(self, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -167,17 +172,23 @@ class _GlowTrainerBase:
                    ) -> Dict[str, torch.Tensor]:
         """One Adam step on the loss; returns loss, log_p and logdet (per
         dimension, in bits) as 0-d device tensors."""
-        x = self._prep(batch, generator, noise)
-        log_p, logdet, _ = self.model(x)
-        loss, lp, ld = self._loss(log_p, logdet)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self._reduce_grads()
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
-        self.step += 1
-        return mean_metrics({"loss": loss.detach(), "log_p": lp.detach(),
-                             "logdet": ld.detach()}, self.mesh)
+        with trace.timed("vgd.glow.step", "glow.step_min_s", least=True):
+            with trace.span("vgd.glow.forward"):
+                x = self._prep(batch, generator, noise)
+                log_p, logdet, _ = self.model(x)
+                loss, lp, ld = self._loss(log_p, logdet)
+            with trace.span("vgd.glow.backward"):
+                self.opt.zero_grad(set_to_none=True)
+                loss.backward()
+                self._reduce_grads()
+            with trace.span("vgd.glow.adam"):
+                self.opt.step()
+                self.opt.zero_grad(set_to_none=True)
+            self.step += 1
+            out = mean_metrics({"loss": loss.detach(), "log_p": lp.detach(),
+                                "logdet": ld.detach()}, self.mesh)
+        trace.COUNTERS["glow.steps"] += 1
+        return out
 
     def reverse(self, z_list: List[torch.Tensor]) -> torch.Tensor:
         """z -> sample (under tensor parallelism every rank of the model

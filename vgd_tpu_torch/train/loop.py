@@ -67,7 +67,7 @@ import functools
 import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -1118,18 +1118,40 @@ def restore_glow(cfg: GlowConfig, step: Optional[int] = None,
                      os.path.join(cfg.run.out_dir, "ckpt"), step)
 
 
+def _glow_steps(trainer, batches, gen: torch.Generator, prof, start: int,
+                stop: int, after: Optional[Callable[[int, Dict], None]] = None
+                ) -> int:
+    """Glow's per-step loop: iterations ``start`` .. ``stop`` - 1, each one
+    ``trainer.train_step`` on the next of ``batches`` (the staged device
+    batches; the loop ends early where they end) with ``gen``'s draws, then
+    ``after(i, metrics)`` (sampling, logging and checkpoints). Returns the
+    iterations run."""
+    done = 0
+    for i in range(start, stop):
+        prof.step(i)
+        batch = next(batches, None)
+        if batch is None:
+            break
+        m = trainer.train_step(batch, gen)
+        done += 1
+        if after is not None:
+            after(i, m)
+    return done
+
+
 @_debug_nans
 def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
              resume: bool = False, device="cuda") -> Dict:
     """Train Glow for ``n_iter`` iterations (default ``cfg.n_iter``) on an
     endless shuffled stream: the data-dependent ActNorm init on batch 0,
-    then iteration i on batch i + 1; every ``sample_every_iters`` a grid of
-    ``reverse(z_sample) * 2`` (fixed temperature z from seed + 7) as
-    ``sample/<iter>.npy`` and a ``MetricLog`` row (iter, loss, log_p,
-    logdet, images_per_sec); every ``checkpoint_every_iters`` and at the
-    end a checkpoint of the model (buffers included), Adam, the generator
-    and the iteration. ``resume`` continues from the latest checkpoint
-    exactly: same parameters, moments, draws and stream position."""
+    then iteration i on batch i + 1 (``_glow_steps``); every
+    ``sample_every_iters`` a grid of ``reverse(z_sample) * 2`` (fixed
+    temperature z from seed + 7) as ``sample/<iter>.npy`` and a
+    ``MetricLog`` row (iter, loss, log_p, logdet, images_per_sec); every
+    ``checkpoint_every_iters`` and at the end a checkpoint of the model
+    (buffers included), Adam, the generator and the iteration. ``resume``
+    continues from the latest checkpoint exactly: same parameters,
+    moments, draws and stream position."""
     device, gen, mesh = _start(cfg, device, cfg.data.batch_size, "glow")
     _check_model_axis(cfg, mesh)
     train, val, img_shape = make_image_datasets(cfg.data, seed=cfg.run.seed)
@@ -1162,9 +1184,9 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
     def save(step):
         _save_glow(mesh, ckpt, trainer, cfg, gen, step)
     t0 = time.perf_counter()
-    for i in range(start, n_iter):
-        prof.step(i)
-        m = trainer.train_step(next(batches), gen)
+
+    def after(i, m):
+        nonlocal t0
         if (i + 1) % cfg.run.sample_every_iters == 0:
             # under tensor parallelism the reverse is collective
             if mesh.primary or trainer.parallel == "tp":
@@ -1182,6 +1204,7 @@ def run_glow(cfg: GlowConfig, n_iter: Optional[int] = None,
                   f" {ips:.0f} img/s")
         if (i + 1) % cfg.run.checkpoint_every_iters == 0:
             save(i + 1)
+    _glow_steps(trainer, batches, gen, prof, start, n_iter, after)
     if ckpt.latest_step() != n_iter:      # always leave a final checkpoint
         save(n_iter)
     prof.close()

@@ -1,5 +1,6 @@
 """Spans and counters at the boundaries of the port's host-side layers: the
-epoch loop's step graph, the input staging and the samplers.
+epoch loop's step graph, the input staging, the samplers and Glow's
+per-step trainer.
 
 ``span(name)`` marks a stretch of host work. While no ``torch.profiler`` is
 active it costs one attribute read and returns the shared no-op context
@@ -13,8 +14,8 @@ kernel and never inside a CUDA graph's capture.
 ``COUNTERS`` is always on, as ``ops.kernels.LAUNCHES`` is: it times the
 host with ``time.perf_counter`` whether or not a profiler is active (a
 profiler slows the host it times), and is updated at most once a chunk, a
-capture, a step graph's replay or a UNet forward, about a µs each. Its
-keys:
+capture, a step graph's replay, a UNet forward or a Glow step, about a
+µs each. Its keys:
 
 * ``stage.chunks``: chunks staged by ``utils.prefetch.PinnedRing.stage``;
 * ``stage.wait_s``: host seconds spent waiting on a ring buffer's copy
@@ -30,7 +31,14 @@ keys:
   the device);
 * ``sample.forward_min_s``: the least host seconds of one fused UNet
   forward of a sampler (``train.diffusion.DiffusionTrainer._eps``), read
-  as the replay's is.
+  as the replay's is;
+* ``glow.steps``, ``glow.step_min_s``: Glow train steps
+  (``train.glow._GlowTrainerBase.train_step``, span ``vgd.glow.step``
+  around ``vgd.glow.forward``, ``vgd.glow.backward`` and ``vgd.glow.adam``)
+  and the least host seconds of one step's enqueue, read as the replay's
+  is;
+* ``glow.init_s``: host seconds of Glow's ActNorm init (span
+  ``vgd.glow.init``).
 
 The table is module-level and grows for the life of the process; a caller
 that wants one run's numbers clears it first.
