@@ -805,14 +805,22 @@ def check_k2(K, gen, dev, failures):
 
 # K4's forms: the f32 form (the TPU kernel's own function: f32 in and out),
 # gn1's (bf16 in, bf16 out), gn1s, gn1's with the time projection as its
-# shift (the fused UNet's gn1 on the main path), and gn2's (bf16 in, bf16
-# residual, bf16 out); bytes an element moved at least (x read, the
-# residual read, out written once)
-K4_FORMS = (("f32", 8), ("gn1", 4), ("gn1s", 4), ("gn2", 6))
-# the forms the fused UNet's forward runs: gn1 with its shift, gn2
-K4_MAIN_FORMS = ("gn1s", "gn2")
+# shift, gn1b, gn1s with conv1's bias too (the fused UNet's gn1 on the main
+# path), gn2's (bf16 in, bf16 residual, bf16 out) and gn2b, gn2's with
+# conv2's and the 1x1 residual conv's biases (the fused UNet's gn2 on the
+# main path); bytes an element moved at least (x read, the residual read,
+# out written once)
+K4_FORMS = (("f32", 8), ("gn1", 4), ("gn1s", 4), ("gn1b", 4), ("gn2", 6),
+            ("gn2b", 6))
+# the forms the fused UNet's forward runs: gn1 with its shift and bias, gn2
+# with its biases
+K4_MAIN_FORMS = ("gn1b", "gn2b")
 # K4 launches with a shift a fused UNet forward: gn1 of the seven ConvBlocks
 K4_SHIFT_PER_FORWARD = 7
+# ... with a residual conv's bias: gn2 of the six ConvBlocks that change the
+# width (all but the bottleneck); every K4 launch of the forward takes its
+# conv's bias
+K4_RESIDUAL_BIAS_PER_FORWARD = 6
 # checked, not timed: ragged shapes and one an image of which the grid's
 # shared memory cannot hold (streamed), in f32 and bf16
 GN_EXTRA = [(3, 7, 9, 24), (1, 1, 1, 8), (2, 7, 9, 24), (2, 512, 512, 64)]
@@ -855,28 +863,47 @@ def gn_operands(gen, dev, b, h, w, c):
 
 def gn_form_args(form, x, res):
     """(x, kwargs) of one form of K4's call; gn1s's shift (B, C) is the
-    residual's first pixel, times 4 (a time projection's size)."""
+    residual's first pixel, times 4 (a time projection's size); the conv
+    bias (C,) of gn1b and gn2b the residual's first pixel of image 0, times
+    2, and gn2b's residual bias its last pixel of the last image, halved (a
+    conv bias's size)."""
     import torch
     if form == "f32":
         return x, {}
     xb = x.to(torch.bfloat16)
+    bf16 = {"out_dtype": torch.bfloat16}
     if form == "gn1":
-        return xb, {"out_dtype": torch.bfloat16}
-    if form == "gn1s":
-        return xb, {"out_dtype": torch.bfloat16,
-                    "shift": 4.0 * res[:, 0, 0, :].contiguous()}
-    return xb, {"out_dtype": torch.bfloat16,
-                "residual": res.to(torch.bfloat16)}
+        return xb, bf16
+    if form in ("gn1s", "gn1b"):
+        kw = {**bf16, "shift": 4.0 * res[:, 0, 0, :].contiguous()}
+        if form == "gn1b":
+            kw["conv_bias"] = 2.0 * res[0, 0, 0, :]
+        return xb, kw
+    kw = {**bf16, "residual": res.to(torch.bfloat16)}
+    if form == "gn2b":
+        kw.update(conv_bias=2.0 * res[0, 0, 0, :],
+                  residual_bias=0.5 * res[-1, -1, -1, :])
+    return xb, kw
 
 
-def gn_unshifted(K, xi, scale, bias, kw):
-    """K4 on x with gn1s's shift added by a stock op beforehand (what the
-    fused UNet ran before K4 took the shift): the shifted call's
-    bit-equal yardstick."""
-    rest = {k: v for k, v in kw.items() if k != "shift"}
-    return K.groupnorm_silu(
-        xi + kw["shift"][:, None, None, :].to(xi.dtype), scale, bias, 8,
-        **rest)
+# what K4 adds to its inputs as it reads them
+GN_ADDED = ("shift", "conv_bias", "residual_bias")
+
+
+def gn_pre_added(K, xi, scale, bias, kw):
+    """K4 on the inputs with the conv bias, the shift and the residual bias
+    added by stock ops beforehand, in their order (what the fused UNet ran
+    before K4 took them): the bit-equal yardstick of a call that adds
+    them."""
+    rest = {k: v for k, v in kw.items() if k not in GN_ADDED}
+    if kw.get("conv_bias") is not None:
+        xi = xi + kw["conv_bias"].to(xi.dtype)
+    if kw.get("shift") is not None:
+        xi = xi + kw["shift"][:, None, None, :].to(xi.dtype)
+    if kw.get("residual_bias") is not None:
+        r = rest["residual"]
+        rest["residual"] = r + kw["residual_bias"].to(r.dtype)
+    return K.groupnorm_silu(xi, scale, bias, 8, **rest)
 
 
 def gn_plan_text(plan):
@@ -899,21 +926,22 @@ def k4_phases(K, xi, scale, bias, kw, plan, dev):
 
 
 def check_groupnorm(K, gen, dev, failures, phases=False):
-    """K4 in its four forms at every main-path shape (each against its
+    """K4 in its six forms at every main-path shape (each against its
     plain version, bit-equal over two calls, one launch a call, timed with
-    its bound; the shifted form also bit-equal to K4 on the input with the
-    shift added by a stock op; the f32 form also against ``F.group_norm`` +
-    ``F.silu`` on the NHWC tensor's NCHW view and on an NCHW-contiguous
-    copy), then the ragged and streamed shapes in f32 and bf16. Returns the
-    f32 rows (the TPU kernel's function, the ``kernels`` line's) and the
-    forms' totals per forward (the main path: gn1s + gn2). With ``phases``
+    its bound; the forms that add a shift or biases also bit-equal to K4 on
+    the inputs with them added by stock ops; the f32 form also against
+    ``F.group_norm`` + ``F.silu`` on the NHWC tensor's NCHW view and on an
+    NCHW-contiguous copy), then the ragged and streamed shapes in f32 and
+    bf16. Returns the f32 rows (the TPU kernel's function, the ``kernels``
+    line's) and the forms' totals per forward (the main path: gn1b +
+    gn2b). With ``phases``
     (``--only k4``) each form also prints block 0's phases and is timed
     with the plan of the other CTAs an SM beside it (the plan's choice,
     decided by measurement)."""
     import torch
     import torch.nn.functional as F
     rows, main_rows = [], []
-    main = {k: 0.0 for form in ("gn1", "gn1s", "gn2")
+    main = {k: 0.0 for form, _ in K4_FORMS[1:]
             for k in (f"{form}_ms", f"{form}_plain_ms")}
     main["bound_ms"] = 0.0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -930,19 +958,20 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
             launched = K.LAUNCHES["groupnorm_silu"] - before
             ref = K.groupnorm_silu_plain(xi, scale, bias, 8, **kw)
             err, ratio = gn_error(out, ref, form)
-            shift_bytes = 4 * b * c if "shift" in kw else 0
+            added_bytes = sum(kw[k].numel() * 4 for k in GN_ADDED
+                              if k in kw)
             row = {"shape": [b, h, w, c], "form": form, "max_abs_err": err,
                    "max_rel_err": err / float(ref.float().abs().max()),
                    "err_over_tol": ratio, "bit_equal": torch.equal(out, again),
                    "plan": plan._asdict(), "calls": calls,
-                   "byte_ms": (nbytes * n + 8 * c + shift_bytes)
+                   "byte_ms": (nbytes * n + 8 * c + added_bytes)
                    / HBM_BYTES_PER_S * 1e3,
                    # ~12 operations an element: statistics, normalise,
                    # affine, SiLU (and the residual add)
                    "flop_ms": 12.0 * n / F32_FLOPS * 1e3}
-            if "shift" in kw:
+            if any(k in kw for k in GN_ADDED):
                 row["equal_to_added"] = torch.equal(
-                    out, gn_unshifted(K, xi, scale, bias, kw))
+                    out, gn_pre_added(K, xi, scale, bias, kw))
             if not (ratio <= 1.0 and row["bit_equal"] and launched == 2
                     and row.get("equal_to_added", True)):
                 failures.append(f"groupnorm_silu {form} {row['shape']}: err "
@@ -997,15 +1026,15 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
         torch.cuda.empty_cache()
     for b, h, w, c in GN_EXTRA:
         x, scale, bias, res = gn_operands(gen, dev, b, h, w, c)
-        for form in ("f32", "gn1s", "gn2"):
+        for form in ("f32", "gn1s", "gn1b", "gn2", "gn2b"):
             xi, kw = gn_form_args(form, x, res)
             plan = K.groupnorm_silu_plan(b, h, w, c, 8, xi.dtype, sms)
             out = K.groupnorm_silu(xi, scale, bias, 8, **kw)
             torch.cuda.synchronize()
             ref = K.groupnorm_silu_plain(xi, scale, bias, 8, **kw)
             err, ratio = gn_error(out, ref, form)
-            added = "shift" not in kw or torch.equal(
-                out, gn_unshifted(K, xi, scale, bias, kw))
+            added = not any(k in kw for k in GN_ADDED) or torch.equal(
+                out, gn_pre_added(K, xi, scale, bias, kw))
             rows.append({"shape": [b, h, w, c], "form": form,
                          "max_abs_err": err, "err_over_tol": ratio,
                          "max_rel_err": err / float(ref.float().abs().max()),
@@ -1036,11 +1065,13 @@ def check_groupnorm(K, gen, dev, failures, phases=False):
     print(f"[kernel] K4 per forward (14 calls): f32 form {f32['ms']:.4f} ms "
           f"(bound {f32['byte_ms']:.4f}, plain {f32['plain_ms']:.4f}, "
           f"library {f32['library_ms']:.4f}, on an NCHW copy "
-          f"{f32['library_nchw_ms']:.4f}); main-path forms gn1s + gn2 "
-          f"{main['forms_ms']:.4f} ms (gn1s {main['gn1s_ms']:.4f}, gn1 "
-          f"without the shift {main['gn1_ms']:.4f}, gn2 "
-          f"{main['gn2_ms']:.4f}; bound {main['bound_ms']:.4f}, plain "
-          f"{main['gn1s_plain_ms'] + main['gn2_plain_ms']:.4f})", flush=True)
+          f"{f32['library_nchw_ms']:.4f}); main-path forms gn1b + gn2b "
+          f"{main['forms_ms']:.4f} ms (gn1b {main['gn1b_ms']:.4f}, gn1s "
+          f"without the bias {main['gn1s_ms']:.4f}, gn1 without either "
+          f"{main['gn1_ms']:.4f}; gn2b {main['gn2b_ms']:.4f}, gn2 without "
+          f"the biases {main['gn2_ms']:.4f}; bound {main['bound_ms']:.4f}, "
+          f"plain {main['gn1b_plain_ms'] + main['gn2b_plain_ms']:.4f})",
+          flush=True)
     return rows, main
 
 
@@ -1366,33 +1397,42 @@ def hold_unet(K, trainer, gen, failures, tag="unet"):
     return err, scale
 
 
-def time_projection_adds(fn):
-    """The stock broadcast adds of (B, H, W, C) and (B, 1, 1, C) that one
-    call of ``fn`` makes (the time projection's add before gn1, which K4
-    takes as its shift on the fused path), from the profiler's recorded
-    shapes."""
+def stock_broadcast_adds(fn):
+    """The stock broadcast adds that one call of ``fn`` makes, from the
+    profiler's recorded shapes: "time_projection", of (B, H, W, C) and (B,
+    1, 1, C) (the time projection's add before gn1, which K4 takes as its
+    shift on the fused path), and "conv_bias", of (B, C, H, W) and (1, C,
+    1, 1) (a biased convolution's add of its bias after cuDNN's
+    convolution, which K4 takes on the fused path for every conv whose
+    output it reads)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU],
                  record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    n = 0
+    n = {"time_projection": 0, "conv_bias": 0}
     for evt in prof.events():
         shapes = evt.input_shapes or []
         if evt.name in ("aten::add", "aten::add_") and len(shapes) >= 2:
             a, p = shapes[0], shapes[1]
-            n += (len(a) == len(p) == 4 and a[1] > 1 and p[1] == p[2] == 1
-                  and p[0] == a[0] and p[3] == a[3])
+            if not (len(a) == len(p) == 4):
+                continue
+            n["time_projection"] += (a[1] > 1 and p[1] == p[2] == 1
+                                     and p[0] == a[0] and p[3] == a[3])
+            n["conv_bias"] += (p[0] == p[2] == p[3] == 1 and p[1] == a[1]
+                               and a[0] > 1)
     return n
 
 
 def check_unet(K, trainer, gen, failures):
     """``hold_unet``; then the fused and the no-kernel forward timed at
     B=16, one fused forward's launches (14 K4, 7 of them with the time
-    projection as their shift, and 3 K3) and its stock broadcast adds of
-    the time projection (none), and one fused forward profiled by kernel
-    group."""
+    projection as their shift, all with their conv's bias, 6 with a 1x1
+    residual conv's bias, and 3 K3) and its stock broadcast adds of the
+    time projection (none) and of conv biases (the attention block's qkv
+    and proj and the output conv only), and one fused forward profiled by
+    kernel group."""
     import torch
     model = trainer.model_fused
     dev = trainer.device
@@ -1411,14 +1451,15 @@ def check_unet(K, trainer, gen, failures):
         model(x, t)
         stats["forward_launches"] = check_launches(
             K, serving_launches(1), "unet", failures)
-        stats["time_projection_adds"] = time_projection_adds(
-            lambda: model(x, t))
-        print(f"[unet] stock time-projection adds a fused forward: "
-              f"{stats['time_projection_adds']}", flush=True)
-        if stats["time_projection_adds"]:
-            failures.append(f"unet: the fused forward made "
-                            f"{stats['time_projection_adds']} stock "
-                            f"time-projection adds, want 0")
+        adds = stock_broadcast_adds(lambda: model(x, t))
+        stats["stock_adds"] = adds
+        want = {"time_projection": 0,
+                "conv_bias": 3 if model.attention else 1}
+        print(f"[unet] stock broadcast adds a fused forward: {adds} (want "
+              f"{want})", flush=True)
+        if adds != want:
+            failures.append(f"unet: the fused forward made the stock "
+                            f"broadcast adds {adds}, want {want}")
         stats["forward_profile"] = profile_fn(
             lambda: model(x, t), FORWARD_GROUPS, "profile")
     print(f"[unet] forward B={b} {h}x{w}: fused {stats['unet_fused_ms']:.3f} "
@@ -1502,6 +1543,10 @@ def check_train_step(K, trainer, gen, failures):
 
 
 K2_NAMES = ("attention_fwd", "attention_dq", "attention_dkv")
+# K4's launch counters: every launch, and those that added a shift, a conv
+# bias, a residual conv's bias
+K4_NAMES = ("groupnorm_silu", "groupnorm_silu_shift", "groupnorm_silu_bias",
+            "groupnorm_silu_residual_bias")
 # device kernels grouped by name (first match wins)
 FORWARD_GROUPS = [("flash_attention (K3)", ("flash_fwd_kernel",)),
                   ("groupnorm_silu (K4)", ("groupnorm_silu_kernel",)),
@@ -1577,6 +1622,9 @@ def check_launches(K, want, what, failures):
 def serving_launches(forwards):
     return {"flash_attention": 3 * forwards, "groupnorm_silu": 14 * forwards,
             "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD * forwards,
+            "groupnorm_silu_bias": 14 * forwards,
+            "groupnorm_silu_residual_bias":
+                K4_RESIDUAL_BIAS_PER_FORWARD * forwards,
             **{k: 0 for k in K2_NAMES}}
 
 
@@ -1636,8 +1684,7 @@ def train_path(K, cfg, init_params, failures):
             "attention_fwd": sites * (steps + evals),
             "attention_dq": sites * steps,
             "attention_dkv": sites * steps, "flash_attention": 0,
-            "groupnorm_silu": 0, "groupnorm_silu_shift": 0}, "train",
-            failures)
+            **{k: 0 for k in K4_NAMES}}, "train", failures)
         step_ms = sorted(s.elapsed_time(e) for s, e in step_events[1:])
         stats = {"train_steps": steps, "eval_forwards": evals,
                  "train_run_s": train_s,
@@ -1712,8 +1759,7 @@ def train_path(K, cfg, init_params, failures):
             "attention_fwd": sites * (steps3 + evals3),
             "attention_dq": sites * steps3,
             "attention_dkv": sites * steps3, "flash_attention": 0,
-            "groupnorm_silu": 0, "groupnorm_silu_shift": 0},
-            "train-resumed", failures)
+            **{k: 0 for k in K4_NAMES}}, "train-resumed", failures)
         launches = {k: launches[k] + got[k] for k in launches}
         row = res["log"][-1]
         stats["resumed_log"] = res["log"]
@@ -4755,8 +4801,7 @@ def dp_train_launches(sites, steps, forwards):
     ``forwards`` training-form forwards in all (validation included)."""
     return {"attention_fwd": sites * forwards,
             "attention_dq": sites * steps, "attention_dkv": sites * steps,
-            "flash_attention": 0, "groupnorm_silu": 0,
-            "groupnorm_silu_shift": 0}
+            "flash_attention": 0, **{k: 0 for k in K4_NAMES}}
 
 
 def remat_path(K, failures):
@@ -4992,7 +5037,10 @@ def dp_path(K, failures):
             sites - 1, DP_STEPS, p["forwards"]), failures)
         want_launches("dp (c) SP fused forward", p["forward"], {
             "flash_attention": 2, "groupnorm_silu": 14,
-            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD, "attention_fwd": 0},
+            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD,
+            "groupnorm_silu_bias": 14,
+            "groupnorm_silu_residual_bias": K4_RESIDUAL_BIAS_PER_FORWARD,
+            "attention_fwd": 0},
             failures)
     for p in res["vaegan-dp"]:
         want_launches("dp (b) VAE-GAN rank", p,
@@ -5282,7 +5330,10 @@ def cli_serving_want(forwards, attention):
     """Launches of ``forwards`` fused UNet forwards."""
     want = {"flash_attention": CLI_K3_PER_FORWARD[attention] * forwards,
             "groupnorm_silu": CLI_K4_PER_FORWARD * forwards,
-            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD * forwards}
+            "groupnorm_silu_shift": K4_SHIFT_PER_FORWARD * forwards,
+            "groupnorm_silu_bias": CLI_K4_PER_FORWARD * forwards,
+            "groupnorm_silu_residual_bias":
+                K4_RESIDUAL_BIAS_PER_FORWARD * forwards}
     return {k: v for k, v in want.items() if v}
 
 

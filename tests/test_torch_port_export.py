@@ -338,9 +338,15 @@ def _ops(call):
             if nd.op == "call_function"]
 
 
-def _shift(node):
-    """The ``shift`` argument of a ``vgd::groupnorm_silu`` node."""
-    return node.kwargs.get("shift", node.args[7] if len(node.args) > 7
+# the trailing optional arguments of ``vgd::groupnorm_silu``, by position
+_K4_OPTIONAL = {"shift": 7, "conv_bias": 8, "residual_bias": 9}
+
+
+def _k4_arg(node, name):
+    """Argument ``name`` of a ``vgd::groupnorm_silu`` node (None if not
+    given)."""
+    i = _K4_OPTIONAL[name]
+    return node.kwargs.get(name, node.args[i] if len(node.args) > i
                            else None)
 
 
@@ -372,9 +378,14 @@ def test_diffusion_artifact_matches_jax_run_artifact(ddpm, ddim_steps,
     ops = _ops(call)
     assert ops.count("vgd.flash_attention.default") == 3
     assert ops.count("vgd.groupnorm_silu.default") == 14
-    # gn1 of each ConvBlock takes the time projection as its shift
-    assert sum(_shift(nd) is not None for nd in call.graph.nodes
-               if str(nd.target) == "vgd.groupnorm_silu.default") == 7
+    # gn1 of each ConvBlock takes the time projection as its shift; gn1 and
+    # gn2 each take their conv's bias, and gn2 of the six blocks with a 1x1
+    # residual conv that conv's bias too
+    k4 = [nd for nd in call.graph.nodes
+          if str(nd.target) == "vgd.groupnorm_silu.default"]
+    assert {name: sum(_k4_arg(nd, name) is not None for nd in k4)
+            for name in _K4_OPTIONAL} == {"shift": 7, "conv_bias": 14,
+                                          "residual_bias": 6}
     # the plain forms would trace as sigmoid (GroupNorm+SiLU) and softmax
     assert not any("sigmoid" in op or "softmax" in op for op in ops)
     assert len(meta["steps"]) == (len(set(np.round(np.linspace(

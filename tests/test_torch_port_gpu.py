@@ -146,6 +146,55 @@ def test_groupnorm_silu_refuses_a_shift_it_cannot_take(cuda):
         K.groupnorm_silu(x, one, zero, shift=shift.cpu())
 
 
+def test_groupnorm_silu_refuses_a_bias_it_cannot_take(cuda):
+    """A conv or residual bias of the wrong shape, dtype, layout or device,
+    or outside the fused ConvBlock's forms (gn1: with the shift; gn2: with a
+    residual of x's dtype or f32, the residual bias with a residual of x's
+    dtype), out_dtype x's, is refused before any launch."""
+    x = torch.randn(2, 8, 8, 64, device=cuda).bfloat16()
+    res = torch.randn(2, 8, 8, 64, device=cuda).bfloat16()
+    one, zero = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    b = torch.randn(64, device=cuda)
+    shift = torch.randn(2, 64, device=cuda)
+    gn1 = {"out_dtype": torch.bfloat16, "shift": shift}
+    gn2 = {"out_dtype": torch.bfloat16, "residual": res, "conv_bias": b}
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="conv_bias must have shape"):
+        K.groupnorm_silu(x, one, zero, conv_bias=b[:32], **gn1)
+    with pytest.raises(ValueError, match="conv_bias must be float32"):
+        K.groupnorm_silu(x, one, zero, conv_bias=b.bfloat16(), **gn1)
+    with pytest.raises(ValueError, match="conv_bias must be contiguous"):
+        K.groupnorm_silu_cuda(x, one, zero, conv_bias=torch.randn(
+            128, device=cuda)[::2], **gn1)
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(x, one, zero, conv_bias=b.cpu(), **gn1)
+    with pytest.raises(ValueError, match="fused ConvBlock's forms"):
+        K.groupnorm_silu(x, one, zero, conv_bias=b,
+                         out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fused ConvBlock's forms"):
+        K.groupnorm_silu(x, one, zero, conv_bias=b, residual=res,
+                         out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="fused ConvBlock's forms"):
+        K.groupnorm_silu(x.float(), one, zero, conv_bias=b, residual=res,
+                         out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="residual_bias must have shape"):
+        K.groupnorm_silu(x, one, zero, residual_bias=b[:8], **gn2)
+    with pytest.raises(ValueError, match="residual_bias must be float32"):
+        K.groupnorm_silu(x, one, zero, residual_bias=b.bfloat16(), **gn2)
+    with pytest.raises(ValueError):
+        K.groupnorm_silu(x, one, zero, residual_bias=b.cpu(), **gn2)
+    with pytest.raises(ValueError, match="residual bias only"):
+        K.groupnorm_silu(x, one, zero, residual=res, residual_bias=b,
+                         out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="residual bias only"):
+        K.groupnorm_silu(x, one, zero, **{**gn2, "residual": res.float()},
+                         residual_bias=b)
+    with pytest.raises(ValueError, match="residual bias only"):
+        K.groupnorm_silu(x, one, zero, conv_bias=b, residual_bias=b, **gn1)
+    torch.cuda.synchronize()
+    assert dict(K.LAUNCHES) == before
+
+
 def k4_forced_plans(shape, dtype, sms):
     """K4's plans for one shape, each mode forced: "resident" (the buffer
     loaded at each wave's start, no refill), "refill" (at least two waves,
@@ -235,6 +284,64 @@ def test_groupnorm_silu_shift_in_a_graph_replay(cuda):
                                  scale, bias, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, eager) and torch.equal(eager, added)
+
+
+# the fused ConvBlock's forms with the convs' biases, by x's dtype: gn1
+# (conv1's bias and the time projection as the shift), gn2 (conv2's bias)
+# with a residual of x's dtype, for bf16 x also with an f32 residual (the
+# bottleneck's with attention), and gn2 with a 1x1 residual conv's output of
+# x's dtype and that conv's bias
+K4_BIASED_FORMS = [
+    pytest.param(dtype, form, id=f"{name}-{form}")
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))
+    for form in ("gn1", "gn2", "gn2_f32_residual", "gn2_residual_bias")
+    if not (dtype == torch.float32 and form == "gn2_f32_residual")]
+
+
+@pytest.mark.parametrize("dtype,form", K4_BIASED_FORMS)
+@pytest.mark.parametrize("mode", ["resident", "refill", "streamed"])
+@pytest.mark.parametrize("shape", K4_GN1_SHAPES)
+def test_groupnorm_silu_biases_equal_k4_on_the_added_inputs(cuda, shape,
+                                                             dtype, mode,
+                                                             form):
+    """K4 with the convs' biases is bit for bit K4 on the inputs that the
+    stock ops the fused UNet ran before added in their order (``x +
+    conv_bias.to(x.dtype)``, then ``+ shift.to(x.dtype)``; ``residual +
+    residual_bias.to(residual.dtype)``), under each plan mode, and counts
+    one launch with each operand it took."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, c = shape[0], shape[-1]
+    x = (torch.randn(*shape, device=cuda, generator=g) * 3.0 + 1.0).to(dtype)
+    scale = torch.randn(c, device=cuda, generator=g)
+    bias = torch.randn(c, device=cuda, generator=g)
+    conv_bias = 2.0 * torch.randn(c, device=cuda, generator=g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = k4_forced_plans(shape, dtype, sms)[mode]
+    kw = {"out_dtype": dtype, "plan": plan}
+    xa = x + conv_bias.to(dtype)
+    want_launches = {"groupnorm_silu": 2, "groupnorm_silu_bias": 1}
+    if form == "gn1":
+        shift = 4.0 * torch.randn(b, c, device=cuda, generator=g)
+        added = {"shift": shift}
+        plain = {"x": xa + shift[:, None, None, :].to(dtype)}
+        want_launches["groupnorm_silu_shift"] = 1
+    else:
+        rdtype = torch.float32 if form == "gn2_f32_residual" else dtype
+        res = torch.randn(*shape, device=cuda, generator=g).to(rdtype)
+        added, plain = {"residual": res}, {"x": xa, "residual": res}
+        if form == "gn2_residual_bias":
+            rb = 2.0 * torch.randn(c, device=cuda, generator=g)
+            added["residual_bias"] = rb
+            plain["residual"] = res + rb.to(rdtype)
+            want_launches["groupnorm_silu_residual_bias"] = 1
+    before = K.LAUNCHES.copy()
+    got = K.groupnorm_silu(x, scale, bias, conv_bias=conv_bias, **added,
+                           **kw)
+    want = K.groupnorm_silu(plain.pop("x"), scale, bias, **plain, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert K.LAUNCHES - before == want_launches
 
 
 def test_groupnorm_silu_refuses_a_grid_the_occupancy_does_not_allow(cuda):
@@ -407,6 +514,9 @@ def test_fused_unet_matches_plain_f32(cuda):
         torch.testing.assert_close(fused(x, t), ref, atol=2e-4, rtol=0)
     assert K.LAUNCHES["flash_attention"] == 3
     assert K.LAUNCHES["groupnorm_silu"] == 14
+    assert K.LAUNCHES["groupnorm_silu_bias"] == 14
+    assert K.LAUNCHES["groupnorm_silu_residual_bias"] == \
+        chip_smoke.K4_RESIDUAL_BIAS_PER_FORWARD
 
 
 def test_fused_unet_matches_plain_bf16(cuda):
@@ -433,7 +543,53 @@ def test_fused_unet_matches_plain_bf16(cuda):
     assert K.LAUNCHES["groupnorm_silu"] == 14
     assert K.LAUNCHES["groupnorm_silu_shift"] == \
         chip_smoke.K4_SHIFT_PER_FORWARD
+    assert K.LAUNCHES["groupnorm_silu_bias"] == 14
+    assert K.LAUNCHES["groupnorm_silu_residual_bias"] == \
+        chip_smoke.K4_RESIDUAL_BIAS_PER_FORWARD
     assert K.LAUNCHES["flash_attention"] == 3
+
+
+def _biased_conv_block(self, x, t_emb):
+    """The fused ConvBlock with biased convs (cuDNN's convolution, then the
+    stock ``add_`` of its bias), the time projection as gn1's shift: what
+    the block ran before K4 took the convs' biases."""
+    res = x if self.residual_conv is None else self.residual_conv(x)
+    h = self.gn1(self.conv1(x), out_dtype=self.dtype,
+                 shift=self.time_proj(t_emb))
+    return self.gn2(self.conv2(h), out_dtype=self.dtype, residual=res)
+
+
+@pytest.mark.parametrize("attention", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fused_unet_with_the_biases_in_k4_is_bit_equal_to_biased_convs(
+        cuda, dtype, attention, monkeypatch):
+    """The fused UNet whose K4 launches add the convs' biases is bit for
+    bit the same UNet run with biased convs and the stock bias adds, and
+    makes 14 K4 launches with a conv bias and 6 with a residual conv's."""
+    from vgd_tpu_torch.models.unet import ConvBlock, UNet
+    g = torch.Generator(device=cuda).manual_seed(9)
+    with torch.device(cuda):
+        fused = UNet(base_ch=16, time_emb_dim=32, dtype=dtype,
+                     attention=attention, fused=True)
+        fused.init_parameters(g)
+        with torch.no_grad():
+            for name, prm in fused.named_parameters():
+                if name.endswith("bias"):
+                    prm.copy_(0.5 * torch.randn(prm.shape, device=cuda,
+                                                generator=g))
+    x = torch.randn(4, 64, 64, 3, device=cuda, generator=g)
+    t = torch.tensor([5, 900, 17, 400], device=cuda)
+    with torch.inference_mode():
+        K.LAUNCHES.clear()
+        got = fused(x, t)
+        assert K.LAUNCHES["groupnorm_silu_bias"] == 14
+        assert K.LAUNCHES["groupnorm_silu_residual_bias"] == \
+            chip_smoke.K4_RESIDUAL_BIAS_PER_FORWARD
+        monkeypatch.setattr(ConvBlock, "_fused", _biased_conv_block)
+        want = fused(x, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_fused_unet_without_attention_matches_plain_bf16(cuda):
@@ -458,7 +614,10 @@ def test_fused_unet_without_attention_matches_plain_bf16(cuda):
     assert err <= chip_smoke.UNET_REL_TOL * float(ref.abs().max()), err
     assert dict(K.LAUNCHES) == {
         "groupnorm_silu": chip_smoke.CLI_K4_PER_FORWARD,
-        "groupnorm_silu_shift": chip_smoke.K4_SHIFT_PER_FORWARD}
+        "groupnorm_silu_shift": chip_smoke.K4_SHIFT_PER_FORWARD,
+        "groupnorm_silu_bias": chip_smoke.CLI_K4_PER_FORWARD,
+        "groupnorm_silu_residual_bias":
+            chip_smoke.K4_RESIDUAL_BIAS_PER_FORWARD}
 
 
 # the three training shapes of the 256x256, batch-16 UNet (cross_attn2,
@@ -1255,12 +1414,19 @@ def test_registered_ops_equal_the_direct_wrappers(cuda):
     res = torch.randn(2, 8, 8, 64, device=cuda, generator=g).bfloat16()
     w, b = torch.rand(64, device=cuda) + 0.5, torch.randn(64, device=cuda)
     shift = torch.randn(2, 64, device=cuda, generator=g)
+    cb, rb = torch.randn(64, device=cuda), torch.randn(64, device=cuda)
     for kw in ({}, {"out_dtype": torch.bfloat16, "residual": res},
-               {"out_dtype": torch.bfloat16, "shift": shift}):
+               {"out_dtype": torch.bfloat16, "shift": shift},
+               {"out_dtype": torch.bfloat16, "shift": shift,
+                "conv_bias": cb},
+               {"out_dtype": torch.bfloat16, "residual": res,
+                "conv_bias": cb, "residual_bias": rb}):
         op = torch.ops.vgd.groupnorm_silu(x.bfloat16(), w, b, 8, 1e-5,
                                           kw.get("out_dtype"),
                                           kw.get("residual"),
-                                          kw.get("shift"))
+                                          kw.get("shift"),
+                                          kw.get("conv_bias"),
+                                          kw.get("residual_bias"))
         assert torch.equal(op, K.groupnorm_silu_cuda(x.bfloat16(), w, b, 8,
                                                      1e-5, **kw))
     p, vec = k5_inputs(cuda, 2, 8, 8, 6, 64, torch.bfloat16, 21)
@@ -1269,8 +1435,10 @@ def test_registered_ops_equal_the_direct_wrappers(cuda):
                                          vec["scale"], [3, 3], [1, 1])
     assert torch.equal(op, K.glow_coupling_fwd_cuda(
         *args, vec["bz"], vec["scale"], (3, 3), (1, 1), wzf=p["wzf"]))
-    assert dict(K.LAUNCHES) == {"flash_attention": 2, "groupnorm_silu": 6,
-                                "groupnorm_silu_shift": 2,
+    assert dict(K.LAUNCHES) == {"flash_attention": 2, "groupnorm_silu": 10,
+                                "groupnorm_silu_shift": 4,
+                                "groupnorm_silu_bias": 4,
+                                "groupnorm_silu_residual_bias": 2,
                                 "glow_coupling_fwd": 2}
     # an exported program may hand an op a layout it was not traced with:
     # the op copies to contiguous, the direct wrapper refuses
@@ -1287,7 +1455,8 @@ def test_registered_ops_equal_the_direct_wrappers(cuda):
 
 def test_loaded_artifacts_count_their_launches(cuda, tmp_path):
     """A DDIM-3 DDPM artifact (3 K3 and 14 K4 a step, 7 of them with the
-    time projection as their shift) and a fused-coupling
+    time projection as their shift, all 14 with their conv's bias, 6 with
+    a 1x1 residual conv's bias) and a fused-coupling
     Glow artifact (one K5 a flow), exported from seeded checkpoints and
     loaded on the card, launch exactly those kernels and agree with the
     eager path on the same draws."""
@@ -1314,7 +1483,9 @@ def test_loaded_artifacts_count_their_launches(cuda, tmp_path):
     K.LAUNCHES.clear()
     out = run_artifact(seed=1, loaded=(call, meta))
     assert dict(K.LAUNCHES) == {"flash_attention": 9, "groupnorm_silu": 42,
-                                "groupnorm_silu_shift": 21}
+                                "groupnorm_silu_shift": 21,
+                                "groupnorm_silu_bias": 42,
+                                "groupnorm_silu_residual_bias": 18}
     want = tr.ddim_sample(draws["xt"].to(cuda), 3, eta=0.0).cpu().numpy()
     assert np.array_equal(out, want)
 

@@ -170,6 +170,83 @@ def test_groupnorm_silu_plain_shift_is_the_added_input(shape, dtype, form):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("form", ["gn1", "gn2", "gn2_residual_bias"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 32), (3, 5, 7, 24)])
+def test_groupnorm_silu_plain_biases_are_the_added_inputs(shape, dtype, form):
+    """``conv_bias`` (C,) is the bias of the convolution x comes from and
+    ``residual_bias`` (C,) the 1x1 residual conv's: the plain form with them
+    is bit for bit the plain form of inputs with them added first, in the
+    stock order: x + bias, then + shift, each in x's dtype; the residual +
+    its bias in the residual's dtype."""
+    g = torch.Generator().manual_seed(16)
+    b, c = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=g) * 2.0 + 0.5).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=g)
+    bias = 0.1 * torch.randn(c, generator=g)
+    conv_bias = 3.0 * torch.randn(c, generator=g)
+    kw = {"out_dtype": dtype}
+    if form == "gn1":
+        shift = 3.0 * torch.randn(b, c, generator=g)
+        got = K.groupnorm_silu_plain(x, scale, bias, 8, shift=shift,
+                                     conv_bias=conv_bias, **kw)
+        xa = x + conv_bias.to(dtype)
+        want = K.groupnorm_silu_plain(
+            xa + shift[:, None, None, :].to(dtype), scale, bias, 8, **kw)
+    else:
+        res = torch.randn(shape, generator=g).to(dtype)
+        rb = torch.randn(c, generator=g) if form != "gn2" else None
+        got = K.groupnorm_silu_plain(x, scale, bias, 8, residual=res,
+                                     conv_bias=conv_bias, residual_bias=rb,
+                                     **kw)
+        want = K.groupnorm_silu_plain(
+            x + conv_bias.to(dtype), scale, bias, 8,
+            residual=res if rb is None else res + rb.to(dtype), **kw)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="residual bias needs a residual"):
+        K.groupnorm_silu_plain(x, scale, bias, 8, residual_bias=conv_bias)
+
+
+def test_groupnorm_silu_op_takes_trailing_optional_biases():
+    """``vgd::groupnorm_silu`` gains ``Tensor? conv_bias=None, Tensor?
+    residual_bias=None`` after the shift, so a call without them (an
+    exported program's too) keeps its meaning; its CPU kernel is the plain
+    form with them, its fake gives the output's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    op = torch.ops.vgd.groupnorm_silu
+    assert str(op.default._schema).endswith(
+        "Tensor? residual, Tensor? shift=None, Tensor? conv_bias=None, "
+        "Tensor? residual_bias=None) -> Tensor")
+    g = torch.Generator().manual_seed(17)
+    bf16 = torch.bfloat16
+    x = torch.randn(2, 4, 4, 16, generator=g).to(bf16)
+    res = torch.randn(2, 4, 4, 16, generator=g).to(bf16)
+    w, b = torch.ones(16), 0.1 * torch.randn(16, generator=g)
+    cb, rb = torch.randn(16, generator=g), torch.randn(16, generator=g)
+    shift = torch.randn(2, 16, generator=g)
+    for args, kw in (((None, shift, cb), {"shift": shift, "conv_bias": cb}),
+                     ((res, None, cb, rb), {"residual": res, "conv_bias": cb,
+                                            "residual_bias": rb})):
+        plain = K.groupnorm_silu_plain(x, w, b, 8, out_dtype=bf16, **kw)
+        assert torch.equal(op(x, w, b, 8, 1e-5, bf16, *args), plain)
+        K.LAUNCHES.clear()
+        assert torch.equal(K.groupnorm_silu(x, w, b, out_dtype=bf16, **kw),
+                           plain)
+        assert sum(K.LAUNCHES.values()) == 0
+    assert not torch.equal(
+        op(x, w, b, 8, 1e-5, bf16, res, None, cb, rb),
+        op(x, w, b, 8, 1e-5, bf16, res, None, cb))
+    with FakeTensorMode() as mode:
+        fx, fw, fb, fr, fc = (mode.from_tensor(t) for t in (x, w, b, res, cb))
+        for args in ((bf16, fr, None, fc), (bf16, fr, None, fc, fc),
+                     (None, None, None, fc)):
+            out = op(fx, fw, fb, 8, 1e-5, *args)
+            assert out.shape == x.shape
+            assert out.dtype == (bf16 if args[0] is None else args[0])
+
+
 def test_groupnorm_silu_op_takes_a_trailing_optional_shift():
     """``vgd::groupnorm_silu`` gains ``Tensor? shift=None`` last, so a call
     without it (an exported program's too) keeps its meaning; its CPU
@@ -177,8 +254,7 @@ def test_groupnorm_silu_op_takes_a_trailing_optional_shift():
     shape and dtype with or without one."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     op = torch.ops.vgd.groupnorm_silu
-    assert str(op.default._schema).endswith(
-        "Tensor? residual, Tensor? shift=None) -> Tensor")
+    assert "Tensor? residual, Tensor? shift=None" in str(op.default._schema)
     g = torch.Generator().manual_seed(10)
     bf16 = torch.bfloat16
     x = torch.randn(2, 4, 4, 16, generator=g).to(bf16)

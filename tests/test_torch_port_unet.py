@@ -100,10 +100,12 @@ def test_conv_block_matches_jax():
 
 @pytest.mark.parametrize("in_ch", [8, 16], ids=["residual_conv", "identity"])
 def test_fused_conv_block_bf16_is_bit_equal_to_explicit_casts(in_ch):
-    """In bf16 with ``fused=True`` the block hands its bf16 conv outputs to
-    K4 with gn1's cast (``out_dtype``) and gn2's residual add and cast
-    (``residual``): on the CPU that is bit for bit the block written with
-    the explicit f32 casts and add (the JAX ConvBlock's form)."""
+    """In bf16 with ``fused=True`` the block hands its unbiased bf16 conv
+    outputs and the convs' biases to K4 with gn1's cast (``out_dtype``) and
+    gn2's residual add and cast (``residual``): on the CPU that is bit for
+    bit the block written with the explicit f32 casts and adds, each conv's
+    bias added to its bf16 output in bf16 (what cuDNN's convolution and the
+    stock ``add_`` of its bias compute on the card)."""
     from vgd_tpu_torch.ops.kernels import groupnorm_silu_plain
     g = torch.Generator().manual_seed(7)
     pb = P.ConvBlock(in_ch, 16, 32, torch.bfloat16, fused=True)
@@ -114,14 +116,17 @@ def test_fused_conv_block_bf16_is_bit_equal_to_explicit_casts(in_ch):
     x = torch.randn(2, 8, 8, in_ch, generator=g).to(torch.bfloat16)
     temb = torch.randn(2, 32, generator=g)
     bf16 = torch.bfloat16
+
+    def conv(c, x):
+        return c.unbiased(x) + c.bias.to(bf16)
     with torch.no_grad():
         got = pb(x, temb)
-        res = x if pb.residual_conv is None else pb.residual_conv(x)
-        h = pb.conv1(x)
+        res = x if pb.residual_conv is None else conv(pb.residual_conv, x)
+        h = conv(pb.conv1, x)
         h = h + pb.time_proj(temb)[:, None, None, :].to(h.dtype)
         h = groupnorm_silu_plain(h.float(), pb.gn1.weight, pb.gn1.bias,
                                  8).to(bf16)
-        h = groupnorm_silu_plain(pb.conv2(h).float(), pb.gn2.weight,
+        h = groupnorm_silu_plain(conv(pb.conv2, h).float(), pb.gn2.weight,
                                  pb.gn2.bias, 8)
         want = (h + res.float()).to(bf16)
     assert got.dtype == bf16
@@ -145,6 +150,93 @@ def test_group_norm_silu_shift_is_one_function_in_both_forms(dtype):
             got = fused(x, shift=s, **kw)
             assert got.dtype == kw.get("out_dtype", torch.float32)
             assert torch.equal(got, train(x, shift=s, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_group_norm_silu_biases_are_one_function_in_both_forms(dtype):
+    """``GroupNormSiLU(x, conv_bias=b, shift=s)`` and ``(x, residual=r,
+    conv_bias=b, residual_bias=rb)``: K4's form (its plain version on the
+    CPU) and the training form's stock adds then norm agree bit for bit."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 4, 4, 16, generator=g).to(dtype)
+    r = torch.randn(2, 4, 4, 16, generator=g).to(dtype)
+    b, rb = torch.randn(16, generator=g), torch.randn(16, generator=g)
+    s = torch.randn(2, 16, generator=g)
+    fused, train = P.GroupNormSiLU(16, fused=True), P.GroupNormSiLU(16)
+    with torch.no_grad():
+        for m in (fused, train):
+            m.weight.copy_(1.0 + 0.1 * torch.arange(16.0))
+            m.bias.fill_(0.2)
+        for kw in ({"conv_bias": b, "shift": s},
+                   {"conv_bias": b, "residual": r},
+                   {"conv_bias": b, "residual": r, "residual_bias": rb}):
+            got = fused(x, out_dtype=dtype, **kw)
+            assert got.dtype == dtype
+            assert torch.equal(got, train(x, out_dtype=dtype, **kw))
+
+
+def _parent_fused_block(self, x, t_emb):
+    """The fused ConvBlock as it ran before K4 took the convs' biases: each
+    conv biased (on the card cuDNN's convolution, then the stock ``add_`` of
+    the bias cast to the conv's dtype), the time projection as gn1's
+    shift."""
+    def conv(c, x):
+        return c.unbiased(x) + c.bias.to(c.dtype)
+    res = x if self.residual_conv is None else conv(self.residual_conv, x)
+    h = conv(self.conv1, x)
+    h = self.gn1(h, out_dtype=self.dtype, shift=self.time_proj(t_emb))
+    return self.gn2(conv(self.conv2, h), out_dtype=self.dtype, residual=res)
+
+
+@pytest.mark.parametrize("attention", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fused_unet_with_the_biases_in_k4_is_the_biased_conv_composition(
+        dtype, attention, monkeypatch):
+    """The fused UNet, each ConvBlock's conv biases handed to K4 (its plain
+    version on the CPU), is bit for bit the same UNet whose blocks run the
+    biased convs and stock bias adds first; and one forward hands K4 14
+    conv biases and 6 residual-conv biases, the convs' own bias adds left
+    to the attention block's qkv and proj and the output conv."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls.append((str(func), args))
+            return func(*args, **(kwargs or {}))
+    g = torch.Generator().manual_seed(15)
+    pm = P.UNet(in_ch=3, out_ch=3, base_ch=8, time_emb_dim=32,
+                attention=attention, dtype=dtype, fused=True)
+    pm.init_parameters(g)
+    with torch.no_grad():
+        for name, prm in pm.named_parameters():
+            if name.endswith("bias"):
+                prm.copy_(0.5 * torch.randn(prm.shape, generator=g))
+    x = torch.randn(2, 32, 32, 3, generator=g)
+    t = torch.tensor([3, 700])
+    with torch.no_grad(), Log() as log:
+        got = pm(x, t)
+    # the op's (x, conv_bias, residual_bias); the dispatcher drops trailing
+    # Nones
+    gns = [(a[0], *(a[i] if len(a) > i else None for i in (8, 9)))
+           for name, a in log.calls if name == "vgd.groupnorm_silu.default"]
+    assert len(gns) == 14
+    assert sum(cb is not None for _, cb, _ in gns) == 14
+    assert sum(rb is not None for _, _, rb in gns) == 6
+    assert all(cb.dtype == torch.float32 and cb.shape == (h.shape[-1],)
+               for h, cb, _ in gns)
+    convs = [args for name, args in log.calls
+             if name == "aten.convolution.default"]
+    assert sum(a[2] is not None for a in convs) == (3 if attention else 1)
+    monkeypatch.setattr(P.ConvBlock, "_fused", _parent_fused_block)
+    with torch.no_grad():
+        want = pm(x, t)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "training"])

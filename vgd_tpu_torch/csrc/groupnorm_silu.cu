@@ -19,6 +19,16 @@
 // which is `h + tp.to(h.dtype)` in PyTorch, bit for bit, so the stock
 // broadcast add's read and write of the whole conv output are gone.
 //
+// In the fused ConvBlock's forms x is a convolution's output without its
+// bias, and the bias b (C,) f32 is added first, as cuDNN's convolution is
+// followed by PyTorch's `add_` of `b.to(x.dtype)`; the 1x1 residual conv's
+// bias rb is added to the residual r, read in r's type, the same way:
+//
+//   x'  = cast<TIn>(float(x) + float(cast<TIn>(b[channel])))   then the shift
+//   r'  = cast<TRes>(float(r) + float(cast<TRes>(rb[channel])))
+//
+// each rounded as the stock adds round, so the output is theirs bit for bit.
+//
 // What bounds it on the H100: a few operations an element against 2-12
 // bytes, so bytes. The least it can move is one read of x (and of the
 // residual) and one write of out; this kernel moves exactly that.
@@ -58,10 +68,11 @@
 //
 // Every thread owns 8 channels (C % 8 == 0) of every (threads / (C / 8))-th
 // pixel of the run, so its channels, groups, scale and bias stay fixed (and
-// its 8 shifts for a wave's image, held in registers and added to each value
-// it reads from shared memory, in both statistics passes and the apply
-// pass: no extra pass and no extra global write; see Shift): for
-// a 2-byte input 8 consecutive ones (one 16-byte access), for f32 the
+// its 8 conv biases, and its 8 shifts for a wave's image, held in registers
+// and added to each value it reads from shared memory, in both statistics
+// passes and the apply pass, and its 8 residual biases added to each
+// residual value it loads: no extra pass and no extra global write; see
+// Reader): for a 2-byte input 8 consecutive ones (one 16-byte access), for f32 the
 // channels 4v..4v+3 and C/2 + 4v..+3 (thread v of a row), so that each
 // 16-byte access of a warp is contiguous: no bank conflicts in shared
 // memory and whole sectors in global memory.
@@ -100,6 +111,9 @@ struct Args {
   unsigned long long* stamps;  // null, or kStamps device times a wave
   const float* shift;  // (b, c): added to x before the statistics (SHIFT)
 };
+// Args is kept at 128 bytes: the two conv biases are kernel parameters of
+// their own, since with them in Args (144 bytes) ptxas spilled in every
+// form, those without the biases too, and gn1 ran 6 % slower on an H100
 
 // The tracing of a call: with a.stamps set, block 0's thread 0 writes the
 // device clock (ns) at each wave's start, once its run is in shared memory,
@@ -289,34 +303,58 @@ struct Row {
   }
 };
 
-// A thread's 8 shifts of one image, cast to T, and a row's values read with
-// them added, x' = cast<T>(x + s). f32: 8 floats added after the load.
-template <typename T, bool SPLIT>
-struct Shift {
-  float s[kVec];
-  __device__ __forceinline__ void set(const float* shift, int v, int c) {
+// A thread's 8 values of a row, read as Row reads them, with N addends added
+// in turn: each a thread's 8 values of a vector over the channels (a conv
+// bias, or an image's shift) cast to T, and each sum rounded to T,
+// x' = cast<T>(cast<T>(x + a0) + a1), as `x + a0.to(x.dtype)` and then
+// `+ a1.to(x.dtype)` add in PyTorch. f32: 8 floats added after the load.
+// A global row is fetched ahead of its use as Raw (for bf16 the packed
+// 16 bytes, half the registers of its floats) and unpacked at its use.
+template <typename T, bool SPLIT, int N>
+struct Reader {
+  static_assert(N == 0 || sizeof(T) == 4, "a bf16 addend is added packed (below)");
+  float s[N > 0 ? N : 1][kVec];
+  __device__ __forceinline__ void set(int i, const float* vec, int v, int c) {
 #pragma unroll
-    for (int l = 0; l < kVec; ++l) s[l] = shift[channel<SPLIT>(v, c, l)];
+    for (int l = 0; l < kVec; ++l) s[i][l] = vec[channel<SPLIT>(v, c, l)];
+  }
+  __device__ __forceinline__ void add(float x[kVec]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int l = 0; l < kVec; ++l) x[l] += s[i][l];
   }
   __device__ __forceinline__ void load(const T* row, int v, int c, float x[kVec]) const {
     Row<T, SPLIT>::load(row, v, c, x);
+    add(x);
+  }
+  struct Raw {
+    float v[kVec];
+  };
+  __device__ __forceinline__ Raw fetch(const T* row, int v, int c) const {
+    Raw r;
+    Row<T, SPLIT>::load_global(row, v, c, r.v);
+    return r;
+  }
+  __device__ __forceinline__ void unpack(const Raw& r, float x[kVec]) const {
 #pragma unroll
-    for (int l = 0; l < kVec; ++l) x[l] += s[l];
+    for (int l = 0; l < kVec; ++l) x[l] = r.v[l];
+    add(x);
   }
 };
-// bf16: 4 words of 2 (channel 2i in the low half, as a 16-byte access holds
-// them) added to the packed row before it is unpacked, by add.rn.bf16x2, the
-// correctly rounded sum: what rounding the f32 sum gives (f32 has more than
-// twice bf16's bits, so the double rounding is innocuous)
-template <>
-struct Shift<__nv_bfloat16, false> {
-  unsigned s[kVec / 2];
-  __device__ __forceinline__ void set(const float* shift, int v, int c) {
+// bf16: each addend 4 words of 2 (channel 2i in the low half, as a 16-byte
+// access holds them) added to the packed row before it is unpacked, by
+// add.rn.bf16x2, the correctly rounded sum: what rounding the f32 sum gives
+// (f32 has more than twice bf16's bits, so the double rounding is innocuous)
+template <int N>
+struct Reader<__nv_bfloat16, false, N> {
+  unsigned s[N > 0 ? N : 1][kVec / 2];
+  __device__ __forceinline__ void set(int i, const float* vec, int v, int) {
 #pragma unroll
-    for (int i = 0; i < kVec / 2; ++i) {
+    for (int k = 0; k < kVec / 2; ++k) {
       const __nv_bfloat162 h =
-          __floats2bfloat162_rn(shift[kVec * v + 2 * i], shift[kVec * v + 2 * i + 1]);
-      s[i] = *reinterpret_cast<const unsigned*>(&h);
+          __floats2bfloat162_rn(vec[kVec * v + 2 * k], vec[kVec * v + 2 * k + 1]);
+      s[i][k] = *reinterpret_cast<const unsigned*>(&h);
     }
   }
   static __device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
@@ -324,10 +362,22 @@ struct Shift<__nv_bfloat16, false> {
     asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
     return d;
   }
+  __device__ __forceinline__ uint4 add(uint4 a) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      a = make_uint4(add2(a.x, s[i][0]), add2(a.y, s[i][1]), add2(a.z, s[i][2]),
+                     add2(a.w, s[i][3]));
+    return a;
+  }
   __device__ __forceinline__ void load(const __nv_bfloat16* row, int v, int, float x[kVec]) const {
-    const uint4 a = *reinterpret_cast<const uint4*>(row + kVec * v);
-    Vec8::unpack(make_uint4(add2(a.x, s[0]), add2(a.y, s[1]), add2(a.z, s[2]), add2(a.w, s[3])),
-                 x);
+    Vec8::unpack(add(*reinterpret_cast<const uint4*>(row + kVec * v)), x);
+  }
+  using Raw = uint4;
+  __device__ __forceinline__ Raw fetch(const __nv_bfloat16* row, int v, int) const {
+    return __ldg(reinterpret_cast<const uint4*>(row + kVec * v));
+  }
+  __device__ __forceinline__ void unpack(const Raw r, float x[kVec]) const {
+    Vec8::unpack(add(r), x);
   }
 };
 
@@ -341,17 +391,23 @@ struct ResT<2> {
   using T = __nv_bfloat16;
 };
 
-// SHIFT: add a.shift's row of the image to x first (gn1; never with RES)
-template <typename TIn, int RES, typename TOut, bool SHIFT>
-__global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Args a) {
+// SHIFT: add a.shift's row of the image to x (gn1; never with RES). BIAS:
+// add conv_bias (c,) to x first. RBIAS: add res_bias (c,) to the residual.
+template <typename TIn, int RES, typename TOut, bool SHIFT, bool BIAS, bool RBIAS>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    groupnorm_silu_kernel(const Args a, const float* conv_bias, const float* res_bias) {
   static_assert(!(SHIFT && RES != 0), "the shift is gn1's, which has no residual");
+  static_assert(!RBIAS || RES != 0, "a residual bias needs a residual");
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int warps = T >> 5;  // whole warps (T may end in a partial one)
   const int u = a.c / kVec, rows = T / u, row0 = tid / u, cv = tid % u;
   const int G = a.groups;
   constexpr bool kSplit = sizeof(TIn) == 4;  // see the header
-  using In = Row<TIn, kSplit>;
+  using Res = typename ResT<RES>::T;
+  // x as read from shared memory: the conv bias, then the image's shift
+  Reader<TIn, kSplit, BIAS + SHIFT> in;
+  if constexpr (BIAS) in.set(0, conv_bias, cv, a.c);
   const TIn* xs = reinterpret_cast<const TIn*>(smem);
   float* red = reinterpret_cast<float*>(smem + a.buf_bytes);
   float* gsum = red + kMaxThreads * kVec;  // per group: a tile's sums
@@ -426,8 +482,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
     const bool refill = a.refill && img + a.ipw < a.b;
     unsigned long long* st = a.stamps == nullptr ? nullptr : a.stamps + kStamps * wave;
     stamp(st, 0);
-    [[maybe_unused]] Shift<TIn, kSplit> sh;  // the image's, of this thread's channels
-    if constexpr (SHIFT) sh.set(a.shift + img * a.c, cv, a.c);
+    if constexpr (SHIFT) in.set(BIAS, a.shift + img * a.c, cv, a.c);
     // this thread (g < G) carries group g's running (count, mean, M2)
     float rn = 0.f, rmean = 0.f, rm2 = 0.f;
     for (int t = 0; t < ntiles; ++t) {
@@ -440,10 +495,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
 #pragma unroll 4
       for (int r = row0; r < n; r += rows) {
         float v[kVec];
-        if constexpr (SHIFT)
-          sh.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
-        else
-          In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+        in.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
 #pragma unroll
         for (int l = 0; l < kVec; ++l) s[l] += v[l];
       }
@@ -458,10 +510,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
 #pragma unroll 4
       for (int r = row0; r < n; r += rows) {
         float v[kVec];
-        if constexpr (SHIFT)
-          sh.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
-        else
-          In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+        in.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
 #pragma unroll
         for (int l = 0; l < kVec; ++l) {
           const float d = v[l] - m[l];
@@ -537,6 +586,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
       m[l] = gmean[grp[l]];
       rs[l] = grstd[grp[l]];
     }
+    // the residual as loaded: its conv's bias (held for the apply pass only)
+    [[maybe_unused]] Reader<Res, kSplit, RBIAS> rin;
+    if constexpr (RBIAS) rin.set(0, res_bias, cv, a.c);
     // apply, the last tile (still in shared memory) first; a resident run
     // goes chunk by chunk, each chunk refilled with the next wave's run as
     // soon as every thread is done with it
@@ -554,16 +606,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
         // kBatch rows a step, their residual loads issued before any store
         // (the stores could alias them, so the compiler would not hoist them)
         for (int r0 = q0 + row0; r0 < q1; r0 += kBatch * rows) {
-          float rv[kBatch][kVec];
+          [[maybe_unused]] typename Reader<Res, kSplit, RBIAS>::Raw rw[kBatch];
           if constexpr (RES != 0) {
 #pragma unroll
             for (int i = 0; i < kBatch; ++i) {
               const int r = r0 + i * rows;
               if (r < q1)
-                Row<typename ResT<RES>::T, kSplit>::load_global(
-                    static_cast<const typename ResT<RES>::T*>(a.res) + base +
-                        static_cast<long long>(r) * a.c,
-                    cv, a.c, rv[i]);
+                rw[i] = rin.fetch(static_cast<const Res*>(a.res) + base +
+                                      static_cast<long long>(r) * a.c,
+                                  cv, a.c);
             }
           }
 #pragma unroll
@@ -571,15 +622,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2) groupnorm_silu_kernel(const Ar
             const int r = r0 + i * rows;
             if (r >= q1) break;
             float v[kVec];
-            if constexpr (SHIFT)
-              sh.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
-            else
-              In::load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+            in.load(xs + static_cast<long long>(r) * a.c, cv, a.c, v);
+            [[maybe_unused]] float rv[kVec];
+            if constexpr (RES != 0) rin.unpack(rw[i], rv);
 #pragma unroll
             for (int l = 0; l < kVec; ++l) {
               float yv = (v[l] - m[l]) * rs[l] * sc[l] + bi[l];
               yv = __fdividef(yv, 1.f + __expf(-yv));
-              if constexpr (RES != 0) yv += rv[i][l];
+              if constexpr (RES != 0) yv += rv[l];
               v[l] = yv;
             }
             Row<TOut, kSplit>::store(
@@ -605,22 +655,47 @@ __global__ void __launch_bounds__(kMaxThreads, 1) counter_probe(unsigned* sync, 
   for (int r = 0; r < rounds; ++r) image_barrier(sync + kSyncStride * (blockIdx.x / cpi), cpi);
 }
 
-using KernelFn = void (*)(const Args);
+using KernelFn = void (*)(const Args, const float*, const float*);
 
-// the shifted form exists without a residual only (gn1)
+template <typename TIn, int RES, typename TOut, bool SHIFT = false, bool BIAS = false,
+          bool RBIAS = false>
+KernelFn form() {
+  return &groupnorm_silu_kernel<TIn, RES, TOut, SHIFT, BIAS, RBIAS>;
+}
+
+// without the convolutions' biases: every residual kind, and the shifted
+// form without a residual only (gn1)
 template <typename TIn, typename TOut>
 KernelFn pick_res(int res_kind, bool shift) {
   switch (res_kind) {
-    case 0:
-      return shift ? &groupnorm_silu_kernel<TIn, 0, TOut, true>
-                   : &groupnorm_silu_kernel<TIn, 0, TOut, false>;
-    case 1: return shift ? nullptr : &groupnorm_silu_kernel<TIn, 1, TOut, false>;
-    case 2: return shift ? nullptr : &groupnorm_silu_kernel<TIn, 2, TOut, false>;
+    case 0: return shift ? form<TIn, 0, TOut, true>() : form<TIn, 0, TOut>();
+    case 1: return shift ? nullptr : form<TIn, 1, TOut>();
+    case 2: return shift ? nullptr : form<TIn, 2, TOut>();
   }
   return nullptr;
 }
 
-KernelFn pick(int in_bf16, int res_kind, int out_bf16, bool shift) {
+// with them, the fused ConvBlock's forms alone, out in x's type: gn1 (conv1's
+// bias and the shift) and gn2 (conv2's bias; a residual of x's type, with or
+// without the 1x1 residual conv's bias, or for bf16 x the f32 one that the
+// bottleneck takes from the attention before it)
+template <typename T>
+KernelFn pick_biased(int res_kind, bool shift, bool res_bias) {
+  constexpr int kOwn = sizeof(T) == 2 ? 2 : 1;  // the residual kind of x's type
+  if (res_kind == 0) return shift && !res_bias ? form<T, 0, T, true, true>() : nullptr;
+  if (shift) return nullptr;
+  if (res_kind == kOwn)
+    return res_bias ? form<T, kOwn, T, false, true, true>() : form<T, kOwn, T, false, true>();
+  return res_kind == 1 && !res_bias ? form<T, 1, T, false, true>() : nullptr;
+}
+
+KernelFn pick(int in_bf16, int res_kind, int out_bf16, bool shift, bool bias, bool res_bias) {
+  if (bias) {
+    if (in_bf16 != out_bf16 || res_kind < 0 || res_kind > 2) return nullptr;
+    return in_bf16 ? pick_biased<__nv_bfloat16>(res_kind, shift, res_bias)
+                   : pick_biased<float>(res_kind, shift, res_bias);
+  }
+  if (res_bias) return nullptr;
   if (in_bf16)
     return out_bf16 ? pick_res<__nv_bfloat16, __nv_bfloat16>(res_kind, shift)
                     : pick_res<__nv_bfloat16, float>(res_kind, shift);
@@ -665,15 +740,18 @@ extern "C" int vgd_groupnorm_silu_aux_bytes() { return kAuxBytes; }
 // kernels.groupnorm_silu_plan and is checked here. stamps: null, or
 // kStamps * waves device times (block 0's phases, see stamp()). shift:
 // null, or (b, c) f32 contiguous, added to x (cast to x's type) before the
-// statistics; only without res.
+// statistics; only without res. conv_bias, res_bias: null, or (c,) f32,
+// added to x before the shift and to res, each cast to its tensor's type;
+// only in the forms pick() lists.
 extern "C" int vgd_groupnorm_silu(const void* x, const void* res, void* y, const float* scale,
                                   const float* bias, float* part, unsigned* sync, int sync_words,
                                   int b, long long hw, int c, int groups, float eps, int in_bf16,
                                   int res_kind, int out_bf16, int threads, int cpi, int ipw,
                                   int run_pix, int tile_pix, int refill, int buf_bytes, int smem,
                                   unsigned long long* stamps, const float* shift,
-                                  void* stream) {
-  const KernelFn fn = pick(in_bf16, res_kind, out_bf16, shift != nullptr);
+                                  const float* conv_bias, const float* res_bias, void* stream) {
+  const KernelFn fn = pick(in_bf16, res_kind, out_bf16, shift != nullptr, conv_bias != nullptr,
+                           res_bias != nullptr);
   const long long es = in_bf16 ? 2 : 4;
   const bool ok =
       fn != nullptr && b >= 1 && hw >= 1 && c >= kVec && c % kVec == 0 && c <= kMaxChannels &&
@@ -690,7 +768,7 @@ extern "C" int vgd_groupnorm_silu(const void* x, const void* res, void* y, const
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a{x, res, y, scale, bias, part, sync, hw, b, c, groups, c / groups, eps,
          cpi, ipw, run_pix, tile_pix, refill, buf_bytes, stamps, shift};
-  void* params[] = {&a};
+  void* params[] = {&a, &conv_bias, &res_bias};
   return static_cast<int>(launch(reinterpret_cast<const void*>(fn), params, cpi * ipw, threads,
                                  smem, static_cast<cudaStream_t>(stream)));
 }

@@ -71,14 +71,16 @@ class Dense(nn.Module):
 class GroupNormSiLU(nn.Module):
     """GroupNorm(8) + SiLU in f32, NHWC. ``fused=True`` runs the K4 kernel,
     which also takes the cast of its output (``out_dtype``), a residual
-    added in f32 before that cast (``residual``) and a per-(image,
-    channel) ``shift`` (B, C) added to x in x's dtype before the norm,
-    reading x in its own dtype. The training form (``fused=False``)
-    computes the same function in stock PyTorch ops under autograd and no
-    kernel (the shift's add, then the norm of ``x.float()``): the JAX train
-    step keeps the XLA form there (``vgd_tpu/models/unet.py``
-    GroupNormSiLU) and K4 has no backward. Both return f32 unless given
-    ``out_dtype``."""
+    added in f32 before that cast (``residual``), a per-(image, channel)
+    ``shift`` (B, C) added to x in x's dtype before the norm, and the
+    biases of the convolutions x and the residual come from
+    (``conv_bias``, ``residual_bias``, (C,)), each added in its tensor's
+    dtype before anything else, reading x in its own dtype. The training
+    form (``fused=False``) computes the same function in stock PyTorch ops
+    under autograd and no kernel (the adds, then the norm of
+    ``x.float()``): the JAX train step keeps the XLA form there
+    (``vgd_tpu/models/unet.py`` GroupNormSiLU) and K4 has no backward. Both
+    return f32 unless given ``out_dtype``."""
 
     def __init__(self, channels: int, groups: int = 8, fused: bool = False):
         super().__init__()
@@ -87,15 +89,20 @@ class GroupNormSiLU(nn.Module):
         self.groups = groups
         self.fused = fused
 
-    def forward(self, x, out_dtype=None, residual=None, shift=None):
+    def forward(self, x, out_dtype=None, residual=None, shift=None,
+                conv_bias=None, residual_bias=None):
         if self.fused:
             return groupnorm_silu(
                 x.contiguous(), self.weight, self.bias, self.groups,
                 out_dtype=F32 if out_dtype is None else out_dtype,
                 residual=None if residual is None else residual.contiguous(),
-                shift=shift)
+                shift=shift, conv_bias=conv_bias, residual_bias=residual_bias)
+        if conv_bias is not None:
+            x = x + conv_bias.to(x.dtype)
         if shift is not None:
             x = x + shift[:, None, None, :].to(x.dtype)
+        if residual_bias is not None:
+            residual = residual + residual_bias.to(residual.dtype)
         return groupnorm_silu_plain(x.float(), self.weight, self.bias,
                                     self.groups, out_dtype=out_dtype,
                                     residual=residual)
@@ -115,10 +122,12 @@ class ConvBlock(nn.Module):
     """Residual double conv with additive time embedding. The time
     projection is added after ``conv1`` and before ``gn1``, in the conv's
     dtype; the residual add runs in f32 and is cast back. With ``fused``
-    the conv outputs go into K4 in their own dtype, and K4 adds the time
-    projection as it reads conv1's output and writes gn1's cast and gn2's
-    residual add and cast itself; the training form adds the projection
-    with a stock op."""
+    the conv outputs go into K4 in their own dtype without their biases,
+    and K4 adds each conv's bias and the time projection as it reads
+    conv1's and conv2's output, the 1x1 residual conv's bias as it reads
+    the residual, and writes gn1's cast and gn2's residual add and cast
+    itself; the training form runs the biased convs and adds the
+    projection with a stock op."""
 
     def __init__(self, in_ch: int, out_ch: int, time_emb_dim: int,
                  dtype: torch.dtype, fused: bool):
@@ -133,15 +142,24 @@ class ConvBlock(nn.Module):
         self.gn2 = GroupNormSiLU(out_ch, fused=fused)
 
     def forward(self, x, t_emb):
+        if self.gn1.fused:
+            return self._fused(x, t_emb)
         res = x if self.residual_conv is None else self.residual_conv(x)
         h = self.conv1(x)
-        tp = self.time_proj(t_emb)
-        if self.gn1.fused:
-            h = self.gn1(h, out_dtype=self.dtype, shift=tp)
-        else:   # the add rebinds h, so conv1's output is freed before gn1
-            h = h + tp[:, None, None, :].to(h.dtype)
-            h = self.gn1(h, out_dtype=self.dtype)
+        # the add rebinds h, so conv1's output is freed before gn1
+        h = h + self.time_proj(t_emb)[:, None, None, :].to(h.dtype)
+        h = self.gn1(h, out_dtype=self.dtype)
         return self.gn2(self.conv2(h), out_dtype=self.dtype, residual=res)
+
+    def _fused(self, x, t_emb):
+        rc = self.residual_conv
+        res, res_bias = (x, None) if rc is None else (rc.unbiased(x), rc.bias)
+        h = self.conv1.unbiased(x)
+        h = self.gn1(h, out_dtype=self.dtype, shift=self.time_proj(t_emb),
+                     conv_bias=self.conv1.bias)
+        return self.gn2(self.conv2.unbiased(h), out_dtype=self.dtype,
+                        residual=res, conv_bias=self.conv2.bias,
+                        residual_bias=res_bias)
 
 
 class AttentionBlock(nn.Module):

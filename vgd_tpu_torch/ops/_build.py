@@ -174,7 +174,7 @@ def groupnorm_silu_lib() -> ctypes.CDLL:
     """The GroupNorm + SiLU library (K4; the exchange's probe)."""
     lib = _load("groupnorm_silu", {
         "vgd_groupnorm_silu": [_P] * 7 + [_I, _I, ctypes.c_longlong, _I, _I,
-                                          _F] + [_I] * 11 + [_P, _P, _P],
+                                          _F] + [_I] * 11 + [_P] * 5,
         "vgd_groupnorm_silu_sync_probe": [_I] * 3 + [_P, _I, _P]})
     lib.vgd_groupnorm_silu_aux_bytes.argtypes = []
     lib.vgd_groupnorm_silu_aux_bytes.restype = ctypes.c_int

@@ -53,8 +53,17 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, None if self.bias is None
+                          else self.bias.to(self.dtype))
+
+    def unbiased(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without its bias, for a caller that adds
+        ``self.bias`` itself (the fused UNet's K4 adds it as it reads the
+        output, rounding as ``forward``'s add does)."""
+        return self._conv(x, None)
+
+    def _conv(self, x, b):
         dt = self.dtype
-        b = None if self.bias is None else self.bias.to(dt)
         return nhwc(F.conv2d(nchw(x).to(dt), self.weight.to(dt), b,
                              stride=self.stride, padding=self.padding))
 

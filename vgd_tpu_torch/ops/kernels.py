@@ -11,8 +11,9 @@ Counterpart of ``vgd_tpu/ops/pallas_kernels.py`` and of the kernels of
 * ``flash_attention`` (K3, serving) -> the CUDA kernel in
   ``csrc/flash_attention.cu``;
 * ``groupnorm_silu`` (K4, serving: GroupNorm + SiLU with the casts and the
-  residual add around it, or the time projection's add before it) -> the
-  CUDA kernel in ``csrc/groupnorm_silu.cu`` under ``groupnorm_silu_plan``;
+  residual add around it, and the convolutions' bias adds and the time
+  projection's add before it) -> the CUDA kernel in
+  ``csrc/groupnorm_silu.cu`` under ``groupnorm_silu_plan``;
 * ``conv_stats`` (K1, VAE-GAN training: Conv4x4 stride 2 with the
   per-channel batch statistics of its output) -> the CUDA kernels in
   ``csrc/conv_bn_stats.cu``; ``ops/fused_conv.py`` builds the
@@ -458,7 +459,9 @@ def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
                          eps: float = 1e-5, *,
                          out_dtype: Optional[torch.dtype] = None,
                          residual: Optional[torch.Tensor] = None,
-                         shift: Optional[torch.Tensor] = None
+                         shift: Optional[torch.Tensor] = None,
+                         conv_bias: Optional[torch.Tensor] = None,
+                         residual_bias: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """GroupNorm over (H, W, C/G) then SiLU of x in f32, NHWC, two-pass f32
     variance (the math of ``groupnorm_silu_xla`` on ``x.astype(F32)``);
@@ -467,9 +470,19 @@ def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
     ConvBlock computes around its two ``GroupNormSiLU`` calls. ``shift``
     (B, C), the block's time projection, is first added to x in x's dtype
     (``x + shift[:, None, None, :].to(x.dtype)``), as the ConvBlock adds
-    it before gn1."""
+    it before gn1. ``conv_bias`` (C,), the bias of the convolution x comes
+    from, is added before that, and ``residual_bias`` (C,), the 1x1
+    residual conv's, to the residual, each in its tensor's dtype
+    (``x + conv_bias.to(x.dtype)``), as a biased convolution adds its bias
+    to its output."""
+    _require(residual_bias is None or residual is not None,
+             "a residual bias needs a residual")
+    if conv_bias is not None:
+        x = x + conv_bias.to(x.dtype)
     if shift is not None:
         x = x + shift[:, None, None, :].to(x.dtype)
+    if residual_bias is not None:
+        residual = residual + residual_bias.to(residual.dtype)
     b, h, w, c = x.shape
     xg = x.reshape(b, h, w, groups, c // groups).float()
     mean = xg.mean(dim=(1, 2, 4), keepdim=True)
@@ -626,25 +639,31 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    out_dtype: Optional[torch.dtype] = None,
                    residual: Optional[torch.Tensor] = None,
                    shift: Optional[torch.Tensor] = None,
+                   conv_bias: Optional[torch.Tensor] = None,
+                   residual_bias: Optional[torch.Tensor] = None,
                    plan: Optional[GroupNormPlan] = None,
                    stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused GroupNorm(groups) + SiLU of x (B, H, W, C) in f32, plus
     ``residual`` if given, cast to ``out_dtype`` (default x's dtype), x
-    first shifted by ``shift`` (B, C) if given: the function of
+    first added ``conv_bias`` (C,) and shifted by ``shift`` (B, C), and the
+    residual added ``residual_bias`` (C,), if given: the function of
     ``groupnorm_silu_plain``, through the registered op
     ``vgd::groupnorm_silu`` (K4 for CUDA tensors, on contiguous copies where
     they are not; the plain version for CPU tensors). ``plan`` and
     ``stamps``, which only the kernel's own checks pass (``chip_smoke.py``),
     call ``groupnorm_silu_cuda`` directly."""
-    operands = tuple(t for t in (x, scale, bias, residual, shift)
+    added = {"shift": shift, "conv_bias": conv_bias,
+             "residual_bias": residual_bias}
+    operands = tuple(t for t in (x, scale, bias, residual, *added.values())
                      if t is not None)
     if plan is not None or stamps is not None:
         return groupnorm_silu_cuda(x, scale, bias, groups, eps,
                                    out_dtype=out_dtype, residual=residual,
-                                   shift=shift, plan=plan, stamps=stamps)
+                                   plan=plan, stamps=stamps, **added)
     _check_devices(*operands)
     return _groupnorm_silu_op(x, scale, bias, int(groups), float(eps),
-                              out_dtype, residual, shift)
+                              out_dtype, residual, shift, conv_bias,
+                              residual_bias)
 
 
 def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -653,6 +672,8 @@ def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
                         out_dtype: Optional[torch.dtype] = None,
                         residual: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None,
+                        conv_bias: Optional[torch.Tensor] = None,
+                        residual_bias: Optional[torch.Tensor] = None,
                         plan: Optional[GroupNormPlan] = None,
                         stamps: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -660,33 +681,56 @@ def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
     contiguous and 16-byte aligned; scale and bias f32 (C,); C a multiple
     of 8 and of ``groups``; ``shift`` f32 (B, C), contiguous, and only
     without a residual (gn1's form), counted apart in
-    ``LAUNCHES["groupnorm_silu_shift"]``; ``plan`` defaults to
-    ``groupnorm_silu_plan`` of the shape on this card (a shift leaves it
-    as it is). ``stamps`` (an int64 tensor of K4_STAMPS x
+    ``LAUNCHES["groupnorm_silu_shift"]``. ``conv_bias`` and
+    ``residual_bias``, f32 (C,) and contiguous, come in the fused
+    ConvBlock's forms only, with out_dtype x's dtype: a conv bias with the
+    shift (gn1) or with a residual of x's dtype or f32 (gn2; the f32 one
+    is the bottleneck's, from the attention before it), a residual bias
+    with both a conv bias and a residual of x's dtype; counted apart in
+    ``LAUNCHES["groupnorm_silu_bias"]`` and
+    ``LAUNCHES["groupnorm_silu_residual_bias"]``. ``plan`` defaults to
+    ``groupnorm_silu_plan`` of the shape on this card (what is added
+    leaves it as it is). ``stamps`` (an int64 tensor of K4_STAMPS x
     plan.waves) makes block 0 record the device clock (ns) at each wave's
     phases: start, run loaded, statistics, barrier, merge, apply
     (``chip_smoke.k4_phases``). The plan cache and the barrier words
     (``_k4_sync``) are touched here only."""
-    operands = tuple(t for t in (x, scale, bias, residual, shift)
-                     if t is not None)
+    operands = tuple(t for t in (x, scale, bias, residual, shift, conv_bias,
+                                 residual_bias) if t is not None)
     if _on_cpu(*operands):
         return groupnorm_silu_plain(x, scale, bias, groups, eps,
                                     out_dtype=out_dtype, residual=residual,
-                                    shift=shift)
+                                    shift=shift, conv_bias=conv_bias,
+                                    residual_bias=residual_bias)
     _require(x.ndim == 4, "groupnorm_silu takes x (B, H, W, C)")
     b, h, w, c = x.shape
     _k4_check(c, groups)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    _require(scale.shape == (c,) and bias.shape == (c,),
-             f"scale/bias must have shape ({c},)")
-    for name, t in (("scale", scale), ("bias", bias)) + (
-            () if shift is None else (("shift", shift),)):
-        _require(t.dtype == torch.float32, f"{name} must be float32")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+    vectors = {"scale": scale, "bias": bias, "conv_bias": conv_bias,
+               "residual_bias": residual_bias}
+    for name, t in vectors.items():
+        if t is not None:
+            _require(t.shape == (c,), f"{name} must have shape ({c},)")
+    for name, t in (*vectors.items(), ("shift", shift)):
+        if t is not None:
+            _require(t.dtype == torch.float32, f"{name} must be float32")
+            _require(t.is_contiguous(), f"{name} must be contiguous")
     if shift is not None:
         _require(shift.shape == (b, c), f"shift must have shape ({b}, {c})")
         _require(residual is None, "K4 takes a shift only without a "
                  "residual (gn1's form)")
+    if conv_bias is not None:
+        _require(out_dtype == x.dtype and (
+            shift is not None or (residual is not None and residual.dtype
+                                  in (x.dtype, torch.float32))),
+                 "K4 takes a conv bias in the fused ConvBlock's forms only: "
+                 "with the shift (gn1) or a residual of x's dtype or f32 "
+                 "(gn2), out_dtype x's")
+    if residual_bias is not None:
+        _require(conv_bias is not None and residual is not None
+                 and residual.dtype == x.dtype,
+                 "K4 takes a residual bias only with a conv bias and a "
+                 "residual of x's dtype (gn2's form)")
     named = (("x", x),) + (() if residual is None else
                            (("residual", residual),))
     for name, t in named:
@@ -718,12 +762,15 @@ def groupnorm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
             plan.threads, plan.cpi, plan.ipw, plan.run_pix, plan.tile_pix,
             int(plan.refill), plan.buf_bytes, plan.smem,
             _k4_stamps(stamps, plan, x),
-            None if shift is None else shift.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (shift, conv_bias, residual_bias)),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "groupnorm_silu")
     LAUNCHES["groupnorm_silu"] += 1
-    if shift is not None:
-        LAUNCHES["groupnorm_silu_shift"] += 1
+    for name, t in (("shift", shift), ("bias", conv_bias),
+                    ("residual_bias", residual_bias)):
+        if t is not None:
+            LAUNCHES[f"groupnorm_silu_{name}"] += 1
     return y
 
 
@@ -733,23 +780,30 @@ def _groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, groups: int, eps: float,
                        out_dtype: Optional[torch.dtype],
                        residual: Optional[torch.Tensor],
-                       shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       shift: Optional[torch.Tensor] = None,
+                       conv_bias: Optional[torch.Tensor] = None,
+                       residual_bias: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    def contig(t):
+        return None if t is None else t.contiguous()
     return groupnorm_silu_cuda(
         x.contiguous(), scale.contiguous(), bias.contiguous(), groups, eps,
-        out_dtype=out_dtype,
-        residual=None if residual is None else residual.contiguous(),
-        shift=None if shift is None else shift.contiguous())
+        out_dtype=out_dtype, residual=contig(residual), shift=contig(shift),
+        conv_bias=contig(conv_bias), residual_bias=contig(residual_bias))
 
 
 @_groupnorm_silu_op.register_kernel("cpu")
-def _(x, scale, bias, groups, eps, out_dtype, residual, shift=None):
+def _(x, scale, bias, groups, eps, out_dtype, residual, shift=None,
+      conv_bias=None, residual_bias=None):
     return groupnorm_silu_plain(x, scale, bias, groups, eps,
                                 out_dtype=out_dtype, residual=residual,
-                                shift=shift)
+                                shift=shift, conv_bias=conv_bias,
+                                residual_bias=residual_bias)
 
 
 @_groupnorm_silu_op.register_fake
-def _(x, scale, bias, groups, eps, out_dtype, residual, shift=None):
+def _(x, scale, bias, groups, eps, out_dtype, residual, shift=None,
+      conv_bias=None, residual_bias=None):
     return x.new_empty(x.shape, dtype=x.dtype if out_dtype is None
                        else out_dtype)
 
